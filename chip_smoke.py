@@ -5,27 +5,39 @@ Run from the root of a checkout:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from ``multimodalautoencoder_tpu_torch/csrc``
-with nvcc, holds it against its plain PyTorch version on the card, drives
-the serve path (``cli fill`` and ``cli embed`` from a checkpoint) at the
-reference scale (2000 rows, 1000 features, a 1000 -> 100 encoder), checks
-what comes out, and times the kernel against the plain version.  Any failed
-phase ends the run with a non-zero exit; so does a machine without CUDA.
+It builds the port's CUDA kernels from ``multimodalautoencoder_tpu_torch/
+csrc`` with nvcc (one process per source, started together) and drives
+both ported paths at the reference scale (the 2000-row study of 5 x 200
+features):
 
-The last lines of standard output are the card's name and power limit (as
-``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
-them), one JSON object describing each kernel, and the result:
+- serve: each ``fused_dense`` shape against its plain version, then
+  ``cli fill`` and ``cli embed`` from checkpoints of a 1000 -> 100 tied
+  DAE and VAE (phases [1]-[6]);
+- grid training: the in-kernel generator against its twin, the training
+  kernels against their plain twin at a small width and on the three
+  1000-wide ACII buckets (60 instances each), then those buckets through
+  ``train_grid_sharded(backend="pallas")`` for 15,000 steps with the
+  sweep's recipe, the best instance saved and served by ``cli fill``, and
+  the step timed by launch type (phases [7]-[10]).
+
+Any failed phase ends the run with a non-zero exit; so does a machine
+without CUDA.  The last lines of standard output are the card's name and
+power limit (as ``nvidia-smi --query-gpu=name,power.limit
+--format=csv,noheader`` prints them), one JSON object describing each
+kernel, and the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -34,6 +46,23 @@ TOL = 1e-4          # kernel vs plain, f32 sums in different orders
 ROWS = 2000
 LAYERS = (1000, 100)
 SEED = 0
+# the sweep's recipe (sweep/wrappers.py:173-186, :248-253)
+LR, BATCH = 1e-3, 20
+STEPS = 15000      # the sweep's num_steps
+NAMES = ("call", "location", "screen", "sms", "survey")
+# MMAESweep's default grid (sweep/wrappers.py:160-168, :257-265)
+ACII_PARAMS = {
+    "architecture": [[1000, 100], [500, 100], [300, 100]],
+    "tie_weights": [True, False],
+    "dropout_prob": [1.0, 0.5],
+    "weight_penalty": [0.0, 0.01, 0.001],
+    "weight_initialization": ["normal"],
+    "activation_function": ["softsign", "relu"],
+    "variational": [False],
+}
+DEVICE = "cuda"
+# H100 SXM published peaks: HBM bytes/s and f32 CUDA-core FLOP/s
+HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -117,14 +146,55 @@ def phase_kernel_vs_plain(dk) -> float:
     return worst
 
 
+def check_served(cmd: str, name: str, csv_path: str, dl) -> None:
+    """What ``cli fill`` / ``cli embed`` wrote next to ``csv_path``: the
+    loader's rows in its order; a fill that changed every -1 span and
+    nothing else, or finite (rows, 100) embeddings.  Removes the file."""
+    from multimodalautoencoder_tpu_torch.data.loader import read_csv
+
+    out_path = os.path.join(
+        os.path.dirname(csv_path),
+        ("MMAE_filled-" if cmd == "fill" else "embedding-")
+        + os.path.basename(csv_path))
+    check(os.path.exists(out_path), f"{out_path} was not written")
+    out = read_csv(out_path)
+    check(list(out.index) == list(dl.frame.index),
+          f"{cmd} {name}: row order differs from the loader's")
+    if cmd == "fill":
+        X_in = dl.frame.matrix(dl.wanted_feats)
+        blank = np.zeros_like(X_in, dtype=bool)
+        for m in range(dl.num_modalities):
+            s, e = dl.modality_table.span(m)
+            rows = (X_in[:, s:e] == -1.0).all(axis=1)
+            blank[rows, s:e] = True
+        check(blank.any(), "the study has no missing modality spans")
+        X_out = out.matrix(dl.wanted_feats)
+        check(np.isfinite(X_out).all(), f"fill {name}: non-finite")
+        # the CSV text round trip moves a value by at most an ulp
+        changed = ~np.isclose(X_in, X_out, rtol=0, atol=1e-12,
+                              equal_nan=True)
+        check(changed.any(), f"fill {name}: nothing was filled")
+        check(not (changed & ~blank).any(),
+              f"fill {name}: cells outside -1 spans changed")
+        check(np.isclose(X_in[blank], -1.0).all()
+              and not np.isclose(X_out[blank], -1.0).any(),
+              f"fill {name}: a blank span was left at -1")
+    else:
+        dims = [c for c in out.names if c.startswith("ae_embedding_dim")]
+        emb = out.matrix(dims)
+        check(emb.shape == (ROWS, LAYERS[-1]),
+              f"embed {name}: shape {emb.shape}")
+        check(np.isfinite(emb).all(), f"embed {name}: non-finite")
+    os.remove(out_path)
+
+
 def phase_serve(workdir: str, dk):
     """The slice through the CLI a user calls; returns (kernel launches on
     the main path, the DAE checkpoint's path, the loader)."""
     from multimodalautoencoder_tpu_torch import cli
     from multimodalautoencoder_tpu_torch.config import MMAEConfig
     from multimodalautoencoder_tpu_torch.data import synthetic
-    from multimodalautoencoder_tpu_torch.data.loader import DataLoader, \
-        read_csv
+    from multimodalautoencoder_tpu_torch.data.loader import DataLoader
     from multimodalautoencoder_tpu_torch.models import mmae
     from multimodalautoencoder_tpu_torch.train import checkpoint as ckpt
 
@@ -149,14 +219,6 @@ def phase_serve(workdir: str, dk):
         mmae.init(cfg, generator=g, device="cuda"), cfg, step=1)
         for name, cfg in configs.items()}
 
-    X_in = dl.frame.matrix(dl.wanted_feats)
-    blank = np.zeros_like(X_in, dtype=bool)
-    for m in range(dl.num_modalities):
-        s, e = dl.modality_table.span(m)
-        rows = (X_in[:, s:e] == -1.0).all(axis=1)
-        blank[rows, s:e] = True
-    check(blank.any(), "the study has no missing modality spans to fill")
-
     per_call = {}
     dk.KERNELS.launches = 0
     for name, ck in cks.items():
@@ -170,33 +232,7 @@ def phase_serve(workdir: str, dk):
             per_call[(name, cmd)] = (dk.KERNELS.launches - before,
                                      time.perf_counter() - t0)
             check(rc == 0, f"cli {cmd} {name} returned {rc}")
-            out_path = os.path.join(
-                workdir, ("MMAE_filled-" if cmd == "fill" else "embedding-")
-                + os.path.basename(csv_path))
-            check(os.path.exists(out_path), f"{out_path} was not written")
-            out = read_csv(out_path)
-            check(list(out.index) == list(dl.frame.index),
-                  f"{cmd} {name}: row order differs from the loader's")
-            if cmd == "fill":
-                X_out = out.matrix(dl.wanted_feats)
-                check(np.isfinite(X_out).all(), f"fill {name}: non-finite")
-                # the CSV text round trip moves a value by at most an ulp
-                changed = ~np.isclose(X_in, X_out, rtol=0, atol=1e-12,
-                                      equal_nan=True)
-                check(changed.any(), f"fill {name}: nothing was filled")
-                check(not (changed & ~blank).any(),
-                      f"fill {name}: cells outside -1 spans changed")
-                check(np.isclose(X_in[blank], -1.0).all()
-                      and not np.isclose(X_out[blank], -1.0).any(),
-                      f"fill {name}: a blank span was left at -1")
-            else:
-                dims = [c for c in out.names
-                        if c.startswith("ae_embedding_dim")]
-                emb = out.matrix(dims)
-                check(emb.shape == (ROWS, LAYERS[-1]),
-                      f"embed {name}: shape {emb.shape}")
-                check(np.isfinite(emb).all(), f"embed {name}: non-finite")
-            os.remove(out_path)
+            check_served(cmd, name, csv_path, dl)
     launches = dk.KERNELS.launches
     for (name, cmd), (n, secs) in per_call.items():
         print(f"  cli {cmd:5s} {name}: {n} kernel launches, {secs:.2f} s "
@@ -266,18 +302,25 @@ def phase_timing(dk, params, cfg, x, card: str):
                   ("enc 2", h, w2, b2, "linear"),
                   ("dec 1 (w.T)", e, w2.T, d1, cfg.activation),
                   ("dec 2 (w.T)", h, w1.T, d2, "linear")]
-        ms = plain_ms = 0.0
+        ms = plain_ms = lib_ms = bound_ms = 0.0
+        by = {"bytes": 0.0, "operations": 0.0}
         for name, a, w, b, act in layers:
             t_p = cuda_ms(lambda: dk.fused_dense_reference(a, w, b, act))
             t_k = cuda_ms(lambda: dk.fused_dense(a, w, b, act))
-            ms += t_k
-            plain_ms += t_p
-            flop = 2.0 * a.shape[0] * a.shape[1] * w.shape[1]
-            print(f"  {name:12s} ({a.shape[0]},{a.shape[1]},{w.shape[1]}) "
-                  f"{act:8s}: kernel {t_k:.4f} ms "
-                  f"({flop / t_k / 1e9:.1f} TFLOP/s), plain {t_p:.4f} ms "
-                  f"({flop / t_p / 1e9:.1f} TFLOP/s)  [{card}]")
-    return ms, plain_ms
+            t_l = cuda_ms(lambda: torch.addmm(b, a, w))
+            m, k, n = a.shape[0], a.shape[1], w.shape[1]
+            flop = 2.0 * m * k * n
+            nbytes = 4.0 * (m * k + k * n + n + m * n)
+            t_b = max(flop / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+            by["operations" if flop / F32_FLOP_PER_S
+               >= nbytes / HBM_BYTES_PER_S else "bytes"] += t_b
+            ms, plain_ms, lib_ms, bound_ms = (ms + t_k, plain_ms + t_p,
+                                              lib_ms + t_l, bound_ms + t_b)
+            print(f"  {name:12s} ({m},{k},{n}) {act:8s}: kernel {t_k:.4f} ms"
+                  f" ({flop / t_k / 1e9:.1f} TFLOP/s), plain {t_p:.4f} ms, "
+                  f"torch.addmm {t_l:.4f} ms, bound {t_b:.4f} ms  [{card}]")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": max(by, key=by.get)}
 
 
 def phase_breakdown(csv_path: str, ck_path: str, card: str) -> None:
@@ -326,13 +369,393 @@ def phase_breakdown(csv_path: str, ck_path: str, card: str) -> None:
           f"{read_secs:.3f} s)  [{card}]")
 
 
+def build_kernels(libs) -> None:
+    """One nvcc process per source, all started together."""
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for fut in [pool.submit(lib.build) for lib in libs]:
+            fut.result()
+    for lib in libs:
+        lib.load()
+
+
+def phase_rng(ptk) -> dict:
+    """The in-kernel generator check (tests_tpu/test_hardware.py:28-46):
+    the probe kernel's (8, 128) uniforms bit-equal to ops/philox.py, every
+    row distinct."""
+    from multimodalautoencoder_tpu_torch.ops import philox
+
+    ptk.KERNELS.probe_launches = 0
+    u = ptk.philox_probe(7, "cuda")
+    torch.cuda.synchronize()
+    launches = ptk.KERNELS.probe_launches
+    want = philox.probe_uniforms(7)
+    same = bool(torch.equal(u.cpu(), want))
+    rows = len({tuple(r.tolist()) for r in u.cpu()})
+    print(f"  probe (8, 128), seed 7: bit-equal to the twin: {same}; "
+          f"{rows} distinct rows; range [{float(u.min()):.6f}, "
+          f"{float(u.max()):.6f}]")
+    check(same, "the probe kernel's draws differ from ops/philox.py")
+    check(rows == 8, "the probe's rows repeat")
+    check(0.0 <= float(u.min()) and float(u.max()) < 1.0, "out of [0, 1)")
+    ms = cuda_ms(lambda: ptk.philox_probe(7, "cuda"))
+    plain_ms = cuda_ms(lambda: philox.probe_uniforms(7, device="cuda"))
+    # 1024 Philox4x32-10 draws of ~120 integer operations; 4 KB written
+    flop, nbytes = 1024 * 120.0, 4.0 * 1024
+    t_f, t_b = flop / F32_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  probe kernel {ms:.4f} ms, twin on the card {plain_ms:.4f} ms "
+          f"(one launch; bound {max(t_f, t_b):.2e} ms)")
+    return {"launches": launches, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_f, t_b),
+            "bound_by": "operations" if t_f >= t_b else "bytes"}
+
+
+def family_cfg(base, family: str):
+    return base.replace(tie_weights=family == "tied softsign",
+                        variational=family == "vae",
+                        activation="relu" if family == "untied relu"
+                        else "softsign").validate()
+
+
+def phase_kernel_vs_twin(ptk, buckets, folded_full, spec_full) -> float:
+    """The training kernels against their twin on the card over the first
+    10 steps (corruption, dropout, L2 and decay on; same seeds and
+    params0), with f32 and bf16 moments, at two sizes: F = 30, (16, 6),
+    the three families with 2 settings x 2 folds; and the main path's own
+    runs, each 1000-wide ACII bucket's 12 settings x 5 folds (N = 60,
+    softsign and relu mixed per instance).
+
+    Each step starts the kernels from the twin's state, so every step is
+    held on its own: run free, a relu instance whose objective is already
+    falling fast turns a pre-activation that sits within rounding of 0
+    into the other branch, and the two runs then part by far more than
+    their sums' rounding.  Random decisions are bit-identical, so a step's
+    parameters differ only by f32 sums in another order; the tolerance is
+    TOL.  An element whose gradient sits at rounding level can flip the
+    sign of Adam's m / sqrt(v) and move by up to ~lr: such elements are
+    counted per instance and step, and the phase fails if one instance has
+    more than 1e-5 of its parameters (at least 8) over TOL in a step, if
+    any parameter moves by more than 2 lr, or if an objective after the
+    10 steps differs by more than TOL (relative)."""
+    from multimodalautoencoder_tpu_torch.config import MMAEConfig, \
+        TrainConfig
+    from multimodalautoencoder_tpu_torch.data.modalities import \
+        ModalityTable
+    from multimodalautoencoder_tpu_torch.models.corruption import NoiseSpec
+    from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
+
+    steps = 10
+    rng = np.random.default_rng(SEED)
+    small = gt.FoldedData.from_ragged(
+        [rng.random((40, 30)), rng.random((33, 30))],
+        [rng.random((9, 30)), rng.random((7, 30))], device=DEVICE)
+    base = MMAEConfig(num_feats=30, layer_sizes=(16, 6),
+                      weight_initialization="normal")
+    two = [{"dropout_prob": 0.5, "weight_penalty": 0.01},
+           {"dropout_prob": 1.0, "weight_penalty": 0.001}]
+    cases = [(f"small F=30 (16, 6) {family}", family_cfg(base, family), two,
+              small, NoiseSpec.build(family_cfg(base, family),
+                                     ModalityTable.uniform(5, 6, NAMES)))
+             for family in ("tied softsign", "untied relu", "vae")]
+    cases += [(f"{name} bucket, N=60", cfg, members, folded_full, spec_full)
+              for name, cfg, members in buckets]
+    worst = 0.0
+    for label, cfg, settings, folded, spec in cases:
+        for moments in ("float32", "bfloat16"):
+            tcfg = TrainConfig(learning_rate=LR, batch_size=BATCH,
+                               decay=True, decay_steps=1000,
+                               decay_rate=0.95, clip_gradients=False,
+                               optimizer_state_dtype=moments)
+            hyper = gt.HyperStack.from_settings(settings, cfg, tcfg)
+            C, K = hyper.num_configs, folded.num_folds
+            g = torch.Generator().manual_seed(SEED)
+            twin = ptk.prepare_run(g, cfg, tcfg, spec, hyper, folded,
+                                   ptk.init_grid_params(g, cfg, C, K))
+            per_inst = sum(t[0].numel() for t in twin.params
+                           if t is not None)
+            bound = max(8, 1e-5 * per_inst)
+            err, most, total = 0.0, 0, 0
+            for step in range(steps):
+                run = twin.clone()
+                ptk.train_grid_kernel(run, step, 1)
+                ptk.train_grid_kernel_reference(twin, step, 1)
+                torch.cuda.synchronize()
+                over = sum(((a - b).abs() > TOL).reshape(a.shape[0], -1)
+                           .sum(1) for a, b in zip(run.params, twin.params)
+                           if a is not None)
+                err = max([err] + [float((a - b).abs().max()) for a, b in
+                                   zip(run.params, twin.params)
+                                   if a is not None])
+                most, total = max(most, int(over.max())), total + \
+                    int(over.sum())
+            objs = [ptk.noisy_val_losses(
+                r.grid_params(C, K), cfg, spec, hyper, folded,
+                torch.Generator().manual_seed(1)) for r in (run, twin)]
+            obj_rel = float(((objs[0] - objs[1]).abs()
+                             / objs[1].abs()).max())
+            ok = (most <= bound and err <= 2 * LR and obj_rel <= TOL
+                  and bool(torch.isfinite(objs[0]).all()))
+            worst = max(worst, err)
+            print(f"  {label:32s} {moments:8s} max |dp| {err:.3e}; "
+                  f"{total} params over {TOL} in {steps} steps, at most "
+                  f"{most} of an instance's {per_inst} in one step (bound "
+                  f"{bound:.0f}); objective rel diff {obj_rel:.2e} "
+                  f"{'ok' if ok else 'MISMATCH'}")
+            check(ok, f"kernels disagree with the twin: {label} {moments}")
+            del run, twin
+    return worst
+
+
+def sweep_buckets(dl):
+    """The ACII grid as MMAESweep builds it, and its three 1000-wide
+    buckets as (name, cfg, settings)."""
+    from multimodalautoencoder_tpu_torch.config import MMAEConfig
+    from multimodalautoencoder_tpu_torch.sweep import grid
+
+    settings = grid.add_extra_vae_params(grid.enumerate_grid(ACII_PARAMS))
+    buckets = grid.bucket_settings(settings)
+    check(len(settings) == 108 and len(buckets) == 9
+          and all(len(b) == 12 for _, b in buckets),
+          f"the ACII grid gave {len(settings)} settings in "
+          f"{len(buckets)} buckets")
+    base = MMAEConfig(num_feats=dl.num_feats, loss="sigmoid_cross_entropy",
+                      normalization="between_0_and_1", mask_with=-1.0,
+                      fill_missing_with=0.0)
+    out = []
+    for key, members in buckets:
+        s = members[0]
+        if tuple(s["architecture"]) != LAYERS:
+            continue
+        cfg = base.replace(
+            layer_sizes=tuple(s["architecture"]),
+            tie_weights=bool(s["tie_weights"]),
+            variational=bool(s["variational"]),
+            weight_initialization=s["weight_initialization"]).validate()
+        name = "vae" if cfg.variational else (
+            "tied" if cfg.tie_weights else "untied")
+        out.append((name, cfg, members))
+    check(sorted(n for n, _, _ in out) == ["tied", "untied", "vae"],
+          "the grid lacks a 1000-wide bucket")
+    return base, out
+
+
+@contextlib.contextmanager
+def timed_kernel_loops(ptk):
+    """CUDA events around every ``train_grid_kernel`` call made inside the
+    block (each is one ctypes call whose C loop enqueues a whole run);
+    yields the list the (start, end) pairs go to."""
+    inner = ptk.train_grid_kernel
+    pairs = []
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        inner(*args, **kwargs)
+        end.record()
+        pairs.append((start, end))
+
+    ptk.train_grid_kernel = timed
+    try:
+        yield pairs
+    finally:
+        ptk.train_grid_kernel = inner
+
+
+def phase_train(workdir: str, ptk, dk, dl, folded, buckets, spec,
+                card: str):
+    """The slice end to end: the three 1000-wide ACII buckets trained on
+    the study's CV folds through ``train_grid_sharded`` on the kernels with
+    the sweep's recipe, the best instance saved and served."""
+    from multimodalautoencoder_tpu_torch import cli
+    from multimodalautoencoder_tpu_torch.config import ACTIVATIONS, \
+        TrainConfig
+    from multimodalautoencoder_tpu_torch.ops import optim
+    from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
+    from multimodalautoencoder_tpu_torch.train import checkpoint as ckpt
+
+    plans = []
+    for name, cfg, members in buckets:
+        tcfg = TrainConfig(learning_rate=LR, batch_size=BATCH,
+                           num_steps=STEPS, decay=True,
+                           decay_steps=1000, decay_rate=0.95,
+                           clip_gradients=False, seed=SEED,
+                           optimizer_state_dtype="bfloat16")
+        hyper = gt.HyperStack.from_settings(members, cfg, tcfg)
+        check(gt.resolve_backend("auto", cfg, tcfg, spec, on_gpu=True)
+              == "pallas", f"{name}: 'auto' did not resolve to the kernels")
+        _, loss0 = gt.train_grid_sharded(DEVICE, SEED, cfg, tcfg, spec,
+                                         hyper, folded, num_steps=0,
+                                         backend="pallas")
+        relu = torch.tensor([m["activation_function"] == "relu"
+                             for m in members], device=loss0.device
+                            ).view(-1, 1).expand_as(loss0)
+        plans.append((name, cfg, tcfg, hyper, members, loss0, relu))
+
+    # the main path: every count at 0 just before, read just after
+    ptk.KERNELS.launches = 0
+    results = []
+    for name, cfg, tcfg, hyper, members, loss0, relu in plans:
+        t = time.perf_counter()
+        before = ptk.KERNELS.launches
+        with timed_kernel_loops(ptk) as loops:
+            params, losses = gt.train_grid_sharded(
+                DEVICE, SEED, cfg, tcfg, spec, hyper, folded,
+                backend="pallas")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        check(len(loops) == 1, f"{name}: {len(loops)} kernel loops")
+        loop_s = loops[0][0].elapsed_time(loops[0][1]) / 1e3
+        results.append((name, cfg, tcfg, hyper, members, loss0, relu,
+                        losses, params, wall, loop_s,
+                        ptk.KERNELS.launches - before))
+    launches = ptk.KERNELS.launches
+
+    best = None
+    for (name, cfg, tcfg, hyper, members, loss0, relu, losses, params, wall,
+         loop_s, n) in results:
+        S = tcfg.num_steps
+        N = losses.numel()
+        want = S * ptk.launches_per_step(cfg.tie_weights, cfg.variational)
+        finite = torch.isfinite(losses)
+        print(f"  {name:6s} N={N} S={S}: {wall:.2f} s wall, kernel loop "
+              f"{loop_s:.3f} s by CUDA events: {1e3 * loop_s / S:.4f} ms/step"
+              f" ({1e3 * wall / S:.4f} wall/S), "
+              f"{N * S / loop_s:,.0f} instance-steps/s; {n} launches  "
+              f"[{card}]")
+        for act, sel in (("softsign", ~relu), ("relu", relu)):
+            ok = sel & finite
+            after = float(losses[ok].median()) if ok.any() else float("nan")
+            print(f"    {act:8s}: objective median "
+                  f"{float(loss0[sel].median()):.2f} -> {after:.6g}; "
+                  f"{int(ok.sum())} of {int(sel.sum())} finite, "
+                  f"{int((sel & (losses < loss0)).sum())} below their "
+                  "0-step objective")
+        check(n == want, f"{name}: {n} kernel launches, expected {want}")
+        # A VAE's log-sigma head fed by a relu layer blows up (exp
+        # overflows to NaN, or the sampled embedding swamps the
+        # reconstruction) in the JAX package's own trainer too, with the
+        # study's -1 gap targets and with targets in [0, 1] alike
+        # (tests/test_torch_relu_divergence.py, ROADMAP Queue 3).  Phase
+        # [8] held those instances against the twin over the first 10
+        # steps of this very run (same seed, settings and params0); every
+        # other instance must end finite and below its start.
+        held = ~relu if cfg.variational else torch.ones_like(relu)
+        check(bool(finite[held].all()), f"{name}: an objective held to "
+              "convergence is not finite")
+        check(bool((losses[held] < loss0[held]).all()),
+              f"{name}: {int((losses[held] >= loss0[held]).sum())} "
+              "instances did not go below their 0-step objective")
+        fin = torch.where(finite, losses, torch.full_like(losses,
+                                                          float("inf")))
+        c, k = divmod(int(torch.argmin(fin)), losses.shape[1])
+        if best is None or float(losses[c, k]) < best[0]:
+            best = (float(losses[c, k]), name, cfg, hyper, members, params,
+                    c, k, S)
+    for mod in ("jax", "pandas", "sklearn", "multimodalautoencoder_tpu"):
+        check(mod not in sys.modules, f"the training path imported {mod}")
+
+    loss, name, cfg, hyper, members, params, c, k, S = best
+    served = cfg.replace(
+        activation=ACTIVATIONS[int(hyper.act_id[c])],
+        dropout_prob=float(hyper.keep_prob[c]),
+        weight_penalty=float(hyper.weight_penalty[c]), use_pallas=True)
+    ck = ckpt.save_checkpoint(os.path.join(workdir, "ck_trained"),
+                              f"best_{name}",
+                              optim.tree_map(lambda a: a[c, k], params),
+                              served, step=S)
+    before = dk.KERNELS.launches
+    rc = cli.main(["fill", dl.filename, "--checkpoint", ck,
+                   "--normalize-and-fill", "--device", DEVICE, "--seed",
+                   str(SEED)])
+    torch.cuda.synchronize()
+    check(rc == 0, f"cli fill of the trained checkpoint returned {rc}")
+    from multimodalautoencoder_tpu_torch.data.loader import DataLoader
+    serve_dl = DataLoader(dl.filename, fill_gaps_with=-1.0,
+                          suppress_output=True, seed=SEED)
+    check_served("fill", "trained", dl.filename, serve_dl)
+    print(f"  best instance: {name} bucket, config {c} "
+          f"({members[c]['activation_function']}, keep "
+          f"{members[c]['dropout_prob']}, penalty "
+          f"{members[c]['weight_penalty']}), fold {k}, objective {loss:.3f};"
+          f" saved to {os.path.basename(ck)} and served by cli fill "
+          f"({dk.KERNELS.launches - before} fused_dense launches)")
+    tied = next(r for r in results if r[0] == "tied")
+    return launches, tied
+
+
+def phase_step_timing(ptk, tied, folded, spec, card: str) -> dict:
+    """One step of the tied 1000-wide bucket (60 instances): the kernels
+    by CUDA events from freshly initialised parameters (the first 300
+    steps in one call, then windows of 50) and from the bucket's trained
+    ones, each launch type against its bound, the twin on the card, and
+    the step's products as torch.bmm calls (the library yardstick; the
+    port never calls it)."""
+    from multimodalautoencoder_tpu_torch.ops import train_kernels
+
+    cfg, tcfg, hyper, params = tied[1], tied[2], tied[3], tied[8]
+    C, K = hyper.num_configs, folded.num_folds
+    F, (H1, H2) = cfg.num_feats, cfg.layer_sizes
+    inner = 50
+    bounds = train_kernels.launch_type_bounds(cfg, C * K, BATCH, True)
+    step = train_kernels.step_bound(cfg, C * K, BATCH, True)
+    print(f"  tied {F} -> {H1} -> {H2}, N={C * K}, B={BATCH}, bf16 moments;"
+          f" bound {step['bound_ms']:.4f} ms/step ({step['bound_by']}: "
+          f"{step['bytes'] / 1e9:.3f} GB, {step['flop'] / 1e9:.2f} GFLOP)")
+    out = {}
+    for label, start in (("fresh", None), ("trained", params)):
+        g = torch.Generator().manual_seed(SEED)
+        p0 = ptk.init_grid_params(g, cfg, C, K) if start is None else start
+        run = ptk.prepare_run(g, cfg, tcfg, spec, hyper, folded, p0)
+        first = 20 if start is not None else 300
+        with timed_kernel_loops(ptk) as loops:
+            ptk.train_grid_kernel(run, 0, first)
+        torch.cuda.synchronize()
+        if start is None:
+            print(f"  fresh parameters, steps 0-299 in one call: "
+                  f"{loops[0][0].elapsed_time(loops[0][1]) / first:.4f} "
+                  f"ms/step  [{card}]")
+        ms = cuda_ms(lambda: ptk.train_grid_kernel(run, first, inner),
+                     reps=5, inner=1) / inner
+        prof: dict = {}
+        ptk.train_grid_kernel(run, 1000, inner, profile=prof)
+        print(f"  {label:7s} parameters: {ms:.4f} ms/step by the kernels  "
+              f"[{card}]")
+        for t in train_kernels.LAUNCH_TYPES:
+            got = prof.get(t, 0.0) / inner
+            if got > 0.0:
+                print(f"    {t:18s} {got:.4f} ms/step (events, serialised),"
+                      f" bound {bounds[t]['bound_ms']:.4f} ms by "
+                      f"{bounds[t]['bound_by']}")
+        out[label] = (ms, run)
+    twin = out["fresh"][1].clone()
+    plain_ms = cuda_ms(lambda: ptk.train_grid_kernel_reference(twin, 0, 1),
+                       reps=3, inner=3)
+    # (m, k, n) of the 4 forward, 3 backward and 4 weight-gradient products
+    shapes = ((BATCH, F, H1), (BATCH, H1, H2), (BATCH, H2, H1),
+              (BATCH, H1, F), (BATCH, F, H1), (BATCH, H1, H2),
+              (BATCH, H2, H1), (F, BATCH, H1), (F, BATCH, H1),
+              (H1, BATCH, H2), (H1, BATCH, H2))
+    ops = [(torch.rand((C * K, m, k), device=DEVICE),
+            torch.rand((C * K, k, n), device=DEVICE)) for m, k, n in shapes]
+    bmm_ms = cuda_ms(lambda: [torch.bmm(a, b) for a, b in ops], reps=5,
+                     inner=5)
+    print(f"  twin on the card {plain_ms:.4f} ms/step; the step's 11 "
+          f"products by torch.bmm {bmm_ms:.4f} ms  [{card}]")
+    return {"ms": out["fresh"][0], "plain_ms": plain_ms, "bmm_ms": bmm_ms,
+            "bound_ms": step["bound_ms"], "bound_by": step["bound_by"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    from multimodalautoencoder_tpu_torch.data import synthetic
+    from multimodalautoencoder_tpu_torch.data.loader import DataLoader
     from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
+    from multimodalautoencoder_tpu_torch.ops import train_kernels as ptk
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -340,8 +763,7 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}")
 
-    dk.KERNELS.build()
-    dk.KERNELS.load()
+    build_kernels([dk.KERNELS, ptk.KERNELS])
     print(f"[2] built {os.path.relpath(dk.KERNELS.library)} from "
           f"{os.path.relpath(dk.KERNELS.source)} with nvcc "
           f"{' '.join(dk.NVCC_FLAGS)} in {dk.KERNELS.build_seconds:.1f} s")
@@ -355,21 +777,70 @@ def main() -> int:
         launches, ck_dae, dl = phase_serve(workdir, dk)
         params, cfg, x = phase_reconstruction(dk, ck_dae, dl)
         print("[5] timing")
-        ms, plain_ms = phase_timing(dk, params, cfg, x, card)
+        dense = phase_timing(dk, params, cfg, x, card)
         print("[6] one cli fill call (DAE), step by step")
         phase_breakdown(dl.filename, ck_dae, card)
 
+        print(f"[7] built {os.path.relpath(ptk.KERNELS.library)} from "
+              f"{os.path.relpath(ptk.KERNELS.source)} in "
+              f"{ptk.KERNELS.build_seconds:.1f} s (the two builds ran "
+              "together); ptxas:")
+        for name, res in sorted(ptk.KERNELS.resources().items()):
+            print(f"    {name}: {res}")
+        probe = phase_rng(ptk)
+
+        train_dir = os.path.join(workdir, "train")
+        os.makedirs(train_dir)
+        t0 = time.perf_counter()
+        study = DataLoader(synthetic.write_reference_scale_csv(
+            train_dir, num_rows=ROWS, seed=SEED), cross_validation=True,
+            fill_gaps_with=-1.0, suppress_output=True, seed=SEED)
+        print(f"  study for training: {ROWS} rows, {study.num_feats} "
+              f"features, {study.num_folds} CV folds "
+              f"({time.perf_counter() - t0:.1f} s to write and load)")
+        from multimodalautoencoder_tpu_torch.models.corruption import \
+            NoiseSpec
+        from multimodalautoencoder_tpu_torch.parallel import grid_trainer
+        folded = grid_trainer.FoldedData.from_loader(study, study.num_folds,
+                                                     device=DEVICE)
+        base, buckets = sweep_buckets(study)
+        spec = NoiseSpec.build(base, study.modality_table)
+        print(f"  108 settings in 9 buckets of 12; folds: train rows "
+              f"{folded.train_n.tolist()}, val rows "
+              f"{folded.val_n.tolist()}")
+        print(f"[8] training kernels vs their twin on the card (TF32 off,"
+              f" 10 steps, lr {LR}, tolerance {TOL})")
+        train_err = phase_kernel_vs_twin(ptk, buckets, folded, spec)
+
+        print(f"[9] grid training, end to end: the three 1000-wide ACII "
+              f"buckets, {STEPS} steps each, through "
+              f"train_grid_sharded(backend='pallas')")
+        train_launches, tied = phase_train(workdir, ptk, dk, study, folded,
+                                           buckets, spec, card)
+        print("[10] one training step, timed")
+        step = phase_step_timing(ptk, tied, folded, spec, card)
+
+    print(f"  whole run {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "fused_dense",
-        "route": "cuda",
-        "source": "multimodalautoencoder_tpu_torch/csrc/fused_dense.cu",
-        "replaces": "multimodalautoencoder_tpu/ops/pallas_kernels.py:63",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    src = "multimodalautoencoder_tpu_torch/csrc/"
+    print(json.dumps({"kernels": [
+        dict({"name": "fused_dense", "route": "cuda",
+              "source": src + "fused_dense.cu",
+              "replaces": "multimodalautoencoder_tpu/ops/pallas_kernels.py"
+                          ":63",
+              "launches": launches, "max_abs_err": max_err}, **dense),
+        {"name": "mmae_train_step", "route": "cuda",
+         "source": src + "train_kernel.cu",
+         "replaces": "multimodalautoencoder_tpu/ops/train_kernel.py:274",
+         "launches": train_launches, "max_abs_err": train_err,
+         "ms": step["ms"], "plain_ms": step["plain_ms"],
+         "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+         "library_ms": None},
+        dict({"name": "philox_probe", "route": "cuda",
+              "source": src + "train_kernel.cu",
+              "replaces": "tests_tpu/test_hardware.py:28",
+              "library_ms": None}, **probe),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,11 +14,11 @@ Written back with :meth:`Frame.to_csv`, float columns are formatted as
 pandas formats them (shortest round-trip text, NaN as an empty cell), so a
 value read back from either package's output is the same float.
 
-:class:`DataLoader` is the serve subset of the JAX class (unsupervised,
-no cross-validation): the wanted features, normalize-and-fill, the
-``dataset`` splits, the modality table, and the reconstruction fill-back
-(data_funcs.py:310-381).  Label triage, CV folds and batch sampling come
-with the training path.
+:class:`DataLoader` is the unsupervised subset of the JAX class: the
+wanted features, normalize-and-fill, the ``dataset`` splits or the
+cross-validation folds, the modality table, and the reconstruction
+fill-back (data_funcs.py:310-381).  Label triage, the noisy/clean splits
+and batch sampling come with later slices.
 """
 
 from __future__ import annotations
@@ -271,21 +271,37 @@ def read_csv(path: str) -> Frame:
 
 
 class DataLoader:
-    """A CSV prepared for the model: the serve subset of the JAX package's
-    DataLoader (data_funcs.py:29-131) with ``supervised=False`` and no
-    cross-validation.  ``frame`` is the (normalized, filled, shuffled)
-    table; ``train_X``/``val_X``/``test_X`` its ``dataset`` splits."""
+    """A CSV prepared for the model: the unsupervised subset of the JAX
+    package's DataLoader (data_funcs.py:29-131, ``supervised=False``).
+    ``frame`` is the (normalized, filled, shuffled) table; ``test_X`` its
+    Test rows.  Without ``cross_validation``, ``train_X``/``val_X`` are its
+    Train and Val rows; with it, they are the current fold's
+    (:meth:`set_to_cross_validation_fold`, fold 0 at first)."""
 
     def __init__(self, filename: str, suppress_output: bool = False,
+                 cross_validation: bool = False,
                  normalize_and_fill: bool = True,
                  normalization: Optional[str] = "between_0_and_1",
                  fill_missing_with: float = 0,
                  fill_gaps_with: Optional[float] = None,
                  subdivide_physiology_features: bool = False,
-                 seed: int = 0):
+                 num_folds: int = pp.NUM_CROSS_VAL_FOLDS,
+                 seed: int = 0,
+                 persist_cv_folds: bool = True):
         self.filename = filename
         self.subdivide_phys = subdivide_physiology_features
+        self.cross_validation = cross_validation
+        self.num_folds = num_folds
         self.frame = read_csv(filename)
+        if cross_validation:
+            had_folds = pp.FOLD_COLUMN in self.frame.columns
+            self.frame = pp.assign_cross_val_folds(self.frame, num_folds,
+                                                   seed)
+            if not had_folds and persist_cv_folds:
+                # persist the assignment for stability across runs
+                # (data_funcs.py:222), before any normalization
+                self.frame.to_csv(filename)
+            self.fold = 0
         self.wanted_feats = pp.get_wanted_feats_from_df(self.frame.names)
         if normalize_and_fill:
             # gap imputation always works at phys SUB-BAND granularity
@@ -297,9 +313,12 @@ class DataLoader:
 
         X = self.frame.matrix(self.wanted_feats)
         dataset = self.frame.columns["dataset"]
-        self.train_X = X[dataset == "Train"]
-        self.val_X = X[dataset == "Val"]
         self.test_X = X[dataset == "Test"]
+        if cross_validation:
+            self.set_to_cross_validation_fold(0)
+        else:
+            self.train_X = X[dataset == "Train"]
+            self.val_X = X[dataset == "Val"]
         self.num_feats = int(self.train_X.shape[1])
 
         self.modality_table = ModalityTable.from_feature_names(
@@ -312,6 +331,25 @@ class DataLoader:
             print(f"{len(self.train_X)} rows in training data; "
                   f"{len(self.val_X)} validation; {len(self.test_X)} test; "
                   f"{self.num_feats} features")
+
+    def fold_ids(self) -> np.ndarray:
+        """Each row's CV fold (-1 for Test rows), in ``frame`` order."""
+        return np.asarray(self.frame.columns[pp.FOLD_COLUMN]).astype(
+            np.float64).astype(np.int64)
+
+    def get_cross_val_data_for_fold(self, fold: int):
+        """(train_X, train_Y, val_X, val_Y) of fold ``fold``: its val rows
+        are the fold, its train rows every other non-Test row
+        (data_funcs.py:278-308).  The Y entries are None (unsupervised)."""
+        folds = self.fold_ids()
+        X = self.frame.matrix(self.wanted_feats)
+        train = (folds != fold) & (folds != -1)
+        return X[train], None, X[folds == fold], None
+
+    def set_to_cross_validation_fold(self, fold: int) -> None:
+        self.fold = fold
+        self.train_X, _, self.val_X, _ = \
+            self.get_cross_val_data_for_fold(fold)
 
     def find_missing_modalities_indices(self, x: np.ndarray) -> List[int]:
         """A modality is 'missing' iff its span is all -1.0 — detected via

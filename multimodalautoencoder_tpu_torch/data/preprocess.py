@@ -15,7 +15,9 @@ column-name list, and :func:`normalize_fill_df` applies them to a
 - two-tier imputation: whole-modality gaps (row >80% NaN within one prefix)
   filled first (:712-769), then every other missing cell (:419-420);
 - a seeded shuffle: ``pd.DataFrame.sample(frac=1, random_state=s)`` orders
-  rows as ``np.random.RandomState(s).permutation(n)``, used here directly.
+  rows as ``np.random.RandomState(s).permutation(n)``, used here directly;
+- cross-validation folds drawn from ``np.random.default_rng(seed)``
+  (:211-223, :623-635), the same column the JAX package assigns.
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ from multimodalautoencoder_tpu_torch.data.modalities import ModalityTable
 
 if TYPE_CHECKING:
     from multimodalautoencoder_tpu_torch.data.loader import Frame
+
+NUM_CROSS_VAL_FOLDS = 5  # data_funcs.py:27
+FOLD_COLUMN = "logistics_cv_fold"
 
 _LOGISTICS_SUBSTRINGS = ("user_id", "timestamp", "label", "Label", "dataset",
                          "logistics", "ppt_id")
@@ -149,3 +154,23 @@ def normalize_fill_df(frame: "Frame", wanted_feats: Sequence[str],
     if shuffle:
         frame = frame.take(shuffle_order(len(frame), seed))
     return frame, feats
+
+
+def assign_cross_val_folds(frame: "Frame",
+                           num_folds: int = NUM_CROSS_VAL_FOLDS,
+                           seed: int = 0) -> "Frame":
+    """Give each non-Test row a uniform random fold and Test rows -1
+    (data_funcs.py:211-223, :623-635), as a text column of integers.  A
+    frame that already has the column is returned as it is, so persisted
+    assignments stay stable.  Seeded, and honours ``num_folds`` (the
+    reference does neither, SURVEY.md §2.8.7)."""
+    from multimodalautoencoder_tpu_torch.data.loader import Frame
+
+    if FOLD_COLUMN in frame.columns:
+        return frame
+    folds = np.random.default_rng(seed).integers(0, num_folds,
+                                                 size=len(frame))
+    folds = np.where(frame.columns["dataset"] == "Test", -1, folds)
+    columns = dict(frame.columns)
+    columns[FOLD_COLUMN] = folds.astype(str).astype(object)
+    return Frame(frame.index_name, frame.index, columns)

@@ -2,8 +2,10 @@
 
 Counterpart of ``multimodalautoencoder_tpu/models/losses.py`` (its
 reconstruction half; the classification losses come with the
-classification path).  Reference semantics (multimodal_autoencoder.py
-:380-408):
+classification path).  Every reduction runs over the last two axes
+(rows, features) of a batch, so a stack of instances ``(N, rows, F)``
+gets one loss per instance, as ``vmap`` gives in the JAX package.
+Reference semantics (multimodal_autoencoder.py :380-408):
 
 - ``mean_squared``: RMSE over the *whole batch tensor* (:382-384).
 - ``cross_entropy``: ``-sum(x * log(recon))`` on the raw decoder output
@@ -21,9 +23,13 @@ from typing import Sequence
 import torch
 
 
+_LAST2 = (-2, -1)
+
+
 def l2(w: torch.Tensor) -> torch.Tensor:
-    """TF-style l2_loss: sum(w**2) / 2."""
-    return torch.sum(torch.square(w)) / 2.0
+    """TF-style l2_loss: sum(w**2) / 2 over the last two axes (a weight
+    matrix, or each of a stack of them)."""
+    return torch.sum(torch.square(w), dim=_LAST2) / 2.0
 
 
 def sigmoid_bce_with_logits(logits: torch.Tensor,
@@ -36,13 +42,16 @@ def sigmoid_bce_with_logits(logits: torch.Tensor,
 
 def reconstruction_loss(loss_name: str, decoded: torch.Tensor,
                         true_x: torch.Tensor) -> torch.Tensor:
-    """Scalar reconstruction loss; for sigmoid-CE ``decoded`` are logits."""
+    """Reconstruction loss of a (rows, F) batch (one per instance of a
+    stack); for sigmoid-CE ``decoded`` are logits."""
     if loss_name == "mean_squared":
-        return torch.sqrt(torch.mean(torch.square(decoded - true_x)))
+        return torch.sqrt(torch.mean(torch.square(decoded - true_x),
+                                     dim=_LAST2))
     if loss_name == "cross_entropy":
-        return -torch.sum(true_x * torch.log(decoded))
+        return -torch.sum(true_x * torch.log(decoded), dim=_LAST2)
     if loss_name == "sigmoid_cross_entropy":
-        return torch.sum(sigmoid_bce_with_logits(decoded, true_x))
+        return torch.sum(sigmoid_bce_with_logits(decoded, true_x),
+                         dim=_LAST2)
     raise ValueError(f"unknown loss {loss_name!r}")
 
 
@@ -53,12 +62,13 @@ def kl_divergence_rows(z_or_mu: torch.Tensor,
     reference's ``log_var`` is log(sigma), as its sampling uses it."""
     return -0.5 * torch.sum(
         1.0 + 2.0 * log_var - torch.square(z_or_mu)
-        - torch.exp(2.0 * log_var), dim=1)
+        - torch.exp(2.0 * log_var), dim=-1)
 
 
-def weight_regularization(penalty: float,
+def weight_regularization(penalty,
                           weights: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``penalty * sum(l2(w))`` over the given weight list (:392-397)."""
+    """``penalty * sum(l2(w))`` over the given weight list (:392-397).
+    ``penalty`` is a float or, for a stack of instances, an (N,) tensor."""
     if len(weights) == 0:
         return torch.zeros(())
     return penalty * sum(l2(w) for w in weights)

@@ -1,21 +1,26 @@
 """Multimodal autoencoder (MMAE) as plain functions on tensors.
 
-Counterpart of ``multimodalautoencoder_tpu/models/mmae.py`` (its inference
-half; train-mode dropout, the traced activation switch and the
-classification head come with the training path).  The reference builds
-a TF1 graph (``multimodal_autoencoder.py``: encode :454, decode :499):
+Counterpart of ``multimodalautoencoder_tpu/models/mmae.py`` without the
+classification head (which comes with the classification path).  The
+reference builds a TF1 graph (``multimodal_autoencoder.py``: encode :454,
+decode :499):
 
-- encoder: ``len(layer_sizes)`` dense layers, activation on all but the
-  bottleneck (:461-475);
-- decoder: mirrored sizes, activation on all but the output layer
-  (:499-518); weight tying = transpose of encoder weights at apply time
-  (:283-284) with always-independent decode biases (:291-293);
+- encoder: ``len(layer_sizes)`` dense layers, activation and dropout on
+  all but the bottleneck (:461-475);
+- decoder: mirrored sizes, activation and dropout on all but the output
+  layer (:499-518); weight tying = transpose of encoder weights at apply
+  time (:283-284) with always-independent decode biases (:291-293);
 - VAE: variance head from the *second-to-last* hidden layer (:298-302,
   :464-465), reparameterized ``z = mu + eps * exp(log_var)`` (:372-375).
 
 Parameters are an :class:`MMAEParams` of tensors with the JAX pytree's
 field order; :func:`params_to_numpy` / :func:`params_from_numpy` carry them
-across as the JAX package's flattened leaf list.  With ``cfg.use_pallas``
+across as the JAX package's flattened leaf list.  Every function also takes
+a *stack* of instances: leaves with leading axes (the grid trainer's
+``(N, rows, cols)``), inputs ``(N, rows, F)``, and per-instance ``act_id``,
+``keep_prob`` and ``weight_penalty`` as (N,) tensors — what ``vmap`` gives
+the JAX package.  ``act_id`` selects the activation per instance, like the
+JAX package's ``lax.switch``.  With ``cfg.use_pallas`` and no ``act_id``
 every encoder and decoder layer goes through
 ``ops/dense_kernels.fused_dense`` (the CUDA kernel on a GPU); the VAE head
 stays a plain matmul, as in the JAX package.
@@ -24,12 +29,13 @@ stays a plain matmul, as in the JAX package.
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, \
+    Union
 
 import numpy as np
 import torch
 
-from multimodalautoencoder_tpu_torch.config import MMAEConfig
+from multimodalautoencoder_tpu_torch.config import ACTIVATIONS, MMAEConfig
 from multimodalautoencoder_tpu_torch.models import losses as losses_lib
 from multimodalautoencoder_tpu_torch.ops import dense_kernels
 
@@ -161,11 +167,12 @@ def params_to_numpy(params: MMAEParams) -> List[np.ndarray]:
 
 
 def params_from_numpy(leaves: Sequence[np.ndarray], cfg: MMAEConfig,
-                      device="cuda") -> MMAEParams:
+                      device="cuda", batch_shape: Tuple[int, ...] = ()
+                      ) -> MMAEParams:
     """Rebuild parameters from a flattened leaf list (the inverse of
     :func:`params_to_numpy`; also what ``jax.tree_util.tree_leaves`` of the
     JAX package's params gives).  ``cfg`` fixes the structure; every leaf's
-    shape is checked against it."""
+    shape is checked against it, after ``batch_shape`` leading axes."""
     shapes = param_shapes(cfg)
     want = _leaves(shapes)
     if len(leaves) != len(want):
@@ -176,9 +183,10 @@ def params_from_numpy(leaves: Sequence[np.ndarray], cfg: MMAEConfig,
 
     def take(shape):
         a = np.asarray(next(it))
-        if tuple(a.shape) != tuple(shape):
+        if tuple(a.shape) != tuple(batch_shape) + tuple(shape):
             raise ValueError(f"parameter leaf of shape {a.shape} where the "
-                             f"config implies {tuple(shape)}")
+                             f"config implies {tuple(batch_shape)} + "
+                             f"{tuple(shape)}")
         return torch.tensor(a, dtype=torch.float32, device=device)
 
     def take_all(group):
@@ -192,6 +200,70 @@ def params_from_numpy(leaves: Sequence[np.ndarray], cfg: MMAEConfig,
     return MMAEParams(enc_w, enc_b, dec_w, dec_b, var_w, var_b, cls_w, cls_b)
 
 
+def stacked_params_from_numpy(leaves: Sequence[np.ndarray], cfg: MMAEConfig,
+                              device="cuda") -> MMAEParams:
+    """Grid parameters from the leaves of a JAX params tree whose leaves
+    carry leading ``(C, K)`` (config, fold) axes, as
+    ``grid_trainer.train_grid`` returns them; :func:`params_to_numpy` is
+    the inverse."""
+    first = np.asarray(leaves[0])
+    return params_from_numpy(leaves, cfg, device,
+                             batch_shape=tuple(first.shape[:-2]))
+
+
+def activation_id(name: str) -> int:
+    """Map an activation name to its switch index (config.ACTIVATIONS
+    order, the JAX package's ``lax.switch`` branches)."""
+    table = {"linear": 0, "relu": 1, "tanh": 2, "softsign": 3, "softplus": 4}
+    if name not in table:
+        raise ValueError(f"unknown activation {name!r}")
+    assert tuple(table) == ACTIVATIONS
+    return table[name]
+
+
+def _per_instance(v, like: torch.Tensor):
+    """A per-instance (N,) tensor shaped to broadcast against ``like``
+    (N, ..., cols); scalars pass through."""
+    if not isinstance(v, torch.Tensor) or v.dim() == 0:
+        return v
+    return v.to(like.device).reshape(v.shape + (1,) * (like.dim() - v.dim()))
+
+
+def _activate(x: torch.Tensor, name: str,
+              act_id: Union[None, int, torch.Tensor]) -> torch.Tensor:
+    """The activation ``name``, or the one ``act_id`` selects; a tensor
+    ``act_id`` selects per instance of a stack."""
+    if act_id is None:
+        return dense_kernels.activate(x, name)
+    if not isinstance(act_id, torch.Tensor):
+        return dense_kernels.activate(x, ACTIVATIONS[int(act_id)])
+    a = _per_instance(act_id, x)
+    out = x
+    for i, act in enumerate(ACTIVATIONS[1:], start=1):
+        out = torch.where(a == i, dense_kernels.activate(x, act), out)
+    return out
+
+
+def _rand(fn: Callable, like: torch.Tensor,
+          generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``fn`` (``torch.rand`` or ``torch.randn``) of ``like``'s shape, drawn
+    on the generator's device and moved to ``like``'s, so one seeded CPU
+    generator gives the same draws whatever device the model runs on."""
+    dev = generator.device if generator is not None else like.device
+    return fn(like.shape, generator=generator, device=dev,
+              dtype=like.dtype).to(like.device)
+
+
+def _dropout(x: torch.Tensor, keep_prob,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """TF-style dropout: keep with probability ``keep_prob`` (float or
+    per-instance tensor), scale kept values by 1/keep_prob."""
+    keep_prob = _per_instance(keep_prob, x)
+    keep = _rand(torch.rand, x, generator) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
 def _matmul(x: torch.Tensor, w: torch.Tensor,
             cfg: MMAEConfig) -> torch.Tensor:
     """The plain matmul under ``mxu_dot``'s policy: with bfloat16 compute
@@ -201,12 +273,10 @@ def _matmul(x: torch.Tensor, w: torch.Tensor,
     return x @ w
 
 
-def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str,
-           cfg: MMAEConfig) -> torch.Tensor:
-    if cfg.use_pallas:
-        return dense_kernels.fused_dense(
-            x, w, b, act, bf16=cfg.compute_dtype == "bfloat16")
-    return dense_kernels.activate(_matmul(x, w, cfg) + b, act)
+def _affine(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            cfg: MMAEConfig) -> torch.Tensor:
+    """``x @ w + b``; ``b`` (..., cols) broadcasts over the rows."""
+    return _matmul(x, w, cfg) + b.unsqueeze(-2)
 
 
 def _decode_weights(params: MMAEParams) -> Tuple[torch.Tensor, ...]:
@@ -214,53 +284,77 @@ def _decode_weights(params: MMAEParams) -> Tuple[torch.Tensor, ...]:
     tied (:283-284, :304)."""
     if params.dec_w:
         return params.dec_w
-    return tuple(w.T for w in reversed(params.enc_w))
+    return tuple(w.transpose(-2, -1) for w in reversed(params.enc_w))
 
 
-def encode(params: MMAEParams, cfg: MMAEConfig, x: torch.Tensor
+def _layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, hidden: bool,
+           cfg: MMAEConfig, use_pallas: bool, act_id) -> torch.Tensor:
+    if use_pallas:
+        return dense_kernels.fused_dense(
+            x, w, b, cfg.activation if hidden else "linear",
+            bf16=cfg.compute_dtype == "bfloat16")
+    z = _affine(x, w, b, cfg)
+    return _activate(z, cfg.activation, act_id) if hidden else z
+
+
+def encode(params: MMAEParams, cfg: MMAEConfig, x: torch.Tensor, *,
+           generator: Optional[torch.Generator] = None, keep_prob=1.0,
+           train: bool = False, act_id=None
            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Encoder forward (:454-475). Returns (mu, log_var|None)."""
+    """Encoder forward (:454-475). Returns (mu, log_var|None).  With
+    ``train`` the hidden layers take dropout at ``keep_prob``, drawn from
+    ``generator``."""
     n = len(params.enc_w)
+    use_pallas = cfg.use_pallas and act_id is None
     hidden = x
     log_var = None
     for i in range(n):
         if cfg.variational and i == n - 1:
-            log_var = _matmul(hidden, params.var_w, cfg) + params.var_b
-        act = cfg.activation if i < n - 1 else "linear"
-        hidden = _dense(hidden, params.enc_w[i], params.enc_b[i], act, cfg)
+            log_var = _affine(hidden, params.var_w, params.var_b, cfg)
+        hidden = _layer(hidden, params.enc_w[i], params.enc_b[i], i < n - 1,
+                        cfg, use_pallas, act_id)
+        if i < n - 1 and train:
+            hidden = _dropout(hidden, keep_prob, generator)
     return hidden, log_var
 
 
-def decode(params: MMAEParams, cfg: MMAEConfig,
-           embedding: torch.Tensor) -> torch.Tensor:
+def decode(params: MMAEParams, cfg: MMAEConfig, embedding: torch.Tensor, *,
+           generator: Optional[torch.Generator] = None, keep_prob=1.0,
+           train: bool = False, act_id=None) -> torch.Tensor:
     """Decoder forward (:499-518). Raw output (logits for sigmoid-CE)."""
     ws = _decode_weights(params)
+    use_pallas = cfg.use_pallas and act_id is None
     x = embedding
     for i, w in enumerate(ws):
-        act = cfg.activation if i < len(ws) - 1 else "linear"
-        x = _dense(x, w, params.dec_b[i], act, cfg)
+        x = _layer(x, w, params.dec_b[i], i < len(ws) - 1, cfg, use_pallas,
+                   act_id)
+        if i < len(ws) - 1 and train:
+            x = _dropout(x, keep_prob, generator)
     return x
 
 
 def forward(params: MMAEParams, cfg: MMAEConfig, x: torch.Tensor, *,
             generator: Optional[torch.Generator] = None,
-            sample: bool = True) -> MMAEOutputs:
-    """Full autoencoder forward in eval mode (:367-390).
+            sample: bool = True, keep_prob=1.0, train: bool = False,
+            act_id=None) -> MMAEOutputs:
+    """Full autoencoder forward (:367-390).
 
     For the VAE the reference *always* samples the embedding — including at
     evaluation time (:372-375) — so ``sample`` defaults to True and eps is
     drawn from ``generator`` (a fresh one seeded 0 when None); pass False
-    for the deterministic embedding mu.
+    for the deterministic embedding mu.  Dropout (``train``) draws from the
+    same generator.
     """
-    mu, log_var = encode(params, cfg, x)
+    if generator is None:
+        generator = torch.Generator(device=x.device).manual_seed(0)
+    mu, log_var = encode(params, cfg, x, generator=generator,
+                         keep_prob=keep_prob, train=train, act_id=act_id)
     embedding = mu
     if cfg.variational and sample:
-        if generator is None:
-            generator = torch.Generator(device=mu.device).manual_seed(0)
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device,
-                          dtype=mu.dtype)
+        eps = _rand(torch.randn, mu, generator)
         embedding = mu + eps * torch.exp(log_var)
-    decoded = decode(params, cfg, embedding)
+    decoded = decode(params, cfg, embedding, generator=generator,
+                     keep_prob=keep_prob, train=train, act_id=act_id)
     recon = torch.sigmoid(decoded) if cfg.loss == "sigmoid_cross_entropy" \
         else decoded
     return MMAEOutputs(mu=mu, log_var=log_var, embedding=embedding,
@@ -270,23 +364,29 @@ def forward(params: MMAEParams, cfg: MMAEConfig, x: torch.Tensor, *,
 def total_loss(params: MMAEParams, cfg: MMAEConfig, noisy_x: torch.Tensor,
                true_x: torch.Tensor, *,
                generator: Optional[torch.Generator] = None,
-               sample: bool = True):
-    """Objective in eval mode (:380-408): reconstruction + L2 reg (+ KL).
-    Returns ``(loss, aux)``; aux carries the unregularized reconstruction
-    loss and the outputs."""
-    out = forward(params, cfg, noisy_x, generator=generator, sample=sample)
+               sample: bool = True, keep_prob=1.0, train: bool = False,
+               weight_penalty=None, act_id=None):
+    """Training objective (:380-408): reconstruction + L2 reg (+ KL).
+
+    ``weight_penalty`` (a float or per-instance (N,) tensor) overrides
+    ``cfg.weight_penalty``.  Returns ``(loss, aux)``; aux carries the
+    unregularized reconstruction loss and the outputs.  On a stack of
+    instances the loss has one entry per instance."""
+    penalty = cfg.weight_penalty if weight_penalty is None else weight_penalty
+    out = forward(params, cfg, noisy_x, generator=generator, sample=sample,
+                  keep_prob=keep_prob, train=train, act_id=act_id)
     recon_loss = losses_lib.reconstruction_loss(cfg.loss, out.decoded, true_x)
 
     reg_weights = list(params.enc_w) + list(_decode_weights(params))
     if cfg.variational:
         reg_weights.append(params.var_w)
-    reg = losses_lib.weight_regularization(cfg.weight_penalty, reg_weights)
+    reg = losses_lib.weight_regularization(penalty, reg_weights)
 
     if cfg.variational:
         z_for_kl = out.embedding if cfg.faithful_kl_on_z else out.mu
         kl = losses_lib.kl_divergence_rows(z_for_kl, out.log_var)
         # reference: mean(scalar_recon + per-row kl) + reg (:406)
-        loss = torch.mean(recon_loss + kl) + reg
+        loss = torch.mean(recon_loss.unsqueeze(-1) + kl, dim=-1) + reg
     else:
         kl = None
         loss = recon_loss + reg

@@ -1,0 +1,116 @@
+"""Build and load a CUDA C++ source as a shared library with a plain C
+interface (nvcc -> ``ctypes``), at first use.
+
+Each kernel module of the port (``ops/dense_kernels.py``,
+``ops/train_kernels.py``) subclasses :class:`NvccLibrary` and binds its
+symbols in :meth:`NvccLibrary._bind`.  The library is compiled for
+``sm_90a`` into ``_build/`` beside the package and rebuilt when its source
+or one of its headers is newer.  The build needs no PyTorch headers, so it
+takes seconds.  A failed build raises with the compiler's output; nothing
+falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from typing import Dict, Optional, Sequence
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return os.path.join(home, "bin", "nvcc")
+
+
+class NvccLibrary:
+    """A compiled kernel library: built at first use, loaded once, and
+    counting its launches.
+
+    ``launches`` goes up by one for each kernel launch and nowhere else,
+    so a caller can zero it, drive a path, and read how often the path
+    went through the kernels.
+    """
+
+    def __init__(self, source: str, library: str,
+                 headers: Sequence[str] = ()):
+        self.source = source
+        self.library = library
+        self.headers = tuple(headers)
+        self.launches = 0
+        self.build_seconds: Optional[float] = None
+        self.build_log = ""
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+
+    def stale(self) -> bool:
+        if not os.path.exists(self.library):
+            return True
+        built = os.path.getmtime(self.library)
+        return any(os.path.getmtime(p) > built
+                   for p in (self.source,) + self.headers)
+
+    def build(self) -> None:
+        """Compile the source with nvcc into ``library``; raises with the
+        compiler's output if it fails.  ``build_log`` keeps what ptxas
+        reported (registers, shared memory, spills)."""
+        os.makedirs(os.path.dirname(self.library), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so",
+                                   dir=os.path.dirname(self.library))
+        os.close(fd)
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, self.source]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                    f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, self.library)  # atomic: no half-written .so
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        self.build_seconds = time.perf_counter() - t0
+        self.build_log = proc.stdout + proc.stderr
+
+    def resources(self) -> Dict[str, str]:
+        """Kernel (mangled) name -> ptxas' registers / shared memory /
+        spill line, from the last build's log."""
+        out, name = {}, None
+        for line in self.build_log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+                continue
+            m = re.search(r"(\d+ bytes spill stores.*|Used \d+ registers.*)",
+                          line)
+            if m and name:
+                out[name] = (out.get(name, "") + " " + m.group(0)).strip()
+        return out
+
+    def load(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                if self.stale():
+                    self.build()
+                lib = ctypes.CDLL(self.library)
+                self._bind(lib)
+                self._lib = lib
+            return self._lib
+
+    def _bind(self, lib: ctypes.CDLL) -> None:
+        raise NotImplementedError

@@ -11,36 +11,30 @@ it, binds it and dispatches to it:
   version of the same math, which the tests hold against the JAX package.
 
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
-``_build/`` beside the package, and rebuilt when its source is newer.  It
-has a plain C interface and is loaded with ``ctypes``, so the build needs
-no PyTorch headers.
+``_build/`` beside the package (``ops/cuda_library.py``).
 
-Forward only: the custom VJP of the Pallas version (``_bwd``) comes with
-the training path, as a ``torch.autograd.Function``.  The kernel path
-therefore refuses inputs that require a gradient.
+Forward only: the custom VJP of the Pallas version (``_bwd``, plain XLA
+there) comes with the single-run trainer, as a ``torch.autograd.Function``.
+The kernel path therefore refuses inputs that require a gradient.  The
+grid trainer never reaches it: an ``act_id`` turns ``use_pallas`` off.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
 from typing import Optional, Sequence
 
 import torch
 
 from multimodalautoencoder_tpu_torch.config import ACTIVATIONS
+from multimodalautoencoder_tpu_torch.ops.cuda_library import (BUILD_DIR,
+                                                              CSRC_DIR,
+                                                              NVCC_FLAGS,
+                                                              NvccLibrary)
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "fused_dense.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+SOURCE = os.path.join(CSRC_DIR, "fused_dense.cu")
 LIBRARY = os.path.join(BUILD_DIR, "libfused_dense.so")
-NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC")
 
 # Activation id passed to the kernel = position in config.ACTIVATIONS.
 ACTIVATION_IDS = {name: i for i, name in enumerate(ACTIVATIONS)}
@@ -77,72 +71,21 @@ def fused_dense_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return activate(x @ w + b, activation)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    return os.path.join(home, "bin", "nvcc")
-
-
-class CudaLibrary:
-    """The compiled kernel library: built at first use, loaded once, and
-    counting its launches.
-
-    ``launches`` goes up by one for each kernel launch and nowhere else,
-    so a caller can zero it, drive a path, and read how often the path
-    went through the kernel.
-    """
+class CudaLibrary(NvccLibrary):
+    """``csrc/fused_dense.cu`` built and bound (see
+    :class:`cuda_library.NvccLibrary`)."""
 
     def __init__(self, source: str = SOURCE, library: str = LIBRARY):
-        self.source = source
-        self.library = library
-        self.launches = 0
-        self.build_seconds: Optional[float] = None
-        self._lib: Optional[ctypes.CDLL] = None
-        self._lock = threading.Lock()
+        super().__init__(source, library)
 
-    def stale(self) -> bool:
-        return (not os.path.exists(self.library)
-                or os.path.getmtime(self.source)
-                > os.path.getmtime(self.library))
-
-    def build(self) -> None:
-        """Compile the source with nvcc into ``library``; raises with the
-        compiler's output if it fails."""
-        os.makedirs(os.path.dirname(self.library), exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so",
-                                   dir=os.path.dirname(self.library))
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source]
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, self.library)  # atomic: no half-written .so
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-        self.build_seconds = time.perf_counter() - t0
-
-    def load(self) -> ctypes.CDLL:
-        with self._lock:
-            if self._lib is None:
-                if self.stale():
-                    self.build()
-                lib = ctypes.CDLL(self.library)
-                lib.fused_dense_launch.restype = ctypes.c_int
-                lib.fused_dense_launch.argtypes = (
-                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                    + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2
-                    + [ctypes.c_void_p])
-                lib.fused_dense_error_string.restype = ctypes.c_char_p
-                lib.fused_dense_error_string.argtypes = [ctypes.c_int]
-                self._lib = lib
-            return self._lib
+    def _bind(self, lib: ctypes.CDLL) -> None:
+        lib.fused_dense_launch.restype = ctypes.c_int
+        lib.fused_dense_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+            + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2
+            + [ctypes.c_void_p])
+        lib.fused_dense_error_string.restype = ctypes.c_char_p
+        lib.fused_dense_error_string.argtypes = [ctypes.c_int]
 
     def fused_dense(self, x: torch.Tensor, w: torch.Tensor,
                     b: torch.Tensor, out: torch.Tensor, act_id: int,

@@ -1,0 +1,97 @@
+"""Philox4x32-10, the counter-based generator of the training kernels.
+
+The CUDA kernels (``csrc/philox.cuh``) and their plain PyTorch twin
+(``ops/train_kernels.train_grid_kernel_reference``) draw every random
+number from this one function, so sampling, corruption and dropout are
+bit-identical between them.  Keys are (instance seed, purpose); counters
+are (step, row, column, draw).  Random decisions are made from integer
+bits only:
+
+- a row index in ``[0, n)`` is ``(bits * n) >> 32``;
+- a uniform in ``[0, 1)`` is ``(bits >> 8) * 2**-24``, exact in float32,
+  compared with a float32 threshold.
+
+It replaces the TPU's in-kernel generator (``pltpu.prng_random_bits``),
+whose bits no other machine reproduces.  Values are held as uint32 in
+int64 tensors: 32 x 32-bit products would overflow int64, so
+:func:`_mulhilo` multiplies in 16-bit halves.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+ROUNDS = 10
+
+# Purposes (the second key word) — one stream per kind of draw.
+ROW, ELEM, TYPE, DROP1, DROP3, EPS, PROBE = range(7)
+
+
+def _mulhilo(m: int, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit halves of the 64-bit product ``m * c``."""
+    a = m * (c & 0xFFFF)                    # < 2**48
+    b = m * (c >> 16)                       # < 2**48
+    t = a + ((b & 0xFFFF) << 16)            # < 2**49
+    return (b >> 16) + (t >> 32), t & MASK32
+
+
+def philox4x32(c0, c1, c2, c3, k0, k1) -> Tuple[torch.Tensor, ...]:
+    """Philox4x32-10 of counter (c0, c1, c2, c3) under key (k0, k1).
+
+    Arguments are int64 tensors (or ints) holding uint32 values and
+    broadcast against each other; returns the four output words."""
+    ref = next(v for v in (c0, c1, c2, c3, k0, k1)
+               if isinstance(v, torch.Tensor))
+
+    def as_t(v):
+        return torch.as_tensor(v, dtype=torch.int64, device=ref.device)
+
+    c0, c1, c2, c3, k0, k1 = (as_t(v) & MASK32
+                              for v in (c0, c1, c2, c3, k0, k1))
+    for r in range(ROUNDS):
+        if r:
+            k0 = (k0 + _W0) & MASK32
+            k1 = (k1 + _W1) & MASK32
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def bits(seed, purpose: int, step, row, col, draw=0) -> torch.Tensor:
+    """The first output word of the stream (seed, purpose) at counter
+    (step, row, col, draw), broadcast over the arguments."""
+    return philox4x32(step, row, col, draw, seed, purpose)[0]
+
+
+def uniform(b: torch.Tensor) -> torch.Tensor:
+    """float32 uniform in [0, 1) from the top 24 bits of ``b``."""
+    return (b >> 8).to(torch.float32) * (2.0 ** -24)
+
+
+def index_below(b: torch.Tensor, n) -> torch.Tensor:
+    """Row index in ``[0, n)``: ``(b * n) >> 32`` (n < 2**31)."""
+    return (b * torch.as_tensor(n, dtype=torch.int64, device=b.device)) >> 32
+
+
+def normal(w0: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """Standard normal by Box-Muller from two words, as the kernels
+    compute it: ``sqrt(-2 log(u1 + 1e-12)) * cos(2 pi u2)`` in float32."""
+    u1, u2 = uniform(w0), uniform(w1)
+    r = torch.sqrt(-2.0 * torch.log(u1 + 1e-12))
+    return r * torch.cos((2.0 * 3.14159265358979323846) * u2)
+
+
+def probe_uniforms(seed: int = 7, device="cpu") -> torch.Tensor:
+    """(8, 128) uniforms of the in-kernel generator check: row ``2i + d``
+    holds draw d of counter i, columns 0..127 (the TPU probe,
+    tests_tpu/test_hardware.py:28-40, draws twice per counter 0..3)."""
+    i = torch.arange(4, dtype=torch.int64, device=device).repeat_interleave(2)
+    d = torch.arange(2, dtype=torch.int64, device=device).repeat(4)
+    j = torch.arange(128, dtype=torch.int64, device=device)
+    return uniform(bits(seed, PROBE, i[:, None], 0, j[None, :], d[:, None]))

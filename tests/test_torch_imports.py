@@ -58,6 +58,20 @@ def test_serve_path_import_pulls_in_no_jax_pandas_or_sklearn():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_training_path_import_pulls_in_no_jax_pandas_or_sklearn():
+    code = (
+        "import sys\n"
+        "import multimodalautoencoder_tpu_torch.parallel.grid_trainer\n"
+        "import multimodalautoencoder_tpu_torch.ops.train_kernels\n"
+        "import multimodalautoencoder_tpu_torch.sweep.grid\n"
+        f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
     """Without a GPU the smoke exits non-zero and prints no result line,
     from the checkout and from a directory holding only the script."""
