@@ -7,7 +7,7 @@ Run from the root of a checkout:
 
 It builds the port's CUDA kernels from ``multimodalautoencoder_tpu_torch/
 csrc`` with nvcc (one process per source, started together) and drives
-both ported paths at the reference scale (the 2000-row study of 5 x 200
+every ported path at the reference scale (the 2000-row study of 5 x 200
 features):
 
 - serve: each ``fused_dense`` shape against its plain version, then
@@ -18,7 +18,14 @@ features):
   1000-wide ACII buckets (60 instances each), then those buckets through
   ``train_grid_sharded(backend="pallas")`` for 15,000 steps with the
   sweep's recipe, the best instance saved and served by ``cli fill``, and
-  the step timed by launch type (phases [7]-[10]).
+  the step timed by launch type (phases [7]-[10]);
+- the two-phase classification sweep: the phase-2 kernels against their
+  twin at a small width and on the validation bucket's 80 instances, the
+  validation bucket (tied 1000 -> 100, head 50 -> 20, 16 settings x 5
+  folds) through ``MMAEClassificationSweep.run()`` at 15,000 + 15,000
+  steps with its winner exported and served by ``cli embed``, the full
+  576-setting default grid through ``cli sweep-classification`` at 100 +
+  100 steps, and one phase-2 step timed (phases [11]-[14]).
 
 Any failed phase ends the run with a non-zero exit; so does a machine
 without CUDA.  The last lines of standard output are the card's name and
@@ -539,11 +546,11 @@ def sweep_buckets(dl):
 
 
 @contextlib.contextmanager
-def timed_kernel_loops(ptk):
-    """CUDA events around every ``train_grid_kernel`` call made inside the
+def timed_loops(module, name: str):
+    """CUDA events around every call of ``module.<name>`` made inside the
     block (each is one ctypes call whose C loop enqueues a whole run);
     yields the list the (start, end) pairs go to."""
-    inner = ptk.train_grid_kernel
+    inner = getattr(module, name)
     pairs = []
 
     def timed(*args, **kwargs):
@@ -554,11 +561,11 @@ def timed_kernel_loops(ptk):
         end.record()
         pairs.append((start, end))
 
-    ptk.train_grid_kernel = timed
+    setattr(module, name, timed)
     try:
         yield pairs
     finally:
-        ptk.train_grid_kernel = inner
+        setattr(module, name, inner)
 
 
 def phase_train(workdir: str, ptk, dk, dl, folded, buckets, spec,
@@ -597,7 +604,7 @@ def phase_train(workdir: str, ptk, dk, dl, folded, buckets, spec,
     for name, cfg, tcfg, hyper, members, loss0, relu in plans:
         t = time.perf_counter()
         before = ptk.KERNELS.launches
-        with timed_kernel_loops(ptk) as loops:
+        with timed_loops(ptk, "train_grid_kernel") as loops:
             params, losses = gt.train_grid_sharded(
                 DEVICE, SEED, cfg, tcfg, spec, hyper, folded,
                 backend="pallas")
@@ -707,7 +714,7 @@ def phase_step_timing(ptk, tied, folded, spec, card: str) -> dict:
         p0 = ptk.init_grid_params(g, cfg, C, K) if start is None else start
         run = ptk.prepare_run(g, cfg, tcfg, spec, hyper, folded, p0)
         first = 20 if start is not None else 300
-        with timed_kernel_loops(ptk) as loops:
+        with timed_loops(ptk, "train_grid_kernel") as loops:
             ptk.train_grid_kernel(run, 0, first)
         torch.cuda.synchronize()
         if start is None:
@@ -745,6 +752,378 @@ def phase_step_timing(ptk, tied, folded, spec, card: str) -> dict:
             "bound_ms": step["bound_ms"], "bound_by": step["bound_by"]}
 
 
+# ------------------------------------------------ the classification sweep
+
+# bench_classification.py:55-60: the validation bucket
+VALIDATION_BUCKET = dict(mmae_layer_sizes=[[1000, 100]],
+                         classification_layer_sizes=[[50, 20]],
+                         tie_weights=[True], mmae_test_variational=[False])
+CLS_STEPS = 15000    # each phase of the sweep (mmae_ and classification_)
+GRID_STEPS = 100     # each phase of [13]'s full default grid
+CLS_LR = 1e-4        # the sweep's phase-2 learning rate
+# phase-2 kernels vs twin, one step from the same state, either operand
+# type: both sides round bf16 operands alike, so only the f32 sums' order
+# differs (a parameter's rounding unit is about 1e-8)
+TOL_CLS = 1e-6
+# Adam in its linear regime for the checks: at eps 0.1 an update is about
+# lr g / eps, in proportion to its gradient, where at the sweep's eps 1e-8
+# the first updates are lr sign(g) whatever the gradient's size
+LINEAR_LR, LINEAR_EPS = 1e-2, 0.1
+
+
+def validation_settings(dl):
+    """The validation bucket's cfg and 16 settings, as
+    MMAEClassificationSweep builds them from its default grid."""
+    from multimodalautoencoder_tpu_torch.config import MMAEConfig
+    from multimodalautoencoder_tpu_torch.sweep.wrappers import \
+        MMAEClassificationSweep as Sweep
+
+    b = VALIDATION_BUCKET
+    settings = [s for s in Sweep.default_grid()[0]
+                if [s["mmae_architecture"]] == b["mmae_layer_sizes"]
+                and [s["classification_layers"]]
+                == b["classification_layer_sizes"]
+                and [s["tie_weights"]] == b["tie_weights"]
+                and [s["variational"]] == b["mmae_test_variational"]]
+    check(len(settings) == 16, f"validation bucket: {len(settings)}")
+    cfg = MMAEConfig(num_feats=dl.num_feats, loss="sigmoid_cross_entropy",
+                     normalization="between_0_and_1", num_labels=3,
+                     layer_sizes=LAYERS, classification_layer_sizes=(50, 20),
+                     tie_weights=True, weight_initialization="normal"
+                     ).validate()
+    return cfg, settings
+
+
+def cls_hypers(cfg, settings, tcfg):
+    from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
+    from multimodalautoencoder_tpu_torch.sweep.wrappers import \
+        MMAEClassificationSweep as Sweep
+
+    return (gt.HyperStack.from_settings(
+        [Sweep._mmae_subsetting(s) for s in settings], cfg, tcfg),
+        gt.ClassifierHyperStack.from_settings(settings, cfg))
+
+
+def phase_cls_kernel_vs_twin(pck, ptk, sup_folded, spec_full, cfg_full,
+                             settings_full) -> float:
+    """The phase-2 kernels against their twin on the card over 10 steps,
+    each step started from the twin's state (relu instances part from any
+    second run within a few steps), corruption and dropout on, every
+    parameter held to TOL_CLS after each step.  With Adam in its linear
+    regime (LINEAR_LR, LINEAR_EPS), where an update is proportional to its
+    gradient and a wrong gradient shows: at F = 30, (16, 6), every head
+    depth x loss x DAE/VAE x moment type x operand type with 2 settings x
+    2 folds, and the validation bucket's own 80 instances at full width
+    (bf16 and f32 moments).  Then those 80 at the sweep's lr 1e-4 and eps
+    1e-8, where the first updates are lr sign(g): there an instance may
+    have at most 1e-5 of its parameters (at least 8) over TOL_CLS in a
+    step, Adam sign flips where a gradient sits at rounding level.  Every
+    parameter must stay finite."""
+    from multimodalautoencoder_tpu_torch.config import MMAEConfig, \
+        TrainConfig
+    from multimodalautoencoder_tpu_torch.data.modalities import \
+        ModalityTable
+    from multimodalautoencoder_tpu_torch.models.corruption import NoiseSpec
+    from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
+
+    rng = np.random.default_rng(SEED)
+    cases = []
+    for loss in ("sigmoid_cross_entropy", "softmax"):
+        ys = [rng.integers(0, 3, n).astype(np.float32) if loss == "softmax"
+              else rng.integers(0, 2, (n, 3)).astype(np.float32)
+              for n in (40, 33)]
+        small = gt.FoldedData.from_ragged(
+            [rng.random((40, 30)), rng.random((33, 30))],
+            [rng.random((9, 30)), rng.random((7, 30))], device=DEVICE,
+            train_y_list=ys, val_y_list=[y[:9] for y in ys])
+        for head in ((), (8,), (8, 4)):
+            for family in ("dae", "vae"):
+                for ops in ("float32", "bfloat16"):
+                    cfg = MMAEConfig(
+                        num_feats=30, layer_sizes=(16, 6),
+                        tie_weights=family == "dae",
+                        variational=family == "vae",
+                        classification_layer_sizes=head, num_labels=3,
+                        classification_loss=loss, compute_dtype=ops,
+                        weight_initialization="normal").validate()
+                    spec = NoiseSpec.build(cfg, ModalityTable.uniform(
+                        5, 6, NAMES))
+                    settings = [
+                        {"mmae_dropout_prob": 0.5, "dropout_prob": 0.5,
+                         "weight_penalty": 0.01,
+                         "mmae_activation_function": "relu",
+                         "activation_func": "relu"},
+                        {"mmae_dropout_prob": 1.0, "dropout_prob": 1.0,
+                         "weight_penalty": 0.0,
+                         "mmae_activation_function": "softsign",
+                         "activation_func": "softsign"}]
+                    for moments in ("float32", "bfloat16"):
+                        label = (f"F=30 {loss[:7]} head {head} {family} "
+                                 f"ops {ops[:4]}")
+                        cases.append((label, cfg, settings, small, spec,
+                                      moments, LINEAR_LR, LINEAR_EPS))
+    for lr, eps in ((LINEAR_LR, LINEAR_EPS), (CLS_LR, 1e-8)):
+        for moments in ("bfloat16", "float32"):
+            cases.append((f"validation bucket N=80 lr {lr:g} eps {eps:g}",
+                          cfg_full, settings_full, sup_folded, spec_full,
+                          moments, lr, eps))
+    worst = 0.0
+    steps = 10
+    for label, cfg, settings, folded, spec, moments, lr, eps in cases:
+        tcfg = TrainConfig(learning_rate=LR, batch_size=BATCH,
+                           clip_gradients=False)
+        cls_tcfg = TrainConfig(learning_rate=lr, batch_size=100,
+                               clip_gradients=False,
+                               optimizer_state_dtype=moments)
+        hyper, chyper = cls_hypers(cfg, settings, tcfg)
+        C, K = hyper.num_configs, folded.num_folds
+        g = torch.Generator().manual_seed(SEED)
+        twin = pck.prepare_cls_run(
+            g, cfg, cls_tcfg, spec, hyper, chyper, folded,
+            ptk.init_grid_params(g, pck.phase1_cfg(cfg), C, K),
+            pck.init_heads(g, cfg, C, K), adam_eps=eps)
+        per_inst = sum(t[0].numel() for t in twin.params if t is not None)
+        # sign flips only where Adam is not linear
+        bound = 0 if eps == LINEAR_EPS else max(8, int(1e-5 * per_inst))
+        err, most, total = 0.0, 0, 0
+        for step in range(steps):
+            run = twin.clone()
+            pck.train_cls_kernel(run, step, 1)
+            pck.train_cls_kernel_reference(twin, step, 1)
+            torch.cuda.synchronize()
+            over = sum(((a - b).abs() > TOL_CLS).reshape(a.shape[0], -1)
+                       .sum(1) for a, b in zip(run.params, twin.params)
+                       if a is not None)
+            err = max([err] + [float((a - b).abs().max()) for a, b in
+                               zip(run.params, twin.params)
+                               if a is not None])
+            most, total = max(most, int(over.max())), total + int(
+                over.sum())
+        ok = most <= bound and all(bool(torch.isfinite(t).all())
+                                   for t in run.params if t is not None)
+        worst = max(worst, err)
+        if label.startswith("validation") or not ok:
+            print(f"  {label:40s} {moments:8s} max |dp| {err:.3e}; {total}"
+                  f" params over {TOL_CLS} in {steps} steps, at most "
+                  f"{most} of an instance's {per_inst} in one step (bound "
+                  f"{bound}) {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"phase-2 kernels disagree with the twin: {label} "
+                  f"{moments}")
+        del run, twin
+    print(f"  {len(cases) - 4} cases at F = 30 held (worst max |dp| over "
+          f"all cases {worst:.3e})")
+    return worst
+
+
+def majority_rate(sup_folded) -> float:
+    """The majority-class rate of the val folds, averaged over folds and
+    labels (generic_wrapper.py:549-561)."""
+    from multimodalautoencoder_tpu_torch.ops import metrics
+
+    y = sup_folded.val_y.permute(0, 2, 1)                    # (K, L, R)
+    R = y.shape[-1]
+    valid = (torch.arange(R, device=y.device).view(1, 1, -1)
+             < sup_folded.val_n.view(-1, 1, 1))
+    return float(torch.nanmean(metrics.majority_baseline(y, valid)))
+
+
+def phase_cls_sweep(workdir: str, pck, ptk, study_path: str, unsup, sup,
+                    card: str):
+    """The validation bucket end to end through
+    MMAEClassificationSweep(backend="pallas", save_best_params=True).run()
+    at CLS_STEPS + CLS_STEPS steps, then the exported winner served by
+    ``cli embed``.  Returns (phase-2 launches, the ledger rows)."""
+    from multimodalautoencoder_tpu_torch import cli
+    from multimodalautoencoder_tpu_torch.data.loader import DataLoader
+    from multimodalautoencoder_tpu_torch.ops import cls_train_kernels
+    from multimodalautoencoder_tpu_torch.sweep.wrappers import \
+        MMAEClassificationSweep
+
+    results = os.path.join(workdir, "cls_results")
+    # the main path: every count at 0 just before, read just after
+    ptk.KERNELS.launches = 0
+    pck.KERNELS.launches = 0
+    t0 = time.perf_counter()
+    with timed_loops(ptk, "train_grid_kernel") as p1, \
+            timed_loops(cls_train_kernels, "train_cls_kernel") as p2:
+        sweep = MMAEClassificationSweep(
+            unsup, sup, mmae_num_steps=CLS_STEPS,
+            classification_num_steps=CLS_STEPS, results_path=results,
+            backend="pallas", save_best_params=True, seed=SEED,
+            verbose=False, device=DEVICE, **VALIDATION_BUCKET)
+        best = sweep.run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    p1_launches, p2_launches = ptk.KERNELS.launches, pck.KERNELS.launches
+    rows = sweep.ledger.rows
+    C, K = len(rows), sweep.num_cross_folds
+    U = len({(r["mmae_dropout_prob"], r["mmae_weight_penalty"])
+             for r in rows})
+    check(len(p1) == 1 and len(p2) == 1,
+          f"{len(p1)} phase-1 and {len(p2)} phase-2 kernel loops")
+    s1 = p1[0][0].elapsed_time(p1[0][1]) / 1e3
+    s2 = p2[0][0].elapsed_time(p2[0][1]) / 1e3
+    print(f"  {C} settings x {K} folds: {wall:.2f} s wall "
+          f"(train {sweep.phase_seconds['train']:.2f} s, metrics "
+          f"{sweep.phase_seconds['metrics']:.2f} s)  [{card}]")
+    for name, secs, n_inst, launches, per_step in (
+            ("phase 1", s1, U * K, p1_launches,
+             ptk.launches_per_step(True, False)),
+            ("phase 2", s2, C * K, p2_launches,
+             pck.launches_per_step(3, False))):
+        print(f"  {name}: N={n_inst}, kernel loop {secs:.3f} s by CUDA "
+              f"events: {1e3 * secs / CLS_STEPS:.4f} ms/step, "
+              f"{n_inst * CLS_STEPS / secs:,.0f} instance-steps/s; "
+              f"{launches} launches ({per_step} a step)  [{card}]")
+        check(launches == CLS_STEPS * per_step,
+              f"{name}: {launches} launches, expected "
+              f"{CLS_STEPS * per_step}")
+    check(C == 16, f"the validation bucket wrote {C} rows")
+    check(all(r["backend_used"] == "pallas" for r in rows),
+          "a row did not run on the kernels")
+    for key in ("val_acc", "val_auc"):
+        check(all(np.isfinite(float(r[key])) for r in rows),
+              f"a row's {key} is not finite")
+    print(f"  {'mmae keep/L2':13s} {'head keep/L2':13s} {'val_acc':>8s} "
+          f"{'val_auc':>8s} {'noisy acc':>9s} {'clean acc':>9s} "
+          f"{'p1 loss':>9s}")
+    for r in rows:
+        print(f"  {r['mmae_dropout_prob']:4} {r['mmae_weight_penalty']:<8} "
+              f"{r['dropout_prob']:4} {r['weight_penalty']:<8} "
+              f"{r['val_acc']:8.4f} {r['val_auc']:8.4f} "
+              f"{r['noisy_val_acc']:9.4f} {r['clean_val_acc']:9.4f} "
+              f"{r['val_mmae_loss']:9.3f}")
+    base = majority_rate(sweep.sup_folded)
+    top = float(best["val_acc"]["val_acc"])
+    print(f"  best val_acc {top:.4f} against the val folds' majority-class "
+          f"rate {base:.4f}")
+    check(top > base, f"best val_acc {top} does not beat the majority "
+                      f"rate {base}")
+    for mod in ("jax", "pandas", "sklearn", "multimodalautoencoder_tpu"):
+        check(mod not in sys.modules, f"the sweep path imported {mod}")
+
+    ck = os.path.join(results, f"best_mmae_cls-{CLS_STEPS}.npz")
+    check(os.path.exists(ck), f"{ck} was not exported")
+    rc = cli.main(["embed", study_path, "--checkpoint", ck,
+                   "--normalize-and-fill", "--device", DEVICE, "--seed",
+                   str(SEED)])
+    torch.cuda.synchronize()
+    check(rc == 0, f"cli embed of the exported winner returned {rc}")
+    serve_dl = DataLoader(study_path, fill_gaps_with=-1.0,
+                          suppress_output=True, seed=SEED)
+    check_served("embed", "best_mmae_cls", study_path, serve_dl)
+    print(f"  exported {os.path.basename(ck)} and served it with cli embed "
+          f"--device {DEVICE}: {ROWS} finite 100-wide embeddings")
+    return p2_launches, rows, s2 / CLS_STEPS * 1e3
+
+
+def phase_full_grid(workdir: str, pck, ptk, study_path: str, card: str):
+    """The reference's full default grid (576 settings in 36 buckets) at
+    GRID_STEPS + GRID_STEPS steps through ``cli sweep-classification
+    --device cuda``: every bucket through both kernels."""
+    from multimodalautoencoder_tpu_torch import cli
+    from multimodalautoencoder_tpu_torch.sweep import engine, grid
+    from multimodalautoencoder_tpu_torch.sweep.wrappers import \
+        MMAEClassificationSweep as Sweep
+
+    settings = Sweep.default_grid()[0]
+    buckets = grid.bucket_settings(settings)
+    families = {Sweep._family_key(b[0]) for _, b in buckets}
+    want_p1 = GRID_STEPS * sum(ptk.launches_per_step(tied, vae)
+                               for _, tied, vae, _ in families)
+    want_p2 = GRID_STEPS * sum(
+        pck.launches_per_step(len(b[0]["classification_layers"]) + 1,
+                              b[0]["variational"]) for _, b in buckets)
+    results = os.path.join(workdir, "grid_results")
+    ptk.KERNELS.launches = 0
+    pck.KERNELS.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["sweep-classification", study_path, study_path,
+                   "--num-steps", str(GRID_STEPS), "--device", DEVICE,
+                   "--normalize-and-fill", "--seed", str(SEED),
+                   "--results-path", results])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"cli sweep-classification returned {rc}")
+    ledger = engine.ResultsLedger(results, "MMAE_NN_classifier-acii",
+                                  cont=True)
+    used = sorted({r["backend_used"] for r in ledger.rows})
+    acc = np.asarray([float(r["val_acc"]) for r in ledger.rows])
+    print(f"  {len(settings)} settings in {len(buckets)} buckets, "
+          f"{len(families)} phase-1 families: {wall:.1f} s wall; "
+          f"{len(ledger)} rows, backend_used {used}; val_acc "
+          f"{np.nanmin(acc):.3f}-{np.nanmax(acc):.3f} "
+          f"({int(np.isnan(acc).sum())} NaN)  [{card}]")
+    print(f"  launches: phase 1 {ptk.KERNELS.launches} (expected "
+          f"{want_p1}), phase 2 {pck.KERNELS.launches} (expected "
+          f"{want_p2})")
+    check(len(settings) == 576 and len(buckets) == 36,
+          f"the default grid gave {len(settings)} in {len(buckets)}")
+    check(len(ledger) == 576, f"{len(ledger)} ledger rows")
+    check(used == ["pallas"], f"backends {used}")
+    check(ptk.KERNELS.launches == want_p1
+          and pck.KERNELS.launches == want_p2, "launch counts")
+
+
+def phase_cls_step_timing(pck, ptk, sup_folded, spec, cfg, settings,
+                          card: str) -> dict:
+    """One phase-2 step of the validation bucket (80 instances, bf16
+    moments): the kernels by CUDA events (windows of 50 steps), each
+    launch type, the bound, the twin on the card, and the step's 14
+    products as torch.bmm calls (the library yardstick; the port never
+    calls it)."""
+    from multimodalautoencoder_tpu_torch.config import TrainConfig
+
+    tcfg = TrainConfig(learning_rate=LR, batch_size=BATCH,
+                       clip_gradients=False)
+    cls_tcfg = TrainConfig(learning_rate=CLS_LR, batch_size=100,
+                           clip_gradients=False,
+                           optimizer_state_dtype="bfloat16")
+    hyper, chyper = cls_hypers(cfg, settings, tcfg)
+    C, K = hyper.num_configs, sup_folded.num_folds
+    N, B = C * K, cls_tcfg.batch_size
+    g = torch.Generator().manual_seed(SEED)
+    run = pck.prepare_cls_run(
+        g, cfg, cls_tcfg, spec, hyper, chyper, sup_folded,
+        ptk.init_grid_params(g, pck.phase1_cfg(cfg), C, K),
+        pck.init_heads(g, cfg, C, K))
+    bound = pck.cls_step_bound(cfg, N, B, True)
+    F, (H1, H2) = cfg.num_feats, cfg.layer_sizes
+    print(f"  tied {F} -> {H1} -> {H2}, head 50 -> 20 -> 3, N={N}, B={B}, "
+          f"bf16 moments; bound {bound['bound_ms']:.4f} ms/step "
+          f"({bound['bound_by']}: {bound['bytes'] / 1e9:.3f} GB, "
+          f"{bound['flop'] / 1e9:.2f} GFLOP)")
+    inner = 50
+    pck.train_cls_kernel(run, 0, 20)
+    ms = cuda_ms(lambda: pck.train_cls_kernel(run, 20, inner), reps=5,
+                 inner=1) / inner
+    prof: dict = {}
+    pck.train_cls_kernel(run, 1000, inner, profile=prof)
+    print(f"  kernels {ms:.4f} ms/step ({N / ms * 1e3:,.0f} instance-steps"
+          f"/s, {bound['flop'] / ms / 1e9:.2f} TFLOP/s)  [{card}]")
+    for t in pck.LAUNCH_TYPES:
+        got = prof.get(t, 0.0) / inner
+        print(f"    {t:18s} {got:.4f} ms/step (events, serialised)")
+    twin = run.clone()
+    plain_ms = cuda_ms(lambda: pck.train_cls_kernel_reference(twin, 0, 1),
+                       reps=3, inner=3)
+    # (m, k, n) of the forward, backward-data and weight-gradient products
+    d = [H2, 50, 20, 3]
+    shapes = ([(B, F, H1), (B, H1, H2)] + [(B, d[j], d[j + 1])
+                                          for j in range(3)]
+              + [(B, d[j + 1], d[j]) for j in range(3)] + [(B, H2, H1)]
+              + [(F, B, H1), (H1, B, H2)]
+              + [(d[j], B, d[j + 1]) for j in range(3)])
+    ops = [(torch.rand((N, m, k), device=DEVICE),
+            torch.rand((N, k, n), device=DEVICE)) for m, k, n in shapes]
+    bmm_ms = cuda_ms(lambda: [torch.bmm(a, b) for a, b in ops], reps=5,
+                     inner=5)
+    print(f"  twin on the card {plain_ms:.4f} ms/step; the step's "
+          f"{len(shapes)} products by torch.bmm {bmm_ms:.4f} ms  [{card}]")
+    return {"ms": ms, "plain_ms": plain_ms, "bmm_ms": bmm_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -752,6 +1131,7 @@ def main() -> int:
         return 2
     from multimodalautoencoder_tpu_torch.data import synthetic
     from multimodalautoencoder_tpu_torch.data.loader import DataLoader
+    from multimodalautoencoder_tpu_torch.ops import cls_train_kernels as pck
     from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
     from multimodalautoencoder_tpu_torch.ops import train_kernels as ptk
 
@@ -763,7 +1143,7 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}")
 
-    build_kernels([dk.KERNELS, ptk.KERNELS])
+    build_kernels([dk.KERNELS, ptk.KERNELS, pck.KERNELS])
     print(f"[2] built {os.path.relpath(dk.KERNELS.library)} from "
           f"{os.path.relpath(dk.KERNELS.source)} with nvcc "
           f"{' '.join(dk.NVCC_FLAGS)} in {dk.KERNELS.build_seconds:.1f} s")
@@ -820,6 +1200,37 @@ def main() -> int:
         print("[10] one training step, timed")
         step = phase_step_timing(ptk, tied, folded, spec, card)
 
+        print(f"[11] built {os.path.relpath(pck.KERNELS.library)} from "
+              f"{os.path.relpath(pck.KERNELS.source)} in "
+              f"{pck.KERNELS.build_seconds:.1f} s (with the others); "
+              "ptxas:")
+        for name, res in sorted(pck.KERNELS.resources().items()):
+            print(f"    {name}: {res}")
+        sup = DataLoader(study.filename, supervised=True,
+                         cross_validation=True, fill_gaps_with=-1.0,
+                         suppress_output=True, seed=SEED)
+        sup_folded = grid_trainer.FoldedData.from_loader(
+            sup, sup.num_folds, device=DEVICE, supervised=True,
+            noisy_flags=True)
+        cfg_v, settings_v = validation_settings(sup)
+        print(f"  phase-2 kernels vs their twin on the card (TF32 off, 10 "
+              f"steps, tolerance {TOL_CLS} with either operand type)")
+        cls_err = phase_cls_kernel_vs_twin(pck, ptk, sup_folded, spec, cfg_v,
+                                           settings_v)
+        print(f"[12] the validation bucket end to end: "
+              f"MMAEClassificationSweep(backend='pallas', "
+              f"save_best_params=True).run(), {CLS_STEPS} + {CLS_STEPS} "
+              "steps")
+        cls_launches, _, _ = phase_cls_sweep(workdir, pck, ptk,
+                                             study.filename, study, sup,
+                                             card)
+        print(f"[13] the full default grid through cli sweep-classification"
+              f" --device {DEVICE}, {GRID_STEPS} + {GRID_STEPS} steps")
+        phase_full_grid(workdir, pck, ptk, study.filename, card)
+        print("[14] one phase-2 step of the validation bucket, timed")
+        cls_step = phase_cls_step_timing(pck, ptk, sup_folded, spec, cfg_v,
+                                         settings_v, card)
+
     print(f"  whole run {time.perf_counter() - t_start:.1f} s")
     print(card)
     src = "multimodalautoencoder_tpu_torch/csrc/"
@@ -835,6 +1246,13 @@ def main() -> int:
          "launches": train_launches, "max_abs_err": train_err,
          "ms": step["ms"], "plain_ms": step["plain_ms"],
          "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+         "library_ms": None},
+        {"name": "cls_train_step", "route": "cuda",
+         "source": src + "cls_train_kernel.cu",
+         "replaces": "multimodalautoencoder_tpu/ops/train_kernel.py:1439",
+         "launches": cls_launches, "max_abs_err": cls_err,
+         "ms": cls_step["ms"], "plain_ms": cls_step["plain_ms"],
+         "bound_ms": cls_step["bound_ms"], "bound_by": cls_step["bound_by"],
          "library_ms": None},
         dict({"name": "philox_probe", "route": "cuda",
               "source": src + "train_kernel.cu",

@@ -1,18 +1,20 @@
-"""Command-line interface of the port: the serve subcommands.
+"""Command-line interface of the port: serving and the classification sweep.
 
-Counterpart of ``multimodalautoencoder_tpu/cli.py`` (its ``fill`` and
-``embed`` subcommands; the sweep, train and tool subcommands come with the
-rest of the port):
+Counterpart of ``multimodalautoencoder_tpu/cli.py`` (its ``fill``,
+``embed`` and ``sweep-classification`` subcommands; the other sweep, train
+and tool subcommands come with the rest of the port):
 
     python -m multimodalautoencoder_tpu_torch.cli fill data.csv \\
         --checkpoint best-15000.npz --normalize-and-fill [--device cuda]
     python -m multimodalautoencoder_tpu_torch.cli embed data.csv \\
         --checkpoint best-15000.npz --normalize-and-fill
+    python -m multimodalautoencoder_tpu_torch.cli sweep-classification \\
+        unsup.csv sup.csv [label] --normalize-and-fill [--device cuda]
 
 ``--device`` (default ``cuda``) is where the model runs; there is no
 fallback to another device.  ``--seed`` seeds the row shuffle of
-``--normalize-and-fill`` and the VAE's eval-time sampling (the JAX CLI
-always uses seed 0 for both).
+``--normalize-and-fill``, the CV folds and every random draw of the run
+(the JAX CLI seeds the same places).
 """
 
 from __future__ import annotations
@@ -25,19 +27,22 @@ import torch
 
 from multimodalautoencoder_tpu_torch.config import MMAEConfig
 from multimodalautoencoder_tpu_torch.data.loader import DataLoader
+from multimodalautoencoder_tpu_torch.sweep import wrappers
 from multimodalautoencoder_tpu_torch.tools import files
 from multimodalautoencoder_tpu_torch.train import checkpoint as ckpt
 
 
-def _restore(args):
+def _fill_gaps(args):
     # gap sentinel only in the 0-1 prep (svm.py:143-150 ->
     # data_funcs.py:386,416-420), as in the JAX CLI
-    fill_gaps = (-1.0 if (args.normalize_and_fill
-                          and args.normalization == "between_0_and_1")
-                 else None)
+    return (-1.0 if (args.normalize_and_fill
+                     and args.normalization == "between_0_and_1") else None)
+
+
+def _restore(args):
     dl = DataLoader(args.filename, normalize_and_fill=args.normalize_and_fill,
                     normalization=args.normalization,
-                    fill_gaps_with=fill_gaps, suppress_output=True,
+                    fill_gaps_with=_fill_gaps(args), suppress_output=True,
                     seed=args.seed)
     cfg = MMAEConfig(num_feats=dl.num_feats)
     params, cfg, _, _ = ckpt.load_checkpoint_auto(args.checkpoint, cfg,
@@ -71,9 +76,81 @@ def cmd_embed(args) -> int:
     return 0
 
 
+def _loader(path, supervised, args, wanted_label=None):
+    """A cross-validation loader as the JAX CLI's ``_loader`` builds it."""
+    return DataLoader(path, supervised=supervised, cross_validation=True,
+                      normalize_and_fill=args.normalize_and_fill,
+                      normalization=args.normalization,
+                      fill_gaps_with=_fill_gaps(args),
+                      wanted_label=wanted_label, seed=args.seed,
+                      suppress_output=True)
+
+
+def cmd_sweep_classification(args) -> int:
+    if args.normalization == "z_score":
+        # the MMAE sweeps train sigmoid-CE against 0-1-normalized inputs
+        raise SystemExit(
+            "--normalization z_score is only valid for 'baseline' "
+            "commands; the MMAE sweeps train sigmoid-CE against "
+            "0-1-normalized inputs")
+    unsup = _loader(args.mmae_filename, False, args)
+    sup = _loader(args.classification_filename, True, args,
+                  wanted_label=args.label)
+    sweep = wrappers.MMAEClassificationSweep(
+        unsup, sup, wanted_label=args.label,
+        results_path=args.results_path, cont=args.cont,
+        check_test=args.check_test, num_cross_folds=args.folds,
+        mmae_num_steps=args.num_steps,
+        classification_num_steps=args.num_steps, seed=args.seed,
+        compute_dtype=args.compute_dtype, backend=args.backend,
+        save_best_params=args.save_best_params, device=args.device)
+    for metric, row in sweep.run().items():
+        print(metric, "->", float(row[metric]))
+    return 0
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--normalize-and-fill", action="store_true",
+                   help="normalize + impute the raw CSV on load")
+    p.add_argument("--normalization",
+                   choices=("between_0_and_1", "z_score"),
+                   default="between_0_and_1")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device the model runs on")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="multimodalautoencoder_tpu_torch")
     sub = ap.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("sweep-classification",
+                       help="two-phase MMAE+classifier grid search")
+    p.add_argument("mmae_filename")
+    p.add_argument("classification_filename")
+    p.add_argument("label", nargs="?", default=None)
+    p.add_argument("--num-steps", type=int, default=15000)
+    p.add_argument("--compute-dtype", default="float32",
+                   choices=("float32", "bfloat16"),
+                   help="matmul-operand dtype for phase-2 training "
+                        "(accumulation and storage stay float32)")
+    p.add_argument("--backend", choices=("auto", "xla", "pallas"),
+                   default="auto",
+                   help="'auto' trains on the CUDA kernels where the shape "
+                        "family allows and the device is a GPU, the plain "
+                        "trainers otherwise; 'xla'/'pallas' force")
+    p.add_argument("--results-path", default="results")
+    p.add_argument("--continue", "--cont", dest="cont", action="store_true",
+                   help="resume from a previous results CSV")
+    p.add_argument("--folds", type=int, default=5)
+    p.add_argument("--check-test", action="store_true",
+                   help="held-out test evaluation (needs the single-run "
+                        "trainer, not ported yet: refused)")
+    p.add_argument("--save-best-params", action="store_true",
+                   help="checkpoint the best setting's fold-0 parameters "
+                        "at the end of the sweep (consumable by "
+                        "fill/embed --checkpoint)")
+    _add_common(p)
+    p.set_defaults(fn=cmd_sweep_classification)
     for name, fn, hlp in (("fill", cmd_fill,
                            "fill missing modalities with reconstructions"),
                           ("embed", cmd_embed,
@@ -81,14 +158,7 @@ def build_parser() -> argparse.ArgumentParser:
         p = sub.add_parser(name, help=hlp)
         p.add_argument("filename")
         p.add_argument("--checkpoint", required=True)
-        p.add_argument("--normalize-and-fill", action="store_true",
-                       help="normalize + impute the raw CSV on load")
-        p.add_argument("--normalization",
-                       choices=("between_0_and_1", "z_score"),
-                       default="between_0_and_1")
-        p.add_argument("--seed", type=int, default=0)
-        p.add_argument("--device", default="cuda",
-                       help="torch device the model runs on")
+        _add_common(p)
         p.set_defaults(fn=fn)
     return ap
 

@@ -14,11 +14,11 @@ Written back with :meth:`Frame.to_csv`, float columns are formatted as
 pandas formats them (shortest round-trip text, NaN as an empty cell), so a
 value read back from either package's output is the same float.
 
-:class:`DataLoader` is the unsupervised subset of the JAX class: the
-wanted features, normalize-and-fill, the ``dataset`` splits or the
-cross-validation folds, the modality table, and the reconstruction
-fill-back (data_funcs.py:310-381).  Label triage, the noisy/clean splits
-and batch sampling come with later slices.
+:class:`DataLoader` is the JAX class without pandas: the wanted features,
+label triage, normalize-and-fill, the ``dataset`` splits or the
+cross-validation folds with their labels and noisy/clean splits, the
+modality table, and the reconstruction fill-back (data_funcs.py:310-381).
+Batch getters and ``device_arrays`` are not ported.
 """
 
 from __future__ import annotations
@@ -270,27 +270,54 @@ def read_csv(path: str) -> Frame:
     return Frame(header[0], cells[:, 0], columns)
 
 
-class DataLoader:
-    """A CSV prepared for the model: the unsupervised subset of the JAX
-    package's DataLoader (data_funcs.py:29-131, ``supervised=False``).
-    ``frame`` is the (normalized, filled, shuffled) table; ``test_X`` its
-    Test rows.  Without ``cross_validation``, ``train_X``/``val_X`` are its
-    Train and Val rows; with it, they are the current fold's
-    (:meth:`set_to_cross_validation_fold`, fold 0 at first)."""
+def label_values(frame: Frame, name: str) -> np.ndarray:
+    """A label column's cells as float64 (labels are not feature columns,
+    so ``read_csv`` keeps their text); missing cells are NaN."""
+    col = frame.columns[name]
+    if col.dtype.kind == "f":
+        return np.asarray(col, dtype=np.float64)
+    return _parse_floats(col, f"label column {name!r}")
 
-    def __init__(self, filename: str, suppress_output: bool = False,
+
+# ``logistics_noisy`` cells that pandas reads as True (a bool or 1 column)
+_TRUE_TEXT = ("True", "true", "TRUE", "1", "1.0")
+
+
+class DataLoader:
+    """A CSV prepared for the model: the JAX package's DataLoader
+    (data_funcs.py:29-131) on a pandas-free :class:`Frame`.  ``frame`` is
+    the (normalized, filled, shuffled) table; ``test_X`` its Test rows.
+    Without ``cross_validation``, ``train_X``/``val_X`` are its Train and
+    Val rows; with it, they are the current fold's
+    (:meth:`set_to_cross_validation_fold`, fold 0 at first).
+
+    ``supervised`` (default False here, True in the JAX package, whose
+    callers all pass it) adds the labels: every ``*label*`` column, or
+    ``wanted_label`` alone; rows missing a wanted label are dropped before
+    normalization, and each ``X`` matrix gets its ``Y`` (one column per
+    label, or a vector for one label; {-1, 1} with ``labels_to_sign``).
+    ``separate_noisy_data`` splits every matrix by ``logistics_noisy``
+    into ``clean_*`` / ``noisy_*`` where the CSV has that column."""
+
+    def __init__(self, filename: str, supervised: bool = False,
+                 suppress_output: bool = False,
                  cross_validation: bool = False,
                  normalize_and_fill: bool = True,
                  normalization: Optional[str] = "between_0_and_1",
                  fill_missing_with: float = 0,
                  fill_gaps_with: Optional[float] = None,
                  subdivide_physiology_features: bool = False,
+                 wanted_label: Optional[str] = None,
+                 labels_to_sign: bool = False,
+                 separate_noisy_data: bool = True,
                  num_folds: int = pp.NUM_CROSS_VAL_FOLDS,
                  seed: int = 0,
                  persist_cv_folds: bool = True):
         self.filename = filename
+        self.supervised = supervised
         self.subdivide_phys = subdivide_physiology_features
         self.cross_validation = cross_validation
+        self.labels_to_sign = labels_to_sign
         self.num_folds = num_folds
         self.frame = read_csv(filename)
         if cross_validation:
@@ -303,6 +330,26 @@ class DataLoader:
                 self.frame.to_csv(filename)
             self.fold = 0
         self.wanted_feats = pp.get_wanted_feats_from_df(self.frame.names)
+
+        # label triage (data_funcs.py:89-99)
+        self.num_labels: Optional[int] = None
+        self.num_classes: Optional[int] = None
+        if not supervised:
+            self.wanted_labels = None
+        elif wanted_label is not None:
+            self.wanted_labels = [wanted_label]
+        else:
+            self.wanted_labels = pp.get_label_cols(self.frame.names)
+            self.num_labels = len(self.wanted_labels)
+            if len(self.wanted_labels) == 1:
+                # pandas' unique() counts NaN as one value
+                v = label_values(self.frame, self.wanted_labels[0])
+                self.num_classes = len(np.unique(v[~np.isnan(v)])) \
+                    + int(np.isnan(v).any())
+        self.frame = pp.remove_rows_with_no_label(self.frame,
+                                                  self.wanted_labels)
+        self.separate_noisy_data = (separate_noisy_data
+                                    and "logistics_noisy" in self.frame.columns)
         if normalize_and_fill:
             # gap imputation always works at phys SUB-BAND granularity
             # (data_funcs.py:734,743), whatever the modality extraction
@@ -311,14 +358,24 @@ class DataLoader:
                 remove_cols=True, fill_missing=fill_missing_with,
                 fill_gaps=fill_gaps_with, seed=seed, subdivide_phys=True)
 
-        X = self.frame.matrix(self.wanted_feats)
+        # matrix extraction (data_funcs.py:133-159, 470-532)
+        self._X = self.frame.matrix(self.wanted_feats)
+        self._Y = self._label_matrix()
         dataset = self.frame.columns["dataset"]
-        self.test_X = X[dataset == "Test"]
+        self.test_X, self.test_Y = self._matrices(dataset == "Test")
+        if self.separate_noisy_data:
+            (self.clean_test_X, self.clean_test_Y, self.noisy_test_X,
+             self.noisy_test_Y) = self._noisy_clean(dataset == "Test")
         if cross_validation:
             self.set_to_cross_validation_fold(0)
         else:
-            self.train_X = X[dataset == "Train"]
-            self.val_X = X[dataset == "Val"]
+            self.train_X, self.train_Y = self._matrices(dataset == "Train")
+            self.val_X, self.val_Y = self._matrices(dataset == "Val")
+            if self.separate_noisy_data:
+                (self.clean_train_X, self.clean_train_Y, self.noisy_train_X,
+                 self.noisy_train_Y) = self._noisy_clean(dataset == "Train")
+                (self.clean_val_X, self.clean_val_Y, self.noisy_val_X,
+                 self.noisy_val_Y) = self._noisy_clean(dataset == "Val")
         self.num_feats = int(self.train_X.shape[1])
 
         self.modality_table = ModalityTable.from_feature_names(
@@ -337,19 +394,69 @@ class DataLoader:
         return np.asarray(self.frame.columns[pp.FOLD_COLUMN]).astype(
             np.float64).astype(np.int64)
 
+    def _label_matrix(self) -> Optional[np.ndarray]:
+        """Every row's labels: (rows,) for one wanted label, (rows, L)
+        otherwise; None when unsupervised."""
+        if self.wanted_labels is None:
+            return None
+        cols = [label_values(self.frame, n) for n in self.wanted_labels]
+        y = cols[0] if len(cols) == 1 else np.stack(cols, axis=1)
+        return pp.labels_to_sign(y) if self.labels_to_sign else y
+
+    def _matrices(self, rows: np.ndarray):
+        """(X, Y) of the rows selected by the boolean mask ``rows``."""
+        return self._X[rows], None if self._Y is None else self._Y[rows]
+
+    def noisy_flags(self) -> np.ndarray:
+        """Each row's ``logistics_noisy`` flag, in ``frame`` order."""
+        col = self.frame.columns["logistics_noisy"]
+        if col.dtype.kind == "f":
+            return col == 1.0
+        return np.isin(col, _TRUE_TEXT)
+
+    def _noisy_clean(self, rows: np.ndarray):
+        """(clean_X, clean_Y, noisy_X, noisy_Y) of the selected rows
+        (data_funcs.py:225-261)."""
+        noisy = self.noisy_flags()
+        cx, cy = self._matrices(rows & ~noisy)
+        nx, ny = self._matrices(rows & noisy)
+        return cx, cy, nx, ny
+
+    def _fold_rows(self, fold: int):
+        """Boolean masks of fold ``fold``'s train rows (every other
+        non-Test row) and val rows (the fold itself)."""
+        folds = self.fold_ids()
+        return (folds != fold) & (folds != -1), folds == fold
+
     def get_cross_val_data_for_fold(self, fold: int):
         """(train_X, train_Y, val_X, val_Y) of fold ``fold``: its val rows
         are the fold, its train rows every other non-Test row
-        (data_funcs.py:278-308).  The Y entries are None (unsupervised)."""
-        folds = self.fold_ids()
-        X = self.frame.matrix(self.wanted_feats)
-        train = (folds != fold) & (folds != -1)
-        return X[train], None, X[folds == fold], None
+        (data_funcs.py:278-308).  The Y entries are None when
+        unsupervised."""
+        train, val = self._fold_rows(fold)
+        return self._matrices(train) + self._matrices(val)
+
+    def get_cross_val_noisy_flags_for_fold(self, fold: int) -> np.ndarray:
+        """Boolean ``logistics_noisy`` flags of fold ``fold``'s val rows, in
+        the row order of :meth:`get_cross_val_data_for_fold`'s val
+        matrices."""
+        return self.noisy_flags()[self._fold_rows(fold)[1]]
+
+    def set_noisy_clean_data_for_fold(self, fold: int) -> None:
+        """Rebind only the noisy/clean matrices to fold ``fold``
+        (data_funcs.py:263-277)."""
+        train, val = self._fold_rows(fold)
+        (self.clean_train_X, self.clean_train_Y, self.noisy_train_X,
+         self.noisy_train_Y) = self._noisy_clean(train)
+        (self.clean_val_X, self.clean_val_Y, self.noisy_val_X,
+         self.noisy_val_Y) = self._noisy_clean(val)
 
     def set_to_cross_validation_fold(self, fold: int) -> None:
         self.fold = fold
-        self.train_X, _, self.val_X, _ = \
-            self.get_cross_val_data_for_fold(fold)
+        (self.train_X, self.train_Y,
+         self.val_X, self.val_Y) = self.get_cross_val_data_for_fold(fold)
+        if self.separate_noisy_data:
+            self.set_noisy_clean_data_for_fold(fold)
 
     def find_missing_modalities_indices(self, x: np.ndarray) -> List[int]:
         """A modality is 'missing' iff its span is all -1.0 — detected via

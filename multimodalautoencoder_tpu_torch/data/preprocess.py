@@ -8,7 +8,8 @@ column-name list, and :func:`normalize_fill_df` applies them to a
 ``loader.Frame``.  The results are the same numbers (reference
 ``data_funcs.py``):
 
-- column triage by substring blacklist (:449-468);
+- column triage by substring blacklist (:449-468), label columns and the
+  rows that lack a wanted label (:89-99, :428-447);
 - per-feature normalization with statistics computed on **Train rows only**
   and applied to all rows (:547-572);
 - drop columns fully null in any split (:574-621);
@@ -44,6 +45,29 @@ def get_wanted_feats_from_df(columns: Sequence[str]) -> List[str]:
     blacklist (data_funcs.py:449-468)."""
     return [c for c in columns
             if not any(s in c for s in _LOGISTICS_SUBSTRINGS)]
+
+
+def get_label_cols(columns: Sequence[str]) -> List[str]:
+    """Columns containing 'label'/'Label' (data_funcs.py:95)."""
+    return [c for c in columns if "label" in c or "Label" in c]
+
+
+def remove_rows_with_no_label(frame: "Frame",
+                              wanted_labels: Optional[Sequence[str]]
+                              ) -> "Frame":
+    """Drop rows lacking any wanted label (data_funcs.py:428-447)."""
+    if not wanted_labels:
+        return frame
+    from multimodalautoencoder_tpu_torch.data.loader import label_values
+    keep = np.ones(len(frame), dtype=bool)
+    for name in wanted_labels:
+        keep &= ~np.isnan(label_values(frame, name))
+    return frame if keep.all() else frame.take(keep)
+
+
+def labels_to_sign(y: np.ndarray) -> np.ndarray:
+    """{0,1} -> {-1,1} (data_funcs.py:529-530)."""
+    return 2 * y - 1
 
 
 def _column_stats(train: np.ndarray, normalization: str):

@@ -1,8 +1,7 @@
-"""Reconstruction losses, faithful to the reference.
+"""Reconstruction and classification losses, faithful to the reference.
 
-Counterpart of ``multimodalautoencoder_tpu/models/losses.py`` (its
-reconstruction half; the classification losses come with the
-classification path).  Every reduction runs over the last two axes
+Counterpart of ``multimodalautoencoder_tpu/models/losses.py``.  Every
+reduction runs over the last two axes
 (rows, features) of a batch, so a stack of instances ``(N, rows, F)``
 gets one loss per instance, as ``vmap`` gives in the JAX package.
 Reference semantics (multimodal_autoencoder.py :380-408):
@@ -80,3 +79,28 @@ def report_scale(loss_name: str, loss: torch.Tensor,
     if "entropy" in loss_name:
         return loss / batch_rows
     return loss
+
+
+def classification_loss(loss_name: str, logits: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """Mean classification loss of a (rows, L) batch, one per instance of
+    a stack (multimodal_autoencoder.py:431-438): sigmoid-CE averages over
+    rows and labels; softmax is the sparse cross entropy of (rows,)
+    integer labels, averaged over rows."""
+    if loss_name == "sigmoid_cross_entropy":
+        return torch.mean(sigmoid_bce_with_logits(logits, labels),
+                          dim=_LAST2)
+    logp = torch.log_softmax(logits, dim=-1)
+    picked = torch.gather(logp, -1, labels.long().unsqueeze(-1))[..., 0]
+    return -torch.mean(picked, dim=-1)
+
+
+def classification_predictions(loss_name: str,
+                               logits: torch.Tensor) -> torch.Tensor:
+    """The reference's prediction rule (:446-450): sigmoid-CE rounds each
+    label's probability (half to even, as ``jnp.round``); softmax takes
+    the argmax.  int32."""
+    probs = 1.0 / (1.0 + torch.exp(-logits))
+    if loss_name == "sigmoid_cross_entropy":
+        return torch.round(probs).to(torch.int32)
+    return torch.argmax(probs, dim=-1).to(torch.int32)

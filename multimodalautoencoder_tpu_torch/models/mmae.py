@@ -1,9 +1,8 @@
 """Multimodal autoencoder (MMAE) as plain functions on tensors.
 
-Counterpart of ``multimodalautoencoder_tpu/models/mmae.py`` without the
-classification head (which comes with the classification path).  The
+Counterpart of ``multimodalautoencoder_tpu/models/mmae.py``.  The
 reference builds a TF1 graph (``multimodal_autoencoder.py``: encode :454,
-decode :499):
+decode :499, classify :520):
 
 - encoder: ``len(layer_sizes)`` dense layers, activation and dropout on
   all but the bottleneck (:461-475);
@@ -11,7 +10,9 @@ decode :499):
   layer (:499-518); weight tying = transpose of encoder weights at apply
   time (:283-284) with always-independent decode biases (:291-293);
 - VAE: variance head from the *second-to-last* hidden layer (:298-302,
-  :464-465), reparameterized ``z = mu + eps * exp(log_var)`` (:372-375).
+  :464-465), reparameterized ``z = mu + eps * exp(log_var)`` (:372-375);
+- classification head: dense layers from the embedding (:313-338,
+  :520-540), re-initialized before phase 2 (:898-930, :func:`init_head`).
 
 Parameters are an :class:`MMAEParams` of tensors with the JAX pytree's
 field order; :func:`params_to_numpy` / :func:`params_from_numpy` carry them
@@ -135,15 +136,33 @@ def init(cfg: MMAEConfig, generator: Optional[torch.Generator] = None,
     def bias(shape):
         return torch.full(shape, 0.1, dtype=torch.float32, device=device)
 
+    enc_w = tuple(weight(s) for s in shapes.enc_w)
+    dec_w = tuple(weight(s) for s in shapes.dec_w)
+    var_w = None if shapes.var_w is None else weight(shapes.var_w)
+    cls_w, cls_b = init_head(cfg, generator, device)
     return MMAEParams(
-        enc_w=tuple(weight(s) for s in shapes.enc_w),
-        enc_b=tuple(bias(s) for s in shapes.enc_b),
-        dec_w=tuple(weight(s) for s in shapes.dec_w),
-        dec_b=tuple(bias(s) for s in shapes.dec_b),
-        var_w=None if shapes.var_w is None else weight(shapes.var_w),
+        enc_w=enc_w, enc_b=tuple(bias(s) for s in shapes.enc_b),
+        dec_w=dec_w, dec_b=tuple(bias(s) for s in shapes.dec_b),
+        var_w=var_w,
         var_b=None if shapes.var_b is None else bias(shapes.var_b),
-        cls_w=tuple(weight(s) for s in shapes.cls_w),
-        cls_b=tuple(bias(s) for s in shapes.cls_b))
+        cls_w=cls_w, cls_b=cls_b)
+
+
+def init_head(cfg: MMAEConfig, generator: torch.Generator, device="cuda"
+              ) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
+    """Fresh classification-head parameters only, (cls_w, cls_b): the
+    reference re-initializes the head before phase 2
+    (set_classification_params -> rebuild_reinitialize,
+    multimodal_autoencoder.py:898-930), so phase-2 trainers attach one to
+    a headless phase-1 parameter stack.  Same init as :func:`init`."""
+    device = torch.device(device)
+    dims = _cls_dims(cfg)
+    cls_w = tuple(_init_weight(d, cfg.weight_initialization,
+                               cfg.xavier_const, generator, device)
+                  for d in dims)
+    cls_b = tuple(torch.full((o,), 0.1, dtype=torch.float32, device=device)
+                  for _, o in dims)
+    return cls_w, cls_b
 
 
 def _leaves(tree: MMAEParams) -> list:
@@ -333,6 +352,29 @@ def decode(params: MMAEParams, cfg: MMAEConfig, embedding: torch.Tensor, *,
     return x
 
 
+def classify(params: MMAEParams, cfg: MMAEConfig, embedding: torch.Tensor, *,
+             generator: Optional[torch.Generator] = None, keep_prob=1.0,
+             train: bool = False, act_id=None) -> torch.Tensor:
+    """Classification head forward (:520-540) -> logits.  Activation (the
+    head's own, else the model's) and dropout apply where the gate is
+    open: in faithful mode (``cfg.faithful_classify_gate``) the
+    reference's gate ``i < len(decode_weights) - 1`` (:533), otherwise on
+    every layer but the last.  ``act_id`` selects the head's activation
+    per instance."""
+    act = cfg.classification_activation or cfg.activation
+    n_dec = len(cfg.layer_sizes)
+    x = embedding
+    for i, w in enumerate(params.cls_w):
+        x = _affine(x, w, params.cls_b[i], cfg)
+        gate = (i < n_dec - 1) if cfg.faithful_classify_gate \
+            else (i < len(params.cls_w) - 1)
+        if gate:
+            x = _activate(x, act, act_id)
+            if train:
+                x = _dropout(x, keep_prob, generator)
+    return x
+
+
 def forward(params: MMAEParams, cfg: MMAEConfig, x: torch.Tensor, *,
             generator: Optional[torch.Generator] = None,
             sample: bool = True, keep_prob=1.0, train: bool = False,
@@ -392,4 +434,40 @@ def total_loss(params: MMAEParams, cfg: MMAEConfig, noisy_x: torch.Tensor,
         loss = recon_loss + reg
 
     aux = {"recon_loss": recon_loss, "reg": reg, "kl": kl, "outputs": out}
+    return loss, aux
+
+
+def classification_total_loss(params: MMAEParams, cfg: MMAEConfig,
+                              noisy_x: torch.Tensor, true_y: torch.Tensor, *,
+                              generator: Optional[torch.Generator] = None,
+                              keep_prob=1.0, train: bool = False,
+                              sample: bool = True, weight_penalty=None,
+                              enc_act_id=None, cls_act_id=None):
+    """Phase-2 objective (:431-441): the classification loss of the
+    embedding's logits plus L2 on the head's weights only; gradients flow
+    through the encoder, as the reference's ``minimize`` spans every
+    upstream variable (:443).  ``weight_penalty`` (float or per-instance
+    tensor) overrides ``cfg.classification_weight_penalty``; the encoder
+    and head activations are chosen by ``enc_act_id`` / ``cls_act_id``.
+    The head's dropout uses ``keep_prob`` like the encoder's.  Returns
+    ``(loss, aux)``, one loss per instance of a stack."""
+    if generator is None:
+        generator = torch.Generator(device=noisy_x.device).manual_seed(0)
+    mu, log_var = encode(params, cfg, noisy_x, generator=generator,
+                         keep_prob=keep_prob, train=train, act_id=enc_act_id)
+    embedding = mu
+    if cfg.variational and sample:
+        eps = _rand(torch.randn, mu, generator)
+        embedding = mu + eps * torch.exp(log_var)
+    logits = classify(params, cfg, embedding, generator=generator,
+                      keep_prob=keep_prob, train=train, act_id=cls_act_id)
+    loss = losses_lib.classification_loss(cfg.classification_loss, logits,
+                                          true_y)
+    penalty = cfg.classification_weight_penalty if weight_penalty is None \
+        else weight_penalty
+    loss = loss + losses_lib.weight_regularization(penalty,
+                                                   list(params.cls_w))
+    preds = losses_lib.classification_predictions(cfg.classification_loss,
+                                                  logits)
+    aux = {"logits": logits, "predictions": preds, "embedding": embedding}
     return loss, aux

@@ -28,8 +28,11 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 ROUNDS = 10
 
-# Purposes (the second key word) — one stream per kind of draw.
+# Purposes (the second key word) — one stream per kind of draw.  Phase 2
+# (the classification run) has its own; head layer j's dropout draws from
+# CLS_HEAD_DROP + j.
 ROW, ELEM, TYPE, DROP1, DROP3, EPS, PROBE = range(7)
+CLS_ROW, CLS_ELEM, CLS_TYPE, CLS_DROP1, CLS_EPS, CLS_HEAD_DROP = range(7, 13)
 
 
 def _mulhilo(m: int, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -52,7 +52,8 @@ from multimodalautoencoder_tpu_torch.ops.cuda_library import (BUILD_DIR,
                                                               NvccLibrary)
 
 SOURCE = os.path.join(CSRC_DIR, "train_kernel.cu")
-HEADERS = (os.path.join(CSRC_DIR, "philox.cuh"),)
+HEADERS = (os.path.join(CSRC_DIR, "philox.cuh"),
+           os.path.join(CSRC_DIR, "train_common.cuh"))
 LIBRARY = os.path.join(BUILD_DIR, "libtrain_kernel.so")
 
 # The kernel's parameter slots (csrc/train_kernel.cu ``Slot``), each
@@ -417,14 +418,14 @@ def _dropout_factor(run: GridRun, purpose: int, step: int,
 
 
 def vae_eps(seeds: torch.Tensor, step: int, batch: int,
-            width: int) -> torch.Tensor:
+            width: int, purpose: int = philox.EPS) -> torch.Tensor:
     """The (N, batch, width) standard normals the VAE draws at ``step``
     (Box-Muller from the first two words of counter (step, row, col, 0))."""
     dev = seeds.device
     rows = torch.arange(batch, device=dev).view(1, -1, 1)
     cols = torch.arange(width, device=dev).view(1, 1, -1)
     w = philox.philox4x32(step, rows, cols, 0,
-                          seeds.to(torch.int64).view(-1, 1, 1), philox.EPS)
+                          seeds.to(torch.int64).view(-1, 1, 1), purpose)
     return philox.normal(w[0], w[1])
 
 

@@ -1,7 +1,7 @@
-"""Config-parallel grid training, phase 1 (unsupervised), on one device.
+"""Config-parallel grid training, both phases of the two-phase sweep, on
+one device.
 
-Counterpart of the phase-1 half of
-``multimodalautoencoder_tpu/parallel/grid_trainer.py``.  The reference
+Counterpart of ``multimodalautoencoder_tpu/parallel/grid_trainer.py``.  The reference
 trains one (setting, fold) at a time (generic_wrapper.py:253-254,
 :298-300); here a whole shape bucket trains at once:
 
@@ -12,11 +12,14 @@ trains one (setting, fold) at a time (generic_wrapper.py:253-254,
 - instances = configs x folds, a leading batch axis of every tensor.
 
 Two backends, as in the JAX package: ``"pallas"``, the hand-written CUDA
-training kernels (``ops/train_kernels.py``, the Pallas kernel's
-semantics), and ``"xla"``, :func:`train_grid`, batched eager PyTorch with
-autograd (the XLA trainer's semantics).  Both end in the same noisy-val
-objective (multimodal_autoencoder.py:1019-1033).  One device: the mesh of
-the JAX package (multi-chip sharding) is not ported yet.
+training kernels (``ops/train_kernels.py`` for phase 1,
+``ops/cls_train_kernels.py`` for phase 2; the Pallas kernels' semantics),
+and ``"xla"``, :func:`train_grid` and :func:`train_classification_grid`,
+batched eager PyTorch with autograd (the XLA trainers' semantics).  Phase 1
+ends in the noisy-val objective (multimodal_autoencoder.py:1019-1033),
+phase 2 in val predictions; both evaluators are shared by the backends.
+One device: the mesh of the JAX package (multi-chip sharding, its padding
+of the config axis and ``shard_map``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from multimodalautoencoder_tpu_torch.config import MMAEConfig, TrainConfig
 from multimodalautoencoder_tpu_torch.models import mmae
 from multimodalautoencoder_tpu_torch.models.corruption import (
     NoiseSpec, add_noise_to_batch)
-from multimodalautoencoder_tpu_torch.ops import optim, train_kernels
+from multimodalautoencoder_tpu_torch.ops import cls_train_kernels, \
+    optim, train_kernels
 
 # activation-key aliases (sweep ledgers use activation_function, the
 # reference ctor uses activation_func)
@@ -43,6 +47,23 @@ def _pick(s: Dict[str, Any], names, default):
         if n in s:
             return s[n]
     return default
+
+
+def resolve_backend_two_phase(backend: str, cfg: MMAEConfig,
+                              tcfg: TrainConfig, cls_tcfg: TrainConfig,
+                              spec: NoiseSpec,
+                              on_gpu: Optional[bool] = None) -> str:
+    """Resolve ``"auto"`` for the two-phase paths as the JAX package does
+    (``resolve_backend_two_phase`` :86-106, on one device): the kernels of
+    both phases (``"pallas"``) on a GPU when the configuration is in
+    ``cls_train_kernels.supported_two_phase``, else the plain trainers
+    (``"xla"``).  ``on_gpu`` defaults to whether CUDA is available."""
+    if backend != "auto":
+        return backend
+    if on_gpu is None:
+        on_gpu = torch.cuda.is_available()
+    return ("pallas" if on_gpu and cls_train_kernels.supported_two_phase(
+        cfg, tcfg, cls_tcfg, spec) else "xla")
 
 
 def resolve_backend(backend: str, cfg: MMAEConfig, tcfg: TrainConfig,
@@ -93,31 +114,74 @@ class HyperStack:
 
 
 @dataclasses.dataclass(frozen=True)
+class ClassifierHyperStack:
+    """Per-config hyperparameters of the phase-2 classification head
+    (autoencoder_classification_wrapper.py:43, :173-179)."""
+
+    keep_prob: torch.Tensor        # (C,) float32
+    weight_penalty: torch.Tensor   # (C,) float32
+    cls_act_id: torch.Tensor       # (C,) int32
+
+    @classmethod
+    def from_settings(cls, settings: Sequence[Dict[str, Any]],
+                      cfg: MMAEConfig) -> "ClassifierHyperStack":
+        kp, wp, act = [], [], []
+        default_act = cfg.classification_activation or cfg.activation
+        for s in settings:
+            kp.append(float(s.get("dropout_prob", cfg.dropout_prob)))
+            wp.append(float(s.get("weight_penalty",
+                                  cfg.classification_weight_penalty)))
+            act.append(mmae.activation_id(_pick(s, _ACT_KEYS, default_act)))
+        return cls(keep_prob=torch.tensor(kp, dtype=torch.float32),
+                   weight_penalty=torch.tensor(wp, dtype=torch.float32),
+                   cls_act_id=torch.tensor(act, dtype=torch.int32))
+
+    @property
+    def num_configs(self) -> int:
+        return int(self.keep_prob.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
 class FoldedData:
     """CV folds padded to common shapes, with valid-row counts.  Fold f's
     train set is every non-Test row outside fold f, its val set fold f
     (data_funcs.py:278-308); arrays are padded with zero rows to the
-    largest fold and ``*_n`` holds the true counts."""
+    largest fold and ``*_n`` holds the true counts.  Supervised folds
+    carry their labels, (K, rows, L) or (K, rows) for one label, and
+    ``val_noisy`` the val rows' ``logistics_noisy`` flags."""
 
     train_x: torch.Tensor   # (K, max_train, F) float32
     train_n: torch.Tensor   # (K,) int32
     val_x: torch.Tensor     # (K, max_val, F) float32
     val_n: torch.Tensor     # (K,) int32
+    train_y: Optional[torch.Tensor] = None   # float32
+    val_y: Optional[torch.Tensor] = None     # float32
+    val_noisy: Optional[torch.Tensor] = None  # (K, max_val) bool
 
     @property
     def num_folds(self) -> int:
         return int(self.train_x.shape[0])
 
     @classmethod
-    def from_loader(cls, loader, num_folds: int,
-                    device="cuda") -> "FoldedData":
-        """Every fold of a cross-validation ``DataLoader``."""
-        tx, vx = [], []
+    def from_loader(cls, loader, num_folds: int, device="cuda",
+                    supervised: bool = False,
+                    noisy_flags: bool = False) -> "FoldedData":
+        """Every fold of a cross-validation ``DataLoader``, with its labels
+        when ``supervised`` and its val rows' noisy flags when
+        ``noisy_flags``."""
+        tx, vx, ty, vy, vn = [], [], [], [], []
         for f in range(num_folds):
-            a, _, b, _ = loader.get_cross_val_data_for_fold(f)
+            a, ay, b, by = loader.get_cross_val_data_for_fold(f)
             tx.append(a)
             vx.append(b)
-        return cls.from_ragged(tx, vx, device)
+            ty.append(ay)
+            vy.append(by)
+            if noisy_flags:
+                vn.append(loader.get_cross_val_noisy_flags_for_fold(f))
+        return cls.from_ragged(tx, vx, device,
+                               train_y_list=ty if supervised else None,
+                               val_y_list=vy if supervised else None,
+                               val_noisy_list=vn if noisy_flags else None)
 
     @classmethod
     def from_single_split(cls, train_x, val_x, device="cuda"
@@ -126,12 +190,14 @@ class FoldedData:
         return cls.from_ragged([train_x], [val_x], device)
 
     @classmethod
-    def from_ragged(cls, train_list, val_list, device="cuda"
-                    ) -> "FoldedData":
-        def pad_stack(mats):
+    def from_ragged(cls, train_list, val_list, device="cuda",
+                    train_y_list=None, val_y_list=None,
+                    val_noisy_list=None) -> "FoldedData":
+        def pad_stack(mats, dtype=np.float32):
+            mats = [np.asarray(m) for m in mats]
             mx = max(m.shape[0] for m in mats)
             out = np.zeros((len(mats), mx) + tuple(mats[0].shape[1:]),
-                           dtype=np.float32)
+                           dtype=dtype)
             for i, m in enumerate(mats):
                 out[i, :m.shape[0]] = m
             return torch.as_tensor(out, device=device)
@@ -141,12 +207,18 @@ class FoldedData:
                                 dtype=torch.int32, device=device)
 
         return cls(train_x=pad_stack(train_list), train_n=counts(train_list),
-                   val_x=pad_stack(val_list), val_n=counts(val_list))
+                   val_x=pad_stack(val_list), val_n=counts(val_list),
+                   train_y=(pad_stack(train_y_list) if train_y_list
+                            else None),
+                   val_y=pad_stack(val_y_list) if val_y_list else None,
+                   val_noisy=(pad_stack(val_noisy_list, bool)
+                              if val_noisy_list else None))
 
     def to(self, device) -> "FoldedData":
-        return FoldedData(*(t.to(device) for t in
+        return FoldedData(*(None if t is None else t.to(device) for t in
                             (self.train_x, self.train_n, self.val_x,
-                             self.val_n)))
+                             self.val_n, self.train_y, self.val_y,
+                             self.val_noisy)))
 
 
 def train_grid(seed: int, cfg: MMAEConfig, tcfg: TrainConfig,
@@ -239,3 +311,207 @@ def train_grid_sharded(device, seed: int, cfg: MMAEConfig,
                          "('auto', 'pallas' or 'xla')")
     return train_grid(seed, cfg, tcfg, spec, hyper, folded, num_steps,
                       params0)
+
+
+# ------------------------------------------------------------- phase 2
+
+def _grad_leaves(loss: torch.Tensor, leaves):
+    """d loss.sum() / d leaf for every leaf; zeros where the loss does not
+    reach a leaf (the decoder in phase 2)."""
+    grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g
+            for t, g in zip(leaves, grads)]
+
+
+def train_classification_grid(seed: int, cfg: MMAEConfig, tcfg: TrainConfig,
+                              spec: NoiseSpec, params_stacked,
+                              hyper: HyperStack,
+                              chyper: ClassifierHyperStack,
+                              folded: FoldedData,
+                              num_steps: Optional[int] = None):
+    """Phase 2 of every (config, fold) instance with the plain backend, all
+    N = C * K instances as one batch of eager PyTorch with autograd: the
+    XLA trainer's step (``_train_classification_instance`` :467-520:
+    indices uniform in [0, n_valid), ``add_noise_to_batch``, dropout at the
+    head's keep probability, ``classification_total_loss``, the optimizer
+    over every parameter at the constant lr).  ``params_stacked`` carries
+    phase 1's parameters and fresh heads with leading (C, K) axes.  Returns
+    ``(params, val predictions)`` with leading (C, K) axes.  ``seed``
+    seeds one CPU generator that draws every step's batch, noise and
+    dropout, then the VAE's evaluation eps."""
+    cfg = cfg.validate()
+    num_steps = tcfg.num_steps if num_steps is None else int(num_steps)
+    C, K = hyper.num_configs, folded.num_folds
+    N = C * K
+    dev = folded.train_x.device
+    g = torch.Generator().manual_seed(int(seed))
+    params = optim.tree_map(
+        lambda t: t.reshape((N,) + tuple(t.shape[2:])).to(
+            dev, torch.float32, copy=True), params_stacked)
+    state = optim.opt_init(tcfg.optimizer, params,
+                           optim.state_dtype(tcfg.optimizer_state_dtype))
+    clip = tcfg.clip_norm if tcfg.clip_gradients else None
+    keep = chyper.keep_prob.repeat_interleave(K).to(dev)
+    wpen = chyper.weight_penalty.repeat_interleave(K).to(dev)
+    cact = chyper.cls_act_id.repeat_interleave(K).to(dev)
+    eact = hyper.act_id.repeat_interleave(K).to(dev)
+    fold = torch.arange(K, device=dev).repeat(C).view(-1, 1)
+    n_valid = folded.train_n.to(dev).repeat(C).view(-1, 1)
+
+    for _ in range(num_steps):
+        u = torch.rand((N, tcfg.batch_size), generator=g).to(dev)
+        idx = torch.minimum((u * n_valid).long(), n_valid - 1)
+        x, y = folded.train_x[fold, idx], folded.train_y[fold, idx]
+        noisy = add_noise_to_batch(g, x, spec)
+        leaves = [t.detach().requires_grad_()
+                  for t in optim.tree_leaves(params)]
+        it = iter(leaves)
+        p = optim.tree_map(lambda _: next(it), params)
+        loss, _ = mmae.classification_total_loss(
+            p, cfg, noisy, y, generator=g, keep_prob=keep, train=True,
+            weight_penalty=wpen, enc_act_id=eact, cls_act_id=cact)
+        it = iter(_grad_leaves(loss, leaves))
+        grads = optim.tree_map(lambda _: next(it), params)
+        with torch.no_grad():
+            params, state = optim.opt_update(tcfg.optimizer, grads, state,
+                                             params, tcfg.learning_rate,
+                                             clip_norm=clip, batch_dims=1)
+
+    params = optim.tree_map(
+        lambda t: t.reshape((C, K) + tuple(t.shape[1:])), params)
+    return params, cls_train_kernels.val_predictions(params, cfg, hyper,
+                                                     chyper, folded, g)
+
+
+def attach_fresh_heads(generator: torch.Generator, cfg: MMAEConfig,
+                       params_headless: mmae.MMAEParams) -> mmae.MMAEParams:
+    """Fresh per-(config, fold) classification heads on a headless
+    phase-1 stack with leading (C, K) axes (the reference re-initializes
+    the head before phase 2: set_classification_params ->
+    rebuild_reinitialize, multimodal_autoencoder.py:898-930)."""
+    C, K = params_headless.enc_b[0].shape[:2]
+    dev = params_headless.enc_b[0].device
+    cls_w, cls_b = cls_train_kernels.init_heads(generator, cfg, C, K)
+    return params_headless._replace(
+        cls_w=tuple(t.to(dev) for t in cls_w),
+        cls_b=tuple(t.to(dev) for t in cls_b))
+
+
+def _gather_configs(params_u: mmae.MMAEParams, p1_map) -> mmae.MMAEParams:
+    """Every leaf's leading (config) axis gathered by ``p1_map``."""
+    idx = torch.as_tensor(np.asarray(p1_map, dtype=np.int64))
+    return optim.tree_map(lambda t: t[idx.to(t.device)], params_u)
+
+
+def train_classification_dedup_grid(seed: int, cfg: MMAEConfig,
+                                    tcfg: TrainConfig, spec: NoiseSpec,
+                                    params_u, p1_map,
+                                    hyper: HyperStack,
+                                    chyper: ClassifierHyperStack,
+                                    folded: FoldedData,
+                                    num_steps: Optional[int] = None):
+    """Phase 2 on a deduplicated phase-1 stack: gather the headless
+    (U, K, ...) parameters by ``p1_map`` onto the config axis, attach
+    fresh heads (drawn from a generator seeded ``seed``) and train every
+    (config, fold) instance with :func:`train_classification_grid` (seeded
+    ``cls_train_kernels.derive_seed(seed, 2)``).  Settings sharing their
+    MMAE hyperparameters are statistically identical pretraining runs, so
+    the sweep pretrains each once (PARITY.md)."""
+    cfg = cfg.validate()
+    headed = attach_fresh_heads(torch.Generator().manual_seed(int(seed)),
+                                cfg, _gather_configs(params_u, p1_map))
+    return train_classification_grid(
+        cls_train_kernels.derive_seed(seed, 2), cfg, tcfg, spec, headed,
+        hyper, chyper, folded, num_steps)
+
+
+def train_phase1_shared(device, seed: int, cfg: MMAEConfig,
+                        tcfg: TrainConfig, spec: NoiseSpec,
+                        hyper_u: HyperStack, unsup_folded: FoldedData,
+                        num_steps: Optional[int] = None,
+                        backend: str = "auto"):
+    """Phase 1 for a family of two-phase buckets: only the unique MMAE
+    settings (U configs), once, on the headless f32 view
+    ``cls_train_kernels.phase1_cfg``, the MMAE the reference pretrains
+    before attaching the head; every classifier bucket of the family then
+    shares the (U, K, ...) stack through :func:`train_phase2_shared_sharded`
+    (the reference retrains the MMAE for all 576 settings though only 36
+    pretraining runs are distinct, autoencoder_classification_wrapper.py
+    :195-227)."""
+    return train_grid_sharded(device, seed, cls_train_kernels.phase1_cfg(cfg),
+                              tcfg, spec, hyper_u, unsup_folded, num_steps,
+                              backend)
+
+
+def train_phase2_shared_sharded(device, seed: int, cfg: MMAEConfig,
+                                tcfg: TrainConfig, cls_tcfg: TrainConfig,
+                                spec: NoiseSpec, params_u, p1_map,
+                                hyper: HyperStack,
+                                chyper: ClassifierHyperStack,
+                                sup_folded: FoldedData,
+                                cls_num_steps: Optional[int] = None,
+                                backend: str = "auto"):
+    """Phase 2 of a bucket on shared phase-1 results: ``params_u`` is the
+    headless (U, K, ...) stack of :func:`train_phase1_shared`, ``p1_map``
+    the (C,) phase-1 row of each of the bucket's settings.  ``"pallas"``
+    gathers and runs ``cls_train_kernels.phase2_pallas`` (seed ``seed``);
+    ``"xla"`` :func:`train_classification_dedup_grid`.  Returns ``(params,
+    preds)`` with leading (C, K) axes."""
+    device = torch.device(device)
+    sup_folded = sup_folded.to(device)
+    backend = resolve_backend_two_phase(backend, cfg, tcfg, cls_tcfg, spec,
+                                        on_gpu=device.type == "cuda")
+    params_u = optim.tree_map(lambda t: t.to(device), params_u)
+    if backend == "pallas":
+        if not cls_train_kernels.supported_two_phase(cfg, tcfg, cls_tcfg,
+                                                     spec):
+            raise ValueError("configuration outside the two-phase kernels'"
+                             " family; use the plain grid trainer")
+        return cls_train_kernels.phase2_pallas(
+            seed, cfg, cls_tcfg, spec, _gather_configs(params_u, p1_map),
+            hyper, chyper, sup_folded, cls_num_steps)
+    if backend != "xla":
+        raise ValueError(f"unknown backend {backend!r} "
+                         "('auto', 'pallas' or 'xla')")
+    return train_classification_dedup_grid(seed, cfg, cls_tcfg, spec,
+                                           params_u, p1_map, hyper, chyper,
+                                           sup_folded, cls_num_steps)
+
+
+def train_two_phase_sharded(device, seed: int, cfg: MMAEConfig,
+                            tcfg: TrainConfig, cls_tcfg: TrainConfig,
+                            spec: NoiseSpec, hyper: HyperStack,
+                            chyper: ClassifierHyperStack,
+                            unsup_folded: FoldedData,
+                            sup_folded: FoldedData,
+                            num_steps: Optional[int] = None,
+                            cls_num_steps: Optional[int] = None,
+                            backend: str = "auto"):
+    """Both phases of a bucket on ``device``, every setting pretraining its
+    own MMAE as the reference does (the sweep shares phase 1 instead:
+    :func:`train_phase1_shared`).  ``"pallas"``:
+    ``cls_train_kernels.train_two_phase_pallas``; ``"xla"``: :func:`train_grid`
+    on the headless f32 view (seed ``derive_seed(seed, 1)``), fresh heads
+    and :func:`train_classification_grid`.  Returns ``(params, losses,
+    preds)`` with leading (C, K) axes: phase-1 noisy-val objectives and
+    phase-2 val predictions (autoencoder_classification_wrapper.py
+    :195-237)."""
+    device = torch.device(device)
+    unsup_folded, sup_folded = unsup_folded.to(device), sup_folded.to(device)
+    backend = resolve_backend_two_phase(backend, cfg, tcfg, cls_tcfg, spec,
+                                        on_gpu=device.type == "cuda")
+    if backend == "pallas":
+        return cls_train_kernels.train_two_phase_pallas(
+            seed, cfg, tcfg, cls_tcfg, spec, hyper, chyper, unsup_folded,
+            sup_folded, num_steps, cls_num_steps)
+    if backend != "xla":
+        raise ValueError(f"unknown backend {backend!r} "
+                         "('auto', 'pallas' or 'xla')")
+    params1, losses = train_grid(cls_train_kernels.derive_seed(seed, 1),
+                                 cls_train_kernels.phase1_cfg(cfg), tcfg,
+                                 spec, hyper, unsup_folded, num_steps)
+    C = hyper.num_configs
+    params, preds = train_classification_dedup_grid(
+        cls_train_kernels.derive_seed(seed, 2), cfg, cls_tcfg, spec,
+        params1, np.arange(C), hyper, chyper, sup_folded, cls_num_steps)
+    return params, losses, preds

@@ -1,0 +1,577 @@
+"""The two-phase classification sweep on one device.
+
+Counterpart of ``MMAEClassificationSweep`` in
+``multimodalautoencoder_tpu/sweep/wrappers.py`` (:728-1467), the
+capabilities of the reference's MMAEClassificationWrapper
+(autoencoder_classification_wrapper.py:26-369).  Where the reference loops
+settings x folds serially, the sweep buckets the grid by shape
+(``sweep/grid.py``), pretrains each phase-1 family's unique MMAE settings
+once (the JAX package's ``share_phase1=True`` default, PARITY.md), and
+trains each bucket's configs x folds block of
+phase 2 at once (``parallel/grid_trainer.py``: the hand-written CUDA
+kernels on a GPU, or the plain trainers); the metric battery runs batched
+on the device, and the ledger, resume and best-setting contract is the
+reference's (``sweep/engine.py``).
+
+Not ported: ``process_shard`` and the mesh (multi-GPU, ROADMAP Queue 1
+item 13), the JAX compile cache, and ``share_phase1=False`` (the
+reference's retraining of the MMAE for every setting; ``grid_trainer.
+train_two_phase_sharded`` trains a bucket that way).  ``check_test=True``
+and exporting a
+winner from an earlier generation of a resumed ledger need the
+single-run trainer (ROADMAP Queue 1 item 5) and raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import inspect
+import os
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from multimodalautoencoder_tpu_torch.config import MMAEConfig, TrainConfig
+from multimodalautoencoder_tpu_torch.models.corruption import NoiseSpec
+from multimodalautoencoder_tpu_torch.ops import cls_train_kernels
+from multimodalautoencoder_tpu_torch.ops import metrics as metrics_lib
+from multimodalautoencoder_tpu_torch.ops import optim
+from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
+from multimodalautoencoder_tpu_torch.sweep import engine, grid as grid_lib
+from multimodalautoencoder_tpu_torch.utils import helpers
+
+DEFAULT_NUM_CROSS_FOLDS = 5
+METRIC_ORDER = ("acc", "auc", "f1", "precision", "recall")
+SINGLE_RUN_TRAINER = ("the single-run trainer (train/trainer.py training "
+                      "half, ROADMAP Queue 1 item 5) is not ported yet")
+
+
+def _arch_tuple(a) -> tuple:
+    return tuple(a) if isinstance(a, (list, tuple)) else (a,)
+
+
+def _metric_battery(preds: torch.Tensor, val_y: torch.Tensor,
+                    val_n: torch.Tensor,
+                    noisy: Optional[torch.Tensor]) -> torch.Tensor:
+    """acc/auc/f1/precision/recall of every (config, fold, label) at once,
+    with the noisy/clean val slices: the JAX package's
+    ``_metric_battery_jit`` (:49-89) as batched torch.  ``preds`` (C, K,
+    R, L), ``val_y`` (K, R, L), ``val_n`` (K,), ``noisy`` (K, R) bool or
+    None.  Returns one (3, 5, C, K, L) tensor: slice axis [main, noisy,
+    clean] (main three times without flags), metric axis
+    :data:`METRIC_ORDER`."""
+    R = val_y.shape[1]
+    dev = preds.device
+    valid = (torch.arange(R, device=dev).view(1, -1)
+             < val_n.to(dev).view(-1, 1))                     # (K, R)
+    p = preds.to(torch.float32).permute(0, 1, 3, 2)            # (C, K, L, R)
+    y = val_y.to(dev, torch.float32).permute(0, 2, 1).unsqueeze(0)
+
+    def stack(mask):
+        m = metrics_lib.all_classification_metrics(p, y,
+                                                   mask[:, None, :])
+        return torch.stack([m[k] for k in METRIC_ORDER])      # (5, C, K, L)
+
+    main = stack(valid)
+    if noisy is None:
+        return torch.stack([main, main, main])
+    noisy = noisy.to(dev)
+    return torch.stack([main, stack(valid & noisy), stack(valid & ~noisy)])
+
+
+def _grid_setting_from_row(sweep, row: Dict[str, Any]) -> Dict[str, Any]:
+    """The grid-setting subset of a ledger row (drops score/timing
+    columns), keyed by the sweep's own grid axes."""
+    keys = (set(sweep.list_of_param_settings[0])
+            if sweep.list_of_param_settings else set(row))
+    return {k: v for k, v in row.items() if k in keys}
+
+
+def _export_best_checkpoint(sweep, *, base_name: str, step: int, resolve):
+    """Checkpoint the ledger's winner (the persistence analog of the
+    reference's save_model on the chosen setting,
+    multimodal_autoencoder.py:766-800).  ``resolve(row, ledger_score) ->
+    (setting, host params, cfg, score)`` decides between the parameters
+    tracked in this process and a retrain; ``meta['extra']`` records the
+    winning setting and its score.  Returns the path (None on an empty
+    ledger)."""
+    from multimodalautoencoder_tpu_torch.train import checkpoint as ck
+
+    if len(sweep.ledger) == 0:
+        return None
+    row = sweep.ledger.find_best_setting(sweep.optimize_for,
+                                         sweep.min_or_max)
+    ledger_score = engine.as_float(row.get(sweep.optimize_for))
+    setting, host_params, cfg, score = resolve(row, ledger_score)
+    path = ck.save_checkpoint(
+        os.path.dirname(sweep.ledger.path), base_name, host_params, cfg,
+        step=step,
+        extra={"setting": setting, "score": score,
+               "optimize_for": sweep.optimize_for,
+               "min_or_max": sweep.min_or_max})
+    if sweep.verbose:
+        print(f"saved best params ({sweep.optimize_for} {score:.4f}) -> "
+              f"{path}")
+    return path
+
+
+class MMAEClassificationSweep:
+    """Two-phase grid search (MMAE denoising pretrain + classification
+    head), the capabilities of MMAEClassificationWrapper
+    (autoencoder_classification_wrapper.py:26-369), on ``device``."""
+
+    def __init__(self, data_loader, classification_data_loader,
+                 mmae_layer_sizes=((1000, 100), (200, 100), (500, 100)),
+                 classification_layer_sizes=((50, 20), (25, 10), (100, 50),
+                                             (100,)),
+                 tie_weights=(True, False),
+                 mmae_dropout_probs=(1.0, 0.5),
+                 mmae_weight_penalties=(0.01, 0.001),
+                 weight_initializers=("normal",),
+                 mmae_activation_funcs=("relu",),
+                 mmae_test_variational=(True, False),
+                 weight_penalties=(0.0, 0.001),
+                 dropout_probs=(0.5, 1.0),
+                 activation_funcs=("relu",),
+                 classification_learning_rate: float = 1e-4,
+                 classification_batch_size: int = 100,
+                 classification_num_steps: int = 15000,
+                 mmae_num_steps: int = 15000, mmae_batch_size: int = 20,
+                 mmae_learning_rate: float = 1e-3,
+                 wanted_label: Optional[str] = None,
+                 results_path: str = "results",
+                 classifier_name: str = "MMAE_NN_classifier",
+                 cont: bool = False, check_test: bool = False,
+                 num_cross_folds: int = DEFAULT_NUM_CROSS_FOLDS,
+                 optimize_for: str = "val_acc", min_or_max: str = "max",
+                 check_noisy_data: bool = True,
+                 save_results_every_nth: int = 1, seed: int = 0,
+                 verbose: bool = True, backend: str = "auto",
+                 optimizer_state_dtype: str = "bfloat16",
+                 compute_dtype: str = "float32",
+                 save_best_params: bool = False, device="cuda"):
+        """``backend``: 'auto' trains both phases on the CUDA kernels where
+        the shape family allows (``cls_train_kernels.supported_two_phase``)
+        and the device is a GPU, the plain trainers otherwise; 'xla' /
+        'pallas' force.  Each unique MMAE setting is pretrained once per
+        shape family and shared across the classifier settings that use
+        it.  ``save_best_params`` checkpoints the best setting's fold-0
+        two-phase parameters at the end of the sweep, consumable by ``cli
+        fill/embed --checkpoint``.  ``check_test`` raises
+        ``NotImplementedError``: it needs the single-run trainer."""
+        if check_test:
+            raise NotImplementedError(f"check_test: {SINGLE_RUN_TRAINER}")
+        self.device = torch.device(device)
+        self.backend = backend
+        self.save_best_params = save_best_params
+        self._best_saved = None   # (signed score, setting, host params, cfg)
+        self._families: Dict[tuple, dict] = {}
+        # wall-clock per phase across buckets ('train' = both training
+        # phases and the predictions; 'metrics' = the battery + rows)
+        self.phase_seconds = {"train": 0.0, "metrics": 0.0}
+        self.data_loader = data_loader
+        self.cls_loader = classification_data_loader
+        self.num_cross_folds = num_cross_folds
+        self.check_test = check_test
+        self.check_noisy_data = check_noisy_data
+        self.wanted_label = wanted_label
+        self.optimize_for = optimize_for
+        self.min_or_max = min_or_max
+        self.verbose = verbose
+        self.seed = seed
+
+        # single-label mode -> softmax head over 2 classes
+        # (autoencoder_classification_wrapper.py:169-172,
+        # multimodal_autoencoder.py:323-327)
+        if wanted_label is not None:
+            cls_loss, out_labels = "softmax", 2
+        else:
+            cls_loss = "sigmoid_cross_entropy"
+            out_labels = classification_data_loader.num_labels or 2
+        # compute_dtype is a phase-2 knob; phase 1 always computes f32
+        self.base_cfg = MMAEConfig(
+            num_feats=data_loader.num_feats, loss="sigmoid_cross_entropy",
+            normalization="between_0_and_1", compute_dtype=compute_dtype,
+            num_labels=out_labels, classification_loss=cls_loss)
+        # neither training phase clips in the reference (§2.8.2, :443)
+        self.tcfg = TrainConfig(
+            learning_rate=mmae_learning_rate, batch_size=mmae_batch_size,
+            num_steps=mmae_num_steps, clip_gradients=False,
+            record_every_nth=max(mmae_num_steps // 10, 1), seed=seed,
+            optimizer_state_dtype=optimizer_state_dtype)
+        self.cls_tcfg = TrainConfig(
+            learning_rate=classification_learning_rate,
+            batch_size=classification_batch_size,
+            num_steps=classification_num_steps, clip_gradients=False,
+            record_every_nth=max(classification_num_steps // 10, 1),
+            seed=seed, optimizer_state_dtype=optimizer_state_dtype)
+
+        params = self._grid_params(
+            mmae_layer_sizes, classification_layer_sizes, tie_weights,
+            mmae_dropout_probs, mmae_weight_penalties, weight_initializers,
+            mmae_activation_funcs, mmae_test_variational, weight_penalties,
+            dropout_probs, activation_funcs)
+        self.list_of_param_settings = grid_lib.trim_vae_tied(
+            grid_lib.enumerate_grid(params))
+        self.num_settings = len(self.list_of_param_settings)
+
+        prefix = engine.get_save_prefix(
+            results_path, classifier_name,
+            getattr(classification_data_loader, "filename", "data.csv"),
+            wanted_label=wanted_label, replace=cont)
+        self.ledger = engine.ResultsLedger(
+            results_path, prefix, cont=cont,
+            save_every_nth=save_results_every_nth)
+
+        self.spec = NoiseSpec.build(self.base_cfg.validate(),
+                                    data_loader.modality_table)
+        self.unsup_folded = gt.FoldedData.from_loader(
+            data_loader, num_cross_folds, device=self.device)
+        self.sup_folded = gt.FoldedData.from_loader(
+            classification_data_loader, num_cross_folds, device=self.device,
+            supervised=True, noisy_flags=check_noisy_data)
+        self.labels = (classification_data_loader.wanted_labels
+                       or [wanted_label])
+
+    @staticmethod
+    def _grid_params(mmae_layer_sizes, classification_layer_sizes,
+                     tie_weights, mmae_dropout_probs, mmae_weight_penalties,
+                     weight_initializers, mmae_activation_funcs,
+                     mmae_test_variational, weight_penalties, dropout_probs,
+                     activation_funcs) -> Dict[str, list]:
+        """The two-phase grid axes
+        (autoencoder_classification_wrapper.py:127-140)."""
+        return {
+            "mmae_architecture": [list(a) for a in mmae_layer_sizes],
+            "classification_layers": [list(a) for a in
+                                      classification_layer_sizes],
+            "tie_weights": list(tie_weights),
+            "mmae_dropout_prob": list(mmae_dropout_probs),
+            "mmae_weight_penalty": list(mmae_weight_penalties),
+            "weight_initialization": list(weight_initializers),
+            "mmae_activation_function": list(mmae_activation_funcs),
+            "variational": list(mmae_test_variational),
+            "weight_penalty": list(weight_penalties),
+            "dropout_prob": list(dropout_probs),
+            "activation_func": list(activation_funcs),
+        }
+
+    @classmethod
+    def default_grid(cls):
+        """The reference's default 576-setting grid and training constants
+        from this constructor's defaults: (settings, num_cross_folds,
+        mmae_num_steps, classification_num_steps)."""
+        d = {k: p.default
+             for k, p in inspect.signature(cls.__init__).parameters.items()
+             if p.default is not inspect.Parameter.empty}
+        params = cls._grid_params(
+            d["mmae_layer_sizes"], d["classification_layer_sizes"],
+            d["tie_weights"], d["mmae_dropout_probs"],
+            d["mmae_weight_penalties"], d["weight_initializers"],
+            d["mmae_activation_funcs"], d["mmae_test_variational"],
+            d["weight_penalties"], d["dropout_probs"],
+            d["activation_funcs"])
+        settings = grid_lib.trim_vae_tied(grid_lib.enumerate_grid(params))
+        return (settings, d["num_cross_folds"], d["mmae_num_steps"],
+                d["classification_num_steps"])
+
+    def _cfg_for_bucket(self, setting: Dict[str, Any]) -> MMAEConfig:
+        return self.base_cfg.replace(
+            layer_sizes=_arch_tuple(setting["mmae_architecture"]),
+            classification_layer_sizes=_arch_tuple(
+                setting["classification_layers"]),
+            tie_weights=bool(setting.get("tie_weights", False)),
+            variational=bool(setting.get("variational", False)),
+            weight_initialization=setting.get("weight_initialization",
+                                              "normal"),
+        ).validate()
+
+    def _metric_battery_launch(self, preds: torch.Tensor) -> torch.Tensor:
+        """The whole metric battery on the device predictions, normalised
+        to (C, K, R, L) / (K, R, L) (a single label keeps no axis)."""
+        val_y = self.sup_folded.val_y
+        if preds.dim() == 3:
+            preds = preds.unsqueeze(-1)
+        if val_y.dim() == 2:
+            val_y = val_y.unsqueeze(-1)
+        return _metric_battery(preds, val_y, self.sup_folded.val_n,
+                               self.sup_folded.val_noisy)
+
+    def _metric_rows(self, metrics_dev, num_configs: int):
+        """Per-config metric columns from the battery's (3, 5, C, K, L)
+        result: acc/auc/f1/precision/recall, per-label acc/auc and the
+        noisy/clean slices, nanmean over folds
+        (autoencoder_classification_wrapper.py:239-328,
+        generic_wrapper.py:433-497)."""
+        stacked = np.asarray(torch.as_tensor(metrics_dev).cpu())
+        mi = {m: i for i, m in enumerate(METRIC_ORDER)}
+        noisy = self.sup_folded.val_noisy
+        rows = []
+        for c in range(num_configs):
+            per_label = {m: stacked[0, mi[m], c] for m in METRIC_ORDER}
+            row = {}
+            for name in per_label:
+                row[f"val_{name}"] = engine.nanmean(per_label[name])
+            for i, label in enumerate(self.labels):
+                friendly = helpers.get_friendly_label_name(str(label))
+                row[f"val_acc_{friendly}"] = engine.nanmean(
+                    per_label["acc"][:, i])
+                row[f"val_auc_{friendly}"] = engine.nanmean(
+                    per_label["auc"][:, i])
+            if noisy is not None:
+                for k, s in (("noisy", 1), ("clean", 2)):
+                    row[f"{k}_val_acc"] = engine.nanmean(
+                        stacked[s, mi["acc"], c])
+                    row[f"{k}_val_auc"] = engine.nanmean(
+                        stacked[s, mi["auc"], c])
+            rows.append(row)
+        return rows
+
+    @staticmethod
+    def _mmae_subsetting(s: Dict[str, Any]) -> Dict[str, Any]:
+        """The phase-1 (MMAE) hyperparameters of a two-phase setting."""
+        return {"dropout_prob": s.get("mmae_dropout_prob", 1.0),
+                "weight_penalty": s.get("mmae_weight_penalty", 0.0),
+                "activation_function": s.get("mmae_activation_function",
+                                             "relu")}
+
+    @staticmethod
+    def _family_key(setting: Dict[str, Any]) -> tuple:
+        """Phase-1 shape-family key: settings sharing it have identical
+        headless MMAE parameter shapes (the bucket key minus the
+        classifier architecture)."""
+        return (_arch_tuple(setting["mmae_architecture"]),
+                bool(setting.get("tie_weights", False)),
+                bool(setting.get("variational", False)),
+                setting.get("weight_initialization", "normal"))
+
+    @staticmethod
+    def _p1_key(ms: Dict[str, Any]) -> tuple:
+        return (float(ms["dropout_prob"]), float(ms["weight_penalty"]),
+                str(ms["activation_function"]))
+
+    def _prepare_families(self, buckets):
+        """Group buckets by phase-1 family (first-seen family order) and
+        list each family's unique MMAE sub-settings: its phase-1 stack is
+        trained once and shared by all its buckets.  On one device every
+        family shares."""
+        order, fam_buckets = [], {}
+        for kb in buckets:
+            fk = self._family_key(kb[1][0])
+            if fk not in fam_buckets:
+                fam_buckets[fk] = []
+                order.append(fk)
+            fam_buckets[fk].append(kb)
+        self._families = {}
+        for fi, fk in enumerate(order):
+            uniq, index = [], {}
+            for _, bucket in fam_buckets[fk]:
+                for s in bucket:
+                    pk = self._p1_key(self._mmae_subsetting(s))
+                    if pk not in index:
+                        index[pk] = len(uniq)
+                        uniq.append(self._mmae_subsetting(s))
+            self._families[fk] = {
+                "fi": fi, "uniq": uniq, "index": index,
+                "remaining": len(fam_buckets[fk]), "launched": None}
+        return [kb for fk in order for kb in fam_buckets[fk]]
+
+    def _launch_bucket(self, bi: int, bucket):
+        """Train one bucket's two phases (the first bucket of a family
+        also pretrains the family) and launch its metric battery on the
+        device; nothing is copied to the host here.  The kernels' launches
+        are enqueued asynchronously, so the next bucket's host work
+        overlaps this one's device work."""
+        t0 = time.time()
+        cfg = self._cfg_for_bucket(bucket[0])
+        mmae_settings = [self._mmae_subsetting(s) for s in bucket]
+        hyper = gt.HyperStack.from_settings(mmae_settings, cfg, self.tcfg)
+        chyper = gt.ClassifierHyperStack.from_settings(bucket, cfg)
+        on_gpu = self.device.type == "cuda"
+        seed = cls_train_kernels.derive_seed(self.seed, 0, bi)
+        family = self._family_key(bucket[0])
+        fam = self._families[family]
+        K = self.num_cross_folds
+        # resolve 'auto' per phase so the ledger records what ran
+        p1_backend = gt.resolve_backend(
+            self.backend, cls_train_kernels.phase1_cfg(cfg), self.tcfg,
+            self.spec, on_gpu=on_gpu)
+        p2_backend = gt.resolve_backend_two_phase(
+            self.backend, cfg, self.tcfg, self.cls_tcfg, self.spec,
+            on_gpu=on_gpu)
+        backend_used = (p1_backend if p1_backend == p2_backend
+                        else f"p1-{p1_backend}/p2-{p2_backend}")
+        # rate denominator: this bucket's phase-2 steps, plus the family's
+        # pretraining if this bucket launched it
+        inst_steps = len(bucket) * K * self.cls_tcfg.num_steps
+        if fam["launched"] is None:
+            inst_steps += len(fam["uniq"]) * K * self.tcfg.num_steps
+            hyper_u = gt.HyperStack.from_settings(fam["uniq"], cfg,
+                                                  self.tcfg)
+            fam["launched"] = gt.train_phase1_shared(
+                self.device,
+                cls_train_kernels.derive_seed(self.seed, 1, fam["fi"]),
+                cfg, self.tcfg, self.spec, hyper_u, self.unsup_folded,
+                backend=p1_backend)
+        params_u, losses = fam["launched"]
+        p1_map = np.asarray(
+            [fam["index"][self._p1_key(ms)] for ms in mmae_settings],
+            np.int64)
+        params, preds = gt.train_phase2_shared_sharded(
+            self.device, seed, cfg, self.tcfg, self.cls_tcfg, self.spec,
+            params_u, p1_map, hyper, chyper, self.sup_folded,
+            backend=p2_backend)
+        t_train = time.time()
+        self.phase_seconds["train"] += t_train - t0
+        metrics_dev = self._metric_battery_launch(preds)
+        now = time.time()
+        self.phase_seconds["metrics"] += now - t_train
+        return {"bi": bi, "bucket": bucket, "launch_secs": now - t0,
+                "losses": losses, "p1_map": p1_map,
+                "backend_used": backend_used, "inst_steps": inst_steps,
+                "family": family,
+                "params": params if self.save_best_params else None,
+                "metrics": metrics_dev}
+
+    def _export_cfg(self, setting: Dict[str, Any]) -> MMAEConfig:
+        """The exported checkpoint's config: ``dropout_prob`` is the phase-2
+        head keep probability (inert at inference), the MMAE's penalty and
+        activation, the head's activation and penalty."""
+        return self._cfg_for_bucket(setting).replace(
+            dropout_prob=float(setting.get("dropout_prob", 1.0)),
+            weight_penalty=float(setting.get("mmae_weight_penalty", 0.0)),
+            activation=setting.get("mmae_activation_function", "relu"),
+            classification_activation=setting.get("activation_func"),
+            classification_weight_penalty=float(
+                setting.get("weight_penalty", 0.0)))
+
+    def _track_best(self, st, rows) -> None:
+        """Keep the sweep-best setting's fold-0 two-phase parameters
+        (MMAE stack + head) on the host, by ``optimize_for``; NaN scores
+        never win."""
+        sign = 1.0 if self.min_or_max == "max" else -1.0
+        scores = np.asarray(
+            [sign * float(r.get(self.optimize_for, np.nan)) for r in rows],
+            np.float64)
+        if np.all(np.isnan(scores)):
+            return
+        c_best = int(np.nanargmax(scores))
+        if (self._best_saved is not None
+                and not scores[c_best] > self._best_saved[0]):
+            return
+        host = optim.tree_map(lambda t: t[c_best, 0].cpu(), st["params"])
+        setting = dict(st["bucket"][c_best])
+        self._best_saved = (float(scores[c_best]), setting, host,
+                            self._export_cfg(setting))
+
+    def _finalize_bucket(self, st, est, num_buckets: int) -> None:
+        """Copy one launched bucket's objectives and metrics to the host
+        and write its ledger rows.  Per-bucket time is the bucket's own
+        (launch + finalize), not the wall span."""
+        bucket = st["bucket"]
+        t1 = time.time()
+        losses = np.asarray(st["losses"].cpu())[st["p1_map"]]   # (C, K)
+        self.phase_seconds["train"] += time.time() - t1
+
+        t2 = time.time()
+        metric_rows = self._metric_rows(st["metrics"], len(bucket))
+        self.phase_seconds["metrics"] += time.time() - t2
+
+        bucket_secs = st["launch_secs"] + (time.time() - t1)
+        rate = st["inst_steps"] / max(bucket_secs, 1e-9)
+        rows = []
+        for c, setting in enumerate(bucket):
+            row = dict(setting)
+            row["val_mmae_loss"] = float(np.mean(losses[c]))
+            row.update(metric_rows[c])
+            row["time_per_setting_s"] = bucket_secs / len(bucket)
+            row["backend_used"] = st["backend_used"]
+            row["inst_steps_per_s"] = rate
+            rows.append(row)
+            self.ledger.append(row)
+        if self.save_best_params and st.get("params") is not None:
+            self._track_best(st, rows)
+        est.record(bucket_secs, batch=len(bucket))
+        # every bucket of a family launches before its last finalizes, so
+        # the shared stack can go once every user is finalized
+        fam = self._families[st["family"]]
+        fam["remaining"] -= 1
+        if fam["remaining"] <= 0:
+            fam["launched"] = None
+        if self.verbose:
+            print(f"bucket {st['bi'] + 1}/{num_buckets} "
+                  f"({len(bucket)} settings x {self.num_cross_folds} "
+                  f"folds): {bucket_secs:.1f}s; {est.summary()}")
+
+    def sweep_all_parameters(self) -> None:
+        pending = [s for s in self.list_of_param_settings
+                   if not (self.ledger.started_from
+                           and self.ledger.already_done(s))]
+        buckets = self._prepare_families(grid_lib.bucket_settings(pending))
+        est = engine.TimeEstimator(self.num_settings,
+                                   self.ledger.started_from)
+        inflight = None
+        for bi, (_, bucket) in enumerate(buckets):
+            try:
+                st = self._launch_bucket(bi, bucket)
+            except Exception:
+                # persist the finished in-flight bucket before the error
+                # propagates (the reference's durability contract)
+                try:
+                    if inflight is not None:
+                        self._finalize_bucket(inflight, est, len(buckets))
+                except Exception:
+                    pass
+                finally:
+                    self.ledger.flush()
+                raise
+            if inflight is not None:
+                self._finalize_bucket(inflight, est, len(buckets))
+            inflight = st
+        if inflight is not None:
+            self._finalize_bucket(inflight, est, len(buckets))
+        self.ledger.flush()
+        if self.save_best_params:
+            self.export_best_params()
+
+    def export_best_params(self) -> Optional[str]:
+        """Checkpoint the ledger winner's fold-0 two-phase parameters as
+        ``best_mmae_cls``.  The winner must be one this process trained; a
+        better row left by an earlier generation of a resumed ledger would
+        need a retrain, which raises ``NotImplementedError``."""
+
+        def resolve(row, ledger_score):
+            sign = 1.0 if self.min_or_max == "max" else -1.0
+            # NaN comparisons are False: an all-NaN column falls back to
+            # this run's tracked winner
+            if (self._best_saved is not None
+                    and not sign * ledger_score > self._best_saved[0]):
+                signed, setting, host_params, cfg = self._best_saved
+                return setting, host_params, cfg, sign * signed
+            return self._retrain_fold0(_grid_setting_from_row(self, row))
+
+        return _export_best_checkpoint(self, base_name="best_mmae_cls",
+                                       step=self.cls_tcfg.num_steps,
+                                       resolve=resolve)
+
+    def _retrain_fold0(self, setting: Dict[str, Any]):
+        raise NotImplementedError(
+            f"retraining {setting} on fold 0: {SINGLE_RUN_TRAINER}")
+
+    def test_on_test(self, setting: Dict[str, Any]):
+        raise NotImplementedError(f"test_on_test: {SINGLE_RUN_TRAINER}")
+
+    def get_final_results(self):
+        """Best settings by val_acc / noisy_val_acc / clean_val_acc
+        (generic_wrapper.py:514-522), as ledger row dicts."""
+        out = {}
+        for metric in ("val_acc", "noisy_val_acc", "clean_val_acc"):
+            if metric in self.ledger.columns:
+                out[metric] = self.ledger.find_best_setting(metric, "max")
+        return out
+
+    def run(self):
+        self.sweep_all_parameters()
+        return self.get_final_results()

@@ -1,0 +1,35 @@
+"""Small helpers the sweeps need.
+
+A copy of the two functions of ``multimodalautoencoder_tpu/utils/helpers.py``
+that the classification sweep and its ledger use (reference:
+helper_funcs.py), kept here so the port imports nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+# substring -> friendly name (helper_funcs.py:17-31)
+_FRIENDLY = (("happiness", "happiness"), ("happy", "happiness"),
+             ("health", "health"), ("calm", "calmness"),
+             ("stress", "stress"), ("energy", "energy"))
+
+
+def get_secs_mins_hours_from_secs(total_secs: float
+                                  ) -> Tuple[int, int, int]:
+    """seconds -> (hours, mins, secs) (helper_funcs.py:1-15)."""
+    total_secs = int(total_secs)
+    hours = total_secs // 3600
+    mins = (total_secs % 3600) // 60
+    secs = total_secs % 60
+    return hours, mins, secs
+
+
+def get_friendly_label_name(label_col: str) -> str:
+    """Long label column -> short name via substring match
+    (helper_funcs.py:17-31); falls back to the column name itself."""
+    low = label_col.lower()
+    for sub, name in _FRIENDLY:
+        if sub in low:
+            return name
+    return label_col.replace("_label", "")

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither jax nor the JAX package, and
-the serve path imports neither pandas nor scikit-learn.
+neither the serve path nor the training and classification-sweep paths
+import pandas or scikit-learn.
 
 The import check runs in a fresh interpreter, because this suite's
 conftest has already imported jax into the test process.
@@ -64,6 +65,11 @@ def test_training_path_import_pulls_in_no_jax_pandas_or_sklearn():
         "import multimodalautoencoder_tpu_torch.parallel.grid_trainer\n"
         "import multimodalautoencoder_tpu_torch.ops.train_kernels\n"
         "import multimodalautoencoder_tpu_torch.sweep.grid\n"
+        "import multimodalautoencoder_tpu_torch.ops.cls_train_kernels\n"
+        "import multimodalautoencoder_tpu_torch.ops.metrics\n"
+        "import multimodalautoencoder_tpu_torch.sweep.engine\n"
+        "import multimodalautoencoder_tpu_torch.sweep.wrappers\n"
+        "import multimodalautoencoder_tpu_torch.utils.helpers\n"
         f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
