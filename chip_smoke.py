@@ -16,7 +16,7 @@ features):
 - grid training: the in-kernel generator against its twin, the training
   kernels against their plain twin at a small width and on the three
   1000-wide ACII buckets (60 instances each), then those buckets through
-  ``train_grid_sharded(backend="pallas")`` for 15,000 steps with the
+  ``train_grid_sharded(backend="pallas")`` for 5,000 steps with the
   sweep's recipe, the best instance saved and served by ``cli fill``, and
   the step timed by launch type (phases [7]-[10]);
 - the two-phase classification sweep: the phase-2 kernels against their
@@ -25,7 +25,14 @@ features):
   folds) through ``MMAEClassificationSweep.run()`` at 15,000 + 15,000
   steps with its winner exported and served by ``cli embed``, the full
   576-setting default grid through ``cli sweep-classification`` at 100 +
-  100 steps, and one phase-2 step timed (phases [11]-[14]).
+  100 steps, and one phase-2 step timed (phases [11]-[14]);
+- the MMAE sweep: the depth >= 3 kernels against their twin at a small
+  width and on the three 1000 -> 500 -> 100 buckets (60 instances each),
+  those buckets through ``MMAESweep(backend="pallas", probe="device",
+  save_best_params=True).run()`` at 15,000 steps with its winner served by
+  ``cli fill``, the default 108-setting grid through ``cli sweep-mmae`` at
+  100 steps, one deep step timed, and the device-memory stream probe
+  against its twins (phases [15]-[19]).
 
 Any failed phase ends the run with a non-zero exit; so does a machine
 without CUDA.  The last lines of standard output are the card's name and
@@ -55,7 +62,9 @@ LAYERS = (1000, 100)
 SEED = 0
 # the sweep's recipe (sweep/wrappers.py:173-186, :248-253)
 LR, BATCH = 1e-3, 20
-STEPS = 15000      # the sweep's num_steps
+# [9]'s steps: the sweep's 15,000 cut to 5,000 for the smoke's time limit
+# ([12] and [16] keep the full 15,000)
+STEPS = 5000
 NAMES = ("call", "location", "screen", "sms", "survey")
 # MMAESweep's default grid (sweep/wrappers.py:160-168, :257-265)
 ACII_PARAMS = {
@@ -208,8 +217,8 @@ def phase_serve(workdir: str, dk):
     t0 = time.perf_counter()
     csv_path = synthetic.write_reference_scale_csv(workdir, num_rows=ROWS,
                                                    seed=SEED)
-    dl = DataLoader(csv_path, fill_gaps_with=-1.0, suppress_output=True,
-                    seed=SEED)
+    dl = DataLoader(csv_path, supervised=False, fill_gaps_with=-1.0,
+                    suppress_output=True, seed=SEED)
     print(f"  study: {ROWS} rows, {dl.num_feats} features, "
           f"{dl.num_modalities} modalities "
           f"({time.perf_counter() - t0:.1f} s to write and load)")
@@ -352,8 +361,8 @@ def phase_breakdown(csv_path: str, ck_path: str, card: str) -> None:
         steps.append((name, now - t))
         t = now
 
-    dl = DataLoader(csv_path, fill_gaps_with=-1.0, suppress_output=True,
-                    seed=SEED)
+    dl = DataLoader(csv_path, supervised=False, fill_gaps_with=-1.0,
+                    suppress_output=True, seed=SEED)
     lap("DataLoader (read_csv, normalize_fill_df)")
     params, cfg, _, _ = ckpt.load_checkpoint_auto(
         ck_path, MMAEConfig(num_feats=dl.num_feats), verbose=False,
@@ -677,7 +686,7 @@ def phase_train(workdir: str, ptk, dk, dl, folded, buckets, spec,
     torch.cuda.synchronize()
     check(rc == 0, f"cli fill of the trained checkpoint returned {rc}")
     from multimodalautoencoder_tpu_torch.data.loader import DataLoader
-    serve_dl = DataLoader(dl.filename, fill_gaps_with=-1.0,
+    serve_dl = DataLoader(dl.filename, supervised=False, fill_gaps_with=-1.0,
                           suppress_output=True, seed=SEED)
     check_served("fill", "trained", dl.filename, serve_dl)
     print(f"  best instance: {name} bucket, config {c} "
@@ -1009,7 +1018,7 @@ def phase_cls_sweep(workdir: str, pck, ptk, study_path: str, unsup, sup,
                    str(SEED)])
     torch.cuda.synchronize()
     check(rc == 0, f"cli embed of the exported winner returned {rc}")
-    serve_dl = DataLoader(study_path, fill_gaps_with=-1.0,
+    serve_dl = DataLoader(study_path, supervised=False, fill_gaps_with=-1.0,
                           suppress_output=True, seed=SEED)
     check_served("embed", "best_mmae_cls", study_path, serve_dl)
     print(f"  exported {os.path.basename(ck)} and served it with cli embed "
@@ -1124,6 +1133,458 @@ def phase_cls_step_timing(pck, ptk, sup_folded, spec, cfg, settings,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
 
 
+
+# ------------------------------------------------------ the MMAE sweep
+# [16]: MMAESweep at full width on the deep family (24 DAE + 12 VAE
+# settings in 3 buckets of 12 settings x 5 folds)
+DEEP_LAYERS = (1000, 500, 100)
+MMAE_STEPS = 15000   # the sweep's num_steps
+MMAE_GRID_STEPS = 100  # [17]'s default 108-setting grid, cut for time
+SIGN_FLIP_FRACTION = 1e-5
+
+
+def deep_buckets(base):
+    """The deep grid of [16] as MMAESweep builds it: (name, cfg, settings)
+    for its tied, untied and VAE buckets."""
+    from multimodalautoencoder_tpu_torch.sweep import grid
+
+    params = dict(ACII_PARAMS, architecture=[list(DEEP_LAYERS)])
+    settings = grid.add_extra_vae_params(grid.enumerate_grid(params))
+    out = []
+    for _, members in grid.bucket_settings(settings):
+        s = members[0]
+        cfg = base.replace(layer_sizes=DEEP_LAYERS,
+                           tie_weights=bool(s["tie_weights"]),
+                           variational=bool(s["variational"]),
+                           weight_initialization=s["weight_initialization"]
+                           ).validate()
+        name = "vae" if cfg.variational else (
+            "tied" if cfg.tie_weights else "untied")
+        out.append((name, cfg, members))
+    check(len(settings) == 36 and sorted(n for n, _, _ in out)
+          == ["tied", "untied", "vae"] and all(len(m) == 12
+                                               for _, _, m in out),
+          f"the deep grid gave {len(settings)} settings in {len(out)}")
+    return out
+
+
+def as_float64(run):
+    """A copy of a twin's run whose parameters and data are float64 (its
+    moments keep their type): the same step in more precise arithmetic."""
+    out = run.clone()
+    out.params = [t.double() for t in out.params]
+    out.train = out.train.double()
+    return out
+
+
+def phase_deep_kernel_vs_twin(pdk, ptk, buckets, folded_full,
+                              spec_full) -> float:
+    """Kernel 3 against its twin on the card over 10 steps, each step
+    started from the twin's state, corruption, dropout, L2 and decay on.
+    With Adam in its linear regime (eps LINEAR_EPS), where an update is
+    proportional to its gradient: at F = 30 for depth 3 (16, 10, 6) and 4
+    (20, 14, 10, 6), tied softsign / untied relu / VAE, f32 and bf16
+    moments (2 settings x 2 folds) at LINEAR_LR, and on [16]'s three
+    full-width buckets (N = 60) at the sweep's lr, every parameter within
+    TOL_CLS.  Then the full-width buckets at the sweep's lr and eps 1e-8,
+    where the first updates are lr sign(g): an instance may have at most
+    1e-5 of its parameters (at least 8) over TOL_CLS in a step (Adam sign
+    flips where a gradient sits at rounding level).
+
+    At full width the f32 twin is itself held against a float64 twin from
+    the same state: where rounding alone moves an instance's parameters
+    past TOL_CLS (the f32 twin misses the f64 one), the kernel may miss the
+    f32 twin there too, by at most twice as many parameters; everywhere
+    else nothing is excused.  (At lr 1e-2 the relu VAE instances diverge
+    within these steps in either twin, so the full-width cases run at the
+    sweep's lr.)  Every case is reported before the phase fails."""
+    from multimodalautoencoder_tpu_torch.config import MMAEConfig, \
+        TrainConfig
+    from multimodalautoencoder_tpu_torch.data.modalities import \
+        ModalityTable
+    from multimodalautoencoder_tpu_torch.models.corruption import NoiseSpec
+    from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
+
+    rng = np.random.default_rng(SEED)
+    small = gt.FoldedData.from_ragged(
+        [rng.random((40, 30)), rng.random((33, 30))],
+        [rng.random((9, 30)), rng.random((7, 30))], device=DEVICE)
+    two = [{"dropout_prob": 0.5, "weight_penalty": 0.01,
+            "activation_function": "relu"},
+           {"dropout_prob": 1.0, "weight_penalty": 0.001,
+            "activation_function": "softsign"}]
+    cases = []
+    for layers in ((16, 10, 6), (20, 14, 10, 6)):
+        base = MMAEConfig(num_feats=30, layer_sizes=layers,
+                          weight_initialization="normal")
+        for family in ("tied softsign", "untied relu", "vae"):
+            cfg = family_cfg(base, family)
+            spec = NoiseSpec.build(cfg, ModalityTable.uniform(5, 6, NAMES))
+            for moments in ("float32", "bfloat16"):
+                cases.append((f"F=30 {layers} {family}", cfg, two, small,
+                              spec, moments, LINEAR_LR, LINEAR_EPS))
+    for lr, eps in ((LR, LINEAR_EPS), (LR, 1e-8)):
+        for name, cfg, members in buckets:
+            for moments in ("bfloat16", "float32"):
+                cases.append((f"{name} {DEEP_LAYERS} N=60 lr {lr:g} eps "
+                              f"{eps:g}", cfg, members, folded_full,
+                              spec_full, moments, lr, eps))
+    worst, failed = 0.0, []
+    steps = 10
+    for label, cfg, settings, folded, spec, moments, lr, eps in cases:
+        tcfg = TrainConfig(learning_rate=lr, batch_size=BATCH, decay=True,
+                           decay_steps=1000, decay_rate=0.95,
+                           clip_gradients=False,
+                           optimizer_state_dtype=moments)
+        hyper = gt.HyperStack.from_settings(settings, cfg, tcfg)
+        C, K = hyper.num_configs, folded.num_folds
+        g = torch.Generator().manual_seed(SEED)
+        twin = pdk.prepare_deep_run(g, cfg, tcfg, spec, hyper, folded,
+                                    ptk.init_grid_params(g, cfg, C, K),
+                                    adam_eps=eps)
+        per_inst = sum(t[0].numel() for t in twin.params)
+        bound = 0 if eps == LINEAR_EPS else max(
+            8, int(SIGN_FLIP_FRACTION * per_inst))
+        full = not label.startswith("F=30")
+
+        def over(a_list, b_list):
+            """Per instance: parameters more than TOL_CLS apart."""
+            return sum(((a.double() - b.double()).abs() > TOL_CLS)
+                       .reshape(a.shape[0], -1).sum(1)
+                       for a, b in zip(a_list, b_list))
+
+        err = floor_err = 0.0
+        most = total = floor_most = excused = 0
+        ok = True
+        for step in range(steps):
+            run = twin.clone()
+            ref = as_float64(twin) if full else None
+            pdk.train_deep_kernel(run, step, 1)
+            pdk.train_deep_kernel_reference(twin, step, 1)
+            if full:
+                pdk.train_deep_kernel_reference(ref, step, 1)
+            torch.cuda.synchronize()
+            n_k = over(run.params, twin.params)
+            allowed = torch.full_like(n_k, bound)
+            if full:
+                # the f32 twin's own distance from the float64 one
+                n_t = over(twin.params, ref.params)
+                allowed = allowed + 2 * n_t
+                excused += int(torch.minimum(n_k, 2 * n_t).sum())
+                floor_most = max(floor_most, int(n_t.max()))
+                floor_err = max([floor_err] + [
+                    float((a.double() - b).abs().max())
+                    for a, b in zip(twin.params, ref.params)])
+            err = max([err] + [float((a - b).abs().max())
+                               for a, b in zip(run.params, twin.params)])
+            most, total = max(most, int(n_k.max())), total + int(n_k.sum())
+            ok = ok and bool((n_k <= allowed).all()) and not any(
+                bool((torch.isfinite(b) & ~torch.isfinite(a)).any())
+                for a, b in zip(run.params, twin.params))
+        worst = max(worst, err)
+        if full or not ok:
+            floor = (f"; the f32 twin vs f64: max {floor_err:.2e}, at most "
+                     f"{floor_most} over, {excused} excused" if full else "")
+            print(f"  {label:44s} {moments:8s} max |dp| {err:.3e}; {total}"
+                  f" params over {TOL_CLS} in {steps} steps, at most "
+                  f"{most} of an instance's {per_inst} in one step (bound "
+                  f"{bound}){floor} {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            failed.append(f"{label} {moments}")
+        del run, twin
+    print(f"  {sum(c[0].startswith('F=30') for c in cases)} cases at F = 30"
+          f" (worst max |dp| over all cases {worst:.3e})")
+    check(not failed, f"deep kernels disagree with the twin: {failed}")
+    return worst
+
+
+@contextlib.contextmanager
+def captured_calls(module, name: str):
+    """Every call of ``module.<name>`` made inside the block, as (args,
+    kwargs, result)."""
+    inner = getattr(module, name)
+    calls = []
+
+    def wrapped(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, inner)
+
+
+def phase_mmae_sweep(workdir: str, pdk, ptk, dk, study, sup, card: str):
+    """The slice end to end: MMAESweep(layer_sizes=[DEEP_LAYERS],
+    backend="pallas", probe="device", save_best_params=True).run() on the
+    study with its classification loader, 15,000 steps, then its exported
+    winner served by ``cli fill``.  Returns (kernel 3's launches, the tied
+    bucket's (cfg, tcfg, hyper, params), the rows)."""
+    from multimodalautoencoder_tpu_torch import cli
+    from multimodalautoencoder_tpu_torch.config import ACTIVATIONS
+    from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
+    from multimodalautoencoder_tpu_torch.sweep.wrappers import MMAESweep
+
+    results = os.path.join(workdir, "mmae_results")
+    # the main path: every count at 0 just before, read just after
+    pdk.KERNELS.launches = 0
+    ptk.KERNELS.launches = 0
+    t0 = time.perf_counter()
+    with timed_loops(pdk, "train_deep_kernel") as loops, \
+            captured_calls(gt, "train_grid_sharded") as calls:
+        sweep = MMAESweep(study, classification_data_loader=sup,
+                          layer_sizes=[DEEP_LAYERS], backend="pallas",
+                          probe="device", save_best_params=True,
+                          num_steps=MMAE_STEPS, results_path=results,
+                          seed=SEED, verbose=False, device=DEVICE)
+        best, _, extras = sweep.run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, depth2 = pdk.KERNELS.launches, ptk.KERNELS.launches
+    rows = sweep.ledger.rows
+    print(f"  {len(rows)} settings x {sweep.num_cross_folds} folds in "
+          f"{len(calls)} buckets: {wall:.2f} s wall (train "
+          f"{sweep.phase_seconds['train']:.2f} s, probe "
+          f"{sweep.phase_seconds['probe']:.2f} s)  [{card}]")
+    check(len(rows) == 36, f"the sweep wrote {len(rows)} rows")
+    check(all(r["backend_used"] == "pallas" for r in rows),
+          "a row did not run on the kernels")
+    check(len(loops) == 3 and len(calls) == 3,
+          f"{len(loops)} kernel loops for {len(calls)} buckets")
+    check(depth2 == 0, f"{depth2} depth-2 kernel launches in a deep sweep")
+    want = 0
+    tied = None
+    relu = ACTIVATIONS.index("relu")
+    for (args, kwargs, (params, losses)), (start, end) in zip(calls, loops):
+        cfg, tcfg, hyper = args[2], args[3], args[5]
+        per_step = pdk.launches_per_step(len(cfg.layer_sizes),
+                                         cfg.tie_weights, cfg.variational)
+        want += MMAE_STEPS * per_step
+        secs = start.elapsed_time(end) / 1e3
+        N = losses.numel()
+        name = "vae" if cfg.variational else (
+            "tied" if cfg.tie_weights else "untied")
+        _, loss0 = gt.train_grid_sharded(*args, num_steps=0, **kwargs)
+        is_relu = (hyper.act_id == relu).view(-1, 1).expand_as(losses).to(
+            losses.device)
+        held = ~is_relu if cfg.variational else torch.ones_like(is_relu)
+        finite = torch.isfinite(losses)
+        print(f"  {name:6s} N={N}: kernel loop {secs:.3f} s by CUDA events:"
+              f" {1e3 * secs / MMAE_STEPS:.4f} ms/step, "
+              f"{N * MMAE_STEPS / secs:,.0f} instance-steps/s; "
+              f"{per_step} launches a step; "
+              f"{int((held & finite & (losses < loss0)).sum())} of "
+              f"{int(held.sum())} held instances finite and below their "
+              f"start ({int(finite.sum())} of {N} finite)  [{card}]")
+        check(bool(finite[held].all()), f"{name}: a held objective is not "
+              "finite")
+        check(bool((losses[held] < loss0[held]).all()),
+              f"{name}: {int((losses[held] >= loss0[held]).sum())} "
+              "instances did not go below their 0-step objective")
+        if name == "tied":
+            tied = (cfg, tcfg, hyper, params)
+    print(f"  kernel 3 launches {launches} (expected {want}); depth-2 "
+          f"kernel launches {depth2}")
+    check(launches == want, "kernel 3 launch count")
+    probe_cols = [c for c in sweep.ledger.columns if c.startswith("svm_")]
+    vals = np.asarray([[float(r[c]) for c in probe_cols] for r in rows])
+    print(f"  {len(probe_cols)} probe columns, values "
+          f"{vals.min():.4f}-{vals.max():.4f}; best objective "
+          f"{float(best['val_sigmoid_cross_entropy']):.3f} "
+          f"({best['architecture']}, tied {best['tie_weights']}, "
+          f"{best['activation_function']}, keep {best['dropout_prob']}, "
+          f"penalty {best['weight_penalty']}); best svm_val_acc "
+          f"{float(extras['svm_val_acc']['svm_val_acc']):.4f}")
+    check(len(probe_cols) == 6 * (len(sweep.labels) + 1)
+          and np.isfinite(vals).all()
+          and (vals >= 0).all() and (vals <= 1).all(),
+          "probe columns missing, non-finite or outside [0, 1]")
+    for mod in ("jax", "pandas", "sklearn", "multimodalautoencoder_tpu"):
+        check(mod not in sys.modules, f"the MMAE sweep imported {mod}")
+
+    from multimodalautoencoder_tpu_torch.data.loader import DataLoader
+    ck = os.path.join(results, f"best_mmae-{MMAE_STEPS}.npz")
+    check(os.path.exists(ck), f"{ck} was not exported")
+    before = dk.KERNELS.launches
+    rc = cli.main(["fill", study.filename, "--checkpoint", ck,
+                   "--normalize-and-fill", "--device", DEVICE, "--seed",
+                   str(SEED)])
+    torch.cuda.synchronize()
+    check(rc == 0, f"cli fill of best_mmae returned {rc}")
+    serve_dl = DataLoader(study.filename, supervised=False,
+                          fill_gaps_with=-1.0, suppress_output=True,
+                          seed=SEED)
+    check_served("fill", "best_mmae", study.filename, serve_dl)
+    print(f"  exported {os.path.basename(ck)} and served it with cli fill "
+          f"--device {DEVICE} ({dk.KERNELS.launches - before} fused_dense "
+          "launches: the export keeps the sweep's plain config)")
+    return launches, tied, rows
+
+
+def phase_full_mmae_grid(workdir: str, pdk, ptk, study_path: str,
+                         card: str):
+    """The default 108-setting ACII grid (9 depth-2 buckets, every width,
+    untied and VAE) through ``cli sweep-mmae --device cuda`` with the
+    probe, at MMAE_GRID_STEPS steps."""
+    from multimodalautoencoder_tpu_torch import cli
+    from multimodalautoencoder_tpu_torch.sweep import engine, grid
+
+    settings = grid.add_extra_vae_params(grid.enumerate_grid(ACII_PARAMS))
+    buckets = grid.bucket_settings(settings)
+    want = MMAE_GRID_STEPS * sum(
+        ptk.launches_per_step(b[0]["tie_weights"] and not b[0]["variational"],
+                              b[0]["variational"]) for _, b in buckets)
+    results = os.path.join(workdir, "mmae_grid_results")
+    ptk.KERNELS.launches = 0
+    pdk.KERNELS.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["sweep-mmae", study_path, study_path, "--num-steps",
+                   str(MMAE_GRID_STEPS), "--device", DEVICE,
+                   "--normalize-and-fill", "--seed", str(SEED),
+                   "--results-path", results])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"cli sweep-mmae returned {rc}")
+    ledger = engine.ResultsLedger(results, "MMAE-acii", cont=True)
+    used = sorted({r["backend_used"] for r in ledger.rows})
+    acc = np.asarray([float(r["svm_val_acc"]) for r in ledger.rows])
+    print(f"  {len(settings)} settings in {len(buckets)} buckets: "
+          f"{wall:.1f} s wall; {len(ledger)} rows, backend_used {used}; "
+          f"svm_val_acc {np.nanmin(acc):.3f}-{np.nanmax(acc):.3f} "
+          f"({int(np.isnan(acc).sum())} NaN); launches "
+          f"{ptk.KERNELS.launches} (expected {want}), kernel 3 "
+          f"{pdk.KERNELS.launches}  [{card}]")
+    check(len(ledger) == 108, f"{len(ledger)} ledger rows")
+    check(used == ["pallas"], f"backends {used}")
+    check(ptk.KERNELS.launches == want and pdk.KERNELS.launches == 0,
+          "launch counts")
+
+
+def deep_products(cfg, batch: int):
+    """(m, k, n) of every product of one deep step: forward (encoder, the
+    VAE head, decoder), backward data (decoder down to gz, encoder down to
+    layer 1), weight gradients (two per tied weight)."""
+    d = [cfg.num_feats] + list(cfg.layer_sizes)
+    L, B = len(d) - 1, batch
+    vae = cfg.variational
+    out = [(B, d[i], d[i + 1]) for i in range(L)]
+    out += [(B, d[L - 1], d[L])] if vae else []
+    out += [(B, d[L - j], d[L - j - 1]) for j in range(L)]
+    out += [(B, d[L - j - 2], d[L - j - 1]) for j in range(L - 1)]
+    out += [(B, d[L - 1], d[L])]
+    out += [(B, d[i + 2], d[i + 1]) for i in range(L - 1)]
+    out += [(B, d[L], d[L - 1])] if vae else []
+    n_w = 2 if cfg.tie_weights else 1
+    out += [(d[i], B, d[i + 1]) for i in range(L)] * n_w
+    out += [(d[L - j], B, d[L - j - 1]) for j in range(L)] \
+        if not cfg.tie_weights else []
+    out += [(d[L - 1], B, d[L])] if vae else []
+    return out
+
+
+def phase_deep_step_timing(pdk, ptk, tied, folded, spec, card: str) -> dict:
+    """One step of [16]'s tied bucket (60 instances, bf16 moments): the
+    kernels by CUDA events from fresh parameters (the first 300 steps in
+    one call, then windows of 50) and from the trained ones, each launch
+    type against its bound, the twin on the card, and the step's products
+    as torch.bmm calls (the library yardstick; the port never calls
+    it)."""
+    cfg, tcfg, hyper, params = tied
+    C, K = hyper.num_configs, folded.num_folds
+    N = C * K
+    inner = 50
+    bounds = pdk.deep_launch_type_bounds(cfg, N, BATCH, True)
+    step = pdk.deep_step_bound(cfg, N, BATCH, True)
+    print(f"  tied {cfg.num_feats} -> {' -> '.join(map(str, cfg.layer_sizes))}"
+          f", N={N}, B={BATCH}, bf16 moments; bound {step['bound_ms']:.4f} "
+          f"ms/step ({step['bound_by']}: {step['bytes'] / 1e9:.3f} GB, "
+          f"{step['flop'] / 1e9:.2f} GFLOP)")
+    out = {}
+    for label, start in (("fresh", None), ("trained", params)):
+        g = torch.Generator().manual_seed(SEED)
+        p0 = ptk.init_grid_params(g, cfg, C, K) if start is None else start
+        run = pdk.prepare_deep_run(g, cfg, tcfg, spec, hyper, folded, p0)
+        first = 20 if start is not None else 300
+        with timed_loops(pdk, "train_deep_kernel") as loops:
+            pdk.train_deep_kernel(run, 0, first)
+        torch.cuda.synchronize()
+        if start is None:
+            print(f"  fresh parameters, steps 0-299 in one call: "
+                  f"{loops[0][0].elapsed_time(loops[0][1]) / first:.4f} "
+                  f"ms/step  [{card}]")
+        ms = cuda_ms(lambda: pdk.train_deep_kernel(run, first, inner),
+                     reps=5, inner=1) / inner
+        prof: dict = {}
+        pdk.train_deep_kernel(run, 1000, inner, profile=prof)
+        print(f"  {label:7s} parameters: {ms:.4f} ms/step by the kernels, "
+              f"{ms / step['bound_ms']:.1f}x the bound  [{card}]")
+        for t in ptk.LAUNCH_TYPES:
+            got = prof.get(t, 0.0) / inner
+            if got > 0.0:
+                print(f"    {t:18s} {got:.4f} ms/step (events, serialised),"
+                      f" bound {bounds[t]['bound_ms']:.4f} ms by "
+                      f"{bounds[t]['bound_by']}")
+        out[label] = (ms, run)
+    twin = out["fresh"][1].clone()
+    plain_ms = cuda_ms(lambda: pdk.train_deep_kernel_reference(twin, 0, 1),
+                       reps=3, inner=3)
+    shapes = deep_products(cfg, BATCH)
+    ops = [(torch.rand((N, m, k), device=DEVICE),
+            torch.rand((N, k, n), device=DEVICE)) for m, k, n in shapes]
+    bmm_ms = cuda_ms(lambda: [torch.bmm(a, b) for a, b in ops], reps=5,
+                     inner=5)
+    print(f"  twin on the card {plain_ms:.4f} ms/step; the step's "
+          f"{len(shapes)} products by torch.bmm {bmm_ms:.4f} ms  [{card}]")
+    return {"ms": out["fresh"][0], "plain_ms": plain_ms, "bmm_ms": bmm_ms,
+            "bound_ms": step["bound_ms"], "bound_by": step["bound_by"]}
+
+
+def phase_hbm(hbm, card: str) -> dict:
+    """Kernel 5, the bandwidth probe, on its main path (``hbm_bench.
+    measure`` over the untied 1000-wide bucket's bf16 moments, counts at 0
+    just before), then each stream against its twin on the card: the read
+    checksum equal to ``torch.sum`` on every pass, the copy and the fill
+    bit for bit."""
+    hbm.KERNELS.launches = 0
+    result = hbm.measure()
+    torch.cuda.synchronize()
+    launches = hbm.KERNELS.launches
+    for name, r in result.items():
+        share = 100 * r["gb_per_s"] * 1e9 / HBM_BYTES_PER_S
+        print(f"  {name:6s} {r['bytes'] / 1e9:.3f} GB a pass: {r['ms']:.4f} "
+              f"ms, {r['gb_per_s']:.1f} GB/s ({share:.1f} % of the "
+              f"datasheet's 3350 GB/s)  [{card}]")
+    n = hbm.MOMENT_BYTES // 4
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    src = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), dtype=torch.int32,
+                        device=DEVICE, generator=g)
+    dst = torch.zeros_like(src)
+    sums = hbm.read_sums(src, steps=2)
+    hbm.copy(src, dst, steps=2)
+    torch.cuda.synchronize()
+    want = int(src.sum(dtype=torch.int64))
+    same_copy = bool(torch.equal(dst, src))
+    hbm.fill(dst, 0x3F800000)
+    torch.cuda.synchronize()
+    same_fill = bool((dst == 0x3F800000).all())
+    print(f"  vs twins: read checksum {sums.tolist()} == {want}: "
+          f"{sums.tolist() == [want] * 2}; copy bit-equal: {same_copy}; "
+          f"fill bit-equal: {same_fill}")
+    check(sums.tolist() == [want] * 2 and same_copy and same_fill,
+          "a stream kernel disagrees with its twin")
+    want = len(hbm.PATTERNS) * (hbm.REPS + 1) * hbm.STEPS
+    check(launches == want, f"{launches} stream launches, expected {want}")
+    mixed = result["mixed"]
+    return {"launches": launches, "max_abs_err": 0.0, "ms": mixed["ms"],
+            "plain_ms": result["copy_"]["ms"],
+            "bound_ms": mixed["bytes"] / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": result["copy_"]["ms"],
+            "gb_per_s": {k: r["gb_per_s"] for k, r in result.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -1133,7 +1594,9 @@ def main() -> int:
     from multimodalautoencoder_tpu_torch.data.loader import DataLoader
     from multimodalautoencoder_tpu_torch.ops import cls_train_kernels as pck
     from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
+    from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
     from multimodalautoencoder_tpu_torch.ops import train_kernels as ptk
+    from multimodalautoencoder_tpu_torch.tools import hbm_bench as hbm
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1143,7 +1606,8 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}")
 
-    build_kernels([dk.KERNELS, ptk.KERNELS, pck.KERNELS])
+    build_kernels([dk.KERNELS, ptk.KERNELS, pck.KERNELS, pdk.KERNELS,
+                   hbm.KERNELS])
     print(f"[2] built {os.path.relpath(dk.KERNELS.library)} from "
           f"{os.path.relpath(dk.KERNELS.source)} with nvcc "
           f"{' '.join(dk.NVCC_FLAGS)} in {dk.KERNELS.build_seconds:.1f} s")
@@ -1173,8 +1637,9 @@ def main() -> int:
         os.makedirs(train_dir)
         t0 = time.perf_counter()
         study = DataLoader(synthetic.write_reference_scale_csv(
-            train_dir, num_rows=ROWS, seed=SEED), cross_validation=True,
-            fill_gaps_with=-1.0, suppress_output=True, seed=SEED)
+            train_dir, num_rows=ROWS, seed=SEED), supervised=False,
+            cross_validation=True, fill_gaps_with=-1.0, suppress_output=True,
+            seed=SEED)
         print(f"  study for training: {ROWS} rows, {study.num_feats} "
               f"features, {study.num_folds} CV folds "
               f"({time.perf_counter() - t0:.1f} s to write and load)")
@@ -1231,6 +1696,33 @@ def main() -> int:
         cls_step = phase_cls_step_timing(pck, ptk, sup_folded, spec, cfg_v,
                                          settings_v, card)
 
+        print(f"[15] built {os.path.relpath(pdk.KERNELS.library)} from "
+              f"{os.path.relpath(pdk.KERNELS.source)} in "
+              f"{pdk.KERNELS.build_seconds:.1f} s (with the others); "
+              "ptxas:")
+        for name, res in sorted(pdk.KERNELS.resources().items()):
+            print(f"    {name}: {res}")
+        deep = deep_buckets(base)
+        print(f"  kernel 3 vs its twin on the card (TF32 off, 10 steps, "
+              f"tolerance {TOL_CLS})")
+        deep_err = phase_deep_kernel_vs_twin(pdk, ptk, deep, folded, spec)
+        print(f"[16] the MMAE sweep end to end: MMAESweep(layer_sizes="
+              f"[{DEEP_LAYERS}], backend='pallas', probe='device', "
+              f"save_best_params=True).run(), {MMAE_STEPS} steps")
+        deep_launches, tied_deep, _ = phase_mmae_sweep(
+            workdir, pdk, ptk, dk, study, sup, card)
+        print(f"[17] the default 108-setting grid through cli sweep-mmae "
+              f"--device {DEVICE}, {MMAE_GRID_STEPS} steps")
+        phase_full_mmae_grid(workdir, pdk, ptk, study.filename, card)
+        print("[18] one deep tied step, timed")
+        deep_step = phase_deep_step_timing(pdk, ptk, tied_deep, folded,
+                                           spec, card)
+        print(f"[19] built {os.path.relpath(hbm.KERNELS.library)} in "
+              f"{hbm.KERNELS.build_seconds:.1f} s (with the others); the "
+              f"bandwidth probe over {hbm.MOMENT_BYTES / 1e9:.3f} GB, "
+              f"{hbm.STEPS} passes a pattern")
+        stream = phase_hbm(hbm, card)
+
     print(f"  whole run {time.perf_counter() - t_start:.1f} s")
     print(card)
     src = "multimodalautoencoder_tpu_torch/csrc/"
@@ -1258,6 +1750,17 @@ def main() -> int:
               "source": src + "train_kernel.cu",
               "replaces": "tests_tpu/test_hardware.py:28",
               "library_ms": None}, **probe),
+        {"name": "mmae_deep_train_step", "route": "cuda",
+         "source": src + "train_deep_kernel.cu",
+         "replaces": "multimodalautoencoder_tpu/ops/train_kernel.py:589",
+         "launches": deep_launches, "max_abs_err": deep_err,
+         "ms": deep_step["ms"], "plain_ms": deep_step["plain_ms"],
+         "bound_ms": deep_step["bound_ms"],
+         "bound_by": deep_step["bound_by"], "library_ms": None},
+        dict({"name": "hbm_stream", "route": "cuda",
+              "source": src + "hbm_stream.cu",
+              "replaces": "tools/hbm_bench.py:60"},
+             **{k: v for k, v in stream.items() if k != "gb_per_s"}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

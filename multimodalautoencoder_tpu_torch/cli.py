@@ -1,13 +1,15 @@
-"""Command-line interface of the port: serving and the classification sweep.
+"""Command-line interface of the port: serving and the two sweeps.
 
 Counterpart of ``multimodalautoencoder_tpu/cli.py`` (its ``fill``,
-``embed`` and ``sweep-classification`` subcommands; the other sweep, train
-and tool subcommands come with the rest of the port):
+``embed``, ``sweep-mmae`` and ``sweep-classification`` subcommands; the
+train, baseline and tool subcommands come with the rest of the port):
 
     python -m multimodalautoencoder_tpu_torch.cli fill data.csv \\
         --checkpoint best-15000.npz --normalize-and-fill [--device cuda]
     python -m multimodalautoencoder_tpu_torch.cli embed data.csv \\
         --checkpoint best-15000.npz --normalize-and-fill
+    python -m multimodalautoencoder_tpu_torch.cli sweep-mmae \\
+        unsup.csv [sup.csv] --normalize-and-fill [--device cuda]
     python -m multimodalautoencoder_tpu_torch.cli sweep-classification \\
         unsup.csv sup.csv [label] --normalize-and-fill [--device cuda]
 
@@ -40,7 +42,8 @@ def _fill_gaps(args):
 
 
 def _restore(args):
-    dl = DataLoader(args.filename, normalize_and_fill=args.normalize_and_fill,
+    dl = DataLoader(args.filename, supervised=False,
+                    normalize_and_fill=args.normalize_and_fill,
                     normalization=args.normalization,
                     fill_gaps_with=_fill_gaps(args), suppress_output=True,
                     seed=args.seed)
@@ -86,13 +89,41 @@ def _loader(path, supervised, args, wanted_label=None):
                       suppress_output=True)
 
 
-def cmd_sweep_classification(args) -> int:
+def _reject_z_score(args) -> None:
+    """The MMAE sweeps train sigmoid-CE against 0-1-normalized inputs
+    (autoencoder_wrapper.py:79-92)."""
     if args.normalization == "z_score":
-        # the MMAE sweeps train sigmoid-CE against 0-1-normalized inputs
         raise SystemExit(
             "--normalization z_score is only valid for 'baseline' "
             "commands; the MMAE sweeps train sigmoid-CE against "
             "0-1-normalized inputs")
+
+
+def cmd_sweep_mmae(args) -> int:
+    _reject_z_score(args)
+    unsup = _loader(args.filename, False, args)
+    cls = (_loader(args.classification_filename, True, args)
+           if args.classification_filename else None)
+    sweep = wrappers.MMAESweep(
+        unsup, classification_data_loader=cls,
+        results_path=args.results_path, cont=args.cont,
+        check_test=args.check_test, num_cross_folds=args.folds,
+        num_steps=args.num_steps, seed=args.seed, backend=args.backend,
+        probe=None if args.probe == "none" else args.probe,
+        process_shard=(tuple(args.process_shard) if args.process_shard
+                       else None),
+        save_best_params=args.save_best_params, device=args.device)
+    best, test_score, extras = sweep.run()
+    print(best)
+    if test_score is not None:
+        print("held-out test:", test_score)
+    for metric, row in extras.items():
+        print(f"best by {metric}:", dict(row))
+    return 0
+
+
+def cmd_sweep_classification(args) -> int:
+    _reject_z_score(args)
     unsup = _loader(args.mmae_filename, False, args)
     sup = _loader(args.classification_filename, True, args,
                   wanted_label=args.label)
@@ -120,19 +151,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="torch device the model runs on")
 
 
-def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(prog="multimodalautoencoder_tpu_torch")
-    sub = ap.add_subparsers(dest="command", required=True)
-    p = sub.add_parser("sweep-classification",
-                       help="two-phase MMAE+classifier grid search")
-    p.add_argument("mmae_filename")
-    p.add_argument("classification_filename")
-    p.add_argument("label", nargs="?", default=None)
-    p.add_argument("--num-steps", type=int, default=15000)
-    p.add_argument("--compute-dtype", default="float32",
-                   choices=("float32", "bfloat16"),
-                   help="matmul-operand dtype for phase-2 training "
-                        "(accumulation and storage stay float32)")
+def _add_sweep_common(p: argparse.ArgumentParser) -> None:
+    """Flags both sweep subcommands take."""
     p.add_argument("--backend", choices=("auto", "xla", "pallas"),
                    default="auto",
                    help="'auto' trains on the CUDA kernels where the shape "
@@ -149,6 +169,37 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint the best setting's fold-0 parameters "
                         "at the end of the sweep (consumable by "
                         "fill/embed --checkpoint)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="multimodalautoencoder_tpu_torch")
+    sub = ap.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("sweep-mmae", help="MMAE hyperparameter grid search")
+    p.add_argument("filename")
+    p.add_argument("classification_filename", nargs="?", default=None)
+    p.add_argument("--num-steps", type=int, default=15000)
+    p.add_argument("--probe", default="device",
+                   choices=("device", "device-exact", "svm", "none"),
+                   help="embedding-quality probe: the on-device RFF ridge "
+                        "(default), the exact kernel ridge, the host "
+                        "sklearn SVC grid (not ported: refused), or none")
+    p.add_argument("--process-shard", nargs=2, type=int, default=None,
+                   metavar=("I", "N"),
+                   help="multi-host scale-out (not ported yet: refused)")
+    _add_sweep_common(p)
+    _add_common(p)
+    p.set_defaults(fn=cmd_sweep_mmae)
+    p = sub.add_parser("sweep-classification",
+                       help="two-phase MMAE+classifier grid search")
+    p.add_argument("mmae_filename")
+    p.add_argument("classification_filename")
+    p.add_argument("label", nargs="?", default=None)
+    p.add_argument("--num-steps", type=int, default=15000)
+    p.add_argument("--compute-dtype", default="float32",
+                   choices=("float32", "bfloat16"),
+                   help="matmul-operand dtype for phase-2 training "
+                        "(accumulation and storage stay float32)")
+    _add_sweep_common(p)
     _add_common(p)
     p.set_defaults(fn=cmd_sweep_classification)
     for name, fn, hlp in (("fill", cmd_fill,

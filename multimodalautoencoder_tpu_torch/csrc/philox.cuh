@@ -14,11 +14,14 @@ namespace philox {
 
 // Purposes: the second key word, one stream per kind of draw (ops/philox.py).
 // Phase 2 (the classification run) draws from its own purposes; head layer
-// j's dropout is purpose CLS_HEAD_DROP + j.
+// j's dropout is purpose CLS_HEAD_DROP + j (j < 3).  The depth >= 3 run samples with
+// ROW, ELEM and TYPE, draws the VAE's eps from DEEP_EPS, and layer k of its
+// 2L-layer chain (encode 0..L-1, decode L..2L-1) its dropout from
+// DEEP_DROP + k.
 enum Purpose : uint32_t { ROW = 0, ELEM = 1, TYPE = 2, DROP1 = 3, DROP3 = 4,
                           EPS = 5, PROBE = 6, CLS_ROW = 7, CLS_ELEM = 8,
                           CLS_TYPE = 9, CLS_DROP1 = 10, CLS_EPS = 11,
-                          CLS_HEAD_DROP = 12 };
+                          CLS_HEAD_DROP = 12, DEEP_EPS = 15, DEEP_DROP = 16 };
 
 struct U4 { uint32_t x, y, z, w; };
 

@@ -291,15 +291,15 @@ class DataLoader:
     Val rows; with it, they are the current fold's
     (:meth:`set_to_cross_validation_fold`, fold 0 at first).
 
-    ``supervised`` (default False here, True in the JAX package, whose
-    callers all pass it) adds the labels: every ``*label*`` column, or
+    ``supervised`` (the default, as in the JAX package) adds the labels:
+    every ``*label*`` column, or
     ``wanted_label`` alone; rows missing a wanted label are dropped before
     normalization, and each ``X`` matrix gets its ``Y`` (one column per
     label, or a vector for one label; {-1, 1} with ``labels_to_sign``).
     ``separate_noisy_data`` splits every matrix by ``logistics_noisy``
     into ``clean_*`` / ``noisy_*`` where the CSV has that column."""
 
-    def __init__(self, filename: str, supervised: bool = False,
+    def __init__(self, filename: str, supervised: bool = True,
                  suppress_output: bool = False,
                  cross_validation: bool = False,
                  normalize_and_fill: bool = True,

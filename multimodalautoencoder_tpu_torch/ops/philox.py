@@ -30,9 +30,13 @@ ROUNDS = 10
 
 # Purposes (the second key word) — one stream per kind of draw.  Phase 2
 # (the classification run) has its own; head layer j's dropout draws from
-# CLS_HEAD_DROP + j.
+# CLS_HEAD_DROP + j (j < 3).  The depth >= 3 run samples and corrupts with ROW,
+# ELEM and TYPE, draws the VAE's eps from DEEP_EPS, and layer k of its
+# 2L-layer chain (encode layers 0..L-1, then decode layers L..2L-1) its
+# dropout from DEEP_DROP + k.
 ROW, ELEM, TYPE, DROP1, DROP3, EPS, PROBE = range(7)
 CLS_ROW, CLS_ELEM, CLS_TYPE, CLS_DROP1, CLS_EPS, CLS_HEAD_DROP = range(7, 13)
+DEEP_EPS, DEEP_DROP = 15, 16
 
 
 def _mulhilo(m: int, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

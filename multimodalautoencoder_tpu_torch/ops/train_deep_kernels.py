@@ -1,0 +1,548 @@
+"""The depth >= 3 grid-training run: hand-written CUDA kernels and their
+plain PyTorch twin.
+
+Counterpart of the deep family of ``multimodalautoencoder_tpu/ops/
+train_kernel.py``: ``_pipeline_deep`` (:1157-1322) -> the Pallas kernel
+``_train_kernel_deep`` (:589-843, ``pallas_call`` :1279), kernel 2's math
+over L encode and L decode layers, DAE and VAE, with every moment resident
+(no streaming).  ``train_kernels.train_grid_pallas`` dispatches here by
+depth, as ``_pipeline`` does (:916-921).  Here:
+
+- :func:`train_deep_pallas` is the pipeline: initial parameters, the run,
+  the noisy-val objective shared with every backend;
+- :func:`train_deep_kernel` launches the CUDA kernels of
+  ``csrc/train_deep_kernel.cu`` (built with nvcc for sm_90a at first use,
+  one ctypes call per run; the S-step loop runs in C);
+- :func:`train_deep_kernel_reference` is their plain twin: the same math
+  and the same Philox bits, step by step.  CPU tensors take the twin;
+  CUDA tensors take the kernels or raise.
+
+Semantics are the Pallas kernel's, as for depth 2 (``ops/train_kernels``):
+activation and dropout on every layer but the linear embedding and the
+logits; the VAE's log-sigma head on the last hidden activation and its KL
+on the sampled z; tied decode weights accumulating their gradient
+transposed into the encode weight with the L2 doubled, the VAE's ``wv``
+penalised once.  Sampling and corruption draw from the depth-2 purposes;
+layer k of the 2L-layer chain drops out with ``philox.DEEP_DROP + k`` and
+the VAE draws eps from ``philox.DEEP_EPS``.
+
+Parameters, moments and the runner's lists follow the Pallas contract
+order (:595-596, :1192-1213): ``encW(L), decW(L, untied only), encB(L),
+decB(L), wv, bv``.  What bounds a step: :func:`deep_step_bound`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import os
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from multimodalautoencoder_tpu_torch.config import MMAEConfig, TrainConfig
+from multimodalautoencoder_tpu_torch.models import mmae
+from multimodalautoencoder_tpu_torch.models.corruption import NoiseSpec
+from multimodalautoencoder_tpu_torch.ops import philox, train_kernels
+from multimodalautoencoder_tpu_torch.ops.cuda_library import (BUILD_DIR,
+                                                              CSRC_DIR,
+                                                              NvccLibrary)
+from multimodalautoencoder_tpu_torch.ops.train_kernels import (
+    LAUNCH_TYPES, MAX_DEPTH, GridRun)
+
+SOURCE = os.path.join(CSRC_DIR, "train_deep_kernel.cu")
+HEADERS = train_kernels.HEADERS
+LIBRARY = os.path.join(BUILD_DIR, "libtrain_deep_kernel.so")
+
+# csrc/train_deep_kernel.cu ``Slot``: encode weights at [0, MAX_DEPTH),
+# decode weights at [MAX_DEPTH, 2 MAX_DEPTH), then their biases, wv, bv.
+ENC_W, DEC_W, ENC_B, DEC_B = (i * MAX_DEPTH for i in range(4))
+WV, BV = 4 * MAX_DEPTH, 4 * MAX_DEPTH + 1
+NSLOT = 4 * MAX_DEPTH + 2
+# ``Buf``: six single buffers, then six per-layer groups of MAX_DEPTH.
+SINGLE_BUFFERS = ("x", "xn", "lv", "eps", "z", "glv")
+LAYER_BUFFERS = ("enc_out", "enc_gf", "enc_g", "dec_out", "dec_gf", "dec_g")
+NBUF = len(SINGLE_BUFFERS) + len(LAYER_BUFFERS) * MAX_DEPTH
+# the launcher times at most this many launches of one step
+# (train_common.cuh ``Launcher::MAX_EVENTS`` less two)
+MAX_PROFILED_LAUNCHES = 46
+
+
+class DeepArgs(ctypes.Structure):
+    """``struct DeepArgs`` of csrc/train_deep_kernel.cu, field for field."""
+
+    _fields_ = (
+        [(n, ctypes.c_int) for n in (
+            "n_inst", "batch", "depth", "n_types", "max_rows", "tied",
+            "variational", "bf16_moments", "decay")]
+        + [("dims", ctypes.c_int * (MAX_DEPTH + 1))]
+        + [(n, ctypes.c_float) for n in (
+            "elem_p", "mask_value", "decay_steps", "decay_rate",
+            "adam_eps2")]
+        + [(n, ctypes.c_void_p) for n in (
+            "seeds", "fold", "n_valid", "lr", "keep", "wpen", "act",
+            "train", "type_table", "cum")]
+        + [("param", ctypes.c_void_p * NSLOT),
+           ("m", ctypes.c_void_p * NSLOT),
+           ("v", ctypes.c_void_p * NSLOT),
+           ("ws", ctypes.c_void_p * NBUF)])
+
+
+class DeepLibrary(NvccLibrary):
+    """``csrc/train_deep_kernel.cu`` built and bound; ``launches`` counts
+    its kernels' launches."""
+
+    def __init__(self):
+        super().__init__(SOURCE, LIBRARY, HEADERS)
+
+    def _bind(self, lib: ctypes.CDLL) -> None:
+        lib.mmae_deep_train_run.restype = ctypes.c_int
+        lib.mmae_deep_train_run.argtypes = [
+            ctypes.POINTER(DeepArgs), ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+            ctypes.c_void_p]
+        lib.deep_train_kernel_error_string.restype = ctypes.c_char_p
+        lib.deep_train_kernel_error_string.argtypes = [ctypes.c_int]
+
+    def check(self, err: int, what: str) -> None:
+        if err != 0:
+            msg = self.load().deep_train_kernel_error_string(err).decode()
+            raise RuntimeError(f"{what} failed: {msg} ({err})")
+
+
+KERNELS = DeepLibrary()
+
+
+def launches_per_step(depth: int, tied: bool, variational: bool) -> int:
+    """Kernel launches of one step of ``mmae_deep_train_run``: sample +
+    corrupt, 2L forward and 2L - 1 backward products, L (tied) or 2L
+    weight-gradient + Adam kernels, 2L bias + Adam kernels; a VAE adds the
+    log-sigma product, two elementwise passes and wv's, bv's Adam.  At
+    L = 2 this is ``train_kernels.launches_per_step``."""
+    return (1 + 2 * depth + 2 * depth - 1 + (1 if tied else 2) * depth
+            + 2 * depth + (5 if variational else 0))
+
+
+# ------------------------------------------------------------- bounds
+
+def _widths(cfg: MMAEConfig) -> List[int]:
+    """[F, H1, ..., HL]."""
+    return [cfg.num_feats] + list(cfg.layer_sizes)
+
+
+def deep_step_bound(cfg: MMAEConfig, n_inst: int, batch: int,
+                    bf16_moments: bool) -> Dict[str, float]:
+    """``train_kernels.step_bound`` over L layers: the least time one step
+    of ``n_inst`` instances could take on an H100, the larger of its bytes
+    over the memory rate and its operations over the f32 CUDA-core rate.
+    Bytes: every parameter read and written (8 B), both Adam moments read
+    and written (8 B bf16, 16 B f32), the sampled rows read once.
+    Operations: 2 per multiply-add of the step's products, 10 per
+    parameter for Adam.  At L = 2 it equals ``step_bound``."""
+    cfg = cfg.validate()
+    d = _widths(cfg)
+    L = len(d) - 1
+    S = sum(d[i] * d[i + 1] for i in range(L))    # one copy of the weights
+    head = d[L - 1] * d[L] if cfg.variational else 0
+    weights = S * (1 if cfg.tie_weights else 2) + head
+    params = weights + sum(d[1:]) + sum(d[:-1]) + (d[L] if head else 0)
+    # forward: every layer of both halves (+ lv); backward data: the
+    # decode chain down to gz, the encode chain down to layer 1's input
+    # gradient (not into xn) (+ the wv term); weight gradients: one
+    # product per weight tensor, two per tied one (+ wv's)
+    macs = batch * (2 * S + head
+                    + S + S - d[0] * d[1] + head
+                    + 2 * S + head)
+    flop = n_inst * (2.0 * macs + 10.0 * params)
+    nbytes = n_inst * (params * (16 if bf16_moments else 24)
+                       + 4.0 * batch * d[0])
+    return train_kernels._bound(nbytes, flop)
+
+
+def deep_launch_type_bounds(cfg: MMAEConfig, n_inst: int, batch: int,
+                            bf16_moments: bool
+                            ) -> Dict[str, Dict[str, float]]:
+    """:func:`deep_step_bound` split by launch type
+    (``train_kernels.LAUNCH_TYPES``).  Each type counts the weights it
+    reads, the (N, B, width) activations it reads from other types once
+    and the ones it writes once, and its operations; 12 integer operations
+    per Philox round for the draws."""
+    cfg = cfg.validate()
+    d = _widths(cfg)
+    L = len(d) - 1
+    N, B = n_inst, batch
+    vae = cfg.variational
+    S = sum(d[i] * d[i + 1] for i in range(L))
+    head = d[L - 1] * d[L] if vae else 0
+    weights = S * (1 if cfg.tie_weights else 2) + head
+    biases = sum(d[1:]) + sum(d[:-1]) + (d[L] if vae else 0)
+    hidden = 2 * sum(d[1:L])          # hidden widths of both halves
+    act = 4.0 * N * B                 # bytes per unit of activation width
+    philox_ops = 10 * 12
+    moment = 8 if bf16_moments else 16
+    # every layer's gradient at its pre-activation: both halves' widths
+    grads = sum(d[1:]) + sum(d[:-1])
+    return {
+        "sample_corrupt": train_kernels._bound(
+            act * 3 * d[0], N * B * (d[0] + 2) * philox_ops),
+        "forward_products": train_kernels._bound(
+            # xn, x in; a, d act' of every hidden layer, mu (+ lv) and the
+            # logit gradient out
+            4.0 * N * (weights + biases)
+            + act * (3 * d[0] + 2 * hidden + d[L] * (2 if vae else 1)),
+            N * (2.0 * B * (2 * S + head) + B * hidden * philox_ops)),
+        "vae_elementwise": train_kernels._bound(
+            act * d[L] * 10 if vae else 0.0,
+            N * B * d[L] * 40.0 if vae else 0.0),
+        "backward_products": train_kernels._bound(
+            # the logit gradient and d act' in, every other gradient out
+            4.0 * N * weights + act * (d[0] + hidden + grads - d[0]
+                                       + (d[L] if vae else 0)),
+            N * 2.0 * B * (2 * S - d[0] * d[1] + head)),
+        "weight_grad_adam": train_kernels._bound(
+            # every layer's input and gradient in (+ glv)
+            N * weights * (8.0 + moment)
+            + act * (d[0] + hidden + d[L] + grads + (d[L] if vae else 0)),
+            N * (2.0 * B * (2 * S + head) + 10.0 * weights)),
+        "bias_grad_adam": train_kernels._bound(
+            N * biases * (8.0 + moment) + act * (grads
+                                                 + (d[L] if vae else 0)),
+            N * (B + 10.0) * biases),
+    }
+
+
+# ----------------------------------------------------------------- state
+
+@dataclasses.dataclass
+class DeepGridRun(GridRun):
+    """One depth >= 3 bucket's state: :class:`GridRun`'s fields, with
+    ``params``, ``m`` and ``v`` in the Pallas contract order ``encW(L),
+    decW(L, untied only), encB(L), decB(L), wv, bv (VAE only)``, the
+    widths ``sizes`` = (F, H1, ..., HL), and Adam's eps (the sweep's 1e-8;
+    checks raise it to put Adam in its linear regime)."""
+
+    sizes: Tuple[int, ...] = ()
+    adam_eps: float = train_kernels.ADAM_EPS
+
+    @property
+    def depth(self) -> int:
+        return len(self.sizes) - 1
+
+    @property
+    def dims(self):
+        return self.sizes
+
+    def layout(self) -> Dict[str, int]:
+        """Position of each group's first entry in the contract order."""
+        L = self.depth
+        n_w = L if self.tied else 2 * L
+        return {"enc_w": 0, "dec_w": L, "enc_b": n_w, "dec_b": n_w + L,
+                "wv": n_w + 2 * L}
+
+    def c_slots(self) -> List[int]:
+        """The C ``Slot`` of each entry of ``params``."""
+        L = self.depth
+        slots = [ENC_W + i for i in range(L)]
+        if not self.tied:
+            slots += [DEC_W + j for j in range(L)]
+        slots += [ENC_B + i for i in range(L)] + [DEC_B + j for j in range(L)]
+        if self.variational:
+            slots += [WV, BV]
+        return slots
+
+    def grid_params(self, C: int, K: int) -> mmae.MMAEParams:
+        """The parameters as an MMAEParams with leading (C, K) axes."""
+        def un(t):
+            return t.reshape((C, K) + t.shape[1:])
+        L, at = self.depth, self.layout()
+        p = [un(t) for t in self.params]
+        return mmae.MMAEParams(
+            enc_w=tuple(p[:L]),
+            dec_w=() if self.tied else tuple(p[L:2 * L]),
+            enc_b=tuple(p[at["enc_b"]:at["enc_b"] + L]),
+            dec_b=tuple(p[at["dec_b"]:at["dec_b"] + L]),
+            var_w=p[at["wv"]] if self.variational else None,
+            var_b=p[at["wv"] + 1] if self.variational else None,
+            cls_w=(), cls_b=())
+
+
+def prepare_deep_run(generator: torch.Generator, cfg: MMAEConfig,
+                     tcfg: TrainConfig, spec: NoiseSpec, hyper, folded,
+                     params0: mmae.MMAEParams,
+                     adam_eps: float = train_kernels.ADAM_EPS
+                     ) -> DeepGridRun:
+    """The kernels' inputs for a depth >= 3 bucket (``_pipeline_deep``
+    :1176-1246 without the padding): per-instance Philox seeds from
+    ``generator``, fold ids, row counts and hyperparameters, the fold
+    data, the corruption tables, ``params0`` (leading (C, K) axes) in the
+    contract order flattened to (N, ...), and zero moments.  Lives on the
+    device of ``folded``."""
+    cfg = cfg.validate()
+    p = params0
+    flat = (list(p.enc_w) + list(p.dec_w) + list(p.enc_b) + list(p.dec_b)
+            + ([p.var_w, p.var_b] if cfg.variational else []))
+    run = train_kernels.prepare_flat(
+        DeepGridRun, generator, cfg, tcfg, spec, hyper, folded, flat,
+        sizes=tuple(_widths(cfg)), adam_eps=float(adam_eps))
+    d = run.sizes
+    for li, w in enumerate(run.params[:run.depth]):
+        if tuple(w.shape[1:]) != (d[li], d[li + 1]):
+            raise ValueError(f"params0 encode weight {li} has shape "
+                             f"{tuple(w.shape)}, the config implies "
+                             f"(N, {d[li]}, {d[li + 1]})")
+    return run
+
+
+# ------------------------------------------------------------- the twin
+
+def _twin_step(run: DeepGridRun, step: int) -> None:
+    L, d = run.depth, run.sizes
+    Bsz, vae = run.batch, run.variational
+    at = run.layout()
+    P = run.params
+    enc_w = P[:L]
+    dec_w = ([enc_w[L - 1 - j].transpose(1, 2) for j in range(L)]
+             if run.tied else P[L:2 * L])
+    enc_b = P[at["enc_b"]:at["enc_b"] + L]
+    dec_b = P[at["dec_b"]:at["dec_b"] + L]
+    wv, bv = (P[at["wv"]], P[at["wv"] + 1]) if vae else (None, None)
+
+    def tr(t):
+        return t.transpose(1, 2)
+
+    def hidden(z, layer):
+        """(act(z) * drop, drop * act'(z)) of chain layer ``layer``."""
+        drop = train_kernels._dropout_factor(run, philox.DEEP_DROP + layer,
+                                             step, z.shape)
+        val, grad = train_kernels._activation_switch(z, run.act)
+        return val * drop, drop * grad
+
+    x, xn = train_kernels.sample_batch(run, step)
+    # forward (train_kernel.py:714-759): hs[i] is encode layer i's input
+    hs, gf_enc = [xn], []
+    lv = eps = None
+    for li in range(L):
+        if vae and li == L - 1:
+            # the log-sigma head off the last hidden activation (:720-724)
+            lv = hs[li] @ wv + bv.unsqueeze(1)
+        z = hs[li] @ enc_w[li] + enc_b[li].unsqueeze(1)
+        if li < L - 1:
+            h, gf = hidden(z, li)
+            gf_enc.append(gf)
+        elif vae:
+            eps = train_kernels.vae_eps(run.seeds, step, Bsz, d[L],
+                                        philox.DEEP_EPS)
+            h = z + eps * torch.exp(lv)
+        else:
+            h = z
+        hs.append(h)
+    gs, gf_dec = [hs[L]], []          # gs[j] is decode layer j's input
+    for lj in range(L - 1):
+        h, gf = hidden(gs[lj] @ dec_w[lj] + dec_b[lj].unsqueeze(1), L + lj)
+        gs.append(h)
+        gf_dec.append(gf)
+    logits = gs[L - 1] @ dec_w[L - 1] + dec_b[L - 1].unsqueeze(1)
+
+    # backward (:761-789); the target is the clean x, -1 gaps included
+    dec_g = [None] * L
+    dec_g[L - 1] = 1.0 / (1.0 + torch.exp(-logits)) - x
+    for lj in range(L - 2, -1, -1):
+        dec_g[lj] = (dec_g[lj + 1] @ tr(dec_w[lj + 1])) * gf_dec[lj]
+    gz = dec_g[0] @ tr(dec_w[0])
+    glv = None
+    if vae:
+        # KL on the sampled z: dz += z / B, dlv by the chain (:772-779)
+        gz = gz + hs[L] * (1.0 / Bsz)
+        glv = gz * eps * torch.exp(lv) + (torch.exp(2.0 * lv) - 1.0) \
+            * (1.0 / Bsz)
+    enc_g = [None] * L
+    enc_g[L - 1] = gz
+    for li in range(L - 2, -1, -1):
+        up = enc_g[li + 1] @ tr(enc_w[li + 1])
+        if vae and li == L - 2:
+            up = up + glv @ tr(wv)
+        enc_g[li] = up * gf_enc[li]
+
+    # weight gradients + L2 + Adam (:791-835)
+    alpha, es2 = train_kernels._adam_scalars(run, step, run.adam_eps)
+    wpen = run.wpen.view(-1, 1, 1)
+    pen = (2.0 if run.tied else 1.0) * wpen
+    adam = train_kernels._adam
+    for li in range(L):
+        grad = tr(hs[li]) @ enc_g[li] + pen * enc_w[li]
+        if run.tied:
+            # decode layer L-1-li uses W_li^T: its gradient, transposed
+            j0 = L - 1 - li
+            grad = grad + tr(dec_g[j0]) @ gs[j0]
+        adam(run, li, grad, alpha, es2)
+    if not run.tied:
+        for lj in range(L):
+            adam(run, L + lj, tr(gs[lj]) @ dec_g[lj] + wpen * dec_w[lj],
+                 alpha, es2)
+    if vae:
+        # wv is never tied: its L2 is not doubled (:821-828)
+        adam(run, at["wv"], tr(hs[L - 1]) @ glv + wpen * wv, alpha, es2)
+        adam(run, at["wv"] + 1, glv.sum(dim=1), alpha, es2)
+    for li in range(L):
+        adam(run, at["enc_b"] + li, enc_g[li].sum(dim=1), alpha, es2)
+        adam(run, at["dec_b"] + li, dec_g[li].sum(dim=1), alpha, es2)
+
+
+def train_deep_kernel_reference(run: DeepGridRun, first_step: int,
+                                num_steps: int) -> None:
+    """The deep kernels' plain twin: steps [first_step, first_step +
+    num_steps) in plain PyTorch on ``run``'s device, with the same Philox
+    draws, so sampling, corruption and dropout are bit-identical to the
+    kernels'."""
+    with torch.no_grad():
+        for step in range(first_step, first_step + num_steps):
+            _twin_step(run, step)
+
+
+# ----------------------------------------------------------- the kernels
+
+def _check_cuda_run(run: DeepGridRun) -> torch.device:
+    dev = run.seeds.device
+    if dev.type != "cuda":
+        raise ValueError(f"the deep training kernels run on cuda, not {dev}")
+    if not 2 <= run.depth <= MAX_DEPTH:
+        raise ValueError(f"depth {run.depth} outside [2, {MAX_DEPTH}]")
+    want = {"seeds": torch.int32, "fold": torch.int32,
+            "n_valid": torch.int32, "act": torch.int32,
+            "lr": torch.float32, "keep": torch.float32,
+            "wpen": torch.float32, "train": torch.float32,
+            "type_table": torch.float32, "cum": torch.float32}
+    for name, dtype in want.items():
+        t = getattr(run, name)
+        if t.dtype != dtype or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"DeepGridRun.{name}: need a contiguous {dtype}"
+                             f" tensor on {dev}, got {t.dtype} on {t.device}")
+    if len(run.params) != len(run.c_slots()):
+        raise ValueError(f"{len(run.params)} parameters where the layout "
+                         f"has {len(run.c_slots())}")
+    mdt = torch.bfloat16 if run.bf16_moments else torch.float32
+    for name, group, dtype in (("params", run.params, torch.float32),
+                               ("m", run.m, mdt), ("v", run.v, mdt)):
+        for i, t in enumerate(group):
+            if t.dtype != dtype or t.device != dev or not t.is_contiguous():
+                raise ValueError(f"DeepGridRun.{name}[{i}]: need a "
+                                 f"contiguous {dtype} tensor on {dev}")
+    return dev
+
+
+def _workspace(run: DeepGridRun, dev) -> Dict[Tuple[str, int], torch.Tensor]:
+    """The (N, B, width) buffers the run needs, keyed (group, layer):
+    every layer's output, gate factor d * act'(z) and gradient at its
+    pre-activation, where the layer has them (the logits are never
+    stored: their gradient is the last decode product's epilogue)."""
+    N, B, L, d = run.n_inst, run.batch, run.depth, run.sizes
+    want = {("x", 0): d[0], ("xn", 0): d[0]}
+    if run.variational:
+        for name in ("lv", "eps", "z", "glv"):
+            want[(name, 0)] = d[L]
+    for i in range(L):
+        want[("enc_out", i)] = want[("enc_g", i)] = d[i + 1]
+        want[("dec_g", i)] = d[L - i - 1]
+        if i < L - 1:
+            want[("enc_gf", i)] = d[i + 1]
+            want[("dec_out", i)] = want[("dec_gf", i)] = d[L - i - 1]
+    return {k: torch.empty((N, B, w), dtype=torch.float32, device=dev)
+            for k, w in want.items()}
+
+
+def _buffer_index(name: str, layer: int) -> int:
+    if name in SINGLE_BUFFERS:
+        return SINGLE_BUFFERS.index(name)
+    return (len(SINGLE_BUFFERS) + LAYER_BUFFERS.index(name) * MAX_DEPTH
+            + layer)
+
+
+def train_deep_kernel(run: DeepGridRun, first_step: int, num_steps: int,
+                      profile: Optional[Dict[str, float]] = None) -> None:
+    """Steps [first_step, first_step + num_steps) by the CUDA kernels, in
+    place on ``run``'s tensors, on the current stream; one ctypes call
+    whose C loop enqueues every launch.  With ``profile`` (a dict) every
+    launch is timed with CUDA events and each launch type's milliseconds
+    are added to it (this synchronises once a step; at most
+    :data:`MAX_PROFILED_LAUNCHES` launches a step)."""
+    dev = _check_cuda_run(run)
+    if num_steps <= 0:
+        return
+    if profile is not None and launches_per_step(
+            run.depth, run.tied, run.variational) > MAX_PROFILED_LAUNCHES:
+        raise ValueError("too many launches a step to profile")
+    lib = KERNELS.load()
+    ws = _workspace(run, dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    args = DeepArgs(
+        n_inst=run.n_inst, batch=run.batch, depth=run.depth,
+        n_types=int(run.type_table.shape[0]),
+        max_rows=int(run.train.shape[1]), tied=int(run.tied),
+        variational=int(run.variational),
+        bf16_moments=int(run.bf16_moments), decay=int(run.decay),
+        elem_p=run.elem_p, mask_value=run.mask_value,
+        decay_steps=run.decay_steps, decay_rate=run.decay_rate,
+        adam_eps2=run.adam_eps * run.adam_eps, seeds=ptr(run.seeds),
+        fold=ptr(run.fold), n_valid=ptr(run.n_valid),
+        lr=ptr(run.lr), keep=ptr(run.keep), wpen=ptr(run.wpen),
+        act=ptr(run.act), train=ptr(run.train),
+        type_table=ptr(run.type_table), cum=ptr(run.cum))
+    for i, w in enumerate(run.sizes):
+        args.dims[i] = w
+    for i, slot in enumerate(run.c_slots()):
+        args.param[slot] = ptr(run.params[i])
+        args.m[slot] = ptr(run.m[i])
+        args.v[slot] = ptr(run.v[i])
+    for (name, layer), t in ws.items():
+        args.ws[_buffer_index(name, layer)] = t.data_ptr()
+    launches = ctypes.c_longlong(0)
+    prof = (ctypes.c_float * len(LAUNCH_TYPES))() if profile is not None \
+        else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mmae_deep_train_run(ctypes.byref(args), int(first_step),
+                                      int(num_steps), ctypes.byref(launches),
+                                      ctypes.cast(prof, ctypes.c_void_p)
+                                      if prof is not None else None, stream)
+    KERNELS.launches += launches.value
+    KERNELS.check(err, "mmae_deep_train_run")
+    if profile is not None:
+        for name, ms in zip(LAUNCH_TYPES, prof):
+            profile[name] = profile.get(name, 0.0) + float(ms)
+
+
+# ------------------------------------------------------------- pipeline
+
+def train_deep_pallas(seed: int, cfg: MMAEConfig, tcfg: TrainConfig,
+                      spec: NoiseSpec, hyper, folded,
+                      num_steps: Optional[int] = None,
+                      params0: Optional[mmae.MMAEParams] = None):
+    """Train every (config, fold) instance of a depth >= 3 bucket; the
+    counterpart of ``_pipeline_deep``, with ``train_kernels.
+    train_grid_pallas``'s contract: ``seed`` seeds one CPU generator that
+    draws, in order, the initial parameters (unless ``params0``), the
+    instances' Philox seeds and the objective's noise; the CUDA kernels on
+    a GPU, the twin on the CPU.  Returns ``(params, losses)`` with leading
+    (C, K) axes."""
+    cfg = cfg.validate()
+    if not (3 <= len(cfg.layer_sizes) <= MAX_DEPTH
+            and train_kernels.supported(cfg, tcfg, spec)):
+        raise ValueError("configuration outside the deep training kernels'"
+                         " family; use the plain grid trainer")
+    num_steps = tcfg.num_steps if num_steps is None else int(num_steps)
+    generator = torch.Generator().manual_seed(int(seed))
+    C, K = hyper.num_configs, folded.num_folds
+    if params0 is None:
+        params0 = train_kernels.init_grid_params(generator, cfg, C, K)
+    run = prepare_deep_run(generator, cfg, tcfg, spec, hyper, folded,
+                           params0)
+    if run.seeds.device.type == "cpu":
+        train_deep_kernel_reference(run, 0, num_steps)
+    else:
+        train_deep_kernel(run, 0, num_steps)
+    params = run.grid_params(C, K)
+    return params, train_kernels.noisy_val_losses(params, cfg, spec, hyper,
+                                                  folded, generator)

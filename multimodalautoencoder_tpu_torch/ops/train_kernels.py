@@ -72,6 +72,9 @@ H100_HBM_BYTES_PER_S = 3.35e12
 H100_F32_FLOP_PER_S = 67e12
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+# The deepest encoder the deep family takes (csrc/train_deep_kernel.cu
+# ``MAX_DEPTH``).
+MAX_DEPTH = 16
 
 
 class TrainArgs(ctypes.Structure):
@@ -134,18 +137,22 @@ def launches_per_step(tied: bool, variational: bool) -> int:
 # --------------------------------------------------------------- family
 
 def supported(cfg: MMAEConfig, tcfg: TrainConfig, spec: NoiseSpec) -> bool:
-    """Is (cfg, tcfg, spec) in the kernels' family?  The depth-2 gates of
+    """Is (cfg, tcfg, spec) in the kernels' family?  The common gates of
     ``train_kernel.supported`` (:188-213): sigmoid-CE, no classification
     head, Adam, intelligent noise or at most one dropped modality, no
-    clipping.  No memory budget: device memory holds every ACII bucket.
-    Depth >= 3 (the JAX package's deep kernel) is not ported yet."""
+    clipping; then depth 2 (these kernels) or depth 3 up to
+    :data:`MAX_DEPTH` (the deep family, ``ops/train_deep_kernels.py``);
+    depth 1 belongs to the plain trainer.  No memory budget: device
+    memory holds every bucket whose parameters and moments fit it, where
+    the JAX package refuses shapes that do not fit VMEM (``vmem_bytes``,
+    ``vmem_bytes_deep``)."""
     cfg = cfg.validate()
     return (cfg.loss == "sigmoid_cross_entropy"
             and cfg.classification_layer_sizes is None
             and tcfg.optimizer == "adam"
             and (spec.intelligent or spec.num_modalities_to_drop <= 1)
             and not tcfg.clip_gradients
-            and len(cfg.layer_sizes) == 2)
+            and 2 <= len(cfg.layer_sizes) <= MAX_DEPTH)
 
 
 def element_drop_rate(num_feats: int, spec: NoiseSpec) -> float:
@@ -328,6 +335,25 @@ def prepare_run(generator: torch.Generator, cfg: MMAEConfig,
     (leading (C, K) axes) flattened to (N, ...), and zero moments.  Lives
     on the device of ``folded``."""
     cfg = cfg.validate()
+    p = params0
+    w3, w4 = (p.dec_w if p.dec_w else (None, None))
+    run = prepare_flat(GridRun, generator, cfg, tcfg, spec, hyper, folded,
+                       [p.enc_w[0], p.enc_b[0], p.enc_w[1], p.enc_b[1], w3,
+                        p.dec_b[0], w4, p.dec_b[1], p.var_w, p.var_b])
+    if run.params[0].shape[1:] != (cfg.num_feats, cfg.layer_sizes[0]):
+        raise ValueError(f"params0 W1 has shape {tuple(run.params[0].shape)}"
+                         f", the config implies (N, {cfg.num_feats}, "
+                         f"{cfg.layer_sizes[0]})")
+    return run
+
+
+def prepare_flat(run_cls, generator: torch.Generator, cfg: MMAEConfig,
+                 tcfg: TrainConfig, spec: NoiseSpec, hyper, folded,
+                 params: List[Optional[torch.Tensor]], **fields):
+    """A ``run_cls`` (:class:`GridRun` or a subclass) over the flat
+    parameter list ``params`` (leading (C, K) axes, None where a slot is
+    absent), in that list's order; ``fields`` fills the subclass's own
+    fields.  The Philox seeds are the first draw from ``generator``."""
     F = cfg.num_feats
     C, K = hyper.num_configs, folded.num_folds
     N = C * K
@@ -346,21 +372,13 @@ def prepare_run(generator: torch.Generator, cfg: MMAEConfig,
         return t.reshape((N,) + tuple(t.shape[2:])).to(
             dev, torch.float32).contiguous()
 
-    p = params0
-    w3, w4 = (p.dec_w if p.dec_w else (None, None))
-    params = [flat(t) for t in (p.enc_w[0], p.enc_b[0], p.enc_w[1],
-                                p.enc_b[1], w3, p.dec_b[0], w4, p.dec_b[1],
-                                p.var_w, p.var_b)]
-    if params[0].shape[1:] != (F, cfg.layer_sizes[0]):
-        raise ValueError(f"params0 W1 has shape {tuple(params[0].shape)}, "
-                         f"the config implies (N, {F}, "
-                         f"{cfg.layer_sizes[0]})")
+    params = [flat(t) for t in params]
     table, cum = corruption_tables(spec, F)
 
     def per_inst(t, dtype):
         return t.to(dev, dtype)
 
-    return GridRun(
+    return run_cls(
         tied=bool(cfg.tie_weights), variational=bool(cfg.variational),
         bf16_moments=mdt == torch.bfloat16,
         decay=bool(tcfg.decay and not tcfg.faithful_inert_decay),
@@ -381,7 +399,8 @@ def prepare_run(generator: torch.Generator, cfg: MMAEConfig,
         m=[None if t is None else torch.zeros(t.shape, dtype=mdt, device=dev)
            for t in params],
         v=[None if t is None else torch.zeros(t.shape, dtype=mdt, device=dev)
-           for t in params])
+           for t in params],
+        **fields)
 
 
 # ------------------------------------------------------------- the twin
@@ -458,7 +477,7 @@ def sample_batch(run: GridRun, step: int):
     return x, xn
 
 
-def _adam_scalars(run: GridRun, step: int):
+def _adam_scalars(run: GridRun, step: int, eps: float = ADAM_EPS):
     """Per-instance (alpha, es2) of step ``step`` in the rsqrt form:
     alpha = lr_s sqrt(bc2) / bc1, es2 = bc2 eps^2, bias corrections at count
     step + 1, lr_s = lr0 rate^(step / decay_steps) (float32 throughout)."""
@@ -472,7 +491,7 @@ def _adam_scalars(run: GridRun, step: int):
         lr = lr * torch.pow(torch.tensor(run.decay_rate, **f32),
                             torch.tensor(float(step), **f32)
                             / run.decay_steps)
-    return lr * torch.sqrt(bc2) / bc1, bc2 * (ADAM_EPS * ADAM_EPS)
+    return lr * torch.sqrt(bc2) / bc1, bc2 * (eps * eps)
 
 
 def _adam(run: GridRun, slot: int, grad: torch.Tensor, alpha, es2) -> None:
@@ -710,8 +729,10 @@ def train_grid_pallas(seed: int, cfg: MMAEConfig, tcfg: TrainConfig,
                       spec: NoiseSpec, hyper, folded,
                       num_steps: Optional[int] = None,
                       params0: Optional[mmae.MMAEParams] = None):
-    """Train every (config, fold) instance of a depth-2 bucket; the
-    counterpart of ``train_kernel.train_grid_pallas`` (:846).
+    """Train every (config, fold) instance of a bucket; the counterpart of
+    ``train_kernel.train_grid_pallas`` (:846).  Depth >= 3 goes to the
+    deep family, ``train_deep_kernels.train_deep_pallas``, as ``_pipeline``
+    dispatches (:916-921).
 
     Returns ``(params, losses)`` with leading (C, K) axes, as the plain
     ``grid_trainer.train_grid`` does.  Runs where ``folded`` lies: the
@@ -724,6 +745,11 @@ def train_grid_pallas(seed: int, cfg: MMAEConfig, tcfg: TrainConfig,
     if not supported(cfg, tcfg, spec):
         raise ValueError("configuration outside the training kernels' "
                          "family; use the plain grid trainer")
+    if len(cfg.layer_sizes) > 2:
+        # imported here: the deep module builds on this one
+        from multimodalautoencoder_tpu_torch.ops import train_deep_kernels
+        return train_deep_kernels.train_deep_pallas(
+            seed, cfg, tcfg, spec, hyper, folded, num_steps, params0)
     num_steps = tcfg.num_steps if num_steps is None else int(num_steps)
     generator = torch.Generator().manual_seed(int(seed))
     C, K = hyper.num_configs, folded.num_folds

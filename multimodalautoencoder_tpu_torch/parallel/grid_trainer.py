@@ -12,8 +12,9 @@ trains one (setting, fold) at a time (generic_wrapper.py:253-254,
 - instances = configs x folds, a leading batch axis of every tensor.
 
 Two backends, as in the JAX package: ``"pallas"``, the hand-written CUDA
-training kernels (``ops/train_kernels.py`` for phase 1,
-``ops/cls_train_kernels.py`` for phase 2; the Pallas kernels' semantics),
+training kernels (``ops/train_kernels.py`` for phase 1, with its depth >= 3
+family in ``ops/train_deep_kernels.py``, ``ops/cls_train_kernels.py`` for
+phase 2; the Pallas kernels' semantics),
 and ``"xla"``, :func:`train_grid` and :func:`train_classification_grid`,
 batched eager PyTorch with autograd (the XLA trainers' semantics).  Phase 1
 ends in the noisy-val objective (multimodal_autoencoder.py:1019-1033),

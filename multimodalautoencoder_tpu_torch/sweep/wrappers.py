@@ -1,26 +1,28 @@
-"""The two-phase classification sweep on one device.
+"""The MMAE sweep and the two-phase classification sweep on one device.
 
-Counterpart of ``MMAEClassificationSweep`` in
-``multimodalautoencoder_tpu/sweep/wrappers.py`` (:728-1467), the
-capabilities of the reference's MMAEClassificationWrapper
+Counterpart of ``MMAESweep`` (:154-725) and ``MMAEClassificationSweep``
+(:728-1467) in ``multimodalautoencoder_tpu/sweep/wrappers.py``, the
+capabilities of the reference's MMAEWrapper (autoencoder_wrapper.py
+:27-385) and MMAEClassificationWrapper
 (autoencoder_classification_wrapper.py:26-369).  Where the reference loops
-settings x folds serially, the sweep buckets the grid by shape
-(``sweep/grid.py``), pretrains each phase-1 family's unique MMAE settings
-once (the JAX package's ``share_phase1=True`` default, PARITY.md), and
-trains each bucket's configs x folds block of
-phase 2 at once (``parallel/grid_trainer.py``: the hand-written CUDA
-kernels on a GPU, or the plain trainers); the metric battery runs batched
-on the device, and the ledger, resume and best-setting contract is the
-reference's (``sweep/engine.py``).
+settings x folds serially, the sweeps bucket the grid by shape
+(``sweep/grid.py``) and train each bucket's configs x folds block at once
+(``parallel/grid_trainer.py``: the hand-written CUDA kernels on a GPU, or
+the plain trainers).  ``MMAESweep`` scores each bucket by its noisy-val
+objective and the on-device embedding probe (``sweep/probe.py``); the
+classification sweep pretrains each phase-1 family's unique MMAE settings
+once (the JAX package's ``share_phase1=True`` default, PARITY.md) and runs
+its metric battery batched on the device.  The ledger, resume and
+best-setting contract is the reference's (``sweep/engine.py``).
 
 Not ported: ``process_shard`` and the mesh (multi-GPU, ROADMAP Queue 1
-item 13), the JAX compile cache, and ``share_phase1=False`` (the
-reference's retraining of the MMAE for every setting; ``grid_trainer.
-train_two_phase_sharded`` trains a bucket that way).  ``check_test=True``
-and exporting a
-winner from an earlier generation of a resumed ledger need the
-single-run trainer (ROADMAP Queue 1 item 5) and raise
-``NotImplementedError``.
+item 13), the JAX compile cache, ``share_phase1=False`` (the reference's
+retraining of the MMAE for every setting; ``grid_trainer.
+train_two_phase_sharded`` trains a bucket that way), and ``probe="svm"``
+(the host sklearn SVC grid; scikit-learn is not a dependency of the port,
+Queue 1 item 12).  ``check_test=True`` and exporting a winner from an
+earlier generation of a resumed ledger need the single-run trainer
+(ROADMAP Queue 1 item 5).  Each of these raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from __future__ import annotations
 import inspect
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,12 +42,20 @@ from multimodalautoencoder_tpu_torch.ops import metrics as metrics_lib
 from multimodalautoencoder_tpu_torch.ops import optim
 from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
 from multimodalautoencoder_tpu_torch.sweep import engine, grid as grid_lib
+from multimodalautoencoder_tpu_torch.sweep import probe as probe_lib
 from multimodalautoencoder_tpu_torch.utils import helpers
 
+# autoencoder_wrapper.py:25
+LABELS_TO_PREDICT = ["happiness", "health", "calmness"]
 DEFAULT_NUM_CROSS_FOLDS = 5
 METRIC_ORDER = ("acc", "auc", "f1", "precision", "recall")
 SINGLE_RUN_TRAINER = ("the single-run trainer (train/trainer.py training "
                       "half, ROADMAP Queue 1 item 5) is not ported yet")
+MULTI_GPU = ("process_shard: multi-host scale-out (parallel/multihost.py, "
+             "ROADMAP Queue 1 item 13) is not ported yet")
+SVM_PROBE = ("probe='svm': the host sklearn SVC grid needs scikit-learn, "
+             "which the port does not depend on (ROADMAP Queue 1 item 12); "
+             "use probe='device' or 'device-exact'")
 
 
 def _arch_tuple(a) -> tuple:
@@ -115,6 +125,355 @@ def _export_best_checkpoint(sweep, *, base_name: str, step: int, resolve):
         print(f"saved best params ({sweep.optimize_for} {score:.4f}) -> "
               f"{path}")
     return path
+
+
+class MMAESweep:
+    """Grid search over MMAE hyperparameters, scored by noisy-val
+    reconstruction loss, with the on-device embedding-quality probe: the
+    capabilities of MMAEWrapper (autoencoder_wrapper.py:27-385), on
+    ``device``."""
+
+    def __init__(self, data_loader, classification_data_loader=None,
+                 layer_sizes: Sequence[Sequence[int]] = ((1000, 100),
+                                                         (500, 100),
+                                                         (300, 100)),
+                 tie_weights: Sequence[bool] = (True, False),
+                 dropout_probs: Sequence[float] = (1.0, 0.5),
+                 weight_penalties: Sequence[float] = (0.0, 0.01, 0.001),
+                 weight_initializers: Sequence[str] = ("normal",),
+                 activation_funcs: Sequence[str] = ("softsign", "relu"),
+                 test_variational: bool = True,
+                 results_path: str = "results", classifier_name="MMAE",
+                 cont: bool = False, check_test: bool = False,
+                 num_cross_folds: int = DEFAULT_NUM_CROSS_FOLDS,
+                 optimize_for: Optional[str] = None, min_or_max="min",
+                 num_steps: int = 15000, batch_size: int = 20,
+                 learning_rate: float = 1e-3,
+                 clip_gradients: bool = False,
+                 labels_to_predict: Optional[Sequence[str]] = None,
+                 probe: Optional[str] = "device",
+                 probe_rff_dim: int = 512,
+                 svm_Cs: Sequence[float] = (1.0, 10.0, 100.0),
+                 svm_gammas: Sequence[float] = (0.01, 0.001),
+                 save_results_every_nth: int = 1, seed: int = 0,
+                 verbose: bool = True, process_shard=None,
+                 save_best_params: bool = False, backend: str = "auto",
+                 optimizers: Optional[Sequence[str]] = None,
+                 optimizer_state_dtype: str = "bfloat16", device="cuda"):
+        """The JAX ``MMAESweep``'s arguments, ``device`` in place of its
+        mesh.  ``probe``: 'device' (default) scores embeddings with the
+        random-Fourier ridge probe (``probe_rff_dim`` features),
+        'device-exact' with the exact kernel ridge, None disables; 'svm'
+        raises ``NotImplementedError``.  ``backend``: 'auto' trains on the
+        CUDA kernels where the shape family allows and the device is a
+        GPU, the plain trainer otherwise; 'xla' / 'pallas' force.
+        ``save_best_params`` checkpoints the best setting's fold-0
+        parameters as ``best_mmae`` at the end of the sweep.
+        ``check_test`` and ``process_shard`` raise
+        ``NotImplementedError``."""
+        if check_test:
+            raise NotImplementedError(f"check_test: {SINGLE_RUN_TRAINER}")
+        if process_shard is not None:
+            raise NotImplementedError(MULTI_GPU)
+        if probe == "svm" and classification_data_loader is not None:
+            raise NotImplementedError(SVM_PROBE)
+        if probe not in (None, "device", "device-exact", "svm"):
+            raise ValueError(f"unknown probe {probe!r}")
+        self.device = torch.device(device)
+        self.data_loader = data_loader
+        self.cls_loader = classification_data_loader
+        self.num_cross_folds = num_cross_folds
+        self.save_best_params = save_best_params
+        self.backend = backend
+        self._best_saved = None   # (loss, setting, host params, cfg)
+        # wall clock per phase across buckets: 'train' = grid training and
+        # its objectives, 'probe' = the embedding probe; the *_launch parts
+        # enqueue, the *_wait parts wait for the device's results
+        self.phase_seconds = {"train": 0.0, "probe": 0.0,
+                              "train_launch": 0.0, "train_wait": 0.0,
+                              "probe_launch": 0.0, "probe_wait": 0.0}
+        self.probe = probe if classification_data_loader is not None \
+            else None
+        self.probe_rff_dim = int(probe_rff_dim)
+        self.svm_Cs = svm_Cs
+        self.svm_gammas = svm_gammas
+        self.labels = list(labels_to_predict or LABELS_TO_PREDICT)
+        self.verbose = verbose
+        self.seed = seed
+
+        # fixed recipe (autoencoder_wrapper.py:79-92); clipping off by
+        # default (the reference's flag is inert, SURVEY 2.8.2), bf16 Adam
+        # moments by default (the JAX sweep's performance mode)
+        self.loss_func = "sigmoid_cross_entropy"
+        self.base_cfg = MMAEConfig(
+            num_feats=data_loader.num_feats, loss=self.loss_func,
+            normalization="between_0_and_1", mask_with=-1.0,
+            fill_missing_with=0.0)
+        self.tcfg = TrainConfig(
+            learning_rate=learning_rate, batch_size=batch_size,
+            num_steps=num_steps, decay=True, decay_steps=1000,
+            decay_rate=0.95, clip_gradients=clip_gradients,
+            record_every_nth=max(num_steps // 10, 1), seed=seed,
+            optimizer_state_dtype=optimizer_state_dtype)
+        self.optimize_for = optimize_for or ("val_" + self.loss_func)
+        self.min_or_max = min_or_max
+
+        params = {
+            "architecture": [list(a) for a in layer_sizes],
+            "tie_weights": list(tie_weights),
+            "dropout_prob": list(dropout_probs),
+            "weight_penalty": list(weight_penalties),
+            "weight_initialization": list(weight_initializers),
+            "activation_function": list(activation_funcs),
+            "variational": [False],
+        }  # autoencoder_wrapper.py:127-136
+        if optimizers is not None:
+            # an optional swept optimizer axis, each value its own bucket
+            params["optimizer"] = [str(o) for o in optimizers]
+        settings = grid_lib.enumerate_grid(params)
+        if test_variational:
+            settings = grid_lib.add_extra_vae_params(settings)
+        self.list_of_param_settings = settings
+        self.num_settings = len(settings)
+
+        prefix = engine.get_save_prefix(
+            results_path, classifier_name,
+            getattr(data_loader, "filename", "data.csv"), replace=cont)
+        self.ledger = engine.ResultsLedger(
+            results_path, prefix, cont=cont,
+            save_every_nth=save_results_every_nth)
+
+        self.spec = NoiseSpec.build(self.base_cfg.validate(),
+                                    data_loader.modality_table)
+        self.folded = gt.FoldedData.from_loader(data_loader, num_cross_folds,
+                                                device=self.device)
+        self._cls_folded = None
+
+    @property
+    def cls_folded(self):
+        """The probe's stacked classification folds on the device, built
+        on first use."""
+        if self._cls_folded is None and self.cls_loader is not None:
+            self._cls_folded = gt.FoldedData.from_loader(
+                self.cls_loader, self.num_cross_folds, device=self.device,
+                supervised=True,
+                noisy_flags="logistics_noisy" in self.cls_loader.frame.columns)
+        return self._cls_folded
+
+    def _cfg_for_bucket(self, setting: Dict[str, Any]) -> MMAEConfig:
+        return self.base_cfg.replace(
+            layer_sizes=_arch_tuple(setting["architecture"]),
+            tie_weights=bool(setting.get("tie_weights", False)),
+            variational=bool(setting.get("variational", False)),
+            weight_initialization=setting.get("weight_initialization",
+                                              "normal"),
+        ).validate()
+
+    def _device_probe_launch(self, params, cfg, hyper, num_configs: int,
+                             seed: int) -> torch.Tensor:
+        """The probe on the device (``sweep/probe.py``): 'device' is the
+        random-Fourier primal ridge, 'device-exact' the exact (T, T)
+        kernel ridge.  Returns the (C, K, L, 3, 2) tensor where it was
+        computed; :meth:`_device_probe_rows` copies it to the host."""
+        folded = self.cls_folded
+        n_labels = min(len(self.labels),
+                       int(folded.train_y.shape[-1])
+                       if folded.train_y.dim() == 3 else 1)
+        return probe_lib.probe_grid(
+            seed, params, hyper.act_id[:num_configs], folded, cfg=cfg,
+            Cs=tuple(float(c) for c in self.svm_Cs),
+            gammas=tuple(float(g) for g in self.svm_gammas),
+            num_labels=n_labels,
+            rff_dim=None if self.probe == "device-exact"
+            else self.probe_rff_dim)
+
+    def _device_probe_rows(self, best, num_configs: int):
+        """Per-config ledger columns from a (C, K, L, 3, 2) probe tensor
+        (labels past the loader's stay NaN): per label and over all labels,
+        the nanmean over folds of val / noisy / clean acc and auc, in the
+        reference's column order (autoencoder_wrapper.py:324-341)."""
+        best = np.asarray(torch.as_tensor(best).cpu(), np.float64)
+        full = np.full(best.shape[:2] + (len(self.labels), 3, 2), np.nan)
+        full[:, :, :best.shape[2]] = best
+        names = [(s, m, f"svm_{sl}val_{metric}")
+                 for s, sl in enumerate(("", "noisy_", "clean_"))
+                 for m, metric in enumerate(("acc", "auc"))]
+        rows = []
+        for c in range(num_configs):
+            row = {}
+            for i, label in enumerate(self.labels):
+                for s, m, name in names:
+                    row[f"{name}_{label}"] = engine.nanmean(full[c, :, i, s, m])
+            for s, m, name in names:
+                row[name] = engine.nanmean(full[c, :, :, s, m])
+            rows.append(row)
+        return rows
+
+    def _launch_bucket(self, bi: int, bucket):
+        """Train one bucket and launch its probe.  The training kernels'
+        launches are enqueued asynchronously, and nothing is copied to the
+        host here, so the next bucket's host work overlaps this one's
+        device work."""
+        t0 = time.time()
+        cfg = self._cfg_for_bucket(bucket[0])
+        tcfg = self.tcfg
+        if "optimizer" in bucket[0]:
+            tcfg = tcfg.replace(optimizer=str(bucket[0]["optimizer"]))
+        hyper = gt.HyperStack.from_settings(bucket, cfg, tcfg)
+        # resolve 'auto' here so the ledger records what ran
+        backend_used = gt.resolve_backend(self.backend, cfg, tcfg, self.spec,
+                                          on_gpu=self.device.type == "cuda")
+        params, losses = gt.train_grid_sharded(
+            self.device, cls_train_kernels.derive_seed(self.seed, 0, bi),
+            cfg, tcfg, self.spec, hyper, self.folded, backend=backend_used)
+        t_train = time.time()
+        self.phase_seconds["train"] += t_train - t0
+        self.phase_seconds["train_launch"] += t_train - t0
+        probe_dev = None
+        if self.probe in ("device", "device-exact"):
+            probe_dev = self._device_probe_launch(
+                params, cfg, hyper, len(bucket),
+                cls_train_kernels.derive_seed(self.seed, 3, bi))
+        now = time.time()
+        self.phase_seconds["probe"] += now - t_train
+        self.phase_seconds["probe_launch"] += now - t_train
+        return {"bi": bi, "bucket": bucket, "launch_secs": now - t0,
+                "cfg": cfg, "params": params, "losses": losses,
+                "backend_used": backend_used,
+                "inst_steps": (len(bucket) * self.num_cross_folds
+                               * tcfg.num_steps),
+                "probe": probe_dev}
+
+    def _finalize_bucket(self, st, est, num_buckets: int) -> None:
+        """Copy one launched bucket's objectives and probe to the host and
+        write its ledger rows.  Per-bucket time is the bucket's own
+        (launch + finalize), not the wall span."""
+        bucket = st["bucket"]
+        t1 = time.time()
+        losses = np.asarray(st["losses"].cpu(), np.float64)      # (C, K)
+        self.phase_seconds["train"] += time.time() - t1
+        self.phase_seconds["train_wait"] += time.time() - t1
+
+        t2 = time.time()
+        probe_rows = None
+        if st["probe"] is not None:
+            probe_rows = self._device_probe_rows(st["probe"], len(bucket))
+        self.phase_seconds["probe"] += time.time() - t2
+        self.phase_seconds["probe_wait"] += time.time() - t2
+
+        mean_losses = losses.mean(axis=1)
+        if self.save_best_params and not np.isnan(mean_losses).all():
+            # NaN never wins, as in the ledger's find_best_setting
+            c_best = int(np.nanargmin(mean_losses))
+            if (self._best_saved is None
+                    or mean_losses[c_best] < self._best_saved[0]):
+                # fold 0 only; only the winner moves to the host
+                host = optim.tree_map(lambda t: t[c_best, 0].cpu(),
+                                      st["params"])
+                self._best_saved = (float(mean_losses[c_best]),
+                                    dict(bucket[c_best]), host, st["cfg"])
+
+        bucket_secs = st["launch_secs"] + (time.time() - t1)
+        rate = st["inst_steps"] / max(bucket_secs, 1e-9)
+        for c, setting in enumerate(bucket):
+            row = dict(setting)
+            row[self.optimize_for] = float(mean_losses[c])
+            if probe_rows is not None:
+                row.update(probe_rows[c])
+            row["time_per_setting_s"] = bucket_secs / len(bucket)
+            row["backend_used"] = st["backend_used"]
+            row["inst_steps_per_s"] = rate
+            self.ledger.append(row)
+        est.record(bucket_secs, batch=len(bucket))
+        if self.verbose:
+            print(f"bucket {st['bi'] + 1}/{num_buckets} "
+                  f"({len(bucket)} settings x {self.num_cross_folds} "
+                  f"folds): {bucket_secs:.1f}s; {est.summary()}")
+
+    def sweep_all_parameters(self) -> None:
+        pending = [s for s in self.list_of_param_settings
+                   if not (self.ledger.started_from
+                           and self.ledger.already_done(s))]
+        buckets = grid_lib.bucket_settings(pending)
+        est = engine.TimeEstimator(self.num_settings,
+                                   self.ledger.started_from)
+        inflight = None
+        for bi, (_, bucket) in enumerate(buckets):
+            try:
+                st = self._launch_bucket(bi, bucket)
+            except Exception:
+                # persist the finished in-flight bucket before the error
+                # propagates (the reference's durability contract)
+                try:
+                    if inflight is not None:
+                        self._finalize_bucket(inflight, est, len(buckets))
+                except Exception:
+                    pass
+                finally:
+                    self.ledger.flush()
+                raise
+            if inflight is not None:
+                self._finalize_bucket(inflight, est, len(buckets))
+            inflight = st
+        if inflight is not None:
+            self._finalize_bucket(inflight, est, len(buckets))
+        self.ledger.flush()
+        if self.save_best_params:
+            self.export_best_params()
+
+    def export_best_params(self) -> Optional[str]:
+        """Checkpoint the ledger winner's fold-0 parameters as
+        ``best_mmae``.  The tracked winner (ranked by mean val loss) stands
+        in only when the sweep optimizes that loss and the ledger's best
+        is not strictly better; a better row left by an earlier generation
+        of a resumed ledger would need a retrain, which raises
+        ``NotImplementedError``."""
+
+        def resolve(row, ledger_score):
+            use_tracked = (
+                self._best_saved is not None
+                and self.optimize_for == "val_" + self.loss_func
+                and self.min_or_max == "min"
+                # NaN comparisons are False: an all-NaN column falls back
+                # to this run's tracked winner
+                and not ledger_score < self._best_saved[0])
+            if use_tracked:
+                score, setting, host_params, cfg = self._best_saved
+                cfg = cfg.replace(
+                    dropout_prob=float(setting.get("dropout_prob", 1.0)),
+                    weight_penalty=float(setting.get("weight_penalty", 0.0)),
+                    activation=setting.get("activation_function",
+                                           cfg.activation))
+                return setting, host_params, cfg, score
+            return self._retrain_fold0(_grid_setting_from_row(self, row))
+
+        return _export_best_checkpoint(self, base_name="best_mmae",
+                                       step=self.tcfg.num_steps,
+                                       resolve=resolve)
+
+    def find_best_setting(self, optimize_for=None, min_or_max=None):
+        return self.ledger.find_best_setting(
+            optimize_for or self.optimize_for,
+            min_or_max or self.min_or_max)
+
+    def _retrain_fold0(self, setting: Dict[str, Any]):
+        raise NotImplementedError(
+            f"retraining {setting} on fold 0: {SINGLE_RUN_TRAINER}")
+
+    def test_on_test(self, setting: Dict[str, Any]):
+        raise NotImplementedError(f"test_on_test: {SINGLE_RUN_TRAINER}")
+
+    def run(self):
+        """sweep -> (best setting, held-out test score (None: check_test
+        is refused), best rows by svm_val_acc / svm_val_auc)
+        (autoencoder_wrapper.py:378-385)."""
+        self.sweep_all_parameters()
+        best = self.find_best_setting()
+        extras = {}
+        for metric in ("svm_val_acc", "svm_val_auc"):
+            if metric in self.ledger.columns:
+                extras[metric] = self.find_best_setting(metric, "max")
+        return best, None, extras
 
 
 class MMAEClassificationSweep:

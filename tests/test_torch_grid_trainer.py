@@ -51,11 +51,18 @@ def test_plain_train_grid_matches_train_grid_jit(tied, state_dtype):
     check_train_grid(tied, state_dtype)
 
 
-def check_train_grid(tied, state_dtype):
+@pytest.mark.parametrize("tied, layer_sizes", [(True, (16, 10, 6)),
+                                               (False, (20, 14, 10, 6))])
+def test_plain_train_grid_matches_train_grid_jit_deep(tied, layer_sizes):
+    """The plain trainer's generic ``total_loss`` at depth 3 and 4."""
+    check_train_grid(tied, "float32", layer_sizes)
+
+
+def check_train_grid(tied, state_dtype, layer_sizes=(16, 6)):
     """Two configs x two single-row folds, 3 steps with decay, no
     corruption, keep 1: every instance's parameters and noisy-val
     objective (tests/test_train_kernel.py:27-70 harness)."""
-    kw = dict(num_feats=30, layer_sizes=(16, 6), tie_weights=tied,
+    kw = dict(num_feats=30, layer_sizes=layer_sizes, tie_weights=tied,
               element_dropout_frac=0.0,
               noise_type_percentages=(1.0, 0.0, 0.0, 0.0))
     tkw = dict(learning_rate=1e-2, batch_size=8, decay=True,
@@ -126,7 +133,7 @@ def test_cross_val_folds_match_jax_loader(tmp_path):
     kw = dict(suppress_output=True, cross_validation=True,
               fill_gaps_with=-1.0, seed=5)
     dj = JaxLoader(path_j, supervised=False, **kw)
-    dt = DataLoader(path_t, **kw)
+    dt = DataLoader(path_t, supervised=False, **kw)
     np.testing.assert_array_equal(
         dt.fold_ids(), dj.df["logistics_cv_fold"].to_numpy())
     # the fold column went back to the file, in the raw row order
@@ -144,7 +151,7 @@ def test_cross_val_folds_match_jax_loader(tmp_path):
                                       np.asarray(getattr(fj, name)))
     # a second load with another seed (another shuffle) reads the
     # persisted folds instead of drawing new ones
-    again = DataLoader(path_t, **dict(kw, seed=9))
+    again = DataLoader(path_t, supervised=False, **dict(kw, seed=9))
 
     def by_row(loader):
         return loader.fold_ids()[np.argsort(
@@ -215,26 +222,38 @@ def test_supported_and_resolve_backend_match_jax(case):
 
 
 def test_depth3_and_budget_cases_stay_off_the_kernel():
-    """Depth >= 3 is the JAX package's deep kernel, not ported: 'auto'
-    takes the plain trainer and 'pallas' raises.  Shapes the JAX kernel
-    refuses only for VMEM are in the port's family."""
+    """Depth >= 3 is the deep family now (ops/train_deep_kernels.py), so
+    'auto' takes the kernels on a GPU and 'pallas' runs the deep twin on
+    the CPU; depth 1 stays off every kernel.  Shapes the JAX kernels refuse
+    only for VMEM (untied 2000 -> 100, and at depth 3 untied 1000 -> 500
+    -> 100) are in the port's family."""
     ct, tt, st = _family(ptk, MMAEConfig, TrainConfig, NoiseSpec,
                          ModalityTable)
     deep = ct.replace(layer_sizes=(8, 4, 2))
-    assert not ptk.supported(deep, tt, st)
-    assert pgt.resolve_backend("auto", deep, tt, st, on_gpu=True) == "xla"
+    assert ptk.supported(deep, tt, st)
+    assert pgt.resolve_backend("auto", deep, tt, st, on_gpu=True) == "pallas"
+    assert pgt.resolve_backend("auto", deep, tt, st, on_gpu=False) == "xla"
+    shallow = ct.replace(layer_sizes=(8,))
+    assert not ptk.supported(shallow, tt, st)
+    assert pgt.resolve_backend("auto", shallow, tt, st,
+                               on_gpu=True) == "xla"
     assert ptk.supported(ct.replace(num_feats=2000, layer_sizes=(2000, 100),
+                                    tie_weights=False), tt, st)
+    assert ptk.supported(ct.replace(num_feats=1000,
+                                    layer_sizes=(1000, 500, 100),
                                     tie_weights=False), tt, st)
     hyper = pgt.HyperStack.from_settings([{}], deep, tt)
     X = np.ones((2, 30), np.float32)
     folded = pgt.FoldedData.from_ragged([X], [X], device="cpu")
+    for backend in ("pallas", "auto"):
+        params, losses = pgt.train_grid_sharded("cpu", 0, deep, tt, st,
+                                                hyper, folded, 1,
+                                                backend=backend)
+        assert params.enc_w[2].shape == (1, 1, 4, 2)
+        assert torch.isfinite(losses).all()
     with pytest.raises(ValueError, match="family"):
-        pgt.train_grid_sharded("cpu", 0, deep, tt, st, hyper, folded, 1,
+        pgt.train_grid_sharded("cpu", 0, shallow, tt, st, hyper, folded, 1,
                                backend="pallas")
-    params, losses = pgt.train_grid_sharded("cpu", 0, deep, tt, st, hyper,
-                                            folded, 1, backend="auto")
-    assert params.enc_w[2].shape == (1, 1, 4, 2)
-    assert torch.isfinite(losses).all()
 
 
 # ------------------------------------------------------- corruption
@@ -433,7 +452,7 @@ def test_loader_without_folds_keeps_dataset_splits(tmp_path):
     path = str(tmp_path / "d.csv")
     jax_synthetic.write_csv(path, num_rows=120, seed=1)
     before = open(path).read()
-    dt = DataLoader(path, suppress_output=True)
+    dt = DataLoader(path, supervised=False, suppress_output=True)
     dj = JaxLoader(path, supervised=False, suppress_output=True)
     np.testing.assert_array_equal(dt.train_X, dj.train_X)
     np.testing.assert_array_equal(dt.val_X, dj.val_X)

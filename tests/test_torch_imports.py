@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither jax nor the JAX package, and
-neither the serve path nor the training and classification-sweep paths
-import pandas or scikit-learn.
+neither the serve path nor the training, sweep and probe paths import
+pandas or scikit-learn.
 
 The import check runs in a fresh interpreter, because this suite's
 conftest has already imported jax into the test process.
@@ -70,6 +70,24 @@ def test_training_path_import_pulls_in_no_jax_pandas_or_sklearn():
         "import multimodalautoencoder_tpu_torch.sweep.engine\n"
         "import multimodalautoencoder_tpu_torch.sweep.wrappers\n"
         "import multimodalautoencoder_tpu_torch.utils.helpers\n"
+        f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_mmae_sweep_path_import_pulls_in_no_jax_pandas_or_sklearn():
+    """The MMAE sweep's modules: the deep kernels, the probe and the
+    bandwidth probe."""
+    code = (
+        "import sys\n"
+        "import multimodalautoencoder_tpu_torch.ops.train_deep_kernels\n"
+        "import multimodalautoencoder_tpu_torch.sweep.probe\n"
+        "import multimodalautoencoder_tpu_torch.tools.hbm_bench\n"
+        "from multimodalautoencoder_tpu_torch.sweep.wrappers import "
+        "MMAESweep\n"
         f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

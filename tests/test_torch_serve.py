@@ -49,7 +49,7 @@ def _loaders(path, normalization="between_0_and_1"):
     fill_gaps = -1.0 if normalization == "between_0_and_1" else None
     kw = dict(normalize_and_fill=True, normalization=normalization,
               fill_gaps_with=fill_gaps, suppress_output=True)
-    return (JaxLoader(path, supervised=False, **kw), DataLoader(path, **kw))
+    return (JaxLoader(path, supervised=False, **kw), DataLoader(path, supervised=False, **kw))
 
 
 @pytest.fixture(scope="module")
@@ -190,7 +190,7 @@ def test_missing_text_cells_fill_like_pandas(tmp_path):
                     "2,0.1,0.2,0.0,,7,False\n")
     kw = dict(normalize_and_fill=True, suppress_output=True)
     jdl = JaxLoader(str(path), supervised=False, **kw)
-    pdl = DataLoader(str(path), **kw)
+    pdl = DataLoader(str(path), supervised=False, **kw)
     pdl.frame.to_csv(str(tmp_path / "port.csv"))
     jdl.df.to_csv(str(tmp_path / "jax.csv"))
     got, want = (pd.read_csv(str(tmp_path / f"{side}.csv"), index_col=0)
@@ -204,7 +204,8 @@ def test_vae_checkpoint_serves_on_cpu(tmp_path):
     written, finite values, only -1 spans changed, embedding width."""
     pcsv = synthetic.write_csv(str(tmp_path / "s.csv"), num_rows=80,
                                seed=2, modalities=MODS)
-    pdl = DataLoader(pcsv, fill_gaps_with=-1.0, suppress_output=True)
+    pdl = DataLoader(pcsv, supervised=False, fill_gaps_with=-1.0,
+                     suppress_output=True)
     cfg = MMAEConfig(num_feats=pdl.num_feats, layer_sizes=(16, 4),
                      variational=True, use_pallas=True)
     ck = ckpt.save_checkpoint(str(tmp_path / "ck"), "vae",
