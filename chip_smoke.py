@@ -12,7 +12,8 @@ features):
 
 - serve: each ``fused_dense`` shape against its plain version, then
   ``cli fill`` and ``cli embed`` from checkpoints of a 1000 -> 100 tied
-  DAE and VAE (phases [1]-[6]);
+  DAE and VAE, and each dense layer timed in turns with ``torch.addmm``
+  against its 3xTF32 bound (phases [1]-[6]);
 - grid training: the in-kernel generator against its twin, the training
   kernels against their plain twin at a small width and on the three
   1000-wide ACII buckets (60 instances each), then those buckets through
@@ -32,7 +33,8 @@ features):
   save_best_params=True).run()`` at 15,000 steps with its winner served by
   ``cli fill``, the default 108-setting grid through ``cli sweep-mmae`` at
   100 steps, one deep step timed, and the device-memory stream probe
-  against its twins (phases [15]-[19]).
+  against its twins, each stream timed in turns with its library call
+  (phases [15]-[19]).
 
 Any failed phase ends the run with a non-zero exit; so does a machine
 without CUDA.  The last lines of standard output are the card's name and
@@ -77,8 +79,13 @@ ACII_PARAMS = {
     "variational": [False],
 }
 DEVICE = "cuda"
-# H100 SXM published peaks: HBM bytes/s and f32 CUDA-core FLOP/s
+# H100 SXM published peaks: HBM bytes/s, f32 CUDA-core FLOP/s, and the
+# dense tensor-core rates for TF32 and bf16 operands
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
+TF32_FLOP_PER_S, BF16_FLOP_PER_S = 495e12, 989e12
+# clock cycles a spin kernel holds the stream while the host queues the
+# calls that device_ms times (about 5 ms)
+SPIN_CYCLES = 10_000_000
 
 
 class SmokeFailure(RuntimeError):
@@ -116,6 +123,42 @@ def cuda_ms(fn, reps: int = 7, inner: int = 20) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, reps: int = 7, inner: int = 20) -> float:
+    """Like :func:`cuda_ms`, but with the calls queued ahead of the
+    device: a spin kernel holds the stream while the host enqueues the
+    ``inner`` calls, so the events time the device's work and not the
+    host's launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return float(np.median(times))
+
+
+def dense_bounds(m: int, k: int, n: int, bf16: bool = False):
+    """The least time (ms) of ``act(x @ w + b)`` at (m, k, n) for the
+    arithmetic the kernel does, and what bounds it: 3xTF32 (three TF32
+    products a multiply-add) for f32 operands, one bf16 product for bf16
+    operands; bytes are x, w, b read once and the output written once.
+    Also the f32 CUDA-core figure of the earlier SGEMM kernel."""
+    flop = 2.0 * m * k * n
+    nbytes = 4.0 * (m * k + k * n + n + m * n)
+    t_ops = flop / BF16_FLOP_PER_S if bf16 else 3 * flop / TF32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    old = max(flop / F32_FLOP_PER_S, t_bytes)
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", old * 1e3)
+
+
 def xavier(k: int, n: int, g: torch.Generator) -> torch.Tensor:
     bound = (6.0 / (k + n)) ** 0.5
     return (2 * torch.rand((k, n), generator=g, device="cuda") - 1) * bound
@@ -127,7 +170,8 @@ def phase_kernel_vs_plain(dk) -> float:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [  # (M, K, N, tied view of w)
         (ROWS, 1000, 1000, False), (ROWS, 1000, 100, False),
-        (ROWS, 100, 1000, False), (ROWS, 100, 1000, True),
+        (ROWS, 1000, 100, True), (ROWS, 100, 1000, False),
+        (ROWS, 100, 1000, True),
         (ROWS, 1000, 1000, True), (37, 96, 70, False), (37, 96, 70, True)]
     worst = 0.0
     for m, k, n, tied in cases:
@@ -296,7 +340,9 @@ def phase_reconstruction(dk, ck_path, dl):
 def phase_timing(dk, params, cfg, x, card: str):
     """Forward over all rows, kernel path against plain path (median of
     CUDA-event timings, taken in the order plain, kernel, kernel, plain),
-    and each dense layer of that forward alone."""
+    and each dense layer of that forward alone on the device, in turns with
+    ``torch.addmm`` (TF32 off), against its bound under the kernel's
+    arithmetic (3xTF32) and the earlier f32 CUDA-core figure."""
     from multimodalautoencoder_tpu_torch.models import mmae
 
     plain_cfg = cfg.replace(use_pallas=False)
@@ -318,25 +364,62 @@ def phase_timing(dk, params, cfg, x, card: str):
                   ("enc 2", h, w2, b2, "linear"),
                   ("dec 1 (w.T)", e, w2.T, d1, cfg.activation),
                   ("dec 2 (w.T)", h, w1.T, d2, "linear")]
-        ms = plain_ms = lib_ms = bound_ms = 0.0
+        print("  each layer on the device alone (calls queued ahead), in "
+              "turns: kernel, torch.addmm, torch.addmm, kernel")
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                   old_ms=0.0)
         by = {"bytes": 0.0, "operations": 0.0}
+        wins = 0
         for name, a, w, b, act in layers:
-            t_p = cuda_ms(lambda: dk.fused_dense_reference(a, w, b, act))
-            t_k = cuda_ms(lambda: dk.fused_dense(a, w, b, act))
-            t_l = cuda_ms(lambda: torch.addmm(b, a, w))
+            k1, l1, l2, k2 = (device_ms(f) for f in (
+                lambda: dk.fused_dense(a, w, b, act),
+                lambda: torch.addmm(b, a, w), lambda: torch.addmm(b, a, w),
+                lambda: dk.fused_dense(a, w, b, act)))
+            t_p = device_ms(lambda: dk.fused_dense_reference(a, w, b, act))
+            t_k, t_l = (k1 + k2) / 2, (l1 + l2) / 2
             m, k, n = a.shape[0], a.shape[1], w.shape[1]
-            flop = 2.0 * m * k * n
-            nbytes = 4.0 * (m * k + k * n + n + m * n)
-            t_b = max(flop / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-            by["operations" if flop / F32_FLOP_PER_S
-               >= nbytes / HBM_BYTES_PER_S else "bytes"] += t_b
-            ms, plain_ms, lib_ms, bound_ms = (ms + t_k, plain_ms + t_p,
-                                              lib_ms + t_l, bound_ms + t_b)
-            print(f"  {name:12s} ({m},{k},{n}) {act:8s}: kernel {t_k:.4f} ms"
-                  f" ({flop / t_k / 1e9:.1f} TFLOP/s), plain {t_p:.4f} ms, "
-                  f"torch.addmm {t_l:.4f} ms, bound {t_b:.4f} ms  [{card}]")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": max(by, key=by.get)}
+            t_b, bound_by, t_old = dense_bounds(m, k, n)
+            by[bound_by] += t_b
+            wins += t_k <= t_l
+            for key, v in (("ms", t_k), ("plain_ms", t_p),
+                           ("library_ms", t_l), ("bound_ms", t_b),
+                           ("old_ms", t_old)):
+                tot[key] += v
+            print(f"  {name:12s} ({m},{k},{n}) {act:8s}: kernel {k1:.4f} / "
+                  f"{k2:.4f} ms ({2.0 * m * k * n / t_k / 1e9:.1f} TFLOP/s),"
+                  f" torch.addmm {l1:.4f} / {l2:.4f} ms, plain {t_p:.4f} "
+                  f"ms; 3xTF32 bound {t_b:.4f} ms ({bound_by}, "
+                  f"{100 * t_b / t_k:.1f} % of it reached), old f32 figure "
+                  f"{t_old:.4f} ms ({100 * t_old / t_k:.1f} %)  [{card}]")
+        print(f"  4 layers: kernel {tot['ms']:.4f} ms, torch.addmm "
+              f"{tot['library_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+              f"bound {tot['bound_ms']:.4f} ms "
+              f"({100 * tot['bound_ms'] / tot['ms']:.1f} %), old f32 figure "
+              f"{tot['old_ms']:.4f} ms ({100 * tot['old_ms'] / tot['ms']:.1f}"
+              f" %); no slower than torch.addmm at {wins} of 4 layers  "
+              f"[{card}]")
+        # host-paced, as a serve call pays it and as earlier runs timed it:
+        # the 4 layers back to back from the host, in turns
+        def kernel():
+            return [dk.fused_dense(a, w, b, act)
+                    for _, a, w, b, act in layers]
+
+        def library():
+            return [torch.addmm(b, a, w) for _, a, w, b, _ in layers]
+
+        hk1, hl1, hl2, hk2 = (cuda_ms(f) for f in (kernel, library, library,
+                                                  kernel))
+        h_p = cuda_ms(lambda: [dk.fused_dense_reference(a, w, b, act)
+                               for _, a, w, b, act in layers])
+        print(f"  the 4 layers back to back from the host, in turns: kernel "
+              f"{hk1:.4f} / {hk2:.4f} ms, torch.addmm {hl1:.4f} / {hl2:.4f} "
+              f"ms, plain {h_p:.4f} ms  [{card}]")
+    return {"ms": (hk1 + hk2) / 2, "plain_ms": h_p,
+            "library_ms": (hl1 + hl2) / 2, "bound_ms": tot["bound_ms"],
+            "bound_by": max(by, key=by.get),
+            "timing": "host-paced; device_* on the device alone",
+            "device_ms": tot["ms"], "device_plain_ms": tot["plain_ms"],
+            "device_library_ms": tot["library_ms"]}
 
 
 def phase_breakdown(csv_path: str, ck_path: str, card: str) -> None:
@@ -1065,7 +1148,9 @@ def phase_full_grid(workdir: str, pck, ptk, study_path: str, card: str):
           f"({int(np.isnan(acc).sum())} NaN)  [{card}]")
     print(f"  launches: phase 1 {ptk.KERNELS.launches} (expected "
           f"{want_p1}), phase 2 {pck.KERNELS.launches} (expected "
-          f"{want_p2})")
+          f"{want_p2}); at the sweep's {CLS_STEPS} + {CLS_STEPS} steps "
+          f"{ptk.KERNELS.launches * CLS_STEPS // GRID_STEPS} and "
+          f"{pck.KERNELS.launches * CLS_STEPS // GRID_STEPS}")
     check(len(settings) == 576 and len(buckets) == 36,
           f"the default grid gave {len(settings)} in {len(buckets)}")
     check(len(ledger) == 576, f"{len(ledger)} ledger rows")
@@ -1455,8 +1540,10 @@ def phase_full_mmae_grid(workdir: str, pdk, ptk, study_path: str,
           f"{wall:.1f} s wall; {len(ledger)} rows, backend_used {used}; "
           f"svm_val_acc {np.nanmin(acc):.3f}-{np.nanmax(acc):.3f} "
           f"({int(np.isnan(acc).sum())} NaN); launches "
-          f"{ptk.KERNELS.launches} (expected {want}), kernel 3 "
-          f"{pdk.KERNELS.launches}  [{card}]")
+          f"{ptk.KERNELS.launches} (expected {want}; "
+          f"{ptk.KERNELS.launches * MMAE_STEPS // MMAE_GRID_STEPS} at the "
+          f"sweep's {MMAE_STEPS} steps), kernel 3 {pdk.KERNELS.launches}  "
+          f"[{card}]")
     check(len(ledger) == 108, f"{len(ledger)} ledger rows")
     check(used == ["pallas"], f"backends {used}")
     check(ptk.KERNELS.launches == want and pdk.KERNELS.launches == 0,
@@ -1545,18 +1632,20 @@ def phase_deep_step_timing(pdk, ptk, tied, folded, spec, card: str) -> dict:
 def phase_hbm(hbm, card: str) -> dict:
     """Kernel 5, the bandwidth probe, on its main path (``hbm_bench.
     measure`` over the untied 1000-wide bucket's bf16 moments, counts at 0
-    just before), then each stream against its twin on the card: the read
-    checksum equal to ``torch.sum`` on every pass, the copy and the fill
-    bit for bit."""
+    just before; each stream in turns with its library call), then each
+    stream against its twin on the card: the read checksum equal to
+    ``torch.sum`` on every pass, the copy and the fill bit for bit."""
     hbm.KERNELS.launches = 0
     result = hbm.measure()
     torch.cuda.synchronize()
     launches = hbm.KERNELS.launches
     for name, r in result.items():
         share = 100 * r["gb_per_s"] * 1e9 / HBM_BYTES_PER_S
-        print(f"  {name:6s} {r['bytes'] / 1e9:.3f} GB a pass: {r['ms']:.4f} "
-              f"ms, {r['gb_per_s']:.1f} GB/s ({share:.1f} % of the "
-              f"datasheet's 3350 GB/s)  [{card}]")
+        k1, l1, l2, k2 = r["turns"]
+        print(f"  {name:6s} {r['bytes'] / 1e9:.3f} GB a pass: kernel "
+              f"{k1:.4f} / {k2:.4f} ms, {r['gb_per_s']:.1f} GB/s ({share:.1f}"
+              f" % of the datasheet's 3350 GB/s); {r['library']} {l1:.4f} / "
+              f"{l2:.4f} ms, {r['library_gb_per_s']:.1f} GB/s  [{card}]")
     n = hbm.MOMENT_BYTES // 4
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     src = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), dtype=torch.int32,
@@ -1575,13 +1664,13 @@ def phase_hbm(hbm, card: str) -> dict:
           f"fill bit-equal: {same_fill}")
     check(sums.tolist() == [want] * 2 and same_copy and same_fill,
           "a stream kernel disagrees with its twin")
-    want = len(hbm.PATTERNS) * (hbm.REPS + 1) * hbm.STEPS
+    want = len(hbm.PATTERNS) * 2 * (hbm.REPS + 1) * hbm.STEPS
     check(launches == want, f"{launches} stream launches, expected {want}")
     mixed = result["mixed"]
     return {"launches": launches, "max_abs_err": 0.0, "ms": mixed["ms"],
-            "plain_ms": result["copy_"]["ms"],
+            "plain_ms": mixed["library_ms"],
             "bound_ms": mixed["bytes"] / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": result["copy_"]["ms"],
+            "bound_by": "bytes", "library_ms": mixed["library_ms"],
             "gb_per_s": {k: r["gb_per_s"] for k, r in result.items()}}
 
 
@@ -1610,7 +1699,12 @@ def main() -> int:
                    hbm.KERNELS])
     print(f"[2] built {os.path.relpath(dk.KERNELS.library)} from "
           f"{os.path.relpath(dk.KERNELS.source)} with nvcc "
-          f"{' '.join(dk.NVCC_FLAGS)} in {dk.KERNELS.build_seconds:.1f} s")
+          f"{' '.join(dk.NVCC_FLAGS)} in {dk.KERNELS.build_seconds:.1f} s;"
+          f" {os.path.relpath(hbm.KERNELS.library)} in "
+          f"{hbm.KERNELS.build_seconds:.1f} s; ptxas:")
+    for lib in (dk.KERNELS, hbm.KERNELS):
+        for name, res in sorted(lib.resources().items()):
+            print(f"    {name}: {res}")
 
     print(f"[3] fused_dense kernel vs plain (TF32 off, atol=rtol={TOL})")
     max_err = phase_kernel_vs_plain(dk)

@@ -1,136 +1,748 @@
-// fused_dense: out = act(x @ w + b) in one kernel, for sm_90a.
+// fused_dense: out = act(x @ w + b) in one kernel, on the tensor cores of
+// an sm_90a card.
 //
 // Replaces the Pallas TPU kernel multimodalautoencoder_tpu/ops/
 // pallas_kernels.py::_kernel (driven by fused_dense / _fused_dense_impl),
 // which kept a whole (block_m, K) x (K, block_n) product in VMEM.  Here a
-// block owns a BM x BN output tile and walks K in BK-deep slices staged
-// through shared memory; each thread keeps a TM x TN register tile of f32
-// sums.  Bias and activation are applied in the epilogue, so the
-// pre-activation never goes to device memory.
+// block owns a 128 x 128 output tile and walks K in BK = 32 deep slices
+// through a ring in dynamic shared memory (3 stages for f32, 4 for bf16),
+// filled by cp.async copies that run ahead of the products.  Bias and
+// activation are applied in the epilogue, so the pre-activation never goes
+// to device memory.
 //
 // What bounds it on an H100: at the serve shapes (M = 2000 rows, K, N in
-// {100, 1000}) the product needs 2*M*K*N = 4 GFLOP at most against ~12 MB
-// of operands, far above the card's bytes-per-FLOP line, so it is bound by
-// f32 FMA issue on the CUDA cores (67 TFLOP/s published peak), not by HBM.
-// This first version is a plain register-blocked SGEMM: no tensor cores,
-// no TMA or wgmma pipeline.  Those come later.
+// {100, 1000}) a layer does 2*M*K*N <= 4 GFLOP on <= 20 MB of operands and
+// output, far above the card's operations-per-byte line, so it is bound by
+// operations.  The f32 CUDA cores (67 TFLOP/s) are too slow for that; the
+// tensor cores take f32 only as TF32, which keeps 10 of f32's 23 mantissa
+// bits and would miss the port's 1e-4 tolerance at K = 1000.  So f32
+// operands run as 3xTF32 ("big + small", as CUTLASS's
+// ampere_3xtf32_fast_accurate_tensorop_gemm example): each operand v is
+// split into hi = tf32_rna(v) and lo = tf32_rna(v - hi), and the sum
+// takes lo*hi + hi*lo + hi*hi, three TF32 products with f32 accumulation,
+// dropping only lo*lo (about 2^-22 of each product).  Its bound is
+// 3 * 2*M*K*N over the TF32 rate (495 TFLOP/s).
 //
-// Numerics follow the Pallas kernel and models/mmae.py::mxu_dot exactly:
-// - the multiply-accumulate is f32; the bias is added in f32 after it;
-// - with bf16 != 0 every operand element is rounded to bf16 (round to
-//   nearest even) as it is staged, and the sums stay f32.  Nothing is
-//   stored in bf16;
-// - activations are those of pallas_kernels._ACT_FNS, ids in
-//   config.ACTIVATIONS order: 0 linear, 1 relu, 2 tanh, 3 softsign,
-//   4 softplus = log1p(exp(-|z|)) + max(z, 0).  max() keeps NaN, as
-//   jnp.maximum and torch.relu do.
+// f32 operands, on wgmma.  wgmma reads B from shared memory, and takes
+// TF32 only K-major; the encoder's w is N-major and the tied decoder's
+// w.T view K-major.  So each staged slice of w, in whichever orientation
+// it lies, goes through one pass of all threads that splits it into hi
+// and lo and writes both K-major, 128-byte swizzled ([128 n][32 k], the
+// 16-byte chunk c of row n at c ^ (n % 8)): that layout serves both
+// orientations, and the split of w is done once per block rather than
+// once per warp.  x's slice is split in registers, which wgmma takes as
+// A.  Each of the two warpgroups issues, per 8-deep step, three
+// m64n128k8 products into its 64 x 128 accumulator; the split of the next
+// slice of w runs while they do (hi/lo buffers are double-buffered).
 //
-// x and w are read through element strides, so a transposed view (the
-// tied decoder's w.T) is read as it is laid out, never as row-major.
+// bf16 operands (bf16 != 0), on mma.sync: every element is rounded to
+// bf16 (round to nearest even) as its fragment is built, and the products
+// run as mma.sync.m16n8k16 bf16 with f32 sums.  The products of bf16
+// values are exact in f32, the policy of models/mmae.py::mxu_dot.
+//
+// Staging: x's slice is staged K-major ([BM][BK + 4]); w's as it lies in
+// memory, N-major ([BK][BN + pad]) for row-major w and K-major
+// ([BN][BK + 4]) for the w.T view, chosen by a template parameter from the
+// strides, so the transpose is never copied.  The pads put the reads of
+// either layout on 32 distinct banks.  Staging copies 16 bytes at a time
+// when every row starts 16-byte aligned (VEC), else 4 bytes at a time
+// with element strides; the wrapper picks the instantiation at launch, so
+// no loop has a run-time branch.  Ragged M, N and a partial last K slice
+// are zero-filled by the copies.
+//
+// Occupancy: 128 x 128 tiles give 16 x 8 = 128 blocks for the 1000-wide
+// layers, one wave on 132 SMs.  The 100-wide encoder output gives only
+// 16, so there the launch splits K across a thread-block cluster of 2, 4
+// or 8 blocks; each block leaves its partial tile in its shared memory,
+// and after a cluster barrier each block sums its share of rows over the
+// partials through distributed shared memory, in rank order, and runs the
+// epilogue on them.
+//
+// Activations are those of pallas_kernels._ACT_FNS, ids in
+// config.ACTIVATIONS order: 0 linear, 1 relu, 2 tanh, 3 softsign,
+// 4 softplus = log1p(exp(-|z|)) + max(z, 0); max() keeps NaN, as
+// jnp.maximum and torch.relu do.
+//
 // The launcher takes raw pointers and a stream and returns the CUDA error
 // code of the launch; it allocates nothing and does not synchronise.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int BM = 64;       // output rows per block
-constexpr int BN = 64;       // output columns per block
-constexpr int BK = 16;       // depth of one shared-memory slice
-constexpr int TM = 4;        // output rows per thread
-constexpr int TN = 4;        // output columns per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
-constexpr int PAD = 4;       // keeps rows of the staged tiles off one bank
+constexpr int BK = 32;          // depth of one staged slice
+constexpr int STAGES = 4;       // slices in flight in the bf16 ring
+constexpr int TF32_STAGES = 3;  // in the TF32 ring, beside its split w
+constexpr int THREADS = 256;    // 8 warps: 2 warpgroups
+constexpr int MAX_SPLIT = 8;    // portable cluster size
+constexpr int MAX_DEVICES = 64;
 
-__device__ __forceinline__ float to_bf16_and_back(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+// The staged ring of a BM x BN tile, and the mma.sync warp layout of the
+// bf16 kernel (2 x 4 warps).
+template <bool BF16, bool B_KMAJOR, int NSTAGES = STAGES>
+struct Geometry {
+  static constexpr int BM = 128, BN = 128;
+  static constexpr int WM = BM / 2, WN = BN / 4;
+  static constexpr int MI = WM / 16, NI = WN / 8;  // mma tiles a warp
+  // K-major rows: a stride of 36 words puts (row g, col t) on bank 4g + t.
+  static constexpr int A_LD = BK + 4;
+  // N-major rows: (k t, col g) on bank 8t + g needs a stride of 8 mod 32
+  // (the TF32 split pass); (k 2t, col g) on 8t + g needs 4 mod 32 (bf16).
+  static constexpr int B_LD = B_KMAJOR ? BK + 4 : BN + (BF16 ? 4 : 8);
+  static constexpr int A_FLOATS = BM * A_LD;
+  static constexpr int B_FLOATS = B_KMAJOR ? BN * B_LD : BK * B_LD;
+  static constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
+  static constexpr int RING_BYTES = NSTAGES * STAGE_FLOATS * 4;
+  // the partial tile a split block leaves for its cluster
+  static constexpr int RED_LD = BN + 8;
+  static constexpr int RED_BYTES = BM * RED_LD * 4;
+  static_assert(MI >= 1 && NI >= 1 && WM % 16 == 0 && WN % 8 == 0, "tile");
+  static_assert(A_FLOATS % 4 == 0 && B_FLOATS % 4 == 0, "16-byte stages");
+  static_assert(B_LD % 4 == 0 && RED_LD % 4 == 0, "16-byte rows");
+  static_assert(RED_BYTES <= RING_BYTES, "the partial fits the ring");
+};
+
+// The wgmma accumulator of the TF32 kernel, seen per warp: warp w holds
+// rows [16 w, 16 w + 16) of the 128 x 128 tile, laid out as 16 mma.m16n8
+// fragments along N.
+template <bool B_KMAJOR>
+struct WgTile : Geometry<false, B_KMAJOR, TF32_STAGES> {
+  using Ring = Geometry<false, B_KMAJOR, TF32_STAGES>;
+  static constexpr int MI = 1, NI = 16;
+  // w's slice split into hi and lo, K-major, 128-byte swizzled; three
+  // pairs, since two groups of products are in flight while the next
+  // slice is split
+  static constexpr int SPLIT_BYTES = 128 * BK * 4;  // 16 KB, one of six
+  static constexpr int SPLIT_PAIRS = 3;
+  // the split buffers start on a 1024-byte boundary
+  static constexpr int SMEM_BYTES =
+      Ring::RING_BYTES + 2 * SPLIT_PAIRS * SPLIT_BYTES + 1024;
+  static_assert(Ring::RING_BYTES % 1024 == 0, "aligned split buffers");
+};
 
 __device__ __forceinline__ float relu_keep_nan(float z) {
   return z < 0.f ? 0.f : z;
 }
 
-__device__ __forceinline__ float activate(float z, int act) {
-  switch (act) {
-    case 1: return relu_keep_nan(z);
-    case 2: return tanhf(z);
-    case 3: return z / (1.f + fabsf(z));
-    case 4: return log1pf(expf(-fabsf(z))) + relu_keep_nan(z);
-    default: return z;
+// The activation is a template parameter: the epilogue is unrolled over
+// a thread's 32-64 outputs, and a run-time switch in each would make its
+// code long enough that fetching it costs more than the stores.
+template <int ACT>
+__device__ __forceinline__ float activate(float z) {
+  if (ACT == 1) return relu_keep_nan(z);
+  if (ACT == 2) return tanhf(z);
+  if (ACT == 3) return z / (1.f + fabsf(z));
+  if (ACT == 4) return log1pf(expf(-fabsf(z))) + relu_keep_nan(z);
+  return z;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; bytes past ``src_bytes`` are zeroed.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// v = hi + lo + (what is left), hi and lo TF32 (round to nearest, ties
+// away: cvt.rna).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
+  const float rest = v - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+// (lo, hi) rounded to bf16 (nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Not volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Shared-memory matrix descriptor of a K-major, 128-byte swizzled tile
+// whose rows are 128 bytes and whose 8-row groups are 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4)  // start address
+         | (uint64_t)1 << 16                 // leading offset (unused)
+         | (uint64_t)(1024 >> 4) << 32       // stride between row groups
+         | (uint64_t)1 << 62;                // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// D (64 x 128 f32, this warpgroup's rows) += A (64 x 8 TF32, registers;
+// each warp its 16 rows as in mma.m16n8k8) x B (8 x 128 TF32, shared
+// memory through ``desc``).
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a,
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+struct Operands {
+  const float* x;
+  const float* w;
+  const float* b;
+  float* out;
+  int M, N, K;
+  int64_t sxm, sxk, swk, swn;
+  int act;
+};
+
+// Issue the copies of k-tile ``kt`` into one stage of the ring.  Every
+// loop below has a whole number of rounds of THREADS copies.
+template <class G, bool B_KMAJOR, bool VEC>
+__device__ __forceinline__ void stage_tile(const Operands& p, float* As,
+                                           float* Bs, int m0, int n0,
+                                           int kt, int tid) {
+  const int k0 = kt * BK;
+  static_assert((G::BM * BK) % (4 * THREADS) == 0 &&
+                (G::BN * BK) % (4 * THREADS) == 0, "whole rounds");
+  if (VEC) {
+    // 16-byte chunks along the contiguous axis; a chunk that runs past K
+    // (or N) copies only its valid bytes and zero-fills the rest
+#pragma unroll
+    for (int it = 0; it < G::BM * BK / 4 / THREADS; ++it) {
+      const int c = tid + it * THREADS;
+      const int r = c / (BK / 4), kc = (c % (BK / 4)) * 4;
+      const int gm = m0 + r, gk = k0 + kc;
+      const bool in = gm < p.M && gk < p.K;
+      const int bytes = in ? 4 * min(4, p.K - gk) : 0;
+      cp_async16(As + r * G::A_LD + kc, in ? p.x + gm * p.sxm + gk : p.x,
+                 bytes);
+    }
+#pragma unroll
+    for (int it = 0; it < G::BN * BK / 4 / THREADS; ++it) {
+      const int c = tid + it * THREADS;
+      if (B_KMAJOR) {
+        const int r = c / (BK / 4), kc = (c % (BK / 4)) * 4;
+        const int gn = n0 + r, gk = k0 + kc;
+        const bool in = gn < p.N && gk < p.K;
+        const int bytes = in ? 4 * min(4, p.K - gk) : 0;
+        cp_async16(Bs + r * G::B_LD + kc, in ? p.w + gn * p.swn + gk : p.w,
+                   bytes);
+      } else {
+        const int r = c / (G::BN / 4), nc = (c % (G::BN / 4)) * 4;
+        const int gk = k0 + r, gn = n0 + nc;
+        const bool in = gk < p.K && gn < p.N;
+        const int bytes = in ? 4 * min(4, p.N - gn) : 0;
+        cp_async16(Bs + r * G::B_LD + nc, in ? p.w + gk * p.swk + gn : p.w,
+                   bytes);
+      }
+    }
+  } else {
+    // one element a copy, through both element strides; a warp walks the
+    // staged layout's contiguous axis
+#pragma unroll 4
+    for (int it = 0; it < G::BM * BK / THREADS; ++it) {
+      const int e = tid + it * THREADS;
+      const int r = e / BK, kk = e % BK;
+      const int gm = m0 + r, gk = k0 + kk;
+      const bool in = gm < p.M && gk < p.K;
+      cp_async4(As + r * G::A_LD + kk,
+                in ? p.x + gm * p.sxm + gk * p.sxk : p.x, in ? 4 : 0);
+    }
+#pragma unroll 4
+    for (int it = 0; it < G::BN * BK / THREADS; ++it) {
+      const int e = tid + it * THREADS;
+      const int r = B_KMAJOR ? e / BK : e / G::BN;
+      const int c = B_KMAJOR ? e % BK : e % G::BN;
+      const int gk = k0 + (B_KMAJOR ? c : r), gn = n0 + (B_KMAJOR ? r : c);
+      const bool in = gk < p.K && gn < p.N;
+      cp_async4(Bs + r * G::B_LD + c,
+                in ? p.w + gk * p.swk + gn * p.swn : p.w, in ? 4 : 0);
+    }
   }
 }
 
-template <bool BF16>
-__global__ void __launch_bounds__(THREADS)
-fused_dense_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ b, float* __restrict__ out,
-                   int M, int N, int K, int64_t sxm, int64_t sxk,
-                   int64_t swk, int64_t swn, int act) {
-  // Staged slices, both indexed [k][row or column] so the inner loop reads
-  // TM (TN) neighbouring values of one k.
-  __shared__ float xs[BK][BM + PAD];
-  __shared__ float ws[BK][BN + PAD];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  // Walk the staging loads along whichever axis is contiguous in memory,
-  // so that neighbouring threads read neighbouring addresses.
-  const bool x_k_fast = sxk == 1;
-  const bool w_n_fast = swn == 1;
-
-  float acc[TM][TN];
+// w's staged slice (either orientation) into hi and lo, each K-major and
+// 128-byte swizzled: the 16-byte chunk c of row n at byte n * 128 +
+// ((c ^ (n % 8)) << 4).  A warp takes 32 neighbouring n of one chunk, so
+// both the reads and the 16-byte writes fall on distinct banks.
+template <class G, bool B_KMAJOR>
+__device__ __forceinline__ void split_w(const float* Bs, uint8_t* hi,
+                                        uint8_t* lo, int tid) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int it = 0; it < 128 * (BK / 4) / THREADS; ++it) {
+    const int task = tid + it * THREADS;
+    const int n = task % 128, c = task / 128;
+    float v[4];
+    if (B_KMAJOR) {
+      const float4 q =
+          *reinterpret_cast<const float4*>(Bs + n * G::B_LD + 4 * c);
+      v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+    } else {
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+      for (int u = 0; u < 4; ++u) v[u] = Bs[(4 * c + u) * G::B_LD + n];
+    }
+    uint4 h, l;
+    split_tf32(v[0], h.x, l.x);
+    split_tf32(v[1], h.y, l.y);
+    split_tf32(v[2], h.z, l.z);
+    split_tf32(v[3], h.w, l.w);
+    const int off = n * 128 + ((c ^ (n & 7)) << 4);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  }
+}
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += THREADS) {
-      const int mm = x_k_fast ? e / BK : e % BM;
-      const int kk = x_k_fast ? e % BK : e / BM;
-      const int gm = m0 + mm, gk = k0 + kk;
-      float v = (gm < M && gk < K) ? x[gm * sxm + gk * sxk] : 0.f;
-      xs[kk][mm] = BF16 ? to_bf16_and_back(v) : v;
+// One staged slice, operands rounded to bf16: m16n8k16.
+template <class G, bool B_KMAJOR>
+__device__ __forceinline__ void slice_bf16(const float* As, const float* Bs,
+                                           int wm0, int wn0, int g, int t,
+                                           float (*acc)[G::NI][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 16) {
+    uint32_t a[G::MI][4], b[G::NI][2];
+#pragma unroll
+    for (int i = 0; i < G::MI; ++i) {
+      const float* r0 = As + (wm0 + i * 16 + g) * G::A_LD + kk + 2 * t;
+      const float2 p0 = *reinterpret_cast<const float2*>(r0);
+      const float2 p1 = *reinterpret_cast<const float2*>(r0 + 8 * G::A_LD);
+      const float2 p2 = *reinterpret_cast<const float2*>(r0 + 8);
+      const float2 p3 =
+          *reinterpret_cast<const float2*>(r0 + 8 * G::A_LD + 8);
+      a[i][0] = pack_bf16(p0.x, p0.y);
+      a[i][1] = pack_bf16(p1.x, p1.y);
+      a[i][2] = pack_bf16(p2.x, p2.y);
+      a[i][3] = pack_bf16(p3.x, p3.y);
     }
-    for (int e = tid; e < BK * BN; e += THREADS) {
-      const int nn = w_n_fast ? e % BN : e / BK;
-      const int kk = w_n_fast ? e / BN : e % BK;
-      const int gk = k0 + kk, gn = n0 + nn;
-      float v = (gk < K && gn < N) ? w[gk * swk + gn * swn] : 0.f;
-      ws[kk][nn] = BF16 ? to_bf16_and_back(v) : v;
+#pragma unroll
+    for (int j = 0; j < G::NI; ++j) {
+      const int n = wn0 + j * 8 + g;
+      if (B_KMAJOR) {
+        const float* r0 = Bs + n * G::B_LD + kk + 2 * t;
+        const float2 q0 = *reinterpret_cast<const float2*>(r0);
+        const float2 q1 = *reinterpret_cast<const float2*>(r0 + 8);
+        b[j][0] = pack_bf16(q0.x, q0.y);
+        b[j][1] = pack_bf16(q1.x, q1.y);
+      } else {
+        const float* c0 = Bs + (kk + 2 * t) * G::B_LD + n;
+        b[j][0] = pack_bf16(c0[0], c0[G::B_LD]);
+        b[j][1] = pack_bf16(c0[8 * G::B_LD], c0[9 * G::B_LD]);
+      }
     }
+#pragma unroll
+    for (int i = 0; i < G::MI; ++i)
+#pragma unroll
+      for (int j = 0; j < G::NI; ++j) mma_bf16(acc[i][j], a[i], b[j]);
+  }
+}
+
+template <int ACT>
+__device__ __forceinline__ void store_pair(const Operands& p, int row,
+                                           int col, float v0, float v1,
+                                           bool pairs) {
+  if (row >= p.M) return;
+  float* o = p.out + (int64_t)row * p.N + col;
+  if (pairs && col + 1 < p.N) {
+    *reinterpret_cast<float2*>(o) =
+        make_float2(activate<ACT>(v0 + p.b[col]),
+                    activate<ACT>(v1 + p.b[col + 1]));
+    return;
+  }
+  if (col < p.N) o[0] = activate<ACT>(v0 + p.b[col]);
+  if (col + 1 < p.N) o[1] = activate<ACT>(v1 + p.b[col + 1]);
+}
+
+// The whole accumulator tile of a block that owns its K range.
+template <int ACT, class G>
+__device__ __forceinline__ void store_tile(const Operands& p,
+                                           float (*acc)[G::NI][4], int m0,
+                                           int n0, int wm0, int wn0, int g,
+                                           int t, bool pairs) {
+#pragma unroll
+  for (int i = 0; i < G::MI; ++i)
+#pragma unroll
+    for (int j = 0; j < G::NI; ++j) {
+      const int row = m0 + wm0 + i * 16 + g;
+      const int col = n0 + wn0 + j * 8 + 2 * t;
+      store_pair<ACT>(p, row, col, acc[i][j][0], acc[i][j][1], pairs);
+      store_pair<ACT>(p, row + 8, col, acc[i][j][2], acc[i][j][3], pairs);
+    }
+}
+
+// Rows [r0, r0 + rows) of the tile, summed over the cluster's partials in
+// rank order.
+template <int ACT, class G>
+__device__ __forceinline__ void store_reduced(const Operands& p,
+                                              const float* const* parts,
+                                              int split, int r0, int rows,
+                                              int m0, int n0, int tid,
+                                              bool pairs) {
+  for (int e = tid; e < rows * (G::BN / 4); e += THREADS) {
+    const int r = r0 + e / (G::BN / 4), c4 = (e % (G::BN / 4)) * 4;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < split; ++q) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(parts[q] + r * G::RED_LD + c4);
+      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+    }
+    store_pair<ACT>(p, m0 + r, n0 + c4, s.x, s.y, pairs);
+    store_pair<ACT>(p, m0 + r, n0 + c4 + 2, s.z, s.w, pairs);
+  }
+}
+
+// Bias, activation and store of a block's accumulators.  With split > 1
+// the partial tile goes to this block's shared memory (``red``, free once
+// the products are done); after the cluster barrier, rank q sums rows
+// [q BM / split, (q + 1) BM / split) over all ranks' partials, in rank
+// order, and writes them.
+template <class G>
+__device__ __forceinline__ void finish(const Operands& p,
+                                       float (*acc)[G::NI][4], float* red,
+                                       int split, int m0, int n0, int wm0,
+                                       int wn0, int g, int t, int tid) {
+  const bool pairs = (p.N & 1) == 0;  // float2 stores stay 8-byte aligned
+  if (split == 1) {
+    switch (p.act) {
+      case 1: store_tile<1, G>(p, acc, m0, n0, wm0, wn0, g, t, pairs); break;
+      case 2: store_tile<2, G>(p, acc, m0, n0, wm0, wn0, g, t, pairs); break;
+      case 3: store_tile<3, G>(p, acc, m0, n0, wm0, wn0, g, t, pairs); break;
+      case 4: store_tile<4, G>(p, acc, m0, n0, wm0, wn0, g, t, pairs); break;
+      default: store_tile<0, G>(p, acc, m0, n0, wm0, wn0, g, t, pairs);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < G::MI; ++i)
+#pragma unroll
+    for (int j = 0; j < G::NI; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(
+            red + (wm0 + i * 16 + g + 8 * h) * G::RED_LD + wn0 + j * 8 +
+            2 * t) = make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int rows = G::BM / split;
+  const int r0 = static_cast<int>(cluster.block_rank()) * rows;
+  const float* parts[MAX_SPLIT];
+  for (int q = 0; q < split; ++q) parts[q] = cluster.map_shared_rank(red, q);
+  switch (p.act) {
+    case 1: store_reduced<1, G>(p, parts, split, r0, rows, m0, n0, tid, pairs);
+      break;
+    case 2: store_reduced<2, G>(p, parts, split, r0, rows, m0, n0, tid, pairs);
+      break;
+    case 3: store_reduced<3, G>(p, parts, split, r0, rows, m0, n0, tid, pairs);
+      break;
+    case 4: store_reduced<4, G>(p, parts, split, r0, rows, m0, n0, tid, pairs);
+      break;
+    default:
+      store_reduced<0, G>(p, parts, split, r0, rows, m0, n0, tid, pairs);
+  }
+  cluster.sync();  // no block leaves while another reads its partial
+}
+
+// The K range of block z of ``split``: k-tiles [kt0, kt0 + nk).
+__device__ __forceinline__ void k_range(int K, int split, int& kt0,
+                                        int& nk) {
+  const int kt_all = (K + BK - 1) / BK;
+  const int per = (kt_all + split - 1) / split;
+  kt0 = blockIdx.z * per;
+  nk = max(0, min(kt_all, kt0 + per) - kt0);
+}
+
+// f32 operands, 3xTF32 on wgmma.  grid (M tiles, N tiles, split); a split
+// > 1 launches as a cluster of ``split`` blocks along z, one K range each.
+//
+// Slice i: its x part is split into registers (two register sets, by the
+// parity of i), its 12 products are issued as one wgmma group on split
+// buffer pair i % 3, and then the group of slice i - 1 is waited for.
+// So the tensor cores always have the next group queued, while the
+// threads split slice i + 1 of w and refill the copy ring.
+template <bool B_KMAJOR, bool VEC>
+__global__ void __launch_bounds__(THREADS, 1)
+dense_tf32_kernel(Operands p, int split) {
+  using G = WgTile<B_KMAJOR>;
+  constexpr int S = TF32_STAGES;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  float* ring = reinterpret_cast<float*>(smem);
+  uint8_t* split_buf = smem + G::RING_BYTES;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm0 = warp * 16;
+  const int m0 = blockIdx.x * G::BM, n0 = blockIdx.y * G::BN;
+  int kt0, nk;
+  k_range(p.K, split, kt0, nk);
+
+  float acc[1][G::NI][4];
+#pragma unroll
+  for (int j = 0; j < G::NI; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[0][j][r] = 0.f;
+
+  auto stage = [&](int i) { return ring + (i % S) * G::STAGE_FLOATS; };
+  auto hi_buf = [&](int i) {
+    return split_buf + 2 * (i % G::SPLIT_PAIRS) * G::SPLIT_BYTES;
+  };
+  auto lo_buf = [&](int i) { return hi_buf(i) + G::SPLIT_BYTES; };
+  auto copy_slice = [&](int i) {
+    if (i < nk)
+      stage_tile<G, B_KMAJOR, VEC>(p, stage(i), stage(i) + G::A_FLOATS, m0,
+                                   n0, kt0 + i, tid);
+    cp_async_commit();  // empty groups keep the count
+  };
+  auto split_slice = [&](int i) {
+    split_w<G, B_KMAJOR>(stage(i) + G::A_FLOATS, hi_buf(i), lo_buf(i), tid);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
+  auto step = [&](int i, uint32_t (&ahi)[BK / 8][4],
+                  uint32_t (&alo)[BK / 8][4]) {
+    const float* As = stage(i);
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const float* a = As + (wm0 + g) * G::A_LD + 8 * kk + t;
+      split_tf32(a[0], ahi[kk][0], alo[kk][0]);
+      split_tf32(a[8 * G::A_LD], ahi[kk][1], alo[kk][1]);
+      split_tf32(a[4], ahi[kk][2], alo[kk][2]);
+      split_tf32(a[8 * G::A_LD + 4], ahi[kk][3], alo[kk][3]);
+    }
+    const uint32_t bh = smem_addr(hi_buf(i)), bl = smem_addr(lo_buf(i));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      // 8 TF32 of K are 32 bytes along the swizzled rows
+      const uint64_t dh = sw128_desc(bh + 32 * kk);
+      const uint64_t dl = sw128_desc(bl + 32 * kk);
+      // the small terms first, then the big one
+      wgmma_tf32(&acc[0][0][0], alo[kk], dh);
+      wgmma_tf32(&acc[0][0][0], ahi[kk], dl);
+      wgmma_tf32(&acc[0][0][0], ahi[kk], dh);
+    }
+    wgmma_commit();
+    // slice i - 1's group is done: its registers and split pair are free
+    wgmma_wait<1>();
+    if (i + 1 < nk) {
+      cp_async_wait<0>();  // slice i + 1 landed (this thread's copies)
+      __syncthreads();     // ... everyone's, and slice i's x was read
+      copy_slice(i + 2);
+      split_slice(i + 1);
+      __syncthreads();
+    }
+  };
+
+  copy_slice(0);
+  copy_slice(1);
+  if (nk > 0) {
+    cp_async_wait<1>();
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], c[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) c[j] = ws[kk][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], c[j], acc[i][j]);
-    }
+    split_slice(0);
     __syncthreads();
   }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = m0 + ty * TM + i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = n0 + tx * TN + j;
-      if (col < N)
-        out[(int64_t)row * N + col] = activate(acc[i][j] + b[col], act);
-    }
+  uint32_t ahi0[BK / 8][4], alo0[BK / 8][4], ahi1[BK / 8][4], alo1[BK / 8][4];
+  int i = 0;
+  for (; i + 1 < nk; i += 2) {
+    step(i, ahi0, alo0);
+    step(i + 1, ahi1, alo1);
   }
+  if (i < nk) step(i, ahi0, alo0);
+  wgmma_wait<0>();
+  cp_async_wait<0>();
+  __syncthreads();
+  finish<G>(p, acc, ring, split, m0, n0, wm0, 0, g, t, tid);
+}
+
+// bf16 operands on mma.sync: each of the 2 x 4 warps owns a WM x WN
+// sub-tile.  Same grid and split as the TF32 kernel.
+template <bool B_KMAJOR, bool VEC>
+__global__ void __launch_bounds__(THREADS, 1)
+dense_bf16_kernel(Operands p, int split) {
+  using G = Geometry<true, B_KMAJOR>;
+  extern __shared__ __align__(16) float smem[];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm0 = (warp % 2) * G::WM, wn0 = (warp / 2) * G::WN;
+  const int m0 = blockIdx.x * G::BM, n0 = blockIdx.y * G::BN;
+  int kt0, nk;
+  k_range(p.K, split, kt0, nk);
+
+  float acc[G::MI][G::NI][4];
+#pragma unroll
+  for (int i = 0; i < G::MI; ++i)
+#pragma unroll
+    for (int j = 0; j < G::NI; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+  // the ring: STAGES - 1 slices ahead of the products, one commit group a
+  // slice (empty groups keep the count when the slices run out)
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk)
+      stage_tile<G, B_KMAJOR, VEC>(p, smem + s * G::STAGE_FLOATS,
+                                   smem + s * G::STAGE_FLOATS + G::A_FLOATS,
+                                   m0, n0, kt0 + s, tid);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nk; ++i) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // slice i landed for all; slice i - 1 is consumed
+    const int ahead = i + STAGES - 1;
+    if (ahead < nk) {
+      float* st = smem + (ahead % STAGES) * G::STAGE_FLOATS;
+      stage_tile<G, B_KMAJOR, VEC>(p, st, st + G::A_FLOATS, m0, n0,
+                                   kt0 + ahead, tid);
+    }
+    cp_async_commit();
+    const float* st = smem + (i % STAGES) * G::STAGE_FLOATS;
+    slice_bf16<G, B_KMAJOR>(st, st + G::A_FLOATS, wm0, wn0, g, t, acc);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  finish<G>(p, acc, smem, split, m0, n0, wm0, wn0, g, t, tid);
+}
+
+int device_index() {
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device >= MAX_DEVICES)
+    return -1;
+  return device;
+}
+
+template <auto kernel>
+cudaError_t launch(int smem_bytes, int bm, int bn, const Operands& p,
+                   int split, cudaStream_t stream) {
+  // the shared-memory limit is raised once per device and kernel
+  static bool raised[MAX_DEVICES] = {};
+  const int device = device_index();
+  if (device < 0) return cudaErrorInvalidDevice;
+  if (!raised[device]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return err;
+    raised[device] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p.M + bm - 1) / bm, (p.N + bn - 1) / bn, split);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p, split);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <bool B_KMAJOR, bool VEC>
+cudaError_t launch_tf32(const Operands& p, int split, cudaStream_t s) {
+  return launch<dense_tf32_kernel<B_KMAJOR, VEC>>(
+      WgTile<B_KMAJOR>::SMEM_BYTES, 128, 128, p, split, s);
+}
+
+template <bool B_KMAJOR, bool VEC>
+cudaError_t launch_bf16(const Operands& p, int split, cudaStream_t s) {
+  using G = Geometry<true, B_KMAJOR>;
+  return launch<dense_bf16_kernel<B_KMAJOR, VEC>>(G::RING_BYTES, G::BM, G::BN,
+                                                  p, split, s);
+}
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+}
+
+int sm_count() {
+  static int sms[MAX_DEVICES] = {};
+  const int device = device_index();
+  if (device < 0) return 132;
+  if (!sms[device] &&
+      cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount,
+                             device) != cudaSuccess)
+    return 132;
+  return sms[device];
+}
+
+long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
+
+// The largest split in 1, 2, 4, 8 that keeps ``tiles`` x split blocks
+// within ``limit`` and at least two k-tiles a block.
+int choose_split(long long tiles, int kt_all, long long limit) {
+  int split = 1;
+  while (split < MAX_SPLIT && tiles * split * 2 <= limit &&
+         kt_all >= 4 * split)
+    split *= 2;
+  return split;
 }
 
 }  // namespace
@@ -145,17 +757,34 @@ int fused_dense_launch(const float* x, const float* w, const float* b,
                        long long sxk, long long swk, long long swn, int act,
                        int bf16, void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  if (act < 0 || act > 4) return (int)cudaErrorInvalidValue;
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
+  if (act < 0 || act > 4 || K < 0) return (int)cudaErrorInvalidValue;
+  if (ceil_div(N, 128) > 65535) return (int)cudaErrorInvalidConfiguration;
+  const Operands p{x, w, b, out, M, N, K, sxm, sxk, swk, swn, act};
+  // w is staged along its contiguous axis: K-major for the w.T view
+  const bool b_kmajor = swk == 1 && swn != 1;
+  // 16-byte copies need every staged row to start 16-byte aligned
+  const bool vec =
+      sxk == 1 && sxm % 4 == 0 && aligned16(x) && aligned16(w) &&
+      (b_kmajor ? swn % 4 == 0 : swn == 1 && swk % 4 == 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    fused_dense_kernel<true><<<grid, THREADS, 0, s>>>(
-        x, w, b, out, M, N, K, sxm, sxk, swk, swn, act);
-  else
-    fused_dense_kernel<false><<<grid, THREADS, 0, s>>>(
-        x, w, b, out, M, N, K, sxm, sxk, swk, swn, act);
-  return (int)cudaGetLastError();
+  const int sms = sm_count();
+  const int kt_all = (int)ceil_div(K, BK);
+  const long long tiles = ceil_div(M, 128) * ceil_div(N, 128);
+  // 128 x 128 tiles, K split across a cluster when they leave most of the
+  // card idle
+  const int split = choose_split(tiles, kt_all, sms);
+  if (!bf16) {
+    if (b_kmajor)
+      return (int)(vec ? launch_tf32<true, true>(p, split, s)
+                       : launch_tf32<true, false>(p, split, s));
+    return (int)(vec ? launch_tf32<false, true>(p, split, s)
+                     : launch_tf32<false, false>(p, split, s));
+  }
+  if (b_kmajor)
+    return (int)(vec ? launch_bf16<true, true>(p, split, s)
+                     : launch_bf16<true, false>(p, split, s));
+  return (int)(vec ? launch_bf16<false, true>(p, split, s)
+                   : launch_bf16<false, false>(p, split, s));
 }
 
 const char* fused_dense_error_string(int code) {

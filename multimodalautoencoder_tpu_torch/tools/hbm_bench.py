@@ -14,15 +14,16 @@ bf16 Adam moments (60 instances x 2.2 M parameters x m and v x 2 B,
 - ``write``: every word set to a value (against ``fill_``);
 - ``mixed``: a copy into a second buffer, one read and one write of every
   byte, the traffic of an Adam step over its moments (against
-  ``copy_``).
+  ``copy_``), through rings of bulk-async copies in shared memory.
 
-Each runs ``steps`` passes back to back, timed by CUDA events.  The plain
-twins above run for CPU tensors; CUDA tensors take the kernels or raise.
-Run on a card:
+Each pattern runs ``steps`` passes back to back, timed by CUDA events in
+turns with the one PyTorch call that computes the same function (kernel,
+library, library, kernel).  The plain twins above run for CPU tensors;
+CUDA tensors take the kernels or raise.  Run on a card:
 
     python -m multimodalautoencoder_tpu_torch.tools.hbm_bench
 
-It prints one line per pattern and ``torch``'s ``copy_``, then a JSON
+It prints one line per pattern beside its library call, then a JSON
 object of GB/s, and fails without CUDA.
 """
 
@@ -32,7 +33,7 @@ import ctypes
 import json
 import os
 import sys
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -47,8 +48,11 @@ PATTERNS = ("read", "write", "mixed")
 # 1000 x 2 + 1000 x 100 x 2) weights, 2 moments of 2 B each
 MOMENT_BYTES = 60 * 2_200_000 * 2 * 2
 STEPS = 20            # passes a timed call makes
-REPS = 3              # timed calls a pattern, after one warm-up call
+REPS = 3              # timed calls a turn, after one warm-up call
 VECTOR = 16           # bytes a thread moves per load or store
+# the library call beside each pattern
+LIBRARY_CALLS = {"read": "torch.sum(dtype=torch.int64)", "write": "fill_",
+                 "mixed": "copy_"}
 
 
 class HbmLibrary(NvccLibrary):
@@ -77,14 +81,16 @@ KERNELS = HbmLibrary()
 
 
 def _words(t: torch.Tensor) -> torch.Tensor:
-    """``t``'s bytes as int32 words; it must be contiguous and a whole
-    number of 16-byte vectors."""
+    """``t``'s bytes as int32 words; it must be contiguous, start on a
+    16-byte boundary and be a whole number of 16-byte vectors."""
     if not t.is_contiguous():
         raise ValueError("the stream buffers must be contiguous")
     nbytes = t.numel() * t.element_size()
     if nbytes % VECTOR:
         raise ValueError(f"{nbytes} bytes is not a whole number of "
                          f"{VECTOR}-byte vectors")
+    if t.data_ptr() % VECTOR:
+        raise ValueError(f"the stream buffers must be {VECTOR}-byte aligned")
     return t.view(torch.uint8).view(torch.int32)
 
 
@@ -103,8 +109,7 @@ def _run(pattern: str, src, dst, steps: int, value: int = 0,
             None if dst is None else dst.data_ptr(),
             buf.numel() * buf.element_size() // VECTOR, int(steps),
             int(value) & 0xFFFFFFFF,
-            None if sums is None else sums.data_ptr(),
-            ctypes.byref(launches),
+            None if sums is None else sums.data_ptr(), ctypes.byref(launches),
             torch.cuda.current_stream(dev).cuda_stream)
     KERNELS.launches += launches.value
     KERNELS.check(err, f"hbm_stream_run({pattern})")
@@ -162,29 +167,50 @@ def _event_ms(fn, reps: int = REPS) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def measure(nbytes: int = MOMENT_BYTES, steps: int = STEPS,
-            device="cuda") -> Dict[str, Dict[str, float]]:
-    """Each pattern's and ``copy_``'s ms per pass and GB/s over a buffer of
-    ``nbytes``, by CUDA events around ``steps`` back-to-back passes (the
-    median of :data:`REPS` calls after a warm-up call)."""
+def _buffers(nbytes: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError("the bandwidth probe measures a CUDA device")
     n = nbytes // 4
     src = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), dtype=torch.int32,
                         device=device)
-    dst = torch.empty_like(src)
-    moved = {"read": nbytes, "write": nbytes, "mixed": 2 * nbytes,
-             "copy_": 2 * nbytes}
-    runs = {"read": lambda: read_sums(src, steps),
-            "write": lambda: fill(dst, 0x3F800000, steps),
-            "mixed": lambda: copy(src, dst, steps),
-            "copy_": lambda: [dst.copy_(src) for _ in range(steps)]}
+    return src, torch.empty_like(src)
+
+
+def _in_turns(kernel, library, steps: int) -> Dict[str, object]:
+    """ms a pass of ``kernel`` and ``library``, timed in turns (kernel,
+    library, library, kernel); each figure is the mean of its two turns."""
+    turns = [_event_ms(f) / steps for f in (kernel, library, library,
+                                            kernel)]
+    return {"ms": (turns[0] + turns[3]) / 2,
+            "library_ms": (turns[1] + turns[2]) / 2, "turns": turns}
+
+
+def measure(nbytes: int = MOMENT_BYTES, steps: int = STEPS,
+            device="cuda") -> Dict[str, Dict[str, object]]:
+    """Each pattern's ms per pass and GB/s over a buffer of ``nbytes``
+    beside its library call's (:data:`LIBRARY_CALLS`), by CUDA events
+    around ``steps`` back-to-back passes (the median of :data:`REPS` calls
+    after a warm-up call), in turns."""
+    src, dst = _buffers(nbytes, device)
+    words = src.view(torch.int32)
+    moved = {"read": nbytes, "write": nbytes, "mixed": 2 * nbytes}
+    runs = {
+        "read": (lambda: read_sums(src, steps),
+                 lambda: [words.sum(dtype=torch.int64)
+                          for _ in range(steps)]),
+        "write": (lambda: fill(dst, 0x3F800000, steps),
+                  lambda: [dst.fill_(0x3F800000) for _ in range(steps)]),
+        "mixed": (lambda: copy(src, dst, steps),
+                  lambda: [dst.copy_(src) for _ in range(steps)]),
+    }
     out = {}
-    for name, fn in runs.items():
-        ms = _event_ms(fn) / steps
-        out[name] = {"ms": ms, "gb_per_s": moved[name] / ms / 1e6,
-                     "bytes": float(moved[name])}
+    for name, (kernel, library) in runs.items():
+        r = _in_turns(kernel, library, steps)
+        r.update(bytes=float(moved[name]), library=LIBRARY_CALLS[name],
+                 gb_per_s=moved[name] / r["ms"] / 1e6,
+                 library_gb_per_s=moved[name] / r["library_ms"] / 1e6)
+        out[name] = r
     return out
 
 
@@ -195,10 +221,14 @@ def main() -> int:
     result = measure()
     for name, r in result.items():
         print(f"{name:6s} {r['bytes'] / 1e9:.3f} GB moved a pass: "
-              f"{r['ms']:.4f} ms, {r['gb_per_s']:.1f} GB/s")
+              f"{r['ms']:.4f} ms, {r['gb_per_s']:.1f} GB/s; "
+              f"{r['library']} {r['library_ms']:.4f} ms, "
+              f"{r['library_gb_per_s']:.1f} GB/s")
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "gb_per_s": {k: r["gb_per_s"]
-                                   for k, r in result.items()}}))
+                                   for k, r in result.items()},
+                      "library_gb_per_s": {k: r["library_gb_per_s"]
+                                           for k, r in result.items()}}))
     return 0
 
 

@@ -9,6 +9,12 @@ skips without a GPU.
 Tolerances: f32 rtol = atol = 2e-5 (the two sum K products in different
 orders; K <= 256 here).  bf16 operands 1e-4: the operands are rounded to
 bf16 identically on both sides, but the sums still differ in order.
+
+The CUDA kernel computes f32 products as 3xTF32 on the tensor cores
+(``csrc/fused_dense.cu``).  A plain emulation of that scheme is held
+against an f64 product at the serve shapes on the CPU, so that the scheme
+itself, not only the kernel, is shown to sit well inside the kernel's
+1e-4 tolerance.
 """
 
 import numpy as np
@@ -22,6 +28,18 @@ from multimodalautoencoder_tpu_torch.config import ACTIVATIONS
 from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
 
 SHAPES = [(20, 96, 64), (37, 96, 70), (600, 256, 700)]
+# the kernel's cases on the card besides SHAPES: the four serve layers of
+# the tied 1000 -> 100 DAE over 2000 rows (N = 100 with K split across a
+# cluster; K = 100 leaves a partial last K tile of 4), a K that is no
+# multiple of 4 with unaligned rows (4-byte staging), 4-byte staging with
+# an 8-way K split, and an 8-way split with 16-byte staging.  Each runs on
+# both orientations of w.  (37, 96, 70) above has unaligned 70-float rows.
+CUDA_SHAPES = SHAPES + [(2000, 1000, 1000), (2000, 1000, 100),
+                        (2000, 100, 1000), (300, 45, 130), (64, 1000, 70),
+                        (300, 1000, 100)]
+# (M, K, N, w is the tied decoder's transposed view) of the serve forward
+SERVE_LAYERS = [(2000, 1000, 1000, False), (2000, 1000, 100, False),
+                (2000, 100, 1000, True), (2000, 1000, 1000, True)]
 
 
 def _inputs(m, k, n, seed=0):
@@ -118,10 +136,50 @@ def test_failed_build_raises(tmp_path):
     assert lib.launches == 0
 
 
+def _tf32_rna(t: torch.Tensor) -> torch.Tensor:
+    """Each f32 element rounded to TF32 (10 mantissa bits; to nearest,
+    ties away from zero) by bit arithmetic, as ``cvt.rna.tf32.f32``."""
+    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_tf32_rounding_emulation():
+    t = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12,
+                      -(1.0 + 3 * 2.0 ** -11), 1.0 + 2.0 ** -10 - 2.0 ** -23])
+    want = [1.0, 1.0 + 2.0 ** -10, 1.0, -(1.0 + 2.0 ** -9), 1.0 + 2.0 ** -10]
+    assert _tf32_rna(t).tolist() == want
+
+
+@pytest.mark.parametrize("m,k,n,tied", SERVE_LAYERS)
+def test_3xtf32_scheme_sits_inside_the_tolerance(m, k, n, tied):
+    """The kernel's f32 arithmetic, emulated: x = xh + xl, w = wh + wl with
+    each part rounded to TF32, and the sum of xl wh + xh wl + xh wh (each
+    product of TF32 values exact in f32, the sums in f32).  At the serve
+    shapes, with the serve path's inputs (data in [0, 1] at K = 1000, hidden
+    values in (-1, 1) otherwise, Xavier weights), it stays within 1e-5 of
+    the f64 product: a tenth of the kernel's 1e-4.  Plain TF32 (xh wh
+    alone) misses 1e-4, which is why the kernel takes three products."""
+    rng = np.random.default_rng(k + n + tied)
+    x = rng.random((m, k)).astype(np.float32)
+    if k != 1000:
+        x = 2 * x - 1
+    bound = (6.0 / (k + n)) ** 0.5
+    w = rng.uniform(-bound, bound, (n, k) if tied else (k, n))
+    w = np.ascontiguousarray(w.T if tied else w).astype(np.float32)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    xh, wh = _tf32_rna(tx), _tf32_rna(tw)
+    xl, wl = _tf32_rna(tx - xh), _tf32_rna(tw - wh)
+    exact = tx.double() @ tw.double()
+    three = xl @ wh + xh @ wl + xh @ wh
+    err = float((three.double() - exact).abs().max())
+    plain_tf32 = float(((xh @ wh).double() - exact).abs().max())
+    assert err <= 1e-5, err
+    assert plain_tf32 > 1e-4, plain_tf32
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("act", ACTIVATIONS)
-@pytest.mark.parametrize("shape", SHAPES + [(2000, 1000, 100)])
+@pytest.mark.parametrize("shape", CUDA_SHAPES)
 def test_cuda_kernel_matches_plain(cuda_device, shape, act, bf16):
     """The CUDA kernel against the plain version on the card, TF32 off;
     atol = rtol = 1e-4 (summation order)."""

@@ -41,8 +41,23 @@ def test_stream_buffers_are_checked():
         hbm_bench.measure(1024, 1, device="cpu")
 
 
+def test_stream_buffers_must_be_aligned():
+    """The bulk copies need 16-byte aligned buffers; a view that starts
+    mid-vector is refused on either device."""
+    words = torch.zeros(20, dtype=torch.int32)
+    with pytest.raises(ValueError, match="aligned"):
+        hbm_bench.read_sums(words[1:17])
+    with pytest.raises(ValueError, match="aligned"):
+        hbm_bench.copy(words[1:17], torch.zeros(16, dtype=torch.int32))
+    assert hbm_bench.read_sums(words[4:20]).tolist() == [0]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nbytes", [16, 16 * 1000 + 16 * 7, 1 << 24])
+@pytest.mark.parametrize("nbytes", [
+    16, 16 * 1000 + 16 * 7, 1 << 24,
+    # copies that end in a short chunk of the ring's 32 KiB stages: within
+    # one ring, and after every ring of a full grid has cycled its stages
+    32768 * 5 + 48, (1 << 27) + 16 * 3])
 def test_cuda_streams_match_twins(nbytes):
     """Each stream against its twin on the card: the read checksum equal
     on every pass, the written and copied buffers equal bit for bit, one
