@@ -42,6 +42,12 @@ power limit (as ``nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`` prints them), one JSON object describing each
 kernel, and the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+
+``python3 chip_smoke.py --tensor-core-products 1`` (or ``2``) measures a
+variant instead: the training libraries built with their products on the
+tensor cores (csrc/train_common.cuh, TRAIN_TENSOR_CORE_PRODUCTS), then the
+training gates and step timings ([8]-[11], [14], [15]), every gate
+reported rather than only the first that fails.
 """
 
 from __future__ import annotations
@@ -92,9 +98,17 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+# Failed checks of a --tensor-core-products run, which reports every gate
+# instead of stopping at the first (None: a failed check raises).
+FAILED = None
+
+
 def check(cond, msg: str) -> None:
     if not cond:
-        raise SmokeFailure(msg)
+        if FAILED is None:
+            raise SmokeFailure(msg)
+        FAILED.append(msg)
+        print(f"  FAILED: {msg}")
 
 
 def card_line() -> str:
@@ -144,6 +158,42 @@ def device_ms(fn, reps: int = 7, inner: int = 20) -> float:
     return float(np.median(times))
 
 
+def types_vs_bmm(profile, groups, bounds, n_inst: int, card: str) -> dict:
+    """Each launch type of a training step on the device beside
+    ``torch.bmm`` of the same products (the library yardstick; the port
+    never calls it), in turns: the kernels' per-launch CUDA events over a
+    window (``profile()`` -> ms/step by type), bmm of each type's products
+    on the device alone (:func:`device_ms`), bmm again, the kernels
+    again.  The weight-gradient type's bmm is its products without Adam."""
+    ops = {t: [(torch.rand((n_inst, m, k), device=DEVICE),
+                torch.rand((n_inst, k, n), device=DEVICE))
+               for m, k, n in shapes] for t, shapes in groups.items()}
+
+    def bmm_turn():
+        return {t: device_ms(lambda o=o: [torch.bmm(a, b) for a, b in o],
+                             reps=5, inner=5) for t, o in ops.items()}
+
+    k1 = profile()
+    b1, b2 = bmm_turn(), bmm_turn()
+    k2 = profile()
+    out = {}
+    for t, bound in bounds.items():
+        ms = (k1.get(t, 0.0) + k2.get(t, 0.0)) / 2
+        if ms <= 0.0:
+            continue
+        lib = (b1[t] + b2[t]) / 2 if t in ops else None
+        out[t] = {"ms": ms, "library_ms": lib, "bound_ms": bound["bound_ms"],
+                  "bound_by": bound["bound_by"]}
+        vs = (f", torch.bmm {b1[t]:.4f} / {b2[t]:.4f} ms ({len(ops[t])} "
+              f"products{', no Adam' if t == 'weight_grad_adam' else ''})"
+              if t in ops else "")
+        print(f"    {t:18s} {k1.get(t, 0.0):.4f} / {k2.get(t, 0.0):.4f} "
+              f"ms/step{vs}; bound {bound['bound_ms']:.4f} ms by "
+              f"{bound['bound_by']} ({100 * bound['bound_ms'] / ms:.1f} % "
+              f"of it reached)  [{card}]")
+    return out
+
+
 def dense_bounds(m: int, k: int, n: int, bf16: bool = False):
     """The least time (ms) of ``act(x @ w + b)`` at (m, k, n) for the
     arithmetic the kernel does, and what bounds it: 3xTF32 (three TF32
@@ -164,16 +214,16 @@ def xavier(k: int, n: int, g: torch.Generator) -> torch.Tensor:
     return (2 * torch.rand((k, n), generator=g, device="cuda") - 1) * bound
 
 
-def phase_kernel_vs_plain(dk) -> float:
+def phase_kernel_vs_plain(dk):
     """Every listed shape, activation and bf16 mode; returns the largest
-    absolute error."""
+    absolute error of each operand type (f32, bf16)."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [  # (M, K, N, tied view of w)
         (ROWS, 1000, 1000, False), (ROWS, 1000, 100, False),
         (ROWS, 1000, 100, True), (ROWS, 100, 1000, False),
         (ROWS, 100, 1000, True),
         (ROWS, 1000, 1000, True), (37, 96, 70, False), (37, 96, 70, True)]
-    worst = 0.0
+    worst = {False: 0.0, True: 0.0}
     for m, k, n, tied in cases:
         # inputs like the serve path's: data in [0, 1] at K = 1000, hidden
         # softsign values in (-1, 1) otherwise
@@ -189,7 +239,7 @@ def phase_kernel_vs_plain(dk) -> float:
                 want = dk.fused_dense_reference(x, w, b, act, bf16)
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
-                worst = max(worst, err)
+                worst[bf16] = max(worst[bf16], err)
                 ok = bool(torch.allclose(got, want, atol=TOL, rtol=TOL))
                 print(f"  ({m},{k},{n}) {'w.T view' if tied else 'w':8s} "
                       f"{act:8s} bf16={int(bf16)} max_abs_err={err:.3e}"
@@ -203,7 +253,9 @@ def phase_kernel_vs_plain(dk) -> float:
     dk.KERNELS.fused_dense(x, w, b, out, dk.ACTIVATION_IDS["tanh"], False)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), "kernel left outputs unwritten")
-    return worst
+    print(f"  worst: f32 operands {worst[False]:.3e}, bf16 operands "
+          f"{worst[True]:.3e}")
+    return worst[False], worst[True]
 
 
 def check_served(cmd: str, name: str, csv_path: str, dl) -> None:
@@ -815,33 +867,36 @@ def phase_step_timing(ptk, tied, folded, spec, card: str) -> dict:
                   f"ms/step  [{card}]")
         ms = cuda_ms(lambda: ptk.train_grid_kernel(run, first, inner),
                      reps=5, inner=1) / inner
-        prof: dict = {}
-        ptk.train_grid_kernel(run, 1000, inner, profile=prof)
         print(f"  {label:7s} parameters: {ms:.4f} ms/step by the kernels  "
               f"[{card}]")
-        for t in train_kernels.LAUNCH_TYPES:
-            got = prof.get(t, 0.0) / inner
-            if got > 0.0:
-                print(f"    {t:18s} {got:.4f} ms/step (events, serialised),"
-                      f" bound {bounds[t]['bound_ms']:.4f} ms by "
-                      f"{bounds[t]['bound_by']}")
         out[label] = (ms, run)
-    twin = out["fresh"][1].clone()
+    run = out["fresh"][1]
+
+    def profile():
+        prof: dict = {}
+        ptk.train_grid_kernel(run, 1000, inner, profile=prof)
+        return {t: v / inner for t, v in prof.items()}
+
+    # (m, k, n) of the 4 forward, 3 backward and 4 weight-gradient products
+    groups = {"forward_products": [(BATCH, F, H1), (BATCH, H1, H2),
+                                   (BATCH, H2, H1), (BATCH, H1, F)],
+              "backward_products": [(BATCH, F, H1), (BATCH, H1, H2),
+                                    (BATCH, H2, H1)],
+              "weight_grad_adam": [(F, BATCH, H1), (F, BATCH, H1),
+                                   (H1, BATCH, H2), (H1, BATCH, H2)]}
+    print("  fresh parameters by launch type (events, serialised), in "
+          "turns with torch.bmm of its products on the device")
+    types = types_vs_bmm(profile, groups, bounds, C * K, card)
+    twin = run.clone()
     plain_ms = cuda_ms(lambda: ptk.train_grid_kernel_reference(twin, 0, 1),
                        reps=3, inner=3)
-    # (m, k, n) of the 4 forward, 3 backward and 4 weight-gradient products
-    shapes = ((BATCH, F, H1), (BATCH, H1, H2), (BATCH, H2, H1),
-              (BATCH, H1, F), (BATCH, F, H1), (BATCH, H1, H2),
-              (BATCH, H2, H1), (F, BATCH, H1), (F, BATCH, H1),
-              (H1, BATCH, H2), (H1, BATCH, H2))
-    ops = [(torch.rand((C * K, m, k), device=DEVICE),
-            torch.rand((C * K, k, n), device=DEVICE)) for m, k, n in shapes]
-    bmm_ms = cuda_ms(lambda: [torch.bmm(a, b) for a, b in ops], reps=5,
-                     inner=5)
+    bmm_ms = sum(t["library_ms"] for t in types.values()
+                 if t["library_ms"] is not None)
     print(f"  twin on the card {plain_ms:.4f} ms/step; the step's 11 "
           f"products by torch.bmm {bmm_ms:.4f} ms  [{card}]")
     return {"ms": out["fresh"][0], "plain_ms": plain_ms, "bmm_ms": bmm_ms,
-            "bound_ms": step["bound_ms"], "bound_by": step["bound_by"]}
+            "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+            "launch_types": types}
 
 
 # ------------------------------------------------ the classification sweep
@@ -1182,6 +1237,7 @@ def phase_cls_step_timing(pck, ptk, sup_folded, spec, cfg, settings,
         ptk.init_grid_params(g, pck.phase1_cfg(cfg), C, K),
         pck.init_heads(g, cfg, C, K))
     bound = pck.cls_step_bound(cfg, N, B, True)
+    bounds = pck.cls_launch_type_bounds(cfg, N, B, True)
     F, (H1, H2) = cfg.num_feats, cfg.layer_sizes
     print(f"  tied {F} -> {H1} -> {H2}, head 50 -> 20 -> 3, N={N}, B={B}, "
           f"bf16 moments; bound {bound['bound_ms']:.4f} ms/step "
@@ -1191,31 +1247,36 @@ def phase_cls_step_timing(pck, ptk, sup_folded, spec, cfg, settings,
     pck.train_cls_kernel(run, 0, 20)
     ms = cuda_ms(lambda: pck.train_cls_kernel(run, 20, inner), reps=5,
                  inner=1) / inner
-    prof: dict = {}
-    pck.train_cls_kernel(run, 1000, inner, profile=prof)
     print(f"  kernels {ms:.4f} ms/step ({N / ms * 1e3:,.0f} instance-steps"
           f"/s, {bound['flop'] / ms / 1e9:.2f} TFLOP/s)  [{card}]")
-    for t in pck.LAUNCH_TYPES:
-        got = prof.get(t, 0.0) / inner
-        print(f"    {t:18s} {got:.4f} ms/step (events, serialised)")
+
+    def profile():
+        prof: dict = {}
+        pck.train_cls_kernel(run, 1000, inner, profile=prof)
+        return {t: v / inner for t, v in prof.items()}
+
+    # (m, k, n) of the forward, backward-data and weight-gradient products
+    d = [H2, 50, 20, 3]
+    groups = {"forward_products": [(B, F, H1), (B, H1, H2)]
+              + [(B, d[j], d[j + 1]) for j in range(3)],
+              "backward_products": [(B, d[j + 1], d[j]) for j in range(3)]
+              + [(B, H2, H1)],
+              "weight_grad_adam": [(F, B, H1), (H1, B, H2)]
+              + [(d[j], B, d[j + 1]) for j in range(3)]}
+    print("  by launch type (events, serialised), in turns with torch.bmm "
+          "of its products on the device")
+    types = types_vs_bmm(profile, groups, bounds, N, card)
     twin = run.clone()
     plain_ms = cuda_ms(lambda: pck.train_cls_kernel_reference(twin, 0, 1),
                        reps=3, inner=3)
-    # (m, k, n) of the forward, backward-data and weight-gradient products
-    d = [H2, 50, 20, 3]
-    shapes = ([(B, F, H1), (B, H1, H2)] + [(B, d[j], d[j + 1])
-                                          for j in range(3)]
-              + [(B, d[j + 1], d[j]) for j in range(3)] + [(B, H2, H1)]
-              + [(F, B, H1), (H1, B, H2)]
-              + [(d[j], B, d[j + 1]) for j in range(3)])
-    ops = [(torch.rand((N, m, k), device=DEVICE),
-            torch.rand((N, k, n), device=DEVICE)) for m, k, n in shapes]
-    bmm_ms = cuda_ms(lambda: [torch.bmm(a, b) for a, b in ops], reps=5,
-                     inner=5)
+    bmm_ms = sum(t["library_ms"] for t in types.values()
+                 if t["library_ms"] is not None)
     print(f"  twin on the card {plain_ms:.4f} ms/step; the step's "
-          f"{len(shapes)} products by torch.bmm {bmm_ms:.4f} ms  [{card}]")
+          f"{sum(map(len, groups.values()))} products by torch.bmm "
+          f"{bmm_ms:.4f} ms  [{card}]")
     return {"ms": ms, "plain_ms": plain_ms, "bmm_ms": bmm_ms,
-            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "launch_types": types}
 
 
 
@@ -1550,26 +1611,27 @@ def phase_full_mmae_grid(workdir: str, pdk, ptk, study_path: str,
           "launch counts")
 
 
-def deep_products(cfg, batch: int):
-    """(m, k, n) of every product of one deep step: forward (encoder, the
-    VAE head, decoder), backward data (decoder down to gz, encoder down to
-    layer 1), weight gradients (two per tied weight)."""
+def deep_products(cfg, batch: int) -> dict:
+    """(m, k, n) of every product of one deep step by launch type: forward
+    (encoder, the VAE head, decoder), backward data (decoder down to gz,
+    encoder down to layer 1), weight gradients (two per tied weight)."""
     d = [cfg.num_feats] + list(cfg.layer_sizes)
     L, B = len(d) - 1, batch
     vae = cfg.variational
-    out = [(B, d[i], d[i + 1]) for i in range(L)]
-    out += [(B, d[L - 1], d[L])] if vae else []
-    out += [(B, d[L - j], d[L - j - 1]) for j in range(L)]
-    out += [(B, d[L - j - 2], d[L - j - 1]) for j in range(L - 1)]
-    out += [(B, d[L - 1], d[L])]
-    out += [(B, d[i + 2], d[i + 1]) for i in range(L - 1)]
-    out += [(B, d[L], d[L - 1])] if vae else []
+    fwd = [(B, d[i], d[i + 1]) for i in range(L)]
+    fwd += [(B, d[L - 1], d[L])] if vae else []
+    fwd += [(B, d[L - j], d[L - j - 1]) for j in range(L)]
+    bwd = [(B, d[L - j - 2], d[L - j - 1]) for j in range(L - 1)]
+    bwd += [(B, d[L - 1], d[L])]
+    bwd += [(B, d[i + 2], d[i + 1]) for i in range(L - 1)]
+    bwd += [(B, d[L], d[L - 1])] if vae else []
     n_w = 2 if cfg.tie_weights else 1
-    out += [(d[i], B, d[i + 1]) for i in range(L)] * n_w
-    out += [(d[L - j], B, d[L - j - 1]) for j in range(L)] \
+    wgr = [(d[i], B, d[i + 1]) for i in range(L)] * n_w
+    wgr += [(d[L - j], B, d[L - j - 1]) for j in range(L)] \
         if not cfg.tie_weights else []
-    out += [(d[L - 1], B, d[L])] if vae else []
-    return out
+    wgr += [(d[L - 1], B, d[L])] if vae else []
+    return {"forward_products": fwd, "backward_products": bwd,
+            "weight_grad_adam": wgr}
 
 
 def phase_deep_step_timing(pdk, ptk, tied, folded, spec, card: str) -> dict:
@@ -1604,29 +1666,31 @@ def phase_deep_step_timing(pdk, ptk, tied, folded, spec, card: str) -> dict:
                   f"ms/step  [{card}]")
         ms = cuda_ms(lambda: pdk.train_deep_kernel(run, first, inner),
                      reps=5, inner=1) / inner
-        prof: dict = {}
-        pdk.train_deep_kernel(run, 1000, inner, profile=prof)
         print(f"  {label:7s} parameters: {ms:.4f} ms/step by the kernels, "
               f"{ms / step['bound_ms']:.1f}x the bound  [{card}]")
-        for t in ptk.LAUNCH_TYPES:
-            got = prof.get(t, 0.0) / inner
-            if got > 0.0:
-                print(f"    {t:18s} {got:.4f} ms/step (events, serialised),"
-                      f" bound {bounds[t]['bound_ms']:.4f} ms by "
-                      f"{bounds[t]['bound_by']}")
         out[label] = (ms, run)
-    twin = out["fresh"][1].clone()
+    run = out["fresh"][1]
+
+    def profile():
+        prof: dict = {}
+        pdk.train_deep_kernel(run, 1000, inner, profile=prof)
+        return {t: v / inner for t, v in prof.items()}
+
+    groups = deep_products(cfg, BATCH)
+    print("  fresh parameters by launch type (events, serialised), in "
+          "turns with torch.bmm of its products on the device")
+    types = types_vs_bmm(profile, groups, bounds, N, card)
+    twin = run.clone()
     plain_ms = cuda_ms(lambda: pdk.train_deep_kernel_reference(twin, 0, 1),
                        reps=3, inner=3)
-    shapes = deep_products(cfg, BATCH)
-    ops = [(torch.rand((N, m, k), device=DEVICE),
-            torch.rand((N, k, n), device=DEVICE)) for m, k, n in shapes]
-    bmm_ms = cuda_ms(lambda: [torch.bmm(a, b) for a, b in ops], reps=5,
-                     inner=5)
+    bmm_ms = sum(t["library_ms"] for t in types.values()
+                 if t["library_ms"] is not None)
     print(f"  twin on the card {plain_ms:.4f} ms/step; the step's "
-          f"{len(shapes)} products by torch.bmm {bmm_ms:.4f} ms  [{card}]")
+          f"{sum(map(len, groups.values()))} products by torch.bmm "
+          f"{bmm_ms:.4f} ms  [{card}]")
     return {"ms": out["fresh"][0], "plain_ms": plain_ms, "bmm_ms": bmm_ms,
-            "bound_ms": step["bound_ms"], "bound_by": step["bound_by"]}
+            "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+            "launch_types": types}
 
 
 def phase_hbm(hbm, card: str) -> dict:
@@ -1674,13 +1738,132 @@ def phase_hbm(hbm, card: str) -> dict:
             "gb_per_s": {k: r["gb_per_s"] for k, r in result.items()}}
 
 
+def training_study(workdir: str):
+    """The reference-scale study for training, its CV folds on the card,
+    the ACII grid's base config and 1000-wide buckets, and the noise
+    spec."""
+    from multimodalautoencoder_tpu_torch.data import synthetic
+    from multimodalautoencoder_tpu_torch.data.loader import DataLoader
+    from multimodalautoencoder_tpu_torch.models.corruption import NoiseSpec
+    from multimodalautoencoder_tpu_torch.parallel import grid_trainer
+
+    train_dir = os.path.join(workdir, "train")
+    os.makedirs(train_dir)
+    t0 = time.perf_counter()
+    study = DataLoader(synthetic.write_reference_scale_csv(
+        train_dir, num_rows=ROWS, seed=SEED), supervised=False,
+        cross_validation=True, fill_gaps_with=-1.0, suppress_output=True,
+        seed=SEED)
+    print(f"  study for training: {ROWS} rows, {study.num_feats} "
+          f"features, {study.num_folds} CV folds "
+          f"({time.perf_counter() - t0:.1f} s to write and load)")
+    folded = grid_trainer.FoldedData.from_loader(study, study.num_folds,
+                                                 device=DEVICE)
+    base, buckets = sweep_buckets(study)
+    spec = NoiseSpec.build(base, study.modality_table)
+    print(f"  108 settings in 9 buckets of 12; folds: train rows "
+          f"{folded.train_n.tolist()}, val rows "
+          f"{folded.val_n.tolist()}")
+    return study, folded, base, buckets, spec
+
+
+def supervised_study(study):
+    """The same study with its labels, its supervised folds on the card,
+    and the validation bucket's config and settings."""
+    from multimodalautoencoder_tpu_torch.data.loader import DataLoader
+    from multimodalautoencoder_tpu_torch.parallel import grid_trainer
+
+    sup = DataLoader(study.filename, supervised=True,
+                     cross_validation=True, fill_gaps_with=-1.0,
+                     suppress_output=True, seed=SEED)
+    sup_folded = grid_trainer.FoldedData.from_loader(
+        sup, sup.num_folds, device=DEVICE, supervised=True,
+        noisy_flags=True)
+    cfg_v, settings_v = validation_settings(sup)
+    return sup, sup_folded, cfg_v, settings_v
+
+
+def main_tensor_core_products(promote: int) -> int:
+    """The training gates and step times with the products on the tensor
+    cores: the three training libraries built with
+    TRAIN_TENSOR_CORE_PRODUCTS=<promote> (csrc/train_common.cuh), then
+    [8], [9]-[10], [11] and [14], and [15].  Every gate is reported, not
+    only the first that fails; the last line lists the failed checks, and
+    the exit code is 1 if there are any."""
+    global FAILED
+    from multimodalautoencoder_tpu_torch.ops import cls_train_kernels as pck
+    from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
+    from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
+    from multimodalautoencoder_tpu_torch.ops import train_kernels as ptk
+
+    FAILED = []
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"[1] card: {card}; torch {torch.__version__}; products on the "
+          f"tensor cores, sums promoted every "
+          f"{'32-deep slice' if promote == 1 else 'k step'}")
+    train_libs = (ptk.KERNELS, pck.KERNELS, pdk.KERNELS)
+    for lib in train_libs:
+        lib.defines += (f"TRAIN_TENSOR_CORE_PRODUCTS={promote}",)
+        root, ext = os.path.splitext(lib.library)
+        lib.library = f"{root}_tc{promote}{ext}"
+    build_kernels([dk.KERNELS, *train_libs])
+    print("[2] ptxas:")
+    for lib in train_libs:
+        print(f"  {os.path.basename(lib.library)} in "
+              f"{lib.build_seconds:.1f} s")
+        for name, res in sorted(lib.resources().items()):
+            if "gemm_panel" in name:
+                print(f"    {name}: {res}")
+
+    def phase(label, fn, *args):
+        try:
+            return fn(*args)
+        except Exception as exc:   # reported; the next phase still runs
+            check(False, f"{label}: {type(exc).__name__}: {exc}")
+            return None
+
+    with tempfile.TemporaryDirectory(prefix="mmae_chip_smoke_") as workdir:
+        study, folded, base, buckets, spec = training_study(workdir)
+        print(f"[8] training kernels vs their twin on the card (TF32 off,"
+              f" 10 steps, lr {LR}, tolerance {TOL})")
+        phase("[8]", phase_kernel_vs_twin, ptk, buckets, folded, spec)
+        print(f"[9] the three 1000-wide ACII buckets, {STEPS} steps each")
+        trained = phase("[9]", phase_train, workdir, ptk, dk, study, folded,
+                        buckets, spec, card)
+        if trained is not None:
+            print("[10] one training step, timed")
+            phase("[10]", phase_step_timing, ptk, trained[1], folded, spec,
+                  card)
+        _, sup_folded, cfg_v, settings_v = supervised_study(study)
+        print(f"[11] phase-2 kernels vs their twin on the card (TF32 off, "
+              f"10 steps, tolerance {TOL_CLS} with either operand type)")
+        phase("[11]", phase_cls_kernel_vs_twin, pck, ptk, sup_folded, spec,
+              cfg_v, settings_v)
+        print("[14] one phase-2 step of the validation bucket, timed")
+        phase("[14]", phase_cls_step_timing, pck, ptk, sup_folded, spec,
+              cfg_v, settings_v, card)
+        print(f"[15] kernel 3 vs its twin on the card (TF32 off, 10 steps, "
+              f"tolerance {TOL_CLS})")
+        phase("[15]", phase_deep_kernel_vs_twin, pdk, ptk,
+              deep_buckets(base), folded, spec)
+    print(card)
+    print(json.dumps({"tensor_core_products": promote,
+                      "failed_checks": FAILED}))
+    return 1 if FAILED else 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    from multimodalautoencoder_tpu_torch.data import synthetic
-    from multimodalautoencoder_tpu_torch.data.loader import DataLoader
+    if len(sys.argv) == 3 and sys.argv[1] == "--tensor-core-products" \
+            and sys.argv[2] in ("1", "2"):
+        return main_tensor_core_products(int(sys.argv[2]))
+    check(len(sys.argv) == 1, "usage: chip_smoke.py "
+          "[--tensor-core-products 1|2]")
     from multimodalautoencoder_tpu_torch.ops import cls_train_kernels as pck
     from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
     from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
@@ -1701,13 +1884,18 @@ def main() -> int:
           f"{os.path.relpath(dk.KERNELS.source)} with nvcc "
           f"{' '.join(dk.NVCC_FLAGS)} in {dk.KERNELS.build_seconds:.1f} s;"
           f" {os.path.relpath(hbm.KERNELS.library)} in "
-          f"{hbm.KERNELS.build_seconds:.1f} s; ptxas:")
-    for lib in (dk.KERNELS, hbm.KERNELS):
+          f"{hbm.KERNELS.build_seconds:.1f} s; the training libraries in "
+          f"{ptk.KERNELS.build_seconds:.1f} / {pck.KERNELS.build_seconds:.1f}"
+          f" / {pdk.KERNELS.build_seconds:.1f} s (all five together); "
+          "ptxas:")
+    for lib in (dk.KERNELS, hbm.KERNELS, ptk.KERNELS, pck.KERNELS,
+                pdk.KERNELS):
+        print(f"  {os.path.basename(lib.library)}")
         for name, res in sorted(lib.resources().items()):
             print(f"    {name}: {res}")
 
     print(f"[3] fused_dense kernel vs plain (TF32 off, atol=rtol={TOL})")
-    max_err = phase_kernel_vs_plain(dk)
+    max_err, max_err_bf16 = phase_kernel_vs_plain(dk)
 
     with tempfile.TemporaryDirectory(prefix="mmae_chip_smoke_") as workdir:
         print("[4] serve path: cli fill/embed --device cuda from two "
@@ -1721,32 +1909,10 @@ def main() -> int:
 
         print(f"[7] built {os.path.relpath(ptk.KERNELS.library)} from "
               f"{os.path.relpath(ptk.KERNELS.source)} in "
-              f"{ptk.KERNELS.build_seconds:.1f} s (the two builds ran "
-              "together); ptxas:")
-        for name, res in sorted(ptk.KERNELS.resources().items()):
-            print(f"    {name}: {res}")
+              f"{ptk.KERNELS.build_seconds:.1f} s (ptxas in [2])")
         probe = phase_rng(ptk)
 
-        train_dir = os.path.join(workdir, "train")
-        os.makedirs(train_dir)
-        t0 = time.perf_counter()
-        study = DataLoader(synthetic.write_reference_scale_csv(
-            train_dir, num_rows=ROWS, seed=SEED), supervised=False,
-            cross_validation=True, fill_gaps_with=-1.0, suppress_output=True,
-            seed=SEED)
-        print(f"  study for training: {ROWS} rows, {study.num_feats} "
-              f"features, {study.num_folds} CV folds "
-              f"({time.perf_counter() - t0:.1f} s to write and load)")
-        from multimodalautoencoder_tpu_torch.models.corruption import \
-            NoiseSpec
-        from multimodalautoencoder_tpu_torch.parallel import grid_trainer
-        folded = grid_trainer.FoldedData.from_loader(study, study.num_folds,
-                                                     device=DEVICE)
-        base, buckets = sweep_buckets(study)
-        spec = NoiseSpec.build(base, study.modality_table)
-        print(f"  108 settings in 9 buckets of 12; folds: train rows "
-              f"{folded.train_n.tolist()}, val rows "
-              f"{folded.val_n.tolist()}")
+        study, folded, base, buckets, spec = training_study(workdir)
         print(f"[8] training kernels vs their twin on the card (TF32 off,"
               f" 10 steps, lr {LR}, tolerance {TOL})")
         train_err = phase_kernel_vs_twin(ptk, buckets, folded, spec)
@@ -1761,17 +1927,9 @@ def main() -> int:
 
         print(f"[11] built {os.path.relpath(pck.KERNELS.library)} from "
               f"{os.path.relpath(pck.KERNELS.source)} in "
-              f"{pck.KERNELS.build_seconds:.1f} s (with the others); "
-              "ptxas:")
-        for name, res in sorted(pck.KERNELS.resources().items()):
-            print(f"    {name}: {res}")
-        sup = DataLoader(study.filename, supervised=True,
-                         cross_validation=True, fill_gaps_with=-1.0,
-                         suppress_output=True, seed=SEED)
-        sup_folded = grid_trainer.FoldedData.from_loader(
-            sup, sup.num_folds, device=DEVICE, supervised=True,
-            noisy_flags=True)
-        cfg_v, settings_v = validation_settings(sup)
+              f"{pck.KERNELS.build_seconds:.1f} s (with the others; ptxas "
+              "in [2])")
+        sup, sup_folded, cfg_v, settings_v = supervised_study(study)
         print(f"  phase-2 kernels vs their twin on the card (TF32 off, 10 "
               f"steps, tolerance {TOL_CLS} with either operand type)")
         cls_err = phase_cls_kernel_vs_twin(pck, ptk, sup_folded, spec, cfg_v,
@@ -1792,10 +1950,8 @@ def main() -> int:
 
         print(f"[15] built {os.path.relpath(pdk.KERNELS.library)} from "
               f"{os.path.relpath(pdk.KERNELS.source)} in "
-              f"{pdk.KERNELS.build_seconds:.1f} s (with the others); "
-              "ptxas:")
-        for name, res in sorted(pdk.KERNELS.resources().items()):
-            print(f"    {name}: {res}")
+              f"{pdk.KERNELS.build_seconds:.1f} s (with the others; ptxas "
+              "in [2])")
         deep = deep_buckets(base)
         print(f"  kernel 3 vs its twin on the card (TF32 off, 10 steps, "
               f"tolerance {TOL_CLS})")
@@ -1825,21 +1981,24 @@ def main() -> int:
               "source": src + "fused_dense.cu",
               "replaces": "multimodalautoencoder_tpu/ops/pallas_kernels.py"
                           ":63",
-              "launches": launches, "max_abs_err": max_err}, **dense),
+              "launches": launches, "max_abs_err": max_err,
+              "max_abs_err_bf16": max_err_bf16}, **dense),
         {"name": "mmae_train_step", "route": "cuda",
          "source": src + "train_kernel.cu",
          "replaces": "multimodalautoencoder_tpu/ops/train_kernel.py:274",
          "launches": train_launches, "max_abs_err": train_err,
          "ms": step["ms"], "plain_ms": step["plain_ms"],
          "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         "bmm_ms": step["bmm_ms"], "launch_types": step["launch_types"]},
         {"name": "cls_train_step", "route": "cuda",
          "source": src + "cls_train_kernel.cu",
          "replaces": "multimodalautoencoder_tpu/ops/train_kernel.py:1439",
          "launches": cls_launches, "max_abs_err": cls_err,
          "ms": cls_step["ms"], "plain_ms": cls_step["plain_ms"],
          "bound_ms": cls_step["bound_ms"], "bound_by": cls_step["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         "bmm_ms": cls_step["bmm_ms"], "launch_types": cls_step["launch_types"]},
         dict({"name": "philox_probe", "route": "cuda",
               "source": src + "train_kernel.cu",
               "replaces": "tests_tpu/test_hardware.py:28",
@@ -1850,7 +2009,8 @@ def main() -> int:
          "launches": deep_launches, "max_abs_err": deep_err,
          "ms": deep_step["ms"], "plain_ms": deep_step["plain_ms"],
          "bound_ms": deep_step["bound_ms"],
-         "bound_by": deep_step["bound_by"], "library_ms": None},
+         "bound_by": deep_step["bound_by"], "library_ms": None,
+         "bmm_ms": deep_step["bmm_ms"], "launch_types": deep_step["launch_types"]},
         dict({"name": "hbm_stream", "route": "cuda",
               "source": src + "hbm_stream.cu",
               "replaces": "tools/hbm_bench.py:60"},

@@ -39,6 +39,9 @@
 // parameters) with bf16 moments: f32 CUDA-core operations bound it
 // (ops/cls_train_kernels.cls_step_bound computes both from the shapes).
 
+// bf16 operands (bf16_ops) take their own instantiations of the shared
+// blocks
+#define TRAIN_BF16_OPERANDS 1
 #include "train_common.cuh"
 
 namespace {

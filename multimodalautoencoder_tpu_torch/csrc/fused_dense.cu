@@ -21,7 +21,9 @@
 // split into hi = tf32_rna(v) and lo = tf32_rna(v - hi), and the sum
 // takes lo*hi + hi*lo + hi*hi, three TF32 products with f32 accumulation,
 // dropping only lo*lo (about 2^-22 of each product).  Its bound is
-// 3 * 2*M*K*N over the TF32 rate (495 TFLOP/s).
+// 3 * 2*M*K*N over the TF32 rate (495 TFLOP/s).  The tensor cores cut each
+// instruction's sum toward zero, so each 32-deep slice is summed in a fresh
+// accumulator and added to an f32 register sum (TfAcc below).
 //
 // f32 operands, on wgmma.  wgmma reads B from shared memory, and takes
 // TF32 only K-major; the encoder's w is N-major and the tied decoder's
@@ -32,8 +34,9 @@
 // orientations, and the split of w is done once per block rather than
 // once per warp.  x's slice is split in registers, which wgmma takes as
 // A.  Each of the two warpgroups issues, per 8-deep step, three
-// m64n128k8 products into its 64 x 128 accumulator; the split of the next
-// slice of w runs while they do (hi/lo buffers are double-buffered).
+// m64n128k8 products into a 64 x 128 accumulator that starts afresh each
+// slice and is added to the f32 sum in registers once its group is done;
+// the split of the next slice of w and x runs while they do.
 //
 // bf16 operands (bf16 != 0), on mma.sync: every element is rounded to
 // bf16 (round to nearest even) as its fragment is built, and the products
@@ -217,11 +220,11 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// D (64 x 128 f32, this warpgroup's rows) += A (64 x 8 TF32, registers;
+// D (64 x 128 f32, this warpgroup's rows) = A (64 x 8 TF32, registers;
 // each warp its 16 rows as in mma.m16n8k8) x B (8 x 128 TF32, shared
-// memory through ``desc``).
+// memory through ``desc``), plus D unless ``scale_d`` is 0.
 __device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a,
-                                           uint64_t desc) {
+                                           uint64_t desc, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
@@ -247,7 +250,14 @@ __device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+// Keeps the compiler from moving reads of an accumulator register across
+// the wgmma wait that makes it valid.
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
 }
 
 struct Operands {
@@ -514,19 +524,35 @@ __device__ __forceinline__ void k_range(int K, int split, int& kt0,
   nk = max(0, min(kt_all, kt0 + per) - kt0);
 }
 
+// How a TF32 kernel sums its products.  The tensor cores add each
+// instruction's products into its accumulator and cut the result toward
+// zero rather than rounding it, so a sum carried across K in one wgmma
+// accumulator drifts toward zero by about half a unit in its last place per
+// instruction, 375 instructions at K = 1000.  PROMOTED, the served kernel:
+// each slice's 12 products go into a fresh accumulator, which is added to
+// an f32 register sum (rounded to nearest) once its group is done, so the
+// cut errors stay those of a 32-deep partial and their signs vary from
+// slice to slice.  The other two are kept for the accumulation test only:
+// ONE_ACC (the earlier scheme) and SMALL_ACC (lo*hi and hi*lo in a second
+// accumulator, hi*hi alone in the first).
+enum TfAcc { PROMOTED = 0, ONE_ACC, SMALL_ACC };
+
 // f32 operands, 3xTF32 on wgmma.  grid (M tiles, N tiles, split); a split
 // > 1 launches as a cluster of ``split`` blocks along z, one K range each.
+// TERMS < 3 drops hi*lo, then lo*hi (accumulation test only).
 //
 // Slice i: its x part is split into registers (two register sets, by the
-// parity of i), its 12 products are issued as one wgmma group on split
-// buffer pair i % 3, and then the group of slice i - 1 is waited for.
-// So the tensor cores always have the next group queued, while the
-// threads split slice i + 1 of w and refill the copy ring.
-template <bool B_KMAJOR, bool VEC>
+// parity of i) and its 12 products are issued as one wgmma group on split
+// buffer pair i % 3.  With ONE_ACC or SMALL_ACC the group of slice i - 1 is
+// then waited for, so the tensor cores always have the next group queued.
+// PROMOTED waits for slice i's own group once the threads have split slice
+// i + 1 (w and x) and refilled the copy ring, then adds it to the sum.
+template <bool B_KMAJOR, bool VEC, int TERMS = 3, int ACC = PROMOTED>
 __global__ void __launch_bounds__(THREADS, 1)
 dense_tf32_kernel(Operands p, int split) {
   using G = WgTile<B_KMAJOR>;
   constexpr int S = TF32_STAGES;
+  constexpr int NACC = G::NI * 4;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* smem =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -541,10 +567,14 @@ dense_tf32_kernel(Operands p, int split) {
   k_range(p.K, split, kt0, nk);
 
   float acc[1][G::NI][4];
+  float part[ACC == ONE_ACC ? 1 : NACC];  // the slice's or the small sum
+  float* sum = &acc[0][0][0];
 #pragma unroll
-  for (int j = 0; j < G::NI; ++j)
+  for (int j = 0; j < NACC; ++j) sum[j] = 0.f;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) acc[0][j][r] = 0.f;
+  for (int j = 0; j < (ACC == ONE_ACC ? 1 : NACC); ++j) part[j] = 0.f;
+  float* big = ACC == PROMOTED ? part : sum;
+  float* small = ACC == ONE_ACC ? sum : part;
 
   auto stage = [&](int i) { return ring + (i % S) * G::STAGE_FLOATS; };
   auto hi_buf = [&](int i) {
@@ -561,8 +591,8 @@ dense_tf32_kernel(Operands p, int split) {
     split_w<G, B_KMAJOR>(stage(i) + G::A_FLOATS, hi_buf(i), lo_buf(i), tid);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   };
-  auto step = [&](int i, uint32_t (&ahi)[BK / 8][4],
-                  uint32_t (&alo)[BK / 8][4]) {
+  auto split_x = [&](int i, uint32_t (&ahi)[BK / 8][4],
+                     uint32_t (&alo)[BK / 8][4]) {
     const float* As = stage(i);
 #pragma unroll
     for (int kk = 0; kk < BK / 8; ++kk) {
@@ -572,6 +602,9 @@ dense_tf32_kernel(Operands p, int split) {
       split_tf32(a[4], ahi[kk][2], alo[kk][2]);
       split_tf32(a[8 * G::A_LD + 4], ahi[kk][3], alo[kk][3]);
     }
+  };
+  auto issue = [&](int i, uint32_t (&ahi)[BK / 8][4],
+                   uint32_t (&alo)[BK / 8][4]) {
     const uint32_t bh = smem_addr(hi_buf(i)), bl = smem_addr(lo_buf(i));
     wgmma_fence();
 #pragma unroll
@@ -579,39 +612,65 @@ dense_tf32_kernel(Operands p, int split) {
       // 8 TF32 of K are 32 bytes along the swizzled rows
       const uint64_t dh = sw128_desc(bh + 32 * kk);
       const uint64_t dl = sw128_desc(bl + 32 * kk);
-      // the small terms first, then the big one
-      wgmma_tf32(&acc[0][0][0], alo[kk], dh);
-      wgmma_tf32(&acc[0][0][0], ahi[kk], dl);
-      wgmma_tf32(&acc[0][0][0], ahi[kk], dh);
+      // the small terms first, then the big one; a promoted slice starts
+      // its accumulator afresh
+      const int keep = ACC == PROMOTED && kk == 0 ? 0 : 1;
+      if (TERMS >= 2) wgmma_tf32(small, alo[kk], dh, keep);
+      if (TERMS >= 3) wgmma_tf32(small, ahi[kk], dl, 1);
+      wgmma_tf32(big, ahi[kk], dh, TERMS >= 2 ? 1 : keep);
     }
     wgmma_commit();
+  };
+  auto step = [&](int i, uint32_t (&ahi)[BK / 8][4],
+                  uint32_t (&alo)[BK / 8][4], uint32_t (&nhi)[BK / 8][4],
+                  uint32_t (&nlo)[BK / 8][4]) {
+    if (ACC != PROMOTED) split_x(i, ahi, alo);
+    issue(i, ahi, alo);
     // slice i - 1's group is done: its registers and split pair are free
-    wgmma_wait<1>();
+    if (ACC != PROMOTED) wgmma_wait<1>();
     if (i + 1 < nk) {
       cp_async_wait<0>();  // slice i + 1 landed (this thread's copies)
       __syncthreads();     // ... everyone's, and slice i's x was read
       copy_slice(i + 2);
       split_slice(i + 1);
+      if (ACC == PROMOTED) split_x(i + 1, nhi, nlo);
       __syncthreads();
+    }
+    if (ACC == PROMOTED) {
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < NACC; ++j) {
+        fence_operand(part[j]);
+        sum[j] += part[j];
+      }
     }
   };
 
   copy_slice(0);
   copy_slice(1);
+  uint32_t ahi0[BK / 8][4], alo0[BK / 8][4], ahi1[BK / 8][4], alo1[BK / 8][4];
   if (nk > 0) {
     cp_async_wait<1>();
     __syncthreads();
     split_slice(0);
+    if (ACC == PROMOTED) split_x(0, ahi0, alo0);
     __syncthreads();
   }
-  uint32_t ahi0[BK / 8][4], alo0[BK / 8][4], ahi1[BK / 8][4], alo1[BK / 8][4];
   int i = 0;
   for (; i + 1 < nk; i += 2) {
-    step(i, ahi0, alo0);
-    step(i + 1, ahi1, alo1);
+    step(i, ahi0, alo0, ahi1, alo1);
+    step(i + 1, ahi1, alo1, ahi0, alo0);
   }
-  if (i < nk) step(i, ahi0, alo0);
+  if (i < nk) step(i, ahi0, alo0, ahi1, alo1);
   wgmma_wait<0>();
+  if (ACC == SMALL_ACC) {
+#pragma unroll
+    for (int j = 0; j < NACC; ++j) {
+      fence_operand(sum[j]);
+      fence_operand(part[j]);
+      sum[j] += part[j];
+    }
+  }
   cp_async_wait<0>();
   __syncthreads();
   finish<G>(p, acc, ring, split, m0, n0, wm0, 0, g, t, tid);
@@ -705,9 +764,9 @@ cudaError_t launch(int smem_bytes, int bm, int bn, const Operands& p,
   return cudaGetLastError();
 }
 
-template <bool B_KMAJOR, bool VEC>
+template <bool B_KMAJOR, bool VEC, int TERMS = 3, int ACC = PROMOTED>
 cudaError_t launch_tf32(const Operands& p, int split, cudaStream_t s) {
-  return launch<dense_tf32_kernel<B_KMAJOR, VEC>>(
+  return launch<dense_tf32_kernel<B_KMAJOR, VEC, TERMS, ACC>>(
       WgTile<B_KMAJOR>::SMEM_BYTES, 128, 128, p, split, s);
 }
 
@@ -786,6 +845,47 @@ int fused_dense_launch(const float* x, const float* w, const float* b,
   return (int)(vec ? launch_bf16<false, true>(p, split, s)
                    : launch_bf16<false, false>(p, split, s));
 }
+
+#ifdef FUSED_DENSE_ACC_TEST
+// The accumulation test's entry point, built only with
+// -DFUSED_DENSE_ACC_TEST: out = x @ w (contiguous x, either orientation of
+// w, no bias or activation) by the TF32 kernel with the first ``terms`` of
+// hi*hi, lo*hi, hi*lo and the accumulation ``acc`` (TfAcc).  The served
+// kernel is terms 3, PROMOTED.
+int fused_dense_acc_test_launch(const float* x, const float* w,
+                                const float* b, float* out, int M, int N,
+                                int K, long long swk, long long swn,
+                                int terms, int acc, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  const Operands p{x, w, b, out, M, N, K, K, 1, swk, swn, 0};
+  const bool b_kmajor = swk == 1 && swn != 1;
+  const bool vec = K % 4 == 0 && aligned16(x) && aligned16(w) &&
+                   (b_kmajor ? swn % 4 == 0 : swn == 1 && swk % 4 == 0);
+  if (!vec) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int split = choose_split(ceil_div(M, 128) * ceil_div(N, 128),
+                                 (int)ceil_div(K, BK), sm_count());
+  const int mode = 3 * acc + terms;
+  if (b_kmajor) {
+    switch (mode) {
+      case 4: return (int)launch_tf32<true, true, 1, ONE_ACC>(p, split, s);
+      case 5: return (int)launch_tf32<true, true, 2, ONE_ACC>(p, split, s);
+      case 3: return (int)launch_tf32<true, true, 3, PROMOTED>(p, split, s);
+      case 6: return (int)launch_tf32<true, true, 3, ONE_ACC>(p, split, s);
+      case 9: return (int)launch_tf32<true, true, 3, SMALL_ACC>(p, split, s);
+    }
+  } else {
+    switch (mode) {
+      case 4: return (int)launch_tf32<false, true, 1, ONE_ACC>(p, split, s);
+      case 5: return (int)launch_tf32<false, true, 2, ONE_ACC>(p, split, s);
+      case 3: return (int)launch_tf32<false, true, 3, PROMOTED>(p, split, s);
+      case 6: return (int)launch_tf32<false, true, 3, ONE_ACC>(p, split, s);
+      case 9: return (int)launch_tf32<false, true, 3, SMALL_ACC>(p, split, s);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+#endif
 
 const char* fused_dense_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -17,19 +17,20 @@
 //     3. backward data products against W^T, with that factor in the
 //        epilogue; the logit gradient sigmoid(z4) - x is the epilogue of
 //        the z4 product, so z4 is never stored;
-//     4. weight gradient + L2 + rsqrt Adam in one kernel: output-stationary
-//        over a 64 x 64 tile of W with depth B, summing both products of a
-//        tied weight; it reads W, m, v once and writes them once, and the
-//        gradient never goes to device memory;
+//     4. weight gradient + L2 + rsqrt Adam in one kernel: persistent
+//        blocks over 64 x 64 tiles of W with depth B, summing both
+//        products of a tied weight while the tile's W, m and v are copied
+//        in; it reads W, m, v once and writes them once, and the gradient
+//        never goes to device memory;
 //     5. bias gradient (column sums over B) + Adam;
 // - the S-step loop runs in C (mmae_train_run), one call per run, the way
 //   the Pallas kernel is one invocation per run.  It counts its launches.
 //
-// Every product is computed here, on the CUDA cores in f32: no cuBLAS, no
-// tensor cores, no TMA yet.  Random numbers come from Philox4x32-10
-// (philox.cuh), keyed by (instance seed, purpose) with counter (step, row,
-// column, draw); the plain PyTorch twin draws the same bits
-// (ops/train_kernels.train_grid_kernel_reference).
+// Every product is computed here (train_common.cuh), in exact f32 FMAs
+// from a ring of bulk copies: no cuBLAS.  Random numbers come from
+// Philox4x32-10 (philox.cuh), keyed by (instance seed, purpose) with
+// counter (step, row, column, draw); the plain PyTorch twin draws the same
+// bits (ops/train_kernels.train_grid_kernel_reference).
 //
 // What bounds it on an H100 (tied 1000 -> 100 bucket, N = 60, B = 20,
 // 1.10 M parameters per instance): the step must stream W, m and v in and
@@ -37,9 +38,8 @@
 // a step, 0.32 ms at 3.35 TB/s; 24 B and 0.47 ms with f32 moments), and
 // do 2.2e8 FLOP per instance (1.35e10 a step, 0.20 ms at 67 TFLOP/s f32).
 // The products have M = B = 20 rows, 40 FLOP per weight element read:
-// above the f32 ridge of ~20 FLOP/B only if the CUDA cores run near peak,
-// which this simple version does not.  ops/train_kernels.step_bound()
-// computes the bound from the shapes.
+// above the f32 ridge of ~20 FLOP/B only if the CUDA cores run near peak.
+// ops/train_kernels.step_bound() computes the bound from the shapes.
 //
 // Semantics are the Pallas kernel's, not XLA's (ROADMAP Queue 3):
 // - element corruption is Bernoulli at the marginal rate

@@ -188,11 +188,11 @@ def cls_step_bound(cfg: MMAEConfig, n_inst: int, batch: int,
                    bf16_moments: bool) -> Dict[str, float]:
     """The least time one phase-2 step of ``n_inst`` instances could take
     on an H100: the larger of its bytes over the memory rate and its
-    operations over the f32 CUDA-core rate.  Bytes: every trained
-    parameter read and written (8 B), both Adam moments read and written
-    (8 B bf16, 16 B f32), the sampled rows and labels read once.
-    Operations: 2 per multiply-add of the step's products (forward,
-    backward data, weight gradients), 10 per parameter for Adam."""
+    operations over the f32 CUDA-core rate.  Bytes: every trained parameter
+    read and written (8 B), both Adam moments read and written (8 B bf16,
+    16 B f32), the sampled rows and labels read once.  Operations: 2 per
+    multiply-add of the step's products (forward, backward data, weight
+    gradients), 10 per parameter for Adam."""
     cfg = cfg.validate()
     F, (H1, H2) = cfg.num_feats, cfg.layer_sizes
     vae = cfg.variational
@@ -209,6 +209,57 @@ def cls_step_bound(cfg: MMAEConfig, n_inst: int, batch: int,
     nbytes = n_inst * (params * (16 if bf16_moments else 24)
                        + 4.0 * batch * (F + cfg.num_labels))
     return train_kernels._bound(nbytes, flop)
+
+
+def cls_launch_type_bounds(cfg: MMAEConfig, n_inst: int, batch: int,
+                           bf16_moments: bool
+                           ) -> Dict[str, Dict[str, float]]:
+    """:func:`cls_step_bound` split by launch type (:data:`LAUNCH_TYPES`),
+    each counting the weights it reads, the (N, B, width) activations it
+    reads from other types once and the ones it writes once, and its
+    operations; 12 integer operations per Philox round for the draws."""
+    cfg = cfg.validate()
+    F, (H1, H2) = cfg.num_feats, cfg.layer_sizes
+    vae = cfg.variational
+    N, B, L = n_inst, batch, cfg.num_labels
+    dims = cls_dims(cfg)
+    head = sum(dims[j] * dims[j + 1] for j in range(len(dims) - 1))
+    enc = F * H1 + H1 * H2 + (H1 * H2 if vae else 0)
+    weights = enc + head
+    emb = H2 * (2 if vae else 1)      # mu (+ lv)
+    biases = H1 + emb + sum(dims[1:])
+    outs, ins = sum(dims[1:]), sum(dims[:-1])
+    act = 4.0 * N * B                 # bytes per unit of activation width
+    philox_ops = 10 * 12
+    moment = 8 if bf16_moments else 16
+    bound = train_kernels._bound
+    return {
+        # train rows and labels in, xn and y out
+        "sample_corrupt": bound(act * 2 * (F + L),
+                                N * B * (F + 2) * philox_ops),
+        # xn in; a, d act' of layer 1, mu (+ lv), each head layer's output
+        # and gate factor out
+        "forward_products": bound(
+            4.0 * N * (weights + biases) + act * (F + 2 * H1 + emb
+                                                  + 2 * outs),
+            N * (2.0 * B * weights + B * (H1 + outs) * philox_ops)),
+        # the loss gradient (and the VAE's sample and glv)
+        "elementwise": bound(act * (3 * L + (6 * H2 if vae else 0)),
+                             N * B * (20 * L + (40 * H2 if vae else 0))),
+        # each head layer's gradient and gate factor in, the gradients
+        # below it and g1 out
+        "backward_products": bound(
+            4.0 * N * (head + H1 * emb) + act * (2 * outs + ins + 2 * H1),
+            N * 2.0 * B * (head + H1 * emb)),
+        # every layer's input and gradient in
+        "weight_grad_adam": bound(
+            N * weights * (8.0 + moment)
+            + act * (F + 2 * H1 + emb + ins + outs),
+            N * (2.0 * B * weights + 10.0 * weights)),
+        "bias_grad_adam": bound(N * biases * (8.0 + moment)
+                                + act * (H1 + emb + outs),
+                                N * (B + 10.0) * biases),
+    }
 
 
 # ----------------------------------------------------------------- state

@@ -47,10 +47,11 @@ class NvccLibrary:
     """
 
     def __init__(self, source: str, library: str,
-                 headers: Sequence[str] = ()):
+                 headers: Sequence[str] = (), defines: Sequence[str] = ()):
         self.source = source
         self.library = library
         self.headers = tuple(headers)
+        self.defines = tuple(defines)
         self.launches = 0
         self.build_seconds: Optional[float] = None
         self.build_log = ""
@@ -72,7 +73,8 @@ class NvccLibrary:
         fd, tmp = tempfile.mkstemp(suffix=".so",
                                    dir=os.path.dirname(self.library))
         os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, self.source]
+        cmd = [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in self.defines),
+               "-o", tmp, self.source]
         t0 = time.perf_counter()
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -4,8 +4,10 @@ Counterpart of ``multimodalautoencoder_tpu/ops/pallas_kernels.py``.  The
 Pallas TPU kernel there (``_kernel``, behind ``fused_dense``) becomes the
 hand-written CUDA C++ kernel in ``csrc/fused_dense.cu``: f32 operands as
 3xTF32 on ``wgmma`` (each product split into TF32 hi and lo parts, three
-tensor-core products summed in f32, within 1e-4 of the plain f32 product
-at K = 1000), bf16 operands on ``mma.sync``.  This module builds it, binds
+tensor-core products, each 32-deep slice summed in a fresh accumulator and
+added to the f32 sum in registers, since the tensor cores cut every
+instruction's sum toward zero; within 5e-6 of f64 at K = 1000), bf16
+operands on ``mma.sync``.  This module builds it, binds
 it and dispatches to it:
 
 - on a CUDA tensor, :func:`fused_dense` launches the kernel or raises.  A
@@ -78,8 +80,9 @@ class CudaLibrary(NvccLibrary):
     """``csrc/fused_dense.cu`` built and bound (see
     :class:`cuda_library.NvccLibrary`)."""
 
-    def __init__(self, source: str = SOURCE, library: str = LIBRARY):
-        super().__init__(source, library)
+    def __init__(self, source: str = SOURCE, library: str = LIBRARY,
+                 defines=()):
+        super().__init__(source, library, defines=defines)
 
     def _bind(self, lib: ctypes.CDLL) -> None:
         lib.fused_dense_launch.restype = ctypes.c_int

@@ -17,6 +17,9 @@ itself, not only the kernel, is shown to sit well inside the kernel's
 1e-4 tolerance.
 """
 
+import ctypes
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +29,7 @@ import jax.numpy as jnp
 from multimodalautoencoder_tpu.ops import pallas_kernels as pk
 from multimodalautoencoder_tpu_torch.config import ACTIVATIONS
 from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
+from multimodalautoencoder_tpu_torch.ops.cuda_library import BUILD_DIR
 
 SHAPES = [(20, 96, 64), (37, 96, 70), (600, 256, 700)]
 # the kernel's cases on the card besides SHAPES: the four serve layers of
@@ -176,6 +180,67 @@ def test_3xtf32_scheme_sits_inside_the_tolerance(m, k, n, tied):
     assert plain_tf32 > 1e-4, plain_tf32
 
 
+def _to_f32_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """An f64 tensor cut to f32 toward zero, as a tensor-core instruction
+    cuts its sum."""
+    f = x.to(torch.float32)
+    over = f.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def test_toward_zero_cut():
+    x = torch.tensor([1.0 + 2.0 ** -30, -(1.0 + 2.0 ** -30), 3.0, -0.5],
+                     dtype=torch.float64)
+    assert _to_f32_toward_zero(x).tolist() == [1.0, -1.0, 3.0, -0.5]
+
+
+def _3xtf32_sum(x, w, promoted: bool) -> torch.Tensor:
+    """x @ w as the TF32 kernel sums it: each instruction adds its 8
+    products (exact: TF32 x TF32) to its accumulator and cuts the sum
+    toward zero, small terms first; ``promoted`` starts a fresh accumulator
+    every 32-deep slice and adds it to the f32 sum (rounded to nearest),
+    else one accumulator runs over all of K."""
+    xh, wh = _tf32_rna(x), _tf32_rna(w)
+    xl, wl = _tf32_rna(x - xh), _tf32_rna(w - wh)
+    k = x.shape[1]
+    total = torch.zeros(x.shape[0], w.shape[1])
+    part = torch.zeros_like(total)
+    for k0 in range(0, k, 8):
+        if promoted and k0 % 32 == 0:
+            part = torch.zeros_like(total)
+        s = slice(k0, k0 + 8)
+        for a, b in ((xl, wh), (xh, wl), (xh, wh)):
+            part = _to_f32_toward_zero(
+                part.double() + a[:, s].double() @ b[s].double())
+        if promoted and (k0 % 32 == 24 or k0 + 8 >= k):
+            total = total + part
+    return total if promoted else part
+
+
+@pytest.mark.parametrize("n", [1000, 100])
+def test_3xtf32_promoted_against_one_accumulator(n):
+    """The kernel's 3xTF32 sums with each instruction's cut toward zero, at
+    the serve path's K = 1000 layers (rows cut to 200; data in [0, 1],
+    Xavier weights): promoted slice by slice (the served scheme) within
+    2e-6 of the f64 product; one accumulator across K, cut 375 times,
+    over 5x further off: the fault of the earlier kernel."""
+    rng = np.random.default_rng(n)
+    m, k = 200, 1000
+    x = torch.from_numpy(rng.random((m, k)).astype(np.float32))
+    bound = (6.0 / (k + n)) ** 0.5
+    w = torch.from_numpy(rng.uniform(-bound, bound, (k, n))
+                         .astype(np.float32))
+    exact = x.double() @ w.double()
+
+    def err(promoted):
+        return float((_3xtf32_sum(x, w, promoted).double() - exact)
+                     .abs().max())
+
+    promoted, one = err(True), err(False)
+    assert promoted <= 2e-6, promoted
+    assert one > 5 * promoted, (one, promoted)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("act", ACTIVATIONS)
@@ -194,3 +259,88 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, act, bf16):
     # the tied decoder's transposed view
     got_t = dk.fused_dense(x, w.T.contiguous().T, b, act, bf16)
     torch.testing.assert_close(got_t, want, rtol=1e-4, atol=1e-4)
+
+
+class _AccTestLibrary(dk.CudaLibrary):
+    """``csrc/fused_dense.cu`` built with its accumulation test's entry
+    point (``-DFUSED_DENSE_ACC_TEST``), beside the served library."""
+
+    def __init__(self):
+        super().__init__(library=os.path.join(
+            BUILD_DIR, "libfused_dense_acc_test.so"),
+            defines=("FUSED_DENSE_ACC_TEST",))
+
+    def _bind(self, lib):
+        super()._bind(lib)
+        lib.fused_dense_acc_test_launch.restype = ctypes.c_int
+        lib.fused_dense_acc_test_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+            + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+            + [ctypes.c_void_p])
+
+    def run(self, x, w, terms: int, acc: int) -> torch.Tensor:
+        lib = self.load()
+        (m, k), n = x.shape, w.shape[1]
+        out = torch.empty((m, n), device=x.device)
+        b = torch.zeros(n, device=x.device)
+        err = lib.fused_dense_acc_test_launch(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), m, n,
+            k, w.stride(0), w.stride(1), terms, acc,
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 0, lib.fused_dense_error_string(err).decode()
+        return out
+
+
+# (name, TF32 terms, csrc/fused_dense.cu TfAcc) of the accumulation test
+ACC_CASES = [("hi*hi, one accumulator", 1, 1),
+             ("+ lo*hi, one accumulator", 2, 1),
+             ("+ hi*lo, one accumulator", 3, 1),
+             ("3 terms, small terms apart", 3, 2),
+             ("3 terms, promoted (served)", 3, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tied", [False, True])
+def test_cuda_3xtf32_accumulation_against_f64(cuda_device, tied):
+    """Step by step, at the serve path's (2000, 1000, 1000) with its inputs
+    (data in [0, 1], Xavier weights): the TF32 kernel with hi*hi alone,
+    then lo*hi, then hi*lo added, in one wgmma accumulator, with the small
+    terms in a second one, and promoted slice by slice (the served
+    scheme).  Each is held against the f64 sum of exactly its own terms
+    (what its accumulation loses) and against the f64 product (what the
+    caller sees).  One accumulator cuts each instruction's sum toward zero,
+    so its error drifts against the sign of the sum and grows with the
+    number of instructions; promoted, the served kernel is within 5e-6 of
+    f64, half its scheme's 1e-5 on the CPU (the tests above)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(3)
+    m, k, n = 2000, 1000, 1000
+    x = torch.rand((m, k), generator=g, device="cuda")
+    bound = (6.0 / (k + n)) ** 0.5
+    w = (2 * torch.rand((n, k) if tied else (k, n), generator=g,
+                        device="cuda") - 1) * bound
+    w = w.T if tied else w
+    xh, wh = _tf32_rna(x), _tf32_rna(w.contiguous())
+    xl, wl = _tf32_rna(x - xh), _tf32_rna(w.contiguous() - wh)
+    d = torch.float64
+    terms = [xh.to(d) @ wh.to(d), xl.to(d) @ wh.to(d), xh.to(d) @ wl.to(d)]
+    exact = x.to(d) @ w.to(d)
+    lib = _AccTestLibrary()
+    errs = {}
+    for name, nterms, acc in ACC_CASES:
+        got = lib.run(x, w, nterms, acc).to(d)
+        own = sum(terms[:nterms])
+        diff = got - own
+        errs[name] = (float(diff.abs().max()),
+                      float((diff * own.sign()).mean()),
+                      float((got - exact).abs().max()))
+        print(f"  tied={tied} {name:28s} vs its terms {errs[name][0]:.3e}"
+              f" (mean toward the sign {errs[name][1]:+.3e}),"
+              f" vs f64 {errs[name][2]:.3e}")
+    served = dk.fused_dense(x, w, torch.zeros(n, device="cuda"))
+    torch.cuda.synchronize()
+    promoted = errs["3 terms, promoted (served)"]
+    one = errs["+ hi*lo, one accumulator"]
+    assert float((served.to(d) - exact).abs().max()) <= 5e-6
+    assert promoted[2] <= 5e-6
+    assert one[1] < 0 and one[0] > 3 * promoted[0]
