@@ -34,7 +34,16 @@ features):
   ``cli fill``, the default 108-setting grid through ``cli sweep-mmae`` at
   100 steps, one deep step timed, and the device-memory stream probe
   against its twins, each stream timed in turns with its library call
-  (phases [15]-[19]).
+  (phases [15]-[19]);
+- single-run training: ``fused_dense`` under autograd at the training
+  shapes against its plain twin and timed in turns with ``torch.addmm``,
+  the single-run trainer (``trainer.train`` / ``train_classification``) at
+  full width with ``use_pallas`` on and off (each step held against a
+  float64 step, 2,000-step runs, ms per step, the device's idle share), and
+  ``cli train`` with its checkpoint reloaded and resumed by the facade
+  (phases [20]-[22]).  [13] and [17] run their CLI sweeps with
+  ``--check-test``, and [13] adds the validation bucket with
+  ``share_phase1=False``.
 
 Any failed phase ends the run with a non-zero exit; so does a machine
 without CUDA.  The last lines of standard output are the card's name and
@@ -47,7 +56,9 @@ kernel, and the result:
 variant instead: the training libraries built with their products on the
 tensor cores (csrc/train_common.cuh, TRAIN_TENSOR_CORE_PRODUCTS), then the
 training gates and step timings ([8]-[11], [14], [15]), every gate
-reported rather than only the first that fails.
+reported rather than only the first that fails.  ``python3 chip_smoke.py
+--single-run`` runs [20] and [21] alone, [21] with a control route (the
+kernel route with bf16 operands), every gate reported.
 """
 
 from __future__ import annotations
@@ -196,13 +207,22 @@ def types_vs_bmm(profile, groups, bounds, n_inst: int, card: str) -> dict:
 
 def dense_bounds(m: int, k: int, n: int, bf16: bool = False):
     """The least time (ms) of ``act(x @ w + b)`` at (m, k, n) for the
-    arithmetic the kernel does, and what bounds it: 3xTF32 (three TF32
-    products a multiply-add) for f32 operands, one bf16 product for bf16
+    arithmetic the kernel does, and what bounds it: f32 FMAs on the CUDA
+    cores for f32 operands with at most FFMA_MAX_ROWS rows, 3xTF32 (three
+    TF32 products a multiply-add) for more, one bf16 product for bf16
     operands; bytes are x, w, b read once and the output written once.
     Also the f32 CUDA-core figure of the earlier SGEMM kernel."""
+    from multimodalautoencoder_tpu_torch.ops.dense_kernels import \
+        FFMA_MAX_ROWS
+
     flop = 2.0 * m * k * n
     nbytes = 4.0 * (m * k + k * n + n + m * n)
-    t_ops = flop / BF16_FLOP_PER_S if bf16 else 3 * flop / TF32_FLOP_PER_S
+    if bf16:
+        t_ops = flop / BF16_FLOP_PER_S
+    elif m <= FFMA_MAX_ROWS:
+        t_ops = flop / F32_FLOP_PER_S
+    else:
+        t_ops = 3 * flop / TF32_FLOP_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S
     old = max(flop / F32_FLOP_PER_S, t_bytes)
     return (max(t_ops, t_bytes) * 1e3,
@@ -1185,13 +1205,19 @@ def phase_full_grid(workdir: str, pck, ptk, study_path: str, card: str):
     ptk.KERNELS.launches = 0
     pck.KERNELS.launches = 0
     t0 = time.perf_counter()
-    rc = cli.main(["sweep-classification", study_path, study_path,
-                   "--num-steps", str(GRID_STEPS), "--device", DEVICE,
-                   "--normalize-and-fill", "--seed", str(SEED),
-                   "--results-path", results])
-    torch.cuda.synchronize()
+    rc, tested = _cli_lines(
+        ["sweep-classification", study_path, study_path, "--num-steps",
+         str(GRID_STEPS), "--device", DEVICE, "--normalize-and-fill",
+         "--seed", str(SEED), "--results-path", results, "--check-test"],
+        "test ")
     wall = time.perf_counter() - t0
     check(rc == 0, f"cli sweep-classification returned {rc}")
+    scores = dict(line[len("test "):].split(" -> ") for line in tested)
+    print(f"  --check-test: the best val_acc setting retrained on fold 0 "
+          f"({GRID_STEPS} + {GRID_STEPS} steps, the single-run trainer): "
+          + ", ".join(f"{k} {float(v):.4f}" for k, v in scores.items()))
+    check(0.0 <= float(scores.get("test_acc", "nan")) <= 1.0,
+          f"--check-test printed {tested}")
     ledger = engine.ResultsLedger(results, "MMAE_NN_classifier-acii",
                                   cont=True)
     used = sorted({r["backend_used"] for r in ledger.rows})
@@ -1587,13 +1613,19 @@ def phase_full_mmae_grid(workdir: str, pdk, ptk, study_path: str,
     ptk.KERNELS.launches = 0
     pdk.KERNELS.launches = 0
     t0 = time.perf_counter()
-    rc = cli.main(["sweep-mmae", study_path, study_path, "--num-steps",
-                   str(MMAE_GRID_STEPS), "--device", DEVICE,
-                   "--normalize-and-fill", "--seed", str(SEED),
-                   "--results-path", results])
-    torch.cuda.synchronize()
+    rc, tested = _cli_lines(
+        ["sweep-mmae", study_path, study_path, "--num-steps",
+         str(MMAE_GRID_STEPS), "--device", DEVICE, "--normalize-and-fill",
+         "--seed", str(SEED), "--results-path", results, "--check-test"],
+        "held-out test:")
     wall = time.perf_counter() - t0
     check(rc == 0, f"cli sweep-mmae returned {rc}")
+    test_loss = float(tested[0].split()[-1]) if len(tested) == 1 \
+        else float("nan")
+    print(f"  --check-test: the best setting retrained on fold 0 "
+          f"({MMAE_GRID_STEPS} steps, the single-run trainer), held-out "
+          f"test loss {test_loss:.4f}")
+    check(np.isfinite(test_loss), f"--check-test printed {tested}")
     ledger = engine.ResultsLedger(results, "MMAE-acii", cont=True)
     used = sorted({r["backend_used"] for r in ledger.rows})
     acc = np.asarray([float(r["svm_val_acc"]) for r in ledger.rows])
@@ -1738,6 +1770,538 @@ def phase_hbm(hbm, card: str) -> dict:
             "gb_per_s": {k: r["gb_per_s"] for k, r in result.items()}}
 
 
+# [20]-[22]: the single-run trainer and its entry points
+# (M, K, N, w is the tied decoder's transposed view) of one tied 1000 -> 100
+# forward, and the rows a training forward gives it: a training batch (10
+# in cli train, 20 in the sweep's recipe), a phase-2 batch (100) and the
+# val evaluation (200)
+DENSE_LAYERS = ((1000, 1000, False, "softsign"), (1000, 100, False, "linear"),
+                (100, 1000, True, "softsign"), (1000, 1000, True, "linear"))
+TRAIN_ROWS = (10, 20, 100, 200)
+TIMED_ROWS = (20, 100)
+SINGLE_STEPS = 2000   # [21]'s runs and [22]'s cli train
+SINGLE_RECORD = 200   # record period of [21]'s runs
+# [21]'s step gate: from the same state and draws, the kernel route's
+# gradient may be at most STEP_GATE times as far from a float64 plain
+# step's as the f32 plain route's is.  The gradient is read from Adam's
+# first moments after the step, which are linear in it (L2 over every
+# moment).  The parameters are reported, not gated: in Adam's first steps
+# an update is about lr sign(g) (lr g / eps below eps), so a gradient
+# within rounding of zero moves its parameter by up to 2 lr on whichever
+# route its rounding happens to strike, and the ratio of the two routes'
+# parameter distances depends on the seed, not on the kernel
+STEP_GATE = 2.0
+GATE_STEPS = 10
+
+
+def phase_dense_autograd(dk, card: str) -> dict:
+    """``fused_dense`` under autograd: at the training shapes (TRAIN_ROWS x
+    DENSE_LAYERS, both orientations of w), every activation and operand
+    type, the kernel route's forward and its dx, dw, db against the plain
+    twin (the plain forward and the Pallas VJP's formula on its output) at
+    [3]'s tolerance; the gradient of the tied view reaches its leaf.  Then
+    each layer's forward timed at M = 20 and 100 on the device, in turns
+    with ``torch.addmm``, against ``dense_bounds``."""
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    worst = {False: 0.0, True: 0.0}
+    cases = 0
+    for m in TRAIN_ROWS:
+        for k, n, tied, _ in DENSE_LAYERS:
+            x = torch.rand((m, k), generator=g, device=DEVICE)
+            if k != 1000:
+                x = 2 * x - 1
+            leaf = xavier(n, k, g) if tied else xavier(k, n, g)
+            b = 0.1 * torch.randn((n,), generator=g, device=DEVICE)
+            gout = torch.randn((m, n), generator=g, device=DEVICE)
+            for act in dk.ACTIVATIONS:
+                for bf16 in (False, True):
+                    xs, ls, bs = (t.clone().requires_grad_()
+                                  for t in (x, leaf, b))
+                    out = dk.fused_dense(xs, ls.T if tied else ls, bs, act,
+                                         bf16)
+                    out.backward(gout)
+                    w = leaf.T if tied else leaf
+                    want = dk.fused_dense_reference(x, w, b, act, bf16)
+                    gz = dk.activation_grad(gout, want, act)
+                    dw = x.T @ gz
+                    pairs = ((out.detach(), want), (xs.grad, gz @ w.T),
+                             (ls.grad, dw.T if tied else dw),
+                             (bs.grad, gz.sum(0)))
+                    torch.cuda.synchronize()
+                    err = max(float((a - b_).abs().max()) for a, b_ in pairs)
+                    ok = all(bool(torch.allclose(a, b_, atol=TOL, rtol=TOL))
+                             for a, b_ in pairs)
+                    worst[bf16] = max(worst[bf16], err)
+                    cases += 1
+                    if not ok:
+                        print(f"  ({m},{k},{n}) {'w.T' if tied else 'w'} "
+                              f"{act} bf16={int(bf16)}: max_abs_err "
+                              f"{err:.3e} MISMATCH")
+                    check(ok, f"fused_dense gradients disagree with the twin"
+                              f" at ({m},{k},{n}) tied={tied} {act} "
+                              f"bf16={bf16}: {err}")
+    print(f"  {cases} cases (M in {TRAIN_ROWS}, the 4 layers, 5 "
+          f"activations, f32 and bf16 operands): forward, dx, dw, db within "
+          f"{TOL}; worst f32 {worst[False]:.3e}, bf16 {worst[True]:.3e}")
+    timed = {}
+    for m in TIMED_ROWS:
+        tot = dict(ms=0.0, library_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        by = {"bytes": 0.0, "operations": 0.0}
+        for k, n, tied, act in DENSE_LAYERS:
+            a = torch.rand((m, k), device=DEVICE)
+            w = xavier(n, k, g).T if tied else xavier(k, n, g)
+            b = torch.zeros(n, device=DEVICE)
+            k1, l1, l2, k2 = (device_ms(f) for f in (
+                lambda: dk.fused_dense(a, w, b, act),
+                lambda: torch.addmm(b, a, w), lambda: torch.addmm(b, a, w),
+                lambda: dk.fused_dense(a, w, b, act)))
+            t_p = device_ms(lambda: dk.fused_dense_reference(a, w, b, act))
+            t_b, bound_by, _ = dense_bounds(m, k, n)
+            by[bound_by] += t_b
+            for key, v in (("ms", (k1 + k2) / 2), ("library_ms",
+                                                   (l1 + l2) / 2),
+                           ("plain_ms", t_p), ("bound_ms", t_b)):
+                tot[key] += v
+            print(f"  M={m:3d} ({k},{n}){' w.T' if tied else '    '} "
+                  f"{act:8s}: kernel {k1:.4f} / {k2:.4f} ms, torch.addmm "
+                  f"{l1:.4f} / {l2:.4f} ms, plain {t_p:.4f} ms; bound "
+                  f"{t_b:.4f} ms ({bound_by})  [{card}]")
+        tot["bound_by"] = max(by, key=by.get)
+        print(f"  M={m}: 4 layers kernel {tot['ms']:.4f} ms, torch.addmm "
+              f"{tot['library_ms']:.4f}, plain {tot['plain_ms']:.4f}, bound "
+              f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}, "
+              f"{100 * tot['bound_ms'] / tot['ms']:.1f} % of it reached)  "
+              f"[{card}]")
+        timed[m] = tot
+    return {"grad_max_abs_err": worst[False],
+            "grad_max_abs_err_bf16": worst[True], "train_rows": timed}
+
+
+def single_run_setup(study_path: str):
+    """The 2000-row study as the facade loads it (Train / Val / Test rows,
+    its 3 labels), on the card; the tied softsign 1000 -> 100 DAE with a
+    (50, 20) -> 3 head, the sweep's phase-1 recipe and the phase-2
+    defaults (lr 1e-4, batch 100)."""
+    from multimodalautoencoder_tpu_torch.config import (
+        ClassifierTrainConfig, MMAEConfig, TrainConfig)
+    from multimodalautoencoder_tpu_torch.data.loader import DataLoader
+    from multimodalautoencoder_tpu_torch.models.corruption import NoiseSpec
+
+    dl = DataLoader(study_path, supervised=True, fill_gaps_with=-1.0,
+                    suppress_output=True, seed=SEED)
+    arr = dl.device_arrays(DEVICE)
+    cfg = MMAEConfig(num_feats=dl.num_feats, layer_sizes=LAYERS,
+                     tie_weights=True, activation="softsign",
+                     weight_initialization="normal",
+                     classification_layer_sizes=(50, 20),
+                     num_labels=3).validate()
+    tcfg = TrainConfig(learning_rate=LR, batch_size=BATCH, decay=True,
+                       decay_steps=1000, decay_rate=0.95,
+                       clip_gradients=False, record_every_nth=SINGLE_RECORD)
+    cls_tcfg = ClassifierTrainConfig(clip_gradients=False,
+                                     record_every_nth=SINGLE_RECORD)
+    spec = NoiseSpec.build(cfg, dl.modality_table).to(DEVICE)
+    return dl, arr, cfg, tcfg, cls_tcfg, spec
+
+
+def gate_step(phase: int, routes: dict, tcfg, spec, state, x, y):
+    """One training step (phase 1: ``unsupervised_step``, phase 2:
+    ``classification_step``) from ``state`` on each route of ``routes``
+    (name -> cfg), every route with the draws of ``state.generator`` (left
+    as it was), and the ``"plain"`` route in float64 from the same state
+    and draws, the yardstick.  Returns ({name: (new state, fused_dense
+    launches)}, the float64 state).  ``y`` is unused in phase 1."""
+    from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
+    from multimodalautoencoder_tpu_torch.ops import optim
+    from multimodalautoencoder_tpu_torch.train import trainer
+
+    gs = state.generator.get_state()
+    device = state.generator.device
+
+    def f64(t):
+        return t.double() if t.is_floating_point() else t
+
+    def take(cfg, s, xx, yy):
+        s = s._replace(generator=torch.Generator(device=device).set_state(gs))
+        if phase == 1:
+            return trainer.unsupervised_step(s, cfg, tcfg, spec, xx)[0]
+        return trainer.classification_step(s, cfg, tcfg, spec, xx, yy)[0]
+
+    ref = take(routes["plain"], trainer.TrainState(
+        optim.tree_map(f64, state.params),
+        optim.tree_map(f64, state.opt_state), state.step, None),
+        x.double(), y.double())
+    out = {}
+    for name, cfg in routes.items():
+        n0 = dk.KERNELS.launches
+        new = take(cfg, state, x, y)
+        out[name] = (new, dk.KERNELS.launches - n0)
+    return out, ref
+
+
+def gate_distances(a, b):
+    """(L2 distance over Adam's first moments, L2 distance over the
+    parameters, largest |parameter difference|) between two states."""
+    from multimodalautoencoder_tpu_torch.ops import optim
+
+    def dist(ta, tb):
+        sq = mx = 0.0
+        for p, q in zip(optim.tree_leaves(ta), optim.tree_leaves(tb)):
+            d = p.double() - q.double()
+            sq += float(torch.sum(d * d))
+            mx = max(mx, float(d.abs().max()))
+        return sq ** 0.5, mx
+
+    return (dist(a.opt_state.mu, b.opt_state.mu)[0],
+            *dist(a.params, b.params))
+
+
+def phase_step_gate(arr, cfg, tcfg, cls_tcfg, spec) -> dict:
+    """Each of GATE_STEPS steps from the plain route's state, for softsign
+    and relu, phase 1 and phase 2 (``gate_step``): the kernel route
+    (``use_pallas``) must be no further from the float64 step in its
+    gradient than STEP_GATE times the plain route's, and a control, the
+    kernel route with bf16 operands, must be further (the gate can tell a
+    bf16 product from an f32 one).  The kernel route's fused_dense
+    launches per step are counted."""
+    from multimodalautoencoder_tpu_torch.ops import optim
+    from multimodalautoencoder_tpu_torch.train import trainer
+
+    x, y = arr["train_x"], arr["train_y"]
+    out = {"launches_per_step": {}}
+    for phase in (1, 2):
+        p_tcfg = tcfg if phase == 1 else cls_tcfg
+        for act in ("softsign", "relu"):
+            c = cfg.replace(activation=act)
+            routes = {"plain": c, "kernel": c.replace(use_pallas=True),
+                      "bf16": c.replace(use_pallas=True,
+                                        compute_dtype="bfloat16")}
+            st = trainer.init_state(SEED, c, tcfg, DEVICE)
+            if phase == 2:
+                st = trainer.state_for_params(st.params, cls_tcfg,
+                                              st.generator)
+            ratios, control, p_ratios, launches = [], [], [], set()
+            p_max = k_max = 0.0
+            for _ in range(GATE_STEPS):
+                took, ref = gate_step(phase, routes, p_tcfg, spec, st, x, y)
+                (g_p, d_p, m_p), (g_k, d_k, m_k), (g_b, _, _) = (
+                    gate_distances(took[r][0], ref)
+                    for r in ("plain", "kernel", "bf16"))
+                ratios.append(g_k / max(g_p, 1e-30))
+                control.append(g_b / max(g_p, 1e-30))
+                p_ratios.append(d_k / max(d_p, 1e-30))
+                p_max, k_max = max(p_max, m_p), max(k_max, m_k)
+                launches.add(took["kernel"][1])
+                kern = took["kernel"][0]
+                check(g_k <= STEP_GATE * g_p and all(
+                    bool(torch.isfinite(t).all())
+                    for t in optim.tree_leaves(kern.params)),
+                    f"phase {phase} {act}: the kernel route's gradient is "
+                    f"{g_k:.3e} from the f64 step's, the plain route's "
+                    f"{g_p:.3e} (gate {STEP_GATE}x)")
+                check(g_b > STEP_GATE * g_p,
+                      f"phase {phase} {act}: the bf16 control's gradient is "
+                      f"{g_b:.3e} from the f64 step's, within the gate "
+                      f"({STEP_GATE} x {g_p:.3e})")
+                check(took["plain"][1] == 0,
+                      "the plain route launched fused_dense")
+                st = took["plain"][0]
+            check(len(launches) == 1, f"phase {phase} {act}: fused_dense "
+                                      f"launches per step {launches}")
+            out["launches_per_step"][f"phase{phase}"] = launches.pop()
+            print(f"  phase {phase} {act:8s}: kernel/plain gradient distance"
+                  f" from the f64 step, per step "
+                  f"{' '.join(f'{r:.2f}' for r in ratios)} (gate "
+                  f"{STEP_GATE}); bf16 control/plain {min(control):.1f} to "
+                  f"{max(control):.1f}; parameter distance kernel/plain "
+                  f"{min(p_ratios):.2f} to {max(p_ratios):.2f} (not gated),"
+                  f" largest |dp| from f64: plain {p_max:.3e}, kernel "
+                  f"{k_max:.3e}")
+            out[f"phase{phase}_{act}"] = {
+                "max_ratio": max(ratios), "min_control_ratio": min(control),
+                "param_ratios": [min(p_ratios), max(p_ratios)],
+                "plain_max_abs": p_max, "kernel_max_abs": k_max}
+    return out
+
+
+def _device_busy_ms(prof) -> float:
+    """Device time of the profiled kernels and copies (ms); 0.0 when the
+    profiler saw none."""
+    from torch.autograd import DeviceType
+
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def phase_single_run(dk, study_path: str, card: str,
+                     control: bool = False) -> dict:
+    """The single-run trainer at full width ([21]): the step gate, then a
+    SINGLE_STEPS-step run of each phase on each route (the plain route
+    first), each finite with a falling noisy val loss, and the kernel
+    route's final parameters scored alike by both routes' forwards; ms per
+    step by host clock and by CUDA events, the kernel route's fused_dense
+    launches (the main path: counts at 0 just before each kernel-route run,
+    read just after), then a 200-step window of each route in turns, and
+    the device's idle share over 50 kernel-route steps from
+    torch.profiler.  With ``control``, the kernel route with bf16 operands
+    runs too, and its final losses are set beside the plain route's as the
+    two routes' are."""
+    from multimodalautoencoder_tpu_torch.train import trainer
+
+    dl, arr, cfg, tcfg, cls_tcfg, spec = single_run_setup(study_path)
+    print(f"  study: {len(dl.train_X)} train, {len(dl.val_X)} val, "
+          f"{len(dl.test_X)} test rows; {cfg.layer_sizes} tied "
+          f"{cfg.activation}, head {cfg.classification_layer_sizes} -> 3")
+    print(f"  the step gate: {GATE_STEPS} steps, each from the plain "
+          f"route's state")
+    gate = phase_step_gate(arr, cfg, tcfg, cls_tcfg, spec)
+
+    x, vx = arr["train_x"], arr["val_x"]
+    y, vy = arr["train_y"], arr["val_y"]
+    routes = {"plain": cfg, "kernel": cfg.replace(use_pallas=True)}
+    if control:
+        routes["bf16"] = cfg.replace(use_pallas=True,
+                                     compute_dtype="bfloat16")
+    runs, launches = {}, {}
+    for route, c in routes.items():
+        st = trainer.init_state(SEED, c, tcfg, DEVICE)
+        res = {}
+        for phase in (1, 2):
+            if phase == 2:
+                st = trainer.state_for_params(
+                    st.params, cls_tcfg,
+                    torch.Generator(device=DEVICE).set_state(
+                        st.generator.get_state()))
+            torch.cuda.synchronize()
+            dk.KERNELS.launches = 0
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            ev0.record()
+            if phase == 1:
+                st, curves = trainer.train(st, c, tcfg, spec, x, vx,
+                                           SINGLE_STEPS)
+            else:
+                st, curves = trainer.train_classification(
+                    st, c, cls_tcfg, spec, x, y, vx, vy, SINGLE_STEPS)
+            ev1.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = dk.KERNELS.launches
+            loss = curves.val_loss
+            res[phase] = {"loss": loss, "host_ms": 1e3 * wall / SINGLE_STEPS,
+                          "event_ms": ev0.elapsed_time(ev1) / SINGLE_STEPS,
+                          "launches": n, "params": st.params}
+            if route == "kernel":
+                launches[phase] = n
+            records = -(-SINGLE_STEPS // SINGLE_RECORD)
+            print(f"  {route:6s} phase {phase}: {SINGLE_STEPS} steps, "
+                  f"{res[phase]['host_ms']:.4f} ms/step host clock, "
+                  f"{res[phase]['event_ms']:.4f} ms/step CUDA events; noisy "
+                  f"val loss {loss[0]:.4f} -> {loss[-1]:.4f} ({records} "
+                  f"records); fused_dense launches {n}  [{card}]")
+            check(len(loss) == records and np.isfinite(loss).all(),
+                  f"{route} phase {phase}: curves {loss}")
+            check(loss[-1] < loss[0], f"{route} phase {phase}: the val loss "
+                                      f"did not fall ({loss[0]} -> "
+                                      f"{loss[-1]})")
+            check(all(bool(torch.isfinite(t).all())
+                       for t in trainer.optim.tree_leaves(st.params)),
+                  f"{route} phase {phase}: non-finite parameters")
+        runs[route] = res
+    records = -(-SINGLE_STEPS // SINGLE_RECORD)
+    # one launch a dense layer in a forward: phase 1 runs the encoder and
+    # the decoder, phase 2 the encoder; each record evaluates two batches
+    per_step = gate.pop("launches_per_step")
+    depth = len(cfg.layer_sizes)
+    check(per_step == {"phase1": 2 * depth, "phase2": depth},
+          f"fused_dense launches a step {per_step}")
+    want = {p: per_step[f"phase{p}"] * (SINGLE_STEPS + 2 * records)
+            for p in (1, 2)}
+    check(launches == want, f"fused_dense launches {launches}, expected "
+                            f"{want}")
+    check(runs["plain"][1]["launches"] == 0
+          and runs["plain"][2]["launches"] == 0,
+          "the plain route launched fused_dense")
+    with torch.no_grad():
+        for phase in (1, 2):
+            params = runs["kernel"][phase]["params"]
+
+            def score(c):
+                g = torch.Generator(device=DEVICE).manual_seed(SEED)
+                if phase == 1:
+                    return float(trainer.evaluate_reconstruction(
+                        params, c, spec, vx, g))
+                return float(trainer.evaluate_classification(
+                    params, c, vx, vy, g)[0])
+
+            k_loss, p_loss = score(routes["kernel"]), score(routes["plain"])
+            print(f"  phase {phase}: the kernel route's final parameters on "
+                  f"the {len(vx)} val rows: {k_loss:.6f} by the kernel "
+                  f"route, {p_loss:.6f} by the plain route (within {TOL})")
+            check(abs(k_loss - p_loss) <= TOL * abs(p_loss),
+                  f"phase {phase}: the two forwards score the kernel "
+                  f"route's parameters {k_loss} and {p_loss}")
+            b = runs["plain"][phase]["loss"][-1]
+            for route in routes:
+                if route != "plain":
+                    a = runs[route][phase]["loss"][-1]
+                    print(f"  phase {phase}: final noisy val loss {route} "
+                          f"{a:.4f}, plain {b:.4f}, ratio "
+                          f"{max(a / b, b / a):.4f} (reported, not gated: "
+                          f"the trajectories part by rounding)")
+
+    # the two routes in turns (kernel, plain, plain, kernel), 200 steps
+    window = 200
+    turns = {"kernel": [], "plain": []}
+    for route in ("kernel", "plain", "plain", "kernel"):
+        c = routes[route]
+        st = trainer.init_state(SEED, c, tcfg, DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(st, c, tcfg, spec, x, vx, window)
+        torch.cuda.synchronize()
+        turns[route].append(1e3 * (time.perf_counter() - t0) / window)
+    print(f"  {window}-step windows in turns, host clock: kernel "
+          f"{turns['kernel'][0]:.4f} / {turns['kernel'][1]:.4f} ms/step, "
+          f"plain {turns['plain'][0]:.4f} / {turns['plain'][1]:.4f}  "
+          f"[{card}]")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    kc = routes["kernel"]
+    st = trainer.init_state(SEED, kc, tcfg, DEVICE)
+    st, _ = trainer.train(st, kc, tcfg, spec, x, vx, 10)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train(st, kc, tcfg.replace(record_every_nth=10 ** 9),
+                      spec, x, vx, 50)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy = _device_busy_ms(prof)
+    check(0 < busy <= wall_ms, f"the profiler saw {busy} ms of device "
+                               f"activity in {wall_ms} ms")
+    idle = 1.0 - busy / wall_ms
+    print(f"  device idle share over 50 kernel-route steps: "
+          f"{100 * idle:.1f} % (busy {busy:.3f} of {wall_ms:.3f} ms, "
+          f"torch.profiler)  [{card}]")
+    return {"gate": gate, "launches": launches[1] + launches[2],
+            "launches_per_step": per_step,
+            "ms_per_step": {f"{r}_phase{p}": runs[r][p]["event_ms"]
+                            for r in runs for p in (1, 2)},
+            "host_ms_per_step": {f"{r}_phase{p}": runs[r][p]["host_ms"]
+                                 for r in runs for p in (1, 2)},
+            "turns_ms": turns, "idle_share": idle}
+
+
+def phase_cli_train(workdir: str, study_path: str, card: str) -> None:
+    """``cli train --device cuda --arch 1000 100`` for SINGLE_STEPS steps on
+    the study, its checkpoint reloaded by
+    ``MultimodalAutoencoder.load_saved_model`` (parameters, Adam state,
+    step and curves), then resumed for 100 steps."""
+    from multimodalautoencoder_tpu_torch import cli
+    from multimodalautoencoder_tpu_torch.api import MultimodalAutoencoder
+    from multimodalautoencoder_tpu_torch.config import MMAEConfig
+    from multimodalautoencoder_tpu_torch.ops import optim
+    from multimodalautoencoder_tpu_torch.train import checkpoint as ckpt
+
+    ckdir = os.path.join(workdir, "train_ck")
+    t0 = time.perf_counter()
+    rc = cli.main(["train", study_path, "--device", DEVICE, "--arch",
+                   *map(str, LAYERS), "--num-steps", str(SINGLE_STEPS),
+                   "--normalize-and-fill", "--seed", str(SEED),
+                   "--checkpoint-dir", ckdir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"cli train returned {rc}")
+    path = ckpt.latest_checkpoint(ckdir)
+    check(path is not None and path.endswith(f"-{SINGLE_STEPS}.npz"),
+          f"cli train wrote {path}")
+    print(f"  cli train: {wall:.2f} s wall ({1e3 * wall / SINGLE_STEPS:.4f}"
+          f" ms a step with the set-up) -> {os.path.basename(path)}  "
+          f"[{card}]")
+    model = MultimodalAutoencoder(
+        filename=study_path, layer_sizes=LAYERS, variational=False,
+        normalize_and_fill=True, fill_gaps_with=-1.0, checkpoint_dir=ckdir,
+        seed=SEED, verbose=False, device=DEVICE)
+    model.load_saved_model()
+    saved, _, curves, _ = ckpt.load_checkpoint_auto(
+        path, MMAEConfig(), verbose=False, device=DEVICE)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(
+        optim.tree_leaves(model.params), optim.tree_leaves(saved)))
+    step = int(model.state.step)
+    moments = float(sum(t.abs().sum() for t in
+                        optim.tree_leaves(model.state.opt_state.mu)))
+    loss = curves["val_loss"]
+    print(f"  reloaded: step {step}, {len(model.val_loss)} curve entries "
+          f"(val loss {loss[0]:.4f} -> {loss[-1]:.4f}), parameters equal: "
+          f"{same}, Adam moments restored (sum |m| {moments:.4e})")
+    check(same and step == SINGLE_STEPS and moments > 0,
+          "the reloaded model differs from the checkpoint")
+    check(np.isfinite(loss).all() and loss[-1] < loss[0],
+          f"cli train's val loss {loss[0]} -> {loss[-1]}")
+    model.train(num_steps=100)
+    step = int(model.state.step)
+    print(f"  resumed 100 steps: step {step}, {len(model.val_loss)} curve "
+          f"entries, last val loss {model.val_loss[-1]:.4f}")
+    check(step == SINGLE_STEPS + 100 and len(model.val_loss)
+          == (SINGLE_STEPS + 100) // 50
+          and np.isfinite(model.val_loss).all(), "the resumed run")
+
+
+def phase_unshared_bucket(workdir: str, pck, ptk, unsup, sup, card: str):
+    """The validation bucket with ``share_phase1=False`` at GRID_STEPS +
+    GRID_STEPS steps: every setting pretrains its own MMAE on kernel 2,
+    then phase 2 on kernel 4, as the reference retrains."""
+    from multimodalautoencoder_tpu_torch.sweep.wrappers import \
+        MMAEClassificationSweep
+
+    ptk.KERNELS.launches = 0
+    pck.KERNELS.launches = 0
+    t0 = time.perf_counter()
+    sweep = MMAEClassificationSweep(
+        unsup, sup, mmae_num_steps=GRID_STEPS,
+        classification_num_steps=GRID_STEPS, share_phase1=False,
+        results_path=os.path.join(workdir, "unshared_results"),
+        backend="pallas", seed=SEED, verbose=False, device=DEVICE,
+        **VALIDATION_BUCKET)
+    sweep.sweep_all_parameters()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = sweep.ledger.rows
+    want = (GRID_STEPS * ptk.launches_per_step(True, False),
+            GRID_STEPS * pck.launches_per_step(3, False))
+    got = (ptk.KERNELS.launches, pck.KERNELS.launches)
+    acc = np.asarray([float(r["val_acc"]) for r in rows])
+    print(f"  share_phase1=False: {len(rows)} settings x "
+          f"{sweep.num_cross_folds} folds, phase 1 at N = "
+          f"{len(rows) * sweep.num_cross_folds}: {wall:.1f} s wall; "
+          f"launches {got} (expected {want}); val_acc {acc.min():.3f}-"
+          f"{acc.max():.3f}  [{card}]")
+    check(len(rows) == 16 and np.isfinite(acc).all()
+          and {r["backend_used"] for r in rows} == {"pallas"},
+          "the unshared bucket's rows")
+    check(got == want, f"unshared bucket launches {got}, expected {want}")
+
+
+def _cli_lines(argv, prefix: str):
+    """Run ``cli.main(argv)``, echo its standard output, and return the
+    lines that start with ``prefix``."""
+    import io
+
+    from multimodalautoencoder_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    sys.stdout.write(buf.getvalue())
+    return rc, [line for line in buf.getvalue().splitlines()
+                if line.startswith(prefix)]
+
+
 def training_study(workdir: str):
     """The reference-scale study for training, its CV folds on the card,
     the ACII grid's base config and 1000-wide buckets, and the noise
@@ -1854,6 +2418,34 @@ def main_tensor_core_products(promote: int) -> int:
     return 1 if FAILED else 0
 
 
+def main_single_run() -> int:
+    """[20] and [21] alone, [21] with its bf16 control route, every gate
+    reported rather than only the first that fails; the last line lists
+    the failed checks, and the exit code is 1 if there are any."""
+    global FAILED
+    from multimodalautoencoder_tpu_torch.data import synthetic
+    from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
+
+    FAILED = []
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"[1] card: {card}; torch {torch.__version__}")
+    build_kernels([dk.KERNELS])
+    with tempfile.TemporaryDirectory(prefix="mmae_chip_smoke_") as workdir:
+        study = synthetic.write_reference_scale_csv(workdir, num_rows=ROWS,
+                                                    seed=SEED)
+        print(f"[20] fused_dense under autograd at the training shapes (TF32"
+              f" off, atol=rtol={TOL})")
+        phase_dense_autograd(dk, card)
+        print(f"[21] the single-run trainer at full width, {SINGLE_STEPS} "
+              f"steps a route, with the bf16 control route")
+        phase_single_run(dk, study, card, control=True)
+    print(card)
+    print(json.dumps({"single_run": True, "failed_checks": FAILED}))
+    return 1 if FAILED else 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -1862,8 +2454,10 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--tensor-core-products" \
             and sys.argv[2] in ("1", "2"):
         return main_tensor_core_products(int(sys.argv[2]))
+    if sys.argv[1:] == ["--single-run"]:
+        return main_single_run()
     check(len(sys.argv) == 1, "usage: chip_smoke.py "
-          "[--tensor-core-products 1|2]")
+          "[--tensor-core-products 1|2 | --single-run]")
     from multimodalautoencoder_tpu_torch.ops import cls_train_kernels as pck
     from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
     from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
@@ -1942,8 +2536,10 @@ def main() -> int:
                                              study.filename, study, sup,
                                              card)
         print(f"[13] the full default grid through cli sweep-classification"
-              f" --device {DEVICE}, {GRID_STEPS} + {GRID_STEPS} steps")
+              f" --device {DEVICE} --check-test, {GRID_STEPS} + {GRID_STEPS}"
+              " steps, then the validation bucket unshared")
         phase_full_grid(workdir, pck, ptk, study.filename, card)
+        phase_unshared_bucket(workdir, pck, ptk, study, sup, card)
         print("[14] one phase-2 step of the validation bucket, timed")
         cls_step = phase_cls_step_timing(pck, ptk, sup_folded, spec, cfg_v,
                                          settings_v, card)
@@ -1962,7 +2558,7 @@ def main() -> int:
         deep_launches, tied_deep, _ = phase_mmae_sweep(
             workdir, pdk, ptk, dk, study, sup, card)
         print(f"[17] the default 108-setting grid through cli sweep-mmae "
-              f"--device {DEVICE}, {MMAE_GRID_STEPS} steps")
+              f"--device {DEVICE} --check-test, {MMAE_GRID_STEPS} steps")
         phase_full_mmae_grid(workdir, pdk, ptk, study.filename, card)
         print("[18] one deep tied step, timed")
         deep_step = phase_deep_step_timing(pdk, ptk, tied_deep, folded,
@@ -1973,6 +2569,19 @@ def main() -> int:
               f"{hbm.STEPS} passes a pattern")
         stream = phase_hbm(hbm, card)
 
+        print(f"[20] fused_dense under autograd at the training shapes (TF32"
+              f" off, atol=rtol={TOL})")
+        dense_train = phase_dense_autograd(dk, card)
+        print(f"[21] the single-run trainer at full width: trainer.train / "
+              f"train_classification, use_pallas on and off, "
+              f"{SINGLE_STEPS} steps each")
+        single = phase_single_run(dk, dl.filename, card)
+        print(f"[22] cli train --device {DEVICE} --arch "
+              f"{' '.join(map(str, LAYERS))}, reloaded and resumed")
+        phase_cli_train(workdir, dl.filename, card)
+        for mod in ("jax", "pandas", "sklearn", "multimodalautoencoder_tpu"):
+            check(mod not in sys.modules, f"the training path imported {mod}")
+
     print(f"  whole run {time.perf_counter() - t_start:.1f} s")
     print(card)
     src = "multimodalautoencoder_tpu_torch/csrc/"
@@ -1981,8 +2590,13 @@ def main() -> int:
               "source": src + "fused_dense.cu",
               "replaces": "multimodalautoencoder_tpu/ops/pallas_kernels.py"
                           ":63",
-              "launches": launches, "max_abs_err": max_err,
-              "max_abs_err_bf16": max_err_bf16}, **dense),
+              "launches": launches + single["launches"],
+              "serve_launches": launches,
+              "train_launches": single["launches"],
+              "max_abs_err": max_err, "max_abs_err_bf16": max_err_bf16,
+              "train": dict(dense_train, **{k: v for k, v in single.items()
+                                            if k != "launches"})},
+             **dense),
         {"name": "mmae_train_step", "route": "cuda",
          "source": src + "train_kernel.cu",
          "replaces": "multimodalautoencoder_tpu/ops/train_kernel.py:274",

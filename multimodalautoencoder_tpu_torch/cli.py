@@ -1,9 +1,13 @@
-"""Command-line interface of the port: serving and the two sweeps.
+"""Command-line interface of the port: serving, single-run training and
+the two sweeps.
 
 Counterpart of ``multimodalautoencoder_tpu/cli.py`` (its ``fill``,
-``embed``, ``sweep-mmae`` and ``sweep-classification`` subcommands; the
-train, baseline and tool subcommands come with the rest of the port):
+``embed``, ``train``, ``sweep-mmae`` and ``sweep-classification``
+subcommands; the baseline and tool subcommands come with the rest of the
+port):
 
+    python -m multimodalautoencoder_tpu_torch.cli train data.csv \\
+        --arch 1000 100 --num-steps 30000 --normalize-and-fill
     python -m multimodalautoencoder_tpu_torch.cli fill data.csv \\
         --checkpoint best-15000.npz --normalize-and-fill [--device cuda]
     python -m multimodalautoencoder_tpu_torch.cli embed data.csv \\
@@ -79,6 +83,29 @@ def cmd_embed(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    from multimodalautoencoder_tpu_torch.api import MultimodalAutoencoder
+
+    if torch.device(args.device).type == "cuda" and \
+            not torch.cuda.is_available():
+        raise SystemExit("train: no CUDA device; pass --device cpu to "
+                         "train on the CPU")
+    # the facade applies the reference's normalization/loss coercions
+    # (multimodal_autoencoder.py:174-184) through MMAEConfig.validate
+    model = MultimodalAutoencoder(
+        filename=args.filename, layer_sizes=args.arch,
+        variational=args.variational,
+        normalize_and_fill=args.normalize_and_fill,
+        normalization=args.normalization, fill_gaps_with=_fill_gaps(args),
+        checkpoint_dir=args.checkpoint_dir, seed=args.seed,
+        learning_rate=args.learning_rate, batch_size=args.batch_size,
+        device=args.device)
+    model.train(num_steps=args.num_steps)
+    path = model.save_model()
+    print("checkpoint:", path)
+    return 0
+
+
 def _loader(path, supervised, args, wanted_label=None):
     """A cross-validation loader as the JAX CLI's ``_loader`` builds it."""
     return DataLoader(path, supervised=supervised, cross_validation=True,
@@ -136,7 +163,12 @@ def cmd_sweep_classification(args) -> int:
         compute_dtype=args.compute_dtype, backend=args.backend,
         save_best_params=args.save_best_params, device=args.device)
     for metric, row in sweep.run().items():
-        print(metric, "->", float(row[metric]))
+        if metric == "test":
+            # the held-out battery: a plain {test_acc: ..., ...} dict
+            for k, v in row.items():
+                print(f"test {k} -> {v}")
+        else:
+            print(metric, "->", float(row[metric]))
     return 0
 
 
@@ -163,8 +195,8 @@ def _add_sweep_common(p: argparse.ArgumentParser) -> None:
                    help="resume from a previous results CSV")
     p.add_argument("--folds", type=int, default=5)
     p.add_argument("--check-test", action="store_true",
-                   help="held-out test evaluation (needs the single-run "
-                        "trainer, not ported yet: refused)")
+                   help="retrain the best setting on fold 0 and score it "
+                        "on the held-out test set")
     p.add_argument("--save-best-params", action="store_true",
                    help="checkpoint the best setting's fold-0 parameters "
                         "at the end of the sweep (consumable by "
@@ -202,6 +234,16 @@ def build_parser() -> argparse.ArgumentParser:
     _add_sweep_common(p)
     _add_common(p)
     p.set_defaults(fn=cmd_sweep_classification)
+    p = sub.add_parser("train", help="train one MMAE and checkpoint it")
+    p.add_argument("filename")
+    p.add_argument("--arch", type=int, nargs="+", default=[128, 64, 32])
+    p.add_argument("--variational", action="store_true")
+    p.add_argument("--num-steps", type=int, default=30000)
+    p.add_argument("--learning-rate", type=float, default=1e-4)
+    p.add_argument("--batch-size", type=int, default=10)
+    p.add_argument("--checkpoint-dir", default="checkpoints")
+    _add_common(p)
+    p.set_defaults(fn=cmd_train)
     for name, fn, hlp in (("fill", cmd_fill,
                            "fill missing modalities with reconstructions"),
                           ("embed", cmd_embed,

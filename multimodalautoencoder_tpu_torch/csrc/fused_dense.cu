@@ -10,6 +10,11 @@
 // activation are applied in the epilogue, so the pre-activation never goes
 // to device memory.
 //
+// f32 operands with at most FFMA_MAX_ROWS rows (training and evaluation
+// batches) take a third kernel, dense_ffma_kernel: exact f32 FMAs on the
+// CUDA cores, for the reasons given above it.  What follows is about the
+// serve path's many rows.
+//
 // What bounds it on an H100: at the serve shapes (M = 2000 rows, K, N in
 // {100, 1000}) a layer does 2*M*K*N <= 4 GFLOP on <= 20 MB of operands and
 // output, far above the card's operations-per-byte line, so it is bound by
@@ -84,6 +89,10 @@ constexpr int TF32_STAGES = 3;  // in the TF32 ring, beside its split w
 constexpr int THREADS = 256;    // 8 warps: 2 warpgroups
 constexpr int MAX_SPLIT = 8;    // portable cluster size
 constexpr int MAX_DEVICES = 64;
+// f32 operands with at most this many rows take the FFMA kernel
+constexpr int FFMA_MAX_ROWS = 256;
+constexpr int F_BM = 16, F_BN = 64;  // its tile; its slices are BK deep
+constexpr int F_THREADS = 128;
 
 // The staged ring of a BM x BN tile, and the mma.sync warp layout of the
 // bf16 kernel (2 x 4 warps).
@@ -727,6 +736,159 @@ dense_bf16_kernel(Operands p, int split) {
   finish<G>(p, acc, smem, split, m0, n0, wm0, wn0, g, t, tid);
 }
 
+// f32 operands with few rows (M <= FFMA_MAX_ROWS: a training batch, a
+// phase-2 batch, an evaluation batch): exact f32 FMAs on the CUDA cores.
+// Such a layer reads w once for a few rows, so it is bound by w's bytes
+// (or, near 256 rows, by the CUDA cores' 67 TFLOP/s), and the tensor cores
+// buy it nothing.  They would also cost it accuracy that training sees:
+// each wgmma instruction cuts its sum toward zero, which shrinks every
+// output a little (the error's mean along the output's sign is about 0.6
+// of its root mean square at K = 1000), and that shrink lines up across a
+// batch in the gradients.  Here every output is fmaf(x_k, w_k, sum) in
+// ascending k, rounded to nearest, and a split K range is summed over the
+// cluster in rank order.  A block owns a 16 x 64 tile; each of its 128
+// threads two rows by four columns (columns 16 apart, so a warp reads
+// consecutive words of w's slice).  Slices of x and w go through two
+// buffers in static shared memory, the next slice loaded into registers
+// while the current one is multiplied; x is stored k-major and w's rows
+// are padded to 65 words, so either orientation of w stores without bank
+// conflicts.
+struct FfmaSmem {
+  float xs[2][BK][F_BM + 1];
+  float ws[2][BK][F_BN + 1];
+};
+
+template <bool B_KMAJOR>
+__device__ __forceinline__ void ffma_load(const Operands& p, int m0, int n0,
+                                          int k0, int tid, float (&xr)[4],
+                                          float (&wr)[16]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int e = tid + F_THREADS * q, m = e / BK, k = e % BK;
+    xr[q] = m0 + m < p.M && k0 + k < p.K
+                ? __ldg(p.x + (int64_t)(m0 + m) * p.sxm +
+                        (int64_t)(k0 + k) * p.sxk)
+                : 0.f;
+  }
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    // along w's contiguous axis: k for the w.T view, n otherwise
+    const int e = tid + F_THREADS * q;
+    const int k = B_KMAJOR ? e % BK : e / F_BN;
+    const int n = B_KMAJOR ? e / BK : e % F_BN;
+    wr[q] = k0 + k < p.K && n0 + n < p.N
+                ? __ldg(p.w + (int64_t)(k0 + k) * p.swk +
+                        (int64_t)(n0 + n) * p.swn)
+                : 0.f;
+  }
+}
+
+template <bool B_KMAJOR>
+__device__ __forceinline__ void ffma_store(FfmaSmem& sm, int buf, int tid,
+                                           const float (&xr)[4],
+                                           const float (&wr)[16]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int e = tid + F_THREADS * q;
+    sm.xs[buf][e % BK][e / BK] = xr[q];
+  }
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const int e = tid + F_THREADS * q;
+    const int k = B_KMAJOR ? e % BK : e / F_BN;
+    const int n = B_KMAJOR ? e / BK : e % F_BN;
+    sm.ws[buf][k][n] = wr[q];
+  }
+}
+
+template <int ACT>
+__device__ __forceinline__ void ffma_store_out(const Operands& p, int row,
+                                               int col, float v) {
+  if (row < p.M && col < p.N)
+    p.out[(int64_t)row * p.N + col] = activate<ACT>(v + p.b[col]);
+}
+
+template <int ACT>
+__device__ __forceinline__ void ffma_finish(const Operands& p,
+                                            const float (&acc)[2][4],
+                                            FfmaSmem& sm, int split, int m0,
+                                            int n0, int tid) {
+  const int r = 2 * (tid / 16), c = tid % 16;
+  if (split == 1) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        ffma_store_out<ACT>(p, m0 + r + i, n0 + c + 16 * j, acc[i][j]);
+    return;
+  }
+  // the partial tile in this block's (free) w buffers, summed over the
+  // cluster's partials in rank order by the rank that owns its rows
+  float* red = &sm.ws[0][0][0];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      red[(r + i) * (F_BN + 1) + c + 16 * j] = acc[i][j];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int rows = F_BM / split;
+  const int r0 = static_cast<int>(cluster.block_rank()) * rows;
+  const float* parts[MAX_SPLIT];
+  for (int q = 0; q < split; ++q) parts[q] = cluster.map_shared_rank(red, q);
+  for (int e = tid; e < rows * F_BN; e += F_THREADS) {
+    const int rr = r0 + e / F_BN, cc = e % F_BN;
+    float v = 0.f;
+    for (int q = 0; q < split; ++q) v += parts[q][rr * (F_BN + 1) + cc];
+    ffma_store_out<ACT>(p, m0 + rr, n0 + cc, v);
+  }
+  cluster.sync();  // no block leaves while another reads its partial
+}
+
+// grid (M tiles, N tiles, split); a split > 1 launches as a cluster of
+// ``split`` blocks along z, one K range each.
+template <bool B_KMAJOR, int ACT>
+__global__ void __launch_bounds__(F_THREADS)
+dense_ffma_kernel(Operands p, int split) {
+  __shared__ FfmaSmem sm;
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * F_BM, n0 = blockIdx.y * F_BN;
+  const int r = 2 * (tid / 16), c = tid % 16;
+  int kt0, nk;
+  k_range(p.K, split, kt0, nk);
+
+  float acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  float xr[4], wr[16];
+  if (nk > 0) {
+    ffma_load<B_KMAJOR>(p, m0, n0, kt0 * BK, tid, xr, wr);
+    ffma_store<B_KMAJOR>(sm, 0, tid, xr, wr);
+  }
+  __syncthreads();
+  for (int i = 0; i < nk; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < nk)
+      ffma_load<B_KMAJOR>(p, m0, n0, (kt0 + i + 1) * BK, tid, xr, wr);
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      const float a0 = sm.xs[buf][k][r], a1 = sm.xs[buf][k][r + 1];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float b = sm.ws[buf][k][c + 16 * j];
+        acc[0][j] = fmaf(a0, b, acc[0][j]);
+        acc[1][j] = fmaf(a1, b, acc[1][j]);
+      }
+    }
+    // the other buffer was last read before the previous barrier
+    if (i + 1 < nk) ffma_store<B_KMAJOR>(sm, buf ^ 1, tid, xr, wr);
+    __syncthreads();
+  }
+  ffma_finish<ACT>(p, acc, sm, split, m0, n0, tid);
+}
+
 int device_index() {
   int device = 0;
   if (cudaGetDevice(&device) != cudaSuccess || device >= MAX_DEVICES)
@@ -736,12 +898,12 @@ int device_index() {
 
 template <auto kernel>
 cudaError_t launch(int smem_bytes, int bm, int bn, const Operands& p,
-                   int split, cudaStream_t stream) {
-  // the shared-memory limit is raised once per device and kernel
+                   int split, cudaStream_t stream, int threads = THREADS) {
+  // the dynamic shared-memory limit is raised once per device and kernel
   static bool raised[MAX_DEVICES] = {};
   const int device = device_index();
   if (device < 0) return cudaErrorInvalidDevice;
-  if (!raised[device]) {
+  if (smem_bytes > 0 && !raised[device]) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return err;
@@ -749,7 +911,7 @@ cudaError_t launch(int smem_bytes, int bm, int bn, const Operands& p,
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((p.M + bm - 1) / bm, (p.N + bn - 1) / bn, split);
-  cfg.blockDim = dim3(THREADS);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -775,6 +937,22 @@ cudaError_t launch_bf16(const Operands& p, int split, cudaStream_t s) {
   using G = Geometry<true, B_KMAJOR>;
   return launch<dense_bf16_kernel<B_KMAJOR, VEC>>(G::RING_BYTES, G::BM, G::BN,
                                                   p, split, s);
+}
+
+template <bool B_KMAJOR>
+cudaError_t launch_ffma(const Operands& p, int split, cudaStream_t s) {
+  switch (p.act) {
+    case 1: return launch<dense_ffma_kernel<B_KMAJOR, 1>>(0, F_BM, F_BN, p,
+                                                         split, s, F_THREADS);
+    case 2: return launch<dense_ffma_kernel<B_KMAJOR, 2>>(0, F_BM, F_BN, p,
+                                                         split, s, F_THREADS);
+    case 3: return launch<dense_ffma_kernel<B_KMAJOR, 3>>(0, F_BM, F_BN, p,
+                                                         split, s, F_THREADS);
+    case 4: return launch<dense_ffma_kernel<B_KMAJOR, 4>>(0, F_BM, F_BN, p,
+                                                         split, s, F_THREADS);
+    default: return launch<dense_ffma_kernel<B_KMAJOR, 0>>(
+        0, F_BM, F_BN, p, split, s, F_THREADS);
+  }
 }
 
 bool aligned16(const void* ptr) {
@@ -832,6 +1010,15 @@ int fused_dense_launch(const float* x, const float* w, const float* b,
   // 128 x 128 tiles, K split across a cluster when they leave most of the
   // card idle
   const int split = choose_split(tiles, kt_all, sms);
+  if (!bf16 && M <= FFMA_MAX_ROWS) {
+    if (ceil_div(N, F_BN) > 65535) return (int)cudaErrorInvalidConfiguration;
+    // 16 x 64 tiles of 128 threads, several to an SM: K split across a
+    // cluster while the tiles number under two blocks a scheduler
+    const int f_split = choose_split(ceil_div(M, F_BM) * ceil_div(N, F_BN),
+                                     kt_all, 4LL * sms);
+    return (int)(b_kmajor ? launch_ffma<true>(p, f_split, s)
+                          : launch_ffma<false>(p, f_split, s));
+  }
   if (!bf16) {
     if (b_kmajor)
       return (int)(vec ? launch_tf32<true, true>(p, split, s)

@@ -17,8 +17,9 @@ value read back from either package's output is the same float.
 :class:`DataLoader` is the JAX class without pandas: the wanted features,
 label triage, normalize-and-fill, the ``dataset`` splits or the
 cross-validation folds with their labels and noisy/clean splits, the
-modality table, and the reconstruction fill-back (data_funcs.py:310-381).
-Batch getters and ``device_arrays`` are not ported.
+modality table, the reconstruction fill-back (data_funcs.py:310-381), the
+batch getters, and :meth:`DataLoader.device_arrays`, which puts the
+matrices on a torch device.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import csv
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from multimodalautoencoder_tpu_torch.data import preprocess as pp
 from multimodalautoencoder_tpu_torch.data.modalities import ModalityTable
@@ -319,6 +321,7 @@ class DataLoader:
         self.cross_validation = cross_validation
         self.labels_to_sign = labels_to_sign
         self.num_folds = num_folds
+        self._rng = np.random.default_rng(seed)
         self.frame = read_csv(filename)
         if cross_validation:
             had_folds = pp.FOLD_COLUMN in self.frame.columns
@@ -360,7 +363,7 @@ class DataLoader:
 
         # matrix extraction (data_funcs.py:133-159, 470-532)
         self._X = self.frame.matrix(self.wanted_feats)
-        self._Y = self._label_matrix()
+        self._Y = self._label_matrix(self.frame)
         dataset = self.frame.columns["dataset"]
         self.test_X, self.test_Y = self._matrices(dataset == "Test")
         if self.separate_noisy_data:
@@ -394,12 +397,12 @@ class DataLoader:
         return np.asarray(self.frame.columns[pp.FOLD_COLUMN]).astype(
             np.float64).astype(np.int64)
 
-    def _label_matrix(self) -> Optional[np.ndarray]:
+    def _label_matrix(self, frame: Frame) -> Optional[np.ndarray]:
         """Every row's labels: (rows,) for one wanted label, (rows, L)
         otherwise; None when unsupervised."""
         if self.wanted_labels is None:
             return None
-        cols = [label_values(self.frame, n) for n in self.wanted_labels]
+        cols = [label_values(frame, n) for n in self.wanted_labels]
         y = cols[0] if len(cols) == 1 else np.stack(cols, axis=1)
         return pp.labels_to_sign(y) if self.labels_to_sign else y
 
@@ -407,9 +410,11 @@ class DataLoader:
         """(X, Y) of the rows selected by the boolean mask ``rows``."""
         return self._X[rows], None if self._Y is None else self._Y[rows]
 
-    def noisy_flags(self) -> np.ndarray:
-        """Each row's ``logistics_noisy`` flag, in ``frame`` order."""
-        col = self.frame.columns["logistics_noisy"]
+    def noisy_flags(self, frame: Optional[Frame] = None) -> np.ndarray:
+        """Each row's ``logistics_noisy`` flag, in the order of ``frame``
+        (default: this loader's)."""
+        col = (self.frame if frame is None else frame).columns[
+            "logistics_noisy"]
         if col.dtype.kind == "f":
             return col == 1.0
         return np.isin(col, _TRUE_TEXT)
@@ -421,6 +426,43 @@ class DataLoader:
         cx, cy = self._matrices(rows & ~noisy)
         nx, ny = self._matrices(rows & noisy)
         return cx, cy, nx, ny
+
+    def get_noisy_clean_data_for_dataset(self, dset: str):
+        """(clean_X, clean_Y, noisy_X, noisy_Y) of one dataset split
+        (data_funcs.py:225-245)."""
+        return self._noisy_clean(self.frame.columns["dataset"] == dset)
+
+    def get_noisy_or_clean_data_matrices(self, frame: Frame,
+                                         noisy: bool = True):
+        """(X, Y) of the noisy or the clean rows of ``frame``
+        (data_funcs.py:247-261)."""
+        rows = self.noisy_flags(frame) == noisy
+        sub = frame.take(rows)
+        return sub.matrix(self.wanted_feats), self._label_matrix(sub)
+
+    # batch getters (data_funcs.py:161-202): uniform with replacement
+
+    def get_unsupervised_train_batch(self, batch_size: int) -> np.ndarray:
+        idx = self._rng.integers(0, len(self.train_X), size=batch_size)
+        return self.train_X[idx]
+
+    def get_supervised_train_batch(self, batch_size: int):
+        idx = self._rng.integers(0, len(self.train_X), size=batch_size)
+        return self.train_X[idx], self.train_Y[idx]
+
+    def get_unsupervised_val_batch(self, batch_size: int) -> np.ndarray:
+        idx = self._rng.integers(0, len(self.val_X), size=batch_size)
+        return self.val_X[idx]
+
+    def get_supervised_val_batch(self, batch_size: int):
+        idx = self._rng.integers(0, len(self.val_X), size=batch_size)
+        return self.val_X[idx], self.val_Y[idx]
+
+    def get_val_data(self):
+        return self.val_X, self.val_Y
+
+    def get_feature_size(self) -> int:
+        return int(np.shape(self.train_X)[1])
 
     def _fold_rows(self, fold: int):
         """Boolean masks of fold ``fold``'s train rows (every other
@@ -457,6 +499,25 @@ class DataLoader:
          self.val_X, self.val_Y) = self.get_cross_val_data_for_fold(fold)
         if self.separate_noisy_data:
             self.set_noisy_clean_data_for_fold(fold)
+
+    def device_arrays(self, device="cuda", dtype=torch.float32
+                      ) -> Dict[str, torch.Tensor]:
+        """train_X, val_X, test_X (and their Ys when supervised) as tensors
+        on ``device``: f32 by default; the reference's float64 cast
+        (data_funcs.py:534-545) is a host-side artifact."""
+        out = {"train_x": torch.as_tensor(self.train_X, dtype=dtype,
+                                          device=device),
+               "val_x": torch.as_tensor(self.val_X, dtype=dtype,
+                                        device=device),
+               "test_x": torch.as_tensor(self.test_X, dtype=dtype,
+                                         device=device)}
+        if self.wanted_labels is not None:
+            out.update({k: torch.as_tensor(v, dtype=torch.float32,
+                                           device=device)
+                        for k, v in (("train_y", self.train_Y),
+                                     ("val_y", self.val_Y),
+                                     ("test_y", self.test_Y))})
+        return out
 
     def find_missing_modalities_indices(self, x: np.ndarray) -> List[int]:
         """A modality is 'missing' iff its span is all -1.0 — detected via

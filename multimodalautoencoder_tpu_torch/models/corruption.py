@@ -66,6 +66,14 @@ class NoiseSpec:
             intelligent=bool(cfg.intelligent_noise),
         )
 
+    def to(self, device) -> "NoiseSpec":
+        """The same spec with its tables on ``device``, so that corrupting
+        a batch there copies nothing from the host."""
+        return dataclasses.replace(
+            self, type_masks=self.type_masks.to(device),
+            type_log_probs=self.type_log_probs.to(device),
+            modality_masks=self.modality_masks.to(device))
+
 
 def add_noise_to_batch(generator: Optional[torch.Generator], x: torch.Tensor,
                        spec: NoiseSpec,

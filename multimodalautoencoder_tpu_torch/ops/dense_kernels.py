@@ -2,13 +2,16 @@
 
 Counterpart of ``multimodalautoencoder_tpu/ops/pallas_kernels.py``.  The
 Pallas TPU kernel there (``_kernel``, behind ``fused_dense``) becomes the
-hand-written CUDA C++ kernel in ``csrc/fused_dense.cu``: f32 operands as
+hand-written CUDA C++ kernel in ``csrc/fused_dense.cu``: f32 operands
+with at most ``FFMA_MAX_ROWS`` rows (training and evaluation batches) as
+exact f32 FMAs in k order on the CUDA cores; more f32 rows (serving) as
 3xTF32 on ``wgmma`` (each product split into TF32 hi and lo parts, three
 tensor-core products, each 32-deep slice summed in a fresh accumulator and
 added to the f32 sum in registers, since the tensor cores cut every
-instruction's sum toward zero; within 5e-6 of f64 at K = 1000), bf16
-operands on ``mma.sync``.  This module builds it, binds
-it and dispatches to it:
+instruction's sum toward zero; within 5e-6 of f64 at K = 1000, but shrunk
+toward zero on average, which is why training batches stay off the tensor
+cores); bf16 operands on ``mma.sync``.  This module builds it, binds it and
+dispatches to it:
 
 - on a CUDA tensor, :func:`fused_dense` launches the kernel or raises.  A
   failed build or launch is an error, never a fallback;
@@ -18,10 +21,15 @@ it and dispatches to it:
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
 ``_build/`` beside the package (``ops/cuda_library.py``).
 
-Forward only: the custom VJP of the Pallas version (``_bwd``, plain XLA
-there) comes with the single-run trainer, as a ``torch.autograd.Function``.
-The kernel path therefore refuses inputs that require a gradient.  The
-grid trainer never reaches it: an ``act_id`` turns ``use_pallas`` off.
+Trainable: :func:`fused_dense` is a ``torch.autograd.Function`` on both
+devices, the counterpart of the Pallas version's custom VJP (``_fwd`` /
+``_bwd``, pallas_kernels.py:101-136).  The forward is the kernel (or the
+plain version on the CPU) and saves ``(x, w, b, out)``; the backward takes
+the activation's derivative from ``out`` and forms ``dx = gz w^T``, ``dw =
+x^T gz``, ``db = sum(gz)`` with ``torch.matmul`` in f32, whatever ``bf16``
+is, as the JAX VJP does.  The single-run trainer (``train/trainer.py``)
+reaches it with ``MMAEConfig.use_pallas``; the grid trainer never does: an
+``act_id`` turns ``use_pallas`` off.
 """
 
 from __future__ import annotations
@@ -40,6 +48,10 @@ from multimodalautoencoder_tpu_torch.ops.cuda_library import (BUILD_DIR,
 
 SOURCE = os.path.join(CSRC_DIR, "fused_dense.cu")
 LIBRARY = os.path.join(BUILD_DIR, "libfused_dense.so")
+
+# f32 operands with at most this many rows take the FFMA kernel
+# (FFMA_MAX_ROWS in csrc/fused_dense.cu)
+FFMA_MAX_ROWS = 256
 
 # Activation id passed to the kernel = position in config.ACTIVATIONS.
 ACTIVATION_IDS = {name: i for i, name in enumerate(ACTIVATIONS)}
@@ -117,9 +129,7 @@ KERNELS = CudaLibrary()
 
 
 def _check_cuda_operands(x: torch.Tensor, w: torch.Tensor,
-                         b: torch.Tensor, activation: str) -> None:
-    if activation not in ACTIVATION_IDS:
-        raise ValueError(f"unknown activation {activation!r}")
+                         b: torch.Tensor) -> None:
     for name, t, dim in (("x", x, 2), ("w", w, 2), ("b", b, 1)):
         if t.dtype != torch.float32:
             raise TypeError(f"fused_dense: {name} must be float32, "
@@ -130,9 +140,6 @@ def _check_cuda_operands(x: torch.Tensor, w: torch.Tensor,
         if t.dim() != dim:
             raise ValueError(f"fused_dense: {name} must be {dim}-D, got "
                              f"shape {tuple(t.shape)}")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError("fused_dense's CUDA kernel is forward-only; "
-                               "run it under torch.no_grad()")
     if w.shape[0] != x.shape[1] or b.shape[0] != w.shape[1]:
         raise ValueError(f"fused_dense: shapes x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}, b {tuple(b.shape)} do not chain")
@@ -142,19 +149,15 @@ def _check_cuda_operands(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("fused_dense: the kernel takes 32-bit sizes")
 
 
-def fused_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                activation: str = "linear",
-                bf16: bool = False) -> torch.Tensor:
-    """``act(x @ w + b)``; x (M, K), w (K, N), b (N,) -> (M, N) f32.
-
-    On CUDA tensors one launch of the CUDA kernel; ``x`` and ``w`` may be
-    strided views (the tied decoder passes ``w.T``).  On CPU tensors the
-    plain version."""
+def _forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+             activation: str, bf16: bool) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors, the plain version on CPU
+    tensors."""
     if x.device.type == "cpu":
         return fused_dense_reference(x, w, b, activation, bf16)
     if x.device.type != "cuda":
         raise ValueError(f"fused_dense runs on cuda or cpu, not {x.device}")
-    _check_cuda_operands(x, w, b, activation)
+    _check_cuda_operands(x, w, b)
     out = torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32,
                       device=x.device)
     if out.numel() == 0:
@@ -162,6 +165,61 @@ def fused_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     with torch.cuda.device(x.device):
         KERNELS.fused_dense(x, w, b, out, ACTIVATION_IDS[activation], bf16)
     return out
+
+
+def activation_grad(g: torch.Tensor, out: torch.Tensor,
+                    activation: str) -> torch.Tensor:
+    """``g`` times the activation's derivative, written in terms of its
+    output ``out`` (pallas_kernels._bwd, :109-124)."""
+    if activation == "linear":
+        return g
+    if activation == "relu":
+        return g * (out > 0)
+    if activation == "tanh":
+        return g * (1.0 - out * out)
+    if activation == "softsign":
+        # out = z / (1 + |z|)  ->  dz = (1 - |out|)^2
+        return g * torch.square(1.0 - out.abs())
+    if activation == "softplus":
+        # out = log(1 + e^z)  ->  sigmoid(z) = 1 - e^-out
+        return g * (1.0 - torch.exp(-out))
+    raise ValueError(f"unknown activation {activation!r}")
+
+
+class FusedDense(torch.autograd.Function):
+    """``act(x @ w + b)`` with the Pallas version's VJP: the forward saves
+    ``(x, w, b, out)``; the backward is plain f32 products on the saved
+    operands (not their bf16 roundings), as ``_bwd`` is plain XLA."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, activation: str, bf16: bool):
+        out = _forward(x, w, b, activation, bf16)
+        ctx.save_for_backward(x, w, b, out)
+        ctx.activation = activation
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, _, out = ctx.saved_tensors
+        gz = activation_grad(g, out, ctx.activation)
+        dx = gz @ w.T if ctx.needs_input_grad[0] else None
+        dw = x.T @ gz if ctx.needs_input_grad[1] else None
+        db = gz.sum(0) if ctx.needs_input_grad[2] else None
+        return dx, dw, db, None, None
+
+
+def fused_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                activation: str = "linear",
+                bf16: bool = False) -> torch.Tensor:
+    """``act(x @ w + b)``; x (M, K), w (K, N), b (N,) -> (M, N) f32.
+
+    On CUDA tensors one launch of the CUDA kernel; ``x`` and ``w`` may be
+    strided views (the tied decoder passes ``w.T``, and its gradient flows
+    back through the view).  On CPU tensors the plain version.  Either way
+    differentiable through :class:`FusedDense`."""
+    if activation not in ACTIVATION_IDS:
+        raise ValueError(f"unknown activation {activation!r}")
+    return FusedDense.apply(x, w, b, activation, bool(bf16))
 
 
 def fused_mlp(x: torch.Tensor, weights: Sequence[torch.Tensor],

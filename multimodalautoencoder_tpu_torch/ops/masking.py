@@ -1,8 +1,8 @@
-"""Row-masked reconstruction losses.
+"""Row-masked reconstruction losses and the missing-modality fill.
 
-Counterpart of ``multimodalautoencoder_tpu/ops/masking.py`` (its loss
-half).  Config-parallel sweeps stack ragged CV folds into padded arrays;
-loss reductions must then count only valid rows.  These equal
+Counterpart of ``multimodalautoencoder_tpu/ops/masking.py``.
+Config-parallel sweeps stack ragged CV folds into padded arrays; loss
+reductions must then count only valid rows.  These equal
 :mod:`..models.losses` when every row is valid.  Reductions run over the
 last two axes, so a stack of instances ``(N, rows, F)`` with masks
 ``(N, rows)`` gets one loss per instance.
@@ -55,3 +55,27 @@ def masked_report_scale(loss_name: str, loss: torch.Tensor,
         return loss / num_rows
     n = torch.clamp(torch.sum(row_valid.to(torch.float32), dim=-1), min=1)
     return loss / n
+
+
+def missing_modality_matrix(x: torch.Tensor, modality_masks: torch.Tensor,
+                            mask_value: float = -1.0) -> torch.Tensor:
+    """(rows, num_modalities) bool: modality m is missing in row r iff its
+    span sums to ``mask_value`` times its width (data_funcs.py:366-381)."""
+    mm = modality_masks.to(device=x.device, dtype=x.dtype)    # (M, F)
+    span_sums = x @ mm.T                                       # (rows, M)
+    widths = torch.sum(mm, dim=1)                              # (M,)
+    return span_sums == mask_value * widths
+
+
+def fill_missing_with_reconstruction(x: torch.Tensor, recon: torch.Tensor,
+                                     modality_masks: torch.Tensor,
+                                     mask_value: float = -1.0
+                                     ) -> torch.Tensor:
+    """Overwrite only the missing modalities' entries with the
+    reconstruction: the device-side core of fill_df_with_reconstruction
+    (data_funcs.py:310-364)."""
+    missing = missing_modality_matrix(x, modality_masks, mask_value)
+    feat_missing = (missing.to(torch.float32)
+                    @ modality_masks.to(device=x.device,
+                                        dtype=torch.float32)) > 0
+    return torch.where(feat_missing, recon, x)

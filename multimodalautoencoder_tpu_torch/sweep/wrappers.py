@@ -11,18 +11,18 @@ settings x folds serially, the sweeps bucket the grid by shape
 the plain trainers).  ``MMAESweep`` scores each bucket by its noisy-val
 objective and the on-device embedding probe (``sweep/probe.py``); the
 classification sweep pretrains each phase-1 family's unique MMAE settings
-once (the JAX package's ``share_phase1=True`` default, PARITY.md) and runs
-its metric battery batched on the device.  The ledger, resume and
-best-setting contract is the reference's (``sweep/engine.py``).
+once (the JAX package's ``share_phase1=True`` default, PARITY.md), or with
+``share_phase1=False`` retrains the MMAE for every setting as the reference
+does (``grid_trainer.train_two_phase_sharded``), and runs its metric
+battery batched on the device.  The ledger, resume and best-setting
+contract is the reference's (``sweep/engine.py``).  ``check_test`` and
+exporting a winner from an earlier generation of a resumed ledger retrain
+one setting on fold 0 with the single-run trainer (``train/trainer.py``).
 
 Not ported: ``process_shard`` and the mesh (multi-GPU, ROADMAP Queue 1
-item 13), the JAX compile cache, ``share_phase1=False`` (the reference's
-retraining of the MMAE for every setting; ``grid_trainer.
-train_two_phase_sharded`` trains a bucket that way), and ``probe="svm"``
-(the host sklearn SVC grid; scikit-learn is not a dependency of the port,
-Queue 1 item 12).  ``check_test=True`` and exporting a winner from an
-earlier generation of a resumed ledger need the single-run trainer
-(ROADMAP Queue 1 item 5).  Each of these raises ``NotImplementedError``.
+item 13), the JAX compile cache, and ``probe="svm"`` (the host sklearn SVC
+grid; scikit-learn is not a dependency of the port, Queue 1 item 12).
+Each of these raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,14 +43,13 @@ from multimodalautoencoder_tpu_torch.ops import optim
 from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
 from multimodalautoencoder_tpu_torch.sweep import engine, grid as grid_lib
 from multimodalautoencoder_tpu_torch.sweep import probe as probe_lib
+from multimodalautoencoder_tpu_torch.train import trainer
 from multimodalautoencoder_tpu_torch.utils import helpers
 
 # autoencoder_wrapper.py:25
 LABELS_TO_PREDICT = ["happiness", "health", "calmness"]
 DEFAULT_NUM_CROSS_FOLDS = 5
 METRIC_ORDER = ("acc", "auc", "f1", "precision", "recall")
-SINGLE_RUN_TRAINER = ("the single-run trainer (train/trainer.py training "
-                      "half, ROADMAP Queue 1 item 5) is not ported yet")
 MULTI_GPU = ("process_shard: multi-host scale-out (parallel/multihost.py, "
              "ROADMAP Queue 1 item 13) is not ported yet")
 SVM_PROBE = ("probe='svm': the host sklearn SVC grid needs scikit-learn, "
@@ -169,10 +168,9 @@ class MMAESweep:
         GPU, the plain trainer otherwise; 'xla' / 'pallas' force.
         ``save_best_params`` checkpoints the best setting's fold-0
         parameters as ``best_mmae`` at the end of the sweep.
-        ``check_test`` and ``process_shard`` raise
+        ``check_test`` retrains the best setting on fold 0 and scores it on
+        the test set (:meth:`test_on_test`).  ``process_shard`` raises
         ``NotImplementedError``."""
-        if check_test:
-            raise NotImplementedError(f"check_test: {SINGLE_RUN_TRAINER}")
         if process_shard is not None:
             raise NotImplementedError(MULTI_GPU)
         if probe == "svm" and classification_data_loader is not None:
@@ -183,6 +181,7 @@ class MMAESweep:
         self.data_loader = data_loader
         self.cls_loader = classification_data_loader
         self.num_cross_folds = num_cross_folds
+        self.check_test = check_test
         self.save_best_params = save_best_params
         self.backend = backend
         self._best_saved = None   # (loss, setting, host params, cfg)
@@ -425,9 +424,9 @@ class MMAESweep:
         """Checkpoint the ledger winner's fold-0 parameters as
         ``best_mmae``.  The tracked winner (ranked by mean val loss) stands
         in only when the sweep optimizes that loss and the ledger's best
-        is not strictly better; a better row left by an earlier generation
-        of a resumed ledger would need a retrain, which raises
-        ``NotImplementedError``."""
+        is not strictly better; otherwise (a better row left by an earlier
+        generation of a resumed ledger) the winner is retrained on fold
+        0."""
 
         def resolve(row, ledger_score):
             use_tracked = (
@@ -445,7 +444,10 @@ class MMAESweep:
                     activation=setting.get("activation_function",
                                            cfg.activation))
                 return setting, host_params, cfg, score
-            return self._retrain_fold0(_grid_setting_from_row(self, row))
+            state, cfg, _ = self._retrain_fold0(row)
+            return (_grid_setting_from_row(self, row),
+                    optim.tree_map(lambda t: t.cpu(), state.params), cfg,
+                    ledger_score)
 
         return _export_best_checkpoint(self, base_name="best_mmae",
                                        step=self.tcfg.num_steps,
@@ -456,24 +458,58 @@ class MMAESweep:
             optimize_for or self.optimize_for,
             min_or_max or self.min_or_max)
 
-    def _retrain_fold0(self, setting: Dict[str, Any]):
-        raise NotImplementedError(
-            f"retraining {setting} on fold 0: {SINGLE_RUN_TRAINER}")
+    def retrain_cfg(self, setting: Dict[str, Any]) -> MMAEConfig:
+        """The config a setting (or a whole ledger row) is retrained under:
+        its bucket's shape with its dropout, penalty and activation."""
+        setting = grid_lib.convert_param_dict_for_use(dict(setting))
+        return self._cfg_for_bucket(setting).replace(
+            dropout_prob=float(setting.get("dropout_prob", 1.0)),
+            weight_penalty=float(setting.get("weight_penalty", 0.0)),
+            activation=setting.get("activation_function", "softsign"))
 
-    def test_on_test(self, setting: Dict[str, Any]):
-        raise NotImplementedError(f"test_on_test: {SINGLE_RUN_TRAINER}")
+    def _retrain_fold0(self, setting: Dict[str, Any]):
+        """Train ``setting`` from scratch on fold 0 with the single-run
+        trainer (the reference's single-setting recipe,
+        autoencoder_wrapper.py:364-376), on ``device``.  Returns (trained
+        TrainState, resolved cfg, fold-0 arrays on the device); accepts a
+        whole ledger row (extra columns ignored)."""
+        setting = grid_lib.convert_param_dict_for_use(dict(setting))
+        cfg = self.retrain_cfg(setting)
+        tcfg = self.tcfg
+        if "optimizer" in setting:
+            tcfg = tcfg.replace(optimizer=str(setting["optimizer"]))
+        self.data_loader.set_to_cross_validation_fold(0)
+        arr = self.data_loader.device_arrays(self.device)
+        state = trainer.init_state(self.seed, cfg, tcfg, self.device)
+        state, _ = trainer.train(state, cfg, tcfg, self.spec,
+                                 arr["train_x"], arr["val_x"])
+        return state, cfg, arr
+
+    @staticmethod
+    def test_score(params, cfg: MMAEConfig, test_x: torch.Tensor) -> float:
+        """The report-scaled reconstruction loss of ``test_x``, without
+        noise (``trainer.predict``)."""
+        _, loss = trainer.predict(params, cfg, test_x)
+        return float(loss)
+
+    def test_on_test(self, setting: Dict[str, Any]) -> float:
+        """Retrain ``setting`` on fold 0 and report its test-set loss
+        (autoencoder_wrapper.py:364-376)."""
+        state, cfg, arr = self._retrain_fold0(setting)
+        return self.test_score(state.params, cfg, arr["test_x"])
 
     def run(self):
-        """sweep -> (best setting, held-out test score (None: check_test
-        is refused), best rows by svm_val_acc / svm_val_auc)
+        """sweep -> (best setting, held-out test score or None without
+        ``check_test``, best rows by svm_val_acc / svm_val_auc)
         (autoencoder_wrapper.py:378-385)."""
         self.sweep_all_parameters()
         best = self.find_best_setting()
+        test_score = self.test_on_test(best) if self.check_test else None
         extras = {}
         for metric in ("svm_val_acc", "svm_val_auc"):
             if metric in self.ledger.columns:
                 extras[metric] = self.find_best_setting(metric, "max")
-        return best, None, extras
+        return best, test_score, extras
 
 
 class MMAEClassificationSweep:
@@ -509,21 +545,25 @@ class MMAEClassificationSweep:
                  save_results_every_nth: int = 1, seed: int = 0,
                  verbose: bool = True, backend: str = "auto",
                  optimizer_state_dtype: str = "bfloat16",
+                 share_phase1: bool = True,
                  compute_dtype: str = "float32",
                  save_best_params: bool = False, device="cuda"):
         """``backend``: 'auto' trains both phases on the CUDA kernels where
         the shape family allows (``cls_train_kernels.supported_two_phase``)
         and the device is a GPU, the plain trainers otherwise; 'xla' /
-        'pallas' force.  Each unique MMAE setting is pretrained once per
-        shape family and shared across the classifier settings that use
-        it.  ``save_best_params`` checkpoints the best setting's fold-0
+        'pallas' force.  ``share_phase1`` (default True): pretrain each
+        unique MMAE setting once per shape family and share it across the
+        classifier settings that use it; False retrains the MMAE for every
+        setting, as the reference does
+        (autoencoder_classification_wrapper.py:195-227).
+        ``save_best_params`` checkpoints the best setting's fold-0
         two-phase parameters at the end of the sweep, consumable by ``cli
-        fill/embed --checkpoint``.  ``check_test`` raises
-        ``NotImplementedError``: it needs the single-run trainer."""
-        if check_test:
-            raise NotImplementedError(f"check_test: {SINGLE_RUN_TRAINER}")
+        fill/embed --checkpoint``.  ``check_test`` retrains the best
+        setting on fold 0 and scores it on the test set
+        (:meth:`test_on_test`)."""
         self.device = torch.device(device)
         self.backend = backend
+        self.share_phase1 = share_phase1
         self.save_best_params = save_best_params
         self._best_saved = None   # (signed score, setting, host params, cfg)
         self._families: Dict[tuple, dict] = {}
@@ -715,7 +755,8 @@ class MMAEClassificationSweep:
         """Group buckets by phase-1 family (first-seen family order) and
         list each family's unique MMAE sub-settings: its phase-1 stack is
         trained once and shared by all its buckets.  On one device every
-        family shares."""
+        family shares (the JAX package's ``_share_family`` with one device
+        on the config axis)."""
         order, fam_buckets = [], {}
         for kb in buckets:
             fk = self._family_key(kb[1][0])
@@ -738,11 +779,13 @@ class MMAEClassificationSweep:
         return [kb for fk in order for kb in fam_buckets[fk]]
 
     def _launch_bucket(self, bi: int, bucket):
-        """Train one bucket's two phases (the first bucket of a family
-        also pretrains the family) and launch its metric battery on the
-        device; nothing is copied to the host here.  The kernels' launches
-        are enqueued asynchronously, so the next bucket's host work
-        overlaps this one's device work."""
+        """Train one bucket's two phases and launch its metric battery on
+        the device; nothing is copied to the host here.  With
+        ``share_phase1`` the first bucket of a family also pretrains the
+        family and each bucket runs phase 2 on its settings' pretrained
+        rows; without it every setting pretrains its own MMAE.  The
+        kernels' launches are enqueued asynchronously, so the next bucket's
+        host work overlaps this one's device work."""
         t0 = time.time()
         cfg = self._cfg_for_bucket(bucket[0])
         mmae_settings = [self._mmae_subsetting(s) for s in bucket]
@@ -751,8 +794,21 @@ class MMAEClassificationSweep:
         on_gpu = self.device.type == "cuda"
         seed = cls_train_kernels.derive_seed(self.seed, 0, bi)
         family = self._family_key(bucket[0])
-        fam = self._families[family]
+        fam = self._families.get(family)
         K = self.num_cross_folds
+        if fam is None:
+            backend_used = gt.resolve_backend_two_phase(
+                self.backend, cfg, self.tcfg, self.cls_tcfg, self.spec,
+                on_gpu=on_gpu)
+            params, losses, preds = gt.train_two_phase_sharded(
+                self.device, seed, cfg, self.tcfg, self.cls_tcfg, self.spec,
+                hyper, chyper, self.unsup_folded, self.sup_folded,
+                backend=backend_used)
+            return self._launched(
+                t0, bi, bucket, losses, None, backend_used,
+                len(bucket) * K * (self.tcfg.num_steps
+                                   + self.cls_tcfg.num_steps),
+                None, params, preds)
         # resolve 'auto' per phase so the ledger records what ran
         p1_backend = gt.resolve_backend(
             self.backend, cls_train_kernels.phase1_cfg(cfg), self.tcfg,
@@ -782,6 +838,13 @@ class MMAEClassificationSweep:
             self.device, seed, cfg, self.tcfg, self.cls_tcfg, self.spec,
             params_u, p1_map, hyper, chyper, self.sup_folded,
             backend=p2_backend)
+        return self._launched(t0, bi, bucket, losses, p1_map, backend_used,
+                              inst_steps, family, params, preds)
+
+    def _launched(self, t0, bi, bucket, losses, p1_map, backend_used,
+                  inst_steps, family, params, preds):
+        """Launch the metric battery on a trained bucket's predictions and
+        return what :meth:`_finalize_bucket` needs."""
         t_train = time.time()
         self.phase_seconds["train"] += t_train - t0
         metrics_dev = self._metric_battery_launch(preds)
@@ -795,16 +858,11 @@ class MMAEClassificationSweep:
                 "metrics": metrics_dev}
 
     def _export_cfg(self, setting: Dict[str, Any]) -> MMAEConfig:
-        """The exported checkpoint's config: ``dropout_prob`` is the phase-2
-        head keep probability (inert at inference), the MMAE's penalty and
-        activation, the head's activation and penalty."""
-        return self._cfg_for_bucket(setting).replace(
-            dropout_prob=float(setting.get("dropout_prob", 1.0)),
-            weight_penalty=float(setting.get("mmae_weight_penalty", 0.0)),
-            activation=setting.get("mmae_activation_function", "relu"),
-            classification_activation=setting.get("activation_func"),
-            classification_weight_penalty=float(
-                setting.get("weight_penalty", 0.0)))
+        """The exported checkpoint's config: :meth:`retrain_cfg` with
+        ``dropout_prob`` the phase-2 head keep probability (inert at
+        inference), the config phase 2 trains under."""
+        return self.retrain_cfg(setting).replace(
+            dropout_prob=float(setting.get("dropout_prob", 1.0)))
 
     def _track_best(self, st, rows) -> None:
         """Keep the sweep-best setting's fold-0 two-phase parameters
@@ -831,7 +889,9 @@ class MMAEClassificationSweep:
         (launch + finalize), not the wall span."""
         bucket = st["bucket"]
         t1 = time.time()
-        losses = np.asarray(st["losses"].cpu())[st["p1_map"]]   # (C, K)
+        losses = np.asarray(st["losses"].cpu())
+        if st["p1_map"] is not None:
+            losses = losses[st["p1_map"]]                         # (C, K)
         self.phase_seconds["train"] += time.time() - t1
 
         t2 = time.time()
@@ -855,10 +915,11 @@ class MMAEClassificationSweep:
         est.record(bucket_secs, batch=len(bucket))
         # every bucket of a family launches before its last finalizes, so
         # the shared stack can go once every user is finalized
-        fam = self._families[st["family"]]
-        fam["remaining"] -= 1
-        if fam["remaining"] <= 0:
-            fam["launched"] = None
+        fam = self._families.get(st["family"])
+        if fam is not None:
+            fam["remaining"] -= 1
+            if fam["remaining"] <= 0:
+                fam["launched"] = None
         if self.verbose:
             print(f"bucket {st['bi'] + 1}/{num_buckets} "
                   f"({len(bucket)} settings x {self.num_cross_folds} "
@@ -868,7 +929,11 @@ class MMAEClassificationSweep:
         pending = [s for s in self.list_of_param_settings
                    if not (self.ledger.started_from
                            and self.ledger.already_done(s))]
-        buckets = self._prepare_families(grid_lib.bucket_settings(pending))
+        buckets = grid_lib.bucket_settings(pending)
+        if self.share_phase1:
+            buckets = self._prepare_families(buckets)
+        else:
+            self._families = {}
         est = engine.TimeEstimator(self.num_settings,
                                    self.ledger.started_from)
         inflight = None
@@ -897,9 +962,9 @@ class MMAEClassificationSweep:
 
     def export_best_params(self) -> Optional[str]:
         """Checkpoint the ledger winner's fold-0 two-phase parameters as
-        ``best_mmae_cls``.  The winner must be one this process trained; a
-        better row left by an earlier generation of a resumed ledger would
-        need a retrain, which raises ``NotImplementedError``."""
+        ``best_mmae_cls``: the tracked winner of this process, or, where a
+        resumed ledger holds a better row from an earlier generation, that
+        setting retrained on fold 0."""
 
         def resolve(row, ledger_score):
             sign = 1.0 if self.min_or_max == "max" else -1.0
@@ -909,26 +974,107 @@ class MMAEClassificationSweep:
                     and not sign * ledger_score > self._best_saved[0]):
                 signed, setting, host_params, cfg = self._best_saved
                 return setting, host_params, cfg, sign * signed
-            return self._retrain_fold0(_grid_setting_from_row(self, row))
+            state2, cfg, _ = self._retrain_fold0(row)
+            return (_grid_setting_from_row(self, row),
+                    optim.tree_map(lambda t: t.cpu(), state2.params), cfg,
+                    ledger_score)
 
         return _export_best_checkpoint(self, base_name="best_mmae_cls",
                                        step=self.cls_tcfg.num_steps,
                                        resolve=resolve)
 
-    def _retrain_fold0(self, setting: Dict[str, Any]):
-        raise NotImplementedError(
-            f"retraining {setting} on fold 0: {SINGLE_RUN_TRAINER}")
+    def retrain_cfg(self, setting: Dict[str, Any]) -> MMAEConfig:
+        """The phase-1 config a setting (or a whole ledger row) is
+        retrained under: the bucket's shape, the MMAE's dropout, penalty
+        and activation, and the head's activation and penalty."""
+        setting = grid_lib.convert_param_dict_for_use(dict(setting))
+        return self._cfg_for_bucket(setting).replace(
+            dropout_prob=float(setting.get("mmae_dropout_prob", 1.0)),
+            weight_penalty=float(setting.get("mmae_weight_penalty", 0.0)),
+            activation=setting.get("mmae_activation_function", "relu"),
+            classification_activation=setting.get("activation_func"),
+            classification_weight_penalty=float(
+                setting.get("weight_penalty", 0.0)))
 
-    def test_on_test(self, setting: Dict[str, Any]):
-        raise NotImplementedError(f"test_on_test: {SINGLE_RUN_TRAINER}")
+    def _retrain_fold0(self, setting: Dict[str, Any]):
+        """Train both phases of ``setting`` from scratch on fold 0 with the
+        single-run trainer (the reference's per-setting recipe,
+        autoencoder_classification_wrapper.py:195-258), on ``device``.
+        Returns (trained phase-2 TrainState, its cfg, the classification
+        fold-0 arrays on the device); accepts a whole ledger row."""
+        setting = grid_lib.convert_param_dict_for_use(dict(setting))
+        cfg = self.retrain_cfg(setting)
+        self.data_loader.set_to_cross_validation_fold(0)
+        self.cls_loader.set_to_cross_validation_fold(0)
+        arr = self.data_loader.device_arrays(self.device)
+        cls_arr = self.cls_loader.device_arrays(self.device)
+        state = trainer.init_state(self.seed, cfg, self.tcfg, self.device)
+        state, _ = trainer.train(state, cfg, self.tcfg, self.spec,
+                                 arr["train_x"], arr["val_x"])
+        # phase 2 trains under the setting's head keep probability
+        # ('dropout_prob'), as the grid path does, with fresh f32 Adam
+        # slots (the JAX package's opt_init without a state dtype)
+        cfg2 = self._export_cfg(setting)
+        cls_tcfg = self.cls_tcfg
+        state2 = trainer.state_for_params(
+            state.params, cls_tcfg.replace(optimizer_state_dtype="float32"),
+            state.generator)
+        state2, _ = trainer.train_classification(
+            state2, cfg2, cls_tcfg, self.spec, cls_arr["train_x"],
+            cls_arr["train_y"], cls_arr["val_x"], cls_arr["val_y"])
+        return state2, cfg2, cls_arr
+
+    def test_metrics(self, params, cfg: MMAEConfig) -> Dict[str, float]:
+        """The metric battery of ``params`` on the classification test
+        set, with its noisy / clean slices where the loader has them."""
+        def metrics(X, Y):
+            x = torch.as_tensor(np.asarray(X), dtype=torch.float32,
+                                device=self.device)
+            preds = trainer.classification_predictions(
+                params, cfg, x,
+                torch.Generator(device=self.device).manual_seed(1))
+            y = torch.as_tensor(np.asarray(Y, dtype=float).reshape(-1),
+                                dtype=torch.float32, device=self.device)
+            m = metrics_lib.all_classification_metrics(
+                preds.reshape(-1).to(torch.float32), y)
+            return {k: float(v) for k, v in m.items()}
+
+        loader = self.cls_loader
+        result = {f"test_{k}": v
+                  for k, v in metrics(loader.test_X, loader.test_Y).items()}
+        if self.check_noisy_data and "logistics_noisy" in \
+                loader.frame.columns:
+            for name, X_s, Y_s in (
+                    ("noisy", loader.noisy_test_X, loader.noisy_test_Y),
+                    ("clean", loader.clean_test_X, loader.clean_test_Y)):
+                if len(X_s) == 0:
+                    continue
+                m = metrics(X_s, Y_s)
+                result[f"{name}_test_acc"] = m["acc"]
+                result[f"{name}_test_auc"] = m["auc"]
+        return result
+
+    def test_on_test(self, setting: Dict[str, Any]) -> Dict[str, float]:
+        """Held-out test evaluation of a setting: retrain both phases on
+        fold 0, predict the classification test set, and run the full
+        metric battery with the noisy / clean slices.  The reference's
+        automated test path is broken (a NameError at
+        autoencoder_classification_wrapper.py:369, SURVEY §2.8.6); this is
+        its intent."""
+        state2, cfg, _ = self._retrain_fold0(setting)
+        return self.test_metrics(state2.params, cfg)
 
     def get_final_results(self):
         """Best settings by val_acc / noisy_val_acc / clean_val_acc
-        (generic_wrapper.py:514-522), as ledger row dicts."""
+        (generic_wrapper.py:514-522), as ledger row dicts, and with
+        ``check_test`` the best val_acc setting's test metrics under
+        ``"test"``."""
         out = {}
         for metric in ("val_acc", "noisy_val_acc", "clean_val_acc"):
             if metric in self.ledger.columns:
                 out[metric] = self.ledger.find_best_setting(metric, "max")
+        if self.check_test and "val_acc" in out:
+            out["test"] = self.test_on_test(out["val_acc"])
         return out
 
     def run(self):

@@ -6,7 +6,8 @@ same study."""
 import functools
 import math
 
-import jax  # noqa: F401  (the JAX package runs on the CPU here)
+import jax  # the JAX package runs on the CPU here
+import jax.numpy as jnp
 import numpy as np
 import pandas as pd
 import pytest
@@ -182,5 +183,130 @@ def test_cli_sweep_classification_matches_jax_ledger(tmp_path, monkeypatch,
 
     assert cli.main(args + ["--continue"]) == 0
     assert len(pd.read_csv(ledger, index_col=0)) == 4
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        cli.main(args + ["--check-test"])
+    capsys.readouterr()
+    # --check-test retrains the best val_acc setting on fold 0 and prints
+    # its held-out metric battery
+    assert cli.main(args + ["--check-test"]) == 0
+    tested = dict(line.split(" -> ") for line in
+                  capsys.readouterr().out.splitlines()
+                  if line.startswith("test "))
+    assert 0.0 <= float(tested["test test_acc"]) <= 1.0
+
+
+def _cls_loaders(path, jax_side=False):
+    kw = dict(cross_validation=True, normalize_and_fill=True,
+              fill_gaps_with=-1.0, suppress_output=True)
+    cls = JaxLoader if jax_side else DataLoader
+    return cls(path, supervised=False, **kw), cls(path, supervised=True,
+                                                  **kw)
+
+
+def test_unshared_phase1_matches_jax_settings_and_columns(tmp_path,
+                                                          monkeypatch):
+    """share_phase1=False: every setting pretrains its own MMAE through
+    ``grid_trainer.train_two_phase_sharded`` (no family is shared), with
+    the JAX sweep's settings and ledger columns."""
+    from multimodalautoencoder_tpu_torch.parallel import grid_trainer
+
+    path = study(tmp_path)
+    calls = []
+    inner = grid_trainer.train_two_phase_sharded
+
+    def counting(*args, **kwargs):
+        calls.append(args[7].num_configs)        # hyper
+        return inner(*args, **kwargs)
+
+    monkeypatch.setattr(grid_trainer, "train_two_phase_sharded", counting)
+    kw = dict(mmae_num_steps=3, classification_num_steps=3,
+              num_cross_folds=2, verbose=False, backend="xla",
+              share_phase1=False, **GRID)
+    unsup, sup = _cls_loaders(path)
+    port = wrappers.MMAEClassificationSweep(
+        unsup, sup, results_path=str(tmp_path / "port"), device="cpu", **kw)
+    port.sweep_all_parameters()
+    assert calls == [2, 2] and port._families == {}
+    ju, js_ = _cls_loaders(path, jax_side=True)
+    jax_sweep = jax_wrappers.MMAEClassificationSweep(
+        ju, js_, results_path=str(tmp_path / "jax"), **kw)
+    jax_sweep.sweep_all_parameters()
+    assert port.list_of_param_settings == jax_sweep.list_of_param_settings
+    assert port.ledger.columns == list(jax_sweep.ledger.df.columns)
+    rows = port.ledger.rows
+    assert len(rows) == 4 and {r["backend_used"] for r in rows} == {"xla"}
+    assert all(np.isfinite(float(r["val_acc"])) for r in rows)
+    # the pretraining differs per setting: two settings that share MMAE
+    # hyperparameters still get their own phase-1 runs
+    shared = wrappers.MMAEClassificationSweep(
+        unsup, sup, results_path=str(tmp_path / "shared"), device="cpu",
+        **dict(kw, share_phase1=True))
+    calls.clear()
+    shared.sweep_all_parameters()
+    assert calls == []
+
+
+def test_check_test_retrains_as_jax_and_scores_as_jax(tmp_path):
+    """check_test's retrain config equals the JAX ``_retrain_fold0``'s field
+    for field, and the test metrics of the retrained parameters equal the
+    JAX package's forward, classify and metric battery on the same
+    parameters."""
+    import dataclasses
+
+    from multimodalautoencoder_tpu.models import losses as jax_losses
+    from multimodalautoencoder_tpu.models import mmae as jax_mmae
+    from multimodalautoencoder_tpu.ops import metrics as jax_metrics
+    from multimodalautoencoder_tpu_torch.models import mmae
+
+    path = study(tmp_path)
+    kw = dict(mmae_num_steps=4, classification_num_steps=4,
+              num_cross_folds=2, verbose=False, backend="xla", **GRID)
+    unsup, sup = _cls_loaders(path)
+    port = wrappers.MMAEClassificationSweep(
+        unsup, sup, results_path=str(tmp_path / "p"), device="cpu",
+        check_test=True, **kw)
+    ju, js_ = _cls_loaders(path, jax_side=True)
+    jsw = jax_wrappers.MMAEClassificationSweep(
+        ju, js_, results_path=str(tmp_path / "j"), **kw)
+    setting = dict(port.list_of_param_settings[-1], val_acc=0.5)
+    state, cfg, arr = port._retrain_fold0(setting)
+    _, jcfg, _ = jsw._retrain_fold0(setting)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert int(state.step) == 4 and arr["test_x"].shape[0] == len(sup.test_X)
+
+    got = port.test_metrics(state.params, cfg)
+    params = jax.tree_util.tree_map(
+        jnp.asarray, jax_mmae_params(mmae.params_to_numpy(state.params),
+                                     jcfg))
+    want = {}
+    for name, X, Y in (("test", js_.test_X, js_.test_Y),
+                       ("noisy_test", js_.noisy_test_X, js_.noisy_test_Y),
+                       ("clean_test", js_.clean_test_X, js_.clean_test_Y)):
+        out = jax_mmae.forward(params, jcfg, jnp.asarray(X, jnp.float32),
+                               rng=jax.random.PRNGKey(1), keep_prob=1.0,
+                               train=False)
+        logits = jax_mmae.classify(params, jcfg, out.embedding,
+                                   keep_prob=1.0, train=False)
+        preds = np.asarray(jax_losses.classification_predictions(
+            jcfg.classification_loss, logits)).reshape(-1)
+        m = jax_metrics.all_classification_metrics(
+            jnp.asarray(preds, jnp.float32),
+            jnp.asarray(np.asarray(Y, float).reshape(-1), jnp.float32))
+        if name == "test":
+            want.update({f"test_{k}": float(v) for k, v in m.items()})
+        else:
+            want[f"{name.split('_')[0]}_test_acc"] = float(m["acc"])
+            want[f"{name.split('_')[0]}_test_auc"] = float(m["auc"])
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-5, abs=1e-6), k
+
+    results = port.run()
+    assert set(results["test"]) == set(want)
+
+
+def jax_mmae_params(leaves, cfg):
+    """A JAX params tree of ``cfg``'s structure holding ``leaves``."""
+    from multimodalautoencoder_tpu.models import mmae as jax_mmae
+
+    template = jax_mmae.init(jax.random.PRNGKey(0), cfg)
+    treedef = jax.tree_util.tree_structure(template)
+    return jax.tree_util.tree_unflatten(treedef, list(leaves))

@@ -6,6 +6,9 @@ does.  Both get the same inputs, made with numpy.  The CUDA kernel itself
 is compared with the plain version by the ``cuda``-marked test, which
 skips without a GPU.
 
+The gradients of the port's autograd Function are held against
+``jax.grad`` of the Pallas version (its custom VJP) at 1e-5.
+
 Tolerances: f32 rtol = atol = 2e-5 (the two sum K products in different
 orders; K <= 256 here).  bf16 operands 1e-4: the operands are rounded to
 bf16 identically on both sides, but the sums still differ in order.
@@ -24,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from multimodalautoencoder_tpu.ops import pallas_kernels as pk
@@ -89,6 +93,34 @@ def test_fused_mlp_matches_pallas(final):
     got = dk.fused_mlp(torch.from_numpy(x), [torch.from_numpy(w) for w in ws],
                        [torch.from_numpy(b) for b in bs], "softplus", final)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("act", ACTIVATIONS)
+def test_fused_dense_gradients_match_pallas_vjp(act, bf16, tied):
+    """The autograd Function's dx, dw, db against ``jax.grad`` of the
+    Pallas ``fused_dense`` (interpret mode, its custom VJP) within 1e-5:
+    the same formulas on the forward's output, in f32 whatever ``bf16``
+    is.  ``tied`` passes the weight as the tied decoder does, a transposed
+    view of a leaf, and its gradient comes back to the leaf."""
+    x, w, b = _inputs(20, 48, 32, seed=5)
+    g = np.random.default_rng(6).normal(size=(20, 32)).astype(np.float32)
+
+    def loss(xx, ww, bb):
+        return jnp.sum(pk.fused_dense(xx, ww, bb, act, bf16) * g)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w),
+                                             jnp.asarray(b))
+    tx, tb = (torch.tensor(a, requires_grad=True) for a in (x, b))
+    leaf = torch.tensor(np.ascontiguousarray(w.T) if tied else w,
+                        requires_grad=True)
+    out = dk.fused_dense(tx, leaf.T if tied else leaf, tb, act, bf16)
+    (out * torch.from_numpy(g)).sum().backward()
+    dw = leaf.grad.T if tied else leaf.grad
+    for got, ref in zip((tx.grad, dw, tb.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
@@ -344,3 +376,80 @@ def test_cuda_3xtf32_accumulation_against_f64(cuda_device, tied):
     assert float((served.to(d) - exact).abs().max()) <= 5e-6
     assert promoted[2] <= 5e-6
     assert one[1] < 0 and one[0] > 3 * promoted[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("act", ACTIVATIONS)
+@pytest.mark.parametrize("m,k,n", [(20, 1000, 1000), (100, 1000, 100),
+                                   (200, 100, 1000)])
+def test_cuda_gradients_match_plain(cuda_device, m, k, n, act, bf16, tied):
+    """The kernel route under autograd at the training shapes (chip_smoke.py
+    [20]): the forward and dx, dw, db against the plain forward and the
+    VJP's formula on its output, at the kernel's 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w, b = (torch.from_numpy(a).to(cuda_device)
+               for a in _inputs(m, k, n, seed=m + n))
+    g = torch.randn((m, n), generator=torch.Generator(
+        device=cuda_device).manual_seed(1), device=cuda_device)
+    leaf = (w.T.contiguous() if tied else w).clone().requires_grad_()
+    xs, bs = x.clone().requires_grad_(), b.clone().requires_grad_()
+    wv = leaf.T if tied else leaf
+    out = dk.fused_dense(xs, wv, bs, act, bf16)
+    out.backward(g)
+    want = dk.fused_dense_reference(x, w, b, act, bf16)
+    gz = dk.activation_grad(g, want, act)
+    dw = leaf.grad.T if tied else leaf.grad
+    for got, ref in ((out.detach(), want), (xs.grad, gz @ w.T),
+                     (dw, x.T @ gz), (bs.grad, gz.sum(0))):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_ffma_row_limit_matches_the_source():
+    """The wrapper's FFMA_MAX_ROWS, which chip_smoke.py's bounds read, is
+    the one csrc/fused_dense.cu dispatches on."""
+    with open(dk.SOURCE) as f:
+        src = f.read()
+    assert f"constexpr int FFMA_MAX_ROWS = {dk.FFMA_MAX_ROWS};" in src
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [20, 100, 200, 2000])
+def test_cuda_training_shapes_against_f64(cuda_device, m):
+    """The forward at the single-run trainer's shapes (run with -s): each
+    layer of a tied 1000 -> 100 forward, data in [0, 1] at K = 1000 and in
+    (-1, 1) otherwise, Xavier weights; the kernel's and ``torch.matmul``'s
+    (TF32 off) largest distance from the f64 product, and the lean of each
+    error toward zero (its mean along the product's sign over its root
+    mean square).  Both stay within the kernel's 1e-4 tolerance of f64.
+    At up to FFMA_MAX_ROWS rows (the FFMA kernel) the kernel leans no more
+    than 0.1 either way; 2000 rows, the serve path's 3xTF32, is printed
+    for comparison (the tensor cores cut each sum toward zero)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+
+    def lean(e, exact):
+        return float((e * exact.sign()).mean() / e.pow(2).mean().sqrt())
+
+    for k, n, tied in ((1000, 1000, False), (1000, 100, False),
+                       (100, 1000, True), (1000, 1000, True)):
+        x = torch.rand((m, k), generator=g, device=cuda_device)
+        if k != 1000:
+            x = 2 * x - 1
+        bound = (6.0 / (k + n)) ** 0.5
+        w = (2 * torch.rand((n, k) if tied else (k, n), generator=g,
+                            device=cuda_device) - 1) * bound
+        w = w.T if tied else w
+        exact = x.double() @ w.double()
+        kern = dk.fused_dense(x, w, torch.zeros(n, device=cuda_device))
+        plain = x @ w
+        e_k, e_p = kern.double() - exact, plain.double() - exact
+        print(f"\n  ({m}, {k}, {n}){' w.T' if tied else ''}: kernel "
+              f"{float(e_k.abs().max()):.3e} (lean {lean(e_k, exact):+.3f})"
+              f", torch.matmul {float(e_p.abs().max()):.3e} (lean "
+              f"{lean(e_p, exact):+.3f}) from f64")
+        assert float(e_k.abs().max()) <= 1e-4
+        assert float(e_p.abs().max()) <= 1e-4
+        if m <= dk.FFMA_MAX_ROWS:
+            assert abs(lean(e_k, exact)) <= 0.1

@@ -96,6 +96,25 @@ def test_mmae_sweep_path_import_pulls_in_no_jax_pandas_or_sklearn():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_single_run_path_import_pulls_in_no_jax_pandas_or_sklearn():
+    """The single-run trainer, the facade, the plots and the CLI: none of
+    them loads jax, the JAX package, pandas or scikit-learn."""
+    code = (
+        "import sys\n"
+        "import multimodalautoencoder_tpu_torch.api\n"
+        "import multimodalautoencoder_tpu_torch.train.trainer\n"
+        "import multimodalautoencoder_tpu_torch.train.checkpoint\n"
+        "import multimodalautoencoder_tpu_torch.utils.plotting\n"
+        "import multimodalautoencoder_tpu_torch.ops.masking\n"
+        "import multimodalautoencoder_tpu_torch.cli\n"
+        f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
     """Without a GPU the smoke exits non-zero and prints no result line,
     from the checkout and from a directory holding only the script."""

@@ -87,8 +87,12 @@ def test_cli_sweep_mmae_matches_jax_ledger(tmp_path, monkeypatch, capsys):
 
     assert cli.main(args + ["--continue"]) == 0
     assert len(pd.read_csv(ledger, index_col=0)) == 12
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        cli.main(args + ["--check-test"])
+    capsys.readouterr()
+    # --check-test retrains the winner on fold 0 and scores the test set
+    assert cli.main(args + ["--check-test"]) == 0
+    held_out = [line for line in capsys.readouterr().out.splitlines()
+                if line.startswith("held-out test:")]
+    assert len(held_out) == 1 and np.isfinite(float(held_out[0].split()[-1]))
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         cli.main(args + ["--probe", "svm"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
@@ -169,18 +173,19 @@ def test_mmae_sweep_refuses_unported_options(tmp_path):
     path = study(tmp_path)
     unsup, sup = loaders(path)
     kw = dict(results_path=str(tmp_path / "r"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        wrappers.MMAESweep(unsup, check_test=True, **kw)
+    # check_test is taken now: it retrains with the single-run trainer
+    assert wrappers.MMAESweep(unsup, check_test=True, **kw).check_test
     with pytest.raises(NotImplementedError, match="item 13"):
         wrappers.MMAESweep(unsup, process_shard=(0, 2), **kw)
     with pytest.raises(NotImplementedError, match="scikit-learn"):
         wrappers.MMAESweep(unsup, classification_data_loader=sup,
                            probe="svm", **kw)
-    sweep = wrappers.MMAESweep(unsup, **kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        sweep.test_on_test({})
-    with pytest.raises(NotImplementedError, match="item 5"):
-        sweep._retrain_fold0({})
+    sweep = wrappers.MMAESweep(unsup, num_steps=3, **kw)
+    setting = sweep.list_of_param_settings[0]
+    assert np.isfinite(sweep.test_on_test(setting))
+    state, cfg, arr = sweep._retrain_fold0(setting)
+    assert int(state.step) == 3 and cfg.layer_sizes == (1000, 100)
+    assert arr["test_x"].shape[0] == len(unsup.test_X)
 
 
 def test_loader_defaults_to_supervised(tmp_path):
@@ -227,3 +232,48 @@ def test_nan_objective_never_wins_the_export(tmp_path, monkeypatch):
     assert meta["extra"]["setting"]["weight_penalty"] == \
         rows[1]["weight_penalty"]
     assert np.isfinite(meta["extra"]["score"])
+
+
+def test_check_test_retrains_as_jax_and_scores_as_jax(tmp_path):
+    """check_test's retrain config equals the JAX ``_retrain_fold0``'s
+    field for field (a whole ledger row, with an optimizer axis), and the
+    test score of the retrained parameters equals the JAX ``predict`` loss
+    on the same parameters within f32 tolerance."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from multimodalautoencoder_tpu.models import mmae as jax_mmae
+    from multimodalautoencoder_tpu.train import trainer as jax_trainer
+    from multimodalautoencoder_tpu_torch.models import mmae
+
+    path = study(tmp_path)
+    kw = dict(num_steps=4, num_cross_folds=2, verbose=False,
+              optimizers=("adam", "sgd"),
+              **dict(GRID, layer_sizes=[[12, 6]], test_variational=False))
+    pu, ps = loaders(path)
+    ju, js_ = loaders(path, jax_side=True)
+    port = wrappers.MMAESweep(pu, classification_data_loader=ps,
+                              results_path=str(tmp_path / "p"),
+                              device="cpu", check_test=True, **kw)
+    jsw = jax_wrappers.MMAESweep(ju, classification_data_loader=js_,
+                                 results_path=str(tmp_path / "j"), **kw)
+    row = dict(port.list_of_param_settings[-1], architecture="[12, 6]",
+               val_sigmoid_cross_entropy=1.0)
+    state, cfg, arr = port._retrain_fold0(row)
+    _, jcfg, _ = jsw._retrain_fold0(row)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert int(state.step) == 4
+
+    score = port.test_score(state.params, cfg, arr["test_x"])
+    template = jax_mmae.init(jax.random.PRNGKey(0), jcfg)
+    params = jax.tree_util.tree_unflatten(
+        jax.tree_util.tree_structure(template),
+        [jnp.asarray(a) for a in mmae.params_to_numpy(state.params)])
+    _, want = jax_trainer.predict(params, jcfg,
+                                  jnp.asarray(ju.test_X, jnp.float32))
+    assert score == pytest.approx(float(want), rel=1e-5)
+
+    best, test_score, _ = port.run()
+    assert np.isfinite(test_score)
+    assert test_score == pytest.approx(port.test_on_test(best), rel=1e-6)
