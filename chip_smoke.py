@@ -13,7 +13,7 @@ features):
 - serve: each ``fused_dense`` shape against its plain version, then
   ``cli fill`` and ``cli embed`` from checkpoints of a 1000 -> 100 tied
   DAE and VAE, and each dense layer timed in turns with ``torch.addmm``
-  against its 3xTF32 bound (phases [1]-[6]);
+  against its f32 bound (phases [1]-[6]);
 - grid training: the in-kernel generator against its twin, the training
   kernels against their plain twin at a small width and on the three
   1000-wide ACII buckets (60 instances each), then those buckets through
@@ -43,7 +43,15 @@ features):
   ``cli train`` with its checkpoint reloaded and resumed by the facade
   (phases [20]-[22]).  [13] and [17] run their CLI sweeps with
   ``--check-test``, and [13] adds the validation bucket with
-  ``share_phase1=False``.
+  ``share_phase1=False``;
+- the comparison baselines and the rest of the data layer, on the
+  reference-scale study of ``synthetic.reference_scale_loaders``: the NN
+  baseline at full width (each default architecture 5,000 steps, no host
+  sync in the step loop, ms per step and the device's idle share),
+  ``NNSweep(device="cuda").run()`` over the default 32-setting grid, ``cli
+  feature-select`` PCA / SKB on the card against float64 and a scipy
+  F-score ranking, the native CSV engine against the default reader, and
+  ``cli baseline svm``'s error without scikit-learn (phases [23]-[26]).
 
 Any failed phase ends the run with a non-zero exit; so does a machine
 without CUDA.  The last lines of standard output are the card's name and
@@ -58,7 +66,8 @@ tensor cores (csrc/train_common.cuh, TRAIN_TENSOR_CORE_PRODUCTS), then the
 training gates and step timings ([8]-[11], [14], [15]), every gate
 reported rather than only the first that fails.  ``python3 chip_smoke.py
 --single-run`` runs [20] and [21] alone, [21] with a control route (the
-kernel route with bf16 operands), every gate reported.
+kernel route with bf16 operands), every gate reported; ``python3
+chip_smoke.py --baselines`` runs [23]-[26] alone, every gate reported.
 """
 
 from __future__ import annotations
@@ -76,6 +85,7 @@ import numpy as np
 import torch
 
 TOL = 1e-4          # kernel vs plain, f32 sums in different orders
+LEAN = 0.1          # |lean| of an f32 product's error from float64
 ROWS = 2000
 LAYERS = (1000, 100)
 SEED = 0
@@ -208,25 +218,18 @@ def types_vs_bmm(profile, groups, bounds, n_inst: int, card: str) -> dict:
 def dense_bounds(m: int, k: int, n: int, bf16: bool = False):
     """The least time (ms) of ``act(x @ w + b)`` at (m, k, n) for the
     arithmetic the kernel does, and what bounds it: f32 FMAs on the CUDA
-    cores for f32 operands with at most FFMA_MAX_ROWS rows, 3xTF32 (three
-    TF32 products a multiply-add) for more, one bf16 product for bf16
-    operands; bytes are x, w, b read once and the output written once.
-    Also the f32 CUDA-core figure of the earlier SGEMM kernel."""
-    from multimodalautoencoder_tpu_torch.ops.dense_kernels import \
-        FFMA_MAX_ROWS
-
+    cores for f32 operands, one bf16 product for bf16 operands; bytes are
+    x, w, b read once and the output written once.  Also the 3xTF32 figure
+    (three TF32 products a multiply-add) of the tensor-core kernel that
+    served f32 operands of more than FFMA_MAX_ROWS rows before the FFMA
+    kernel did."""
     flop = 2.0 * m * k * n
     nbytes = 4.0 * (m * k + k * n + n + m * n)
-    if bf16:
-        t_ops = flop / BF16_FLOP_PER_S
-    elif m <= FFMA_MAX_ROWS:
-        t_ops = flop / F32_FLOP_PER_S
-    else:
-        t_ops = 3 * flop / TF32_FLOP_PER_S
+    t_ops = flop / (BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    old = max(flop / F32_FLOP_PER_S, t_bytes)
+    tf32 = max(3 * flop / TF32_FLOP_PER_S, t_bytes)
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", old * 1e3)
+            "operations" if t_ops >= t_bytes else "bytes", tf32 * 1e3)
 
 
 def xavier(k: int, n: int, g: torch.Generator) -> torch.Tensor:
@@ -234,9 +237,19 @@ def xavier(k: int, n: int, g: torch.Generator) -> torch.Tensor:
     return (2 * torch.rand((k, n), generator=g, device="cuda") - 1) * bound
 
 
+def lean(err: torch.Tensor, exact: torch.Tensor) -> float:
+    """How far an error leans toward zero: its mean along the exact
+    value's sign over its root mean square (0 for rounding to nearest,
+    about -0.6 for 3xTF32 on the tensor cores at K = 1000)."""
+    return float((err * exact.sign()).mean() / err.pow(2).mean().sqrt())
+
+
 def phase_kernel_vs_plain(dk):
-    """Every listed shape, activation and bf16 mode; returns the largest
-    absolute error of each operand type (f32, bf16)."""
+    """Every listed shape, activation and bf16 mode; at the serve shapes
+    (M = ROWS) also the f32 product against float64, its worst error
+    within TOL and its lean toward zero within LEAN.  Returns the largest
+    absolute error of each operand type (f32, bf16) and the serve shapes'
+    largest |lean|."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [  # (M, K, N, tied view of w)
         (ROWS, 1000, 1000, False), (ROWS, 1000, 100, False),
@@ -244,6 +257,7 @@ def phase_kernel_vs_plain(dk):
         (ROWS, 100, 1000, True),
         (ROWS, 1000, 1000, True), (37, 96, 70, False), (37, 96, 70, True)]
     worst = {False: 0.0, True: 0.0}
+    worst_lean = 0.0
     for m, k, n, tied in cases:
         # inputs like the serve path's: data in [0, 1] at K = 1000, hidden
         # softsign values in (-1, 1) otherwise
@@ -253,6 +267,18 @@ def phase_kernel_vs_plain(dk):
         w = xavier(n, k, g).T if tied else xavier(k, n, g)
         check(w.is_contiguous() != tied, "tied case must be a strided view")
         b = 0.1 * torch.randn((n,), generator=g, device="cuda")
+        if m == ROWS:
+            exact = x.double() @ w.double()
+            err = dk.fused_dense(x, w, torch.zeros_like(b)).double() - exact
+            e_max, e_lean = float(err.abs().max()), lean(err, exact)
+            worst_lean = max(worst_lean, abs(e_lean))
+            print(f"  ({m},{k},{n}) {'w.T view' if tied else 'w':8s} f32 "
+                  f"x @ w against float64: max_abs_err={e_max:.3e}, lean "
+                  f"{e_lean:+.3f}")
+            check(e_max <= TOL and abs(e_lean) <= LEAN,
+                  f"f32 product at ({m},{k},{n}) tied={tied} is "
+                  f"{e_max:.3e} from float64 (gate {TOL}), lean "
+                  f"{e_lean:+.3f} (gate {LEAN})")
         for act in dk.ACTIVATIONS:
             for bf16 in (False, True):
                 got = dk.fused_dense(x, w, b, act, bf16)
@@ -274,8 +300,8 @@ def phase_kernel_vs_plain(dk):
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), "kernel left outputs unwritten")
     print(f"  worst: f32 operands {worst[False]:.3e}, bf16 operands "
-          f"{worst[True]:.3e}")
-    return worst[False], worst[True]
+          f"{worst[True]:.3e}; serve shapes' |lean| {worst_lean:.3f}")
+    return worst[False], worst[True], worst_lean
 
 
 def check_served(cmd: str, name: str, csv_path: str, dl) -> None:
@@ -414,7 +440,7 @@ def phase_timing(dk, params, cfg, x, card: str):
     CUDA-event timings, taken in the order plain, kernel, kernel, plain),
     and each dense layer of that forward alone on the device, in turns with
     ``torch.addmm`` (TF32 off), against its bound under the kernel's
-    arithmetic (3xTF32) and the earlier f32 CUDA-core figure."""
+    arithmetic (f32 FMAs) and the earlier 3xTF32 kernel's bound."""
     from multimodalautoencoder_tpu_torch.models import mmae
 
     plain_cfg = cfg.replace(use_pallas=False)
@@ -439,7 +465,7 @@ def phase_timing(dk, params, cfg, x, card: str):
         print("  each layer on the device alone (calls queued ahead), in "
               "turns: kernel, torch.addmm, torch.addmm, kernel")
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                   old_ms=0.0)
+                   tf32_ms=0.0)
         by = {"bytes": 0.0, "operations": 0.0}
         wins = 0
         for name, a, w, b, act in layers:
@@ -450,26 +476,25 @@ def phase_timing(dk, params, cfg, x, card: str):
             t_p = device_ms(lambda: dk.fused_dense_reference(a, w, b, act))
             t_k, t_l = (k1 + k2) / 2, (l1 + l2) / 2
             m, k, n = a.shape[0], a.shape[1], w.shape[1]
-            t_b, bound_by, t_old = dense_bounds(m, k, n)
+            t_b, bound_by, t_tf32 = dense_bounds(m, k, n)
             by[bound_by] += t_b
             wins += t_k <= t_l
             for key, v in (("ms", t_k), ("plain_ms", t_p),
                            ("library_ms", t_l), ("bound_ms", t_b),
-                           ("old_ms", t_old)):
+                           ("tf32_ms", t_tf32)):
                 tot[key] += v
             print(f"  {name:12s} ({m},{k},{n}) {act:8s}: kernel {k1:.4f} / "
                   f"{k2:.4f} ms ({2.0 * m * k * n / t_k / 1e9:.1f} TFLOP/s),"
                   f" torch.addmm {l1:.4f} / {l2:.4f} ms, plain {t_p:.4f} "
-                  f"ms; 3xTF32 bound {t_b:.4f} ms ({bound_by}, "
-                  f"{100 * t_b / t_k:.1f} % of it reached), old f32 figure "
-                  f"{t_old:.4f} ms ({100 * t_old / t_k:.1f} %)  [{card}]")
+                  f"ms; f32 bound {t_b:.4f} ms ({bound_by}, "
+                  f"{100 * t_b / t_k:.1f} % of it reached), 3xTF32 figure "
+                  f"{t_tf32:.4f} ms  [{card}]")
         print(f"  4 layers: kernel {tot['ms']:.4f} ms, torch.addmm "
               f"{tot['library_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
               f"bound {tot['bound_ms']:.4f} ms "
-              f"({100 * tot['bound_ms'] / tot['ms']:.1f} %), old f32 figure "
-              f"{tot['old_ms']:.4f} ms ({100 * tot['old_ms'] / tot['ms']:.1f}"
-              f" %); no slower than torch.addmm at {wins} of 4 layers  "
-              f"[{card}]")
+              f"({100 * tot['bound_ms'] / tot['ms']:.1f} %), 3xTF32 figure "
+              f"{tot['tf32_ms']:.4f} ms; no slower than torch.addmm at "
+              f"{wins} of 4 layers  [{card}]")
         # host-paced, as a serve call pays it and as earlier runs timed it:
         # the 4 layers back to back from the host, in turns
         def kernel():
@@ -1492,7 +1517,7 @@ def captured_calls(module, name: str):
 def phase_mmae_sweep(workdir: str, pdk, ptk, dk, study, sup, card: str):
     """The slice end to end: MMAESweep(layer_sizes=[DEEP_LAYERS],
     backend="pallas", probe="device", save_best_params=True).run() on the
-    study with its classification loader, 15,000 steps, then its exported
+    study with its classification loader, MMAE_STEPS steps, then its exported
     winner served by ``cli fill``.  Returns (kernel 3's launches, the tied
     bucket's (cfg, tcfg, hyper, params), the rows)."""
     from multimodalautoencoder_tpu_torch import cli
@@ -2286,6 +2311,359 @@ def phase_unshared_bucket(workdir: str, pck, ptk, unsup, sup, card: str):
     check(got == want, f"unshared bucket launches {got}, expected {want}")
 
 
+# [23]-[26]: the comparison baselines, feature selection and the rest of
+# the data layer, on the reference-scale study of reference_scale_loaders
+NN_STEPS = 5000      # the NN baseline's num_steps (baselines/neural_net.py)
+NN_RECORD = 500      # [23]'s record period
+NN_SAME_STEPS = 1000  # [23]'s runs with and without recording
+# [24]'s default 32-setting grid at 5 folds: 50 steps a fit, cut from
+# 5,000 for the smoke's time limit.  A step is host-bound and follows the
+# host's load (3-8 ms on an H100 host): 200 steps a fit took 216 s once,
+# which beside [12] and [16] at their full 15,000 steps would bring the
+# run near the limit
+NN_GRID_STEPS = 50
+PCA_DIMS = 100
+# the ledger columns of the JAX package's NNSweep, in its order (the smoke
+# cannot import the JAX package; tests/test_torch_baselines.py holds the
+# port's columns to the JAX sweep's)
+NN_LEDGER_COLUMNS = [
+    "architecture", "batch_size", "dropout_prob", "learning_rate",
+    "weight_penalty", "val_acc", "val_auc", "val_f1", "val_precision",
+    "val_recall", "noisy_val_acc", "noisy_val_auc", "clean_val_acc",
+    "clean_val_auc"]
+
+
+def _labels_2d(y) -> np.ndarray:
+    y = np.asarray(y, dtype=np.float32)
+    return y[:, None] if y.ndim == 1 else y
+
+
+def phase_nn_baseline(sup, card: str) -> dict:
+    """[23]: the NN baseline's MLP at full width on the card, one fit of
+    each default architecture on fold 0 (keep 0.5, penalty 1e-3, batch
+    100, NN_STEPS steps, accuracies recorded every NN_RECORD steps).  Each
+    fit runs under ``torch.cuda.set_sync_debug_mode("error")``, so a host
+    synchronisation inside the step loop fails the phase; ms per step by
+    the host clock and by CUDA events around the loop; the device's idle
+    share and its kernels per step from torch.profiler over 50 steps.
+    Gates: finite parameters, val accuracy at or above the majority rate,
+    and (first architecture, NN_SAME_STEPS steps) the same final
+    parameters with recording every NN_RECORD steps and without.
+    Returns the per-architecture numbers and the extrapolated wall time of
+    the default grid (``cli baseline nn``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodalautoencoder_tpu_torch.baselines.neural_net import (
+        DEFAULT_ARCHS, DEFAULT_DROPOUTS, DEFAULT_PENALTIES)
+    from multimodalautoencoder_tpu_torch.models import neural_net as nn
+
+    sup.set_to_cross_validation_fold(0)
+    tx, vx = (torch.as_tensor(np.asarray(a, np.float32), device=DEVICE)
+              for a in (sup.train_X, sup.val_X))
+    ty, vy = (torch.as_tensor(_labels_2d(a), device=DEVICE)
+              for a in (sup.train_Y, sup.val_Y))
+    frac = _labels_2d(sup.val_Y).mean(axis=0)
+    majority = float(np.mean(np.maximum(frac, 1 - frac)))
+    print(f"  fold 0: {tx.shape[0]} train, {vx.shape[0]} val rows, "
+          f"{tx.shape[1]} features, {ty.shape[1]} labels; val majority "
+          f"rate {majority:.4f}")
+    out = {}
+    for ai, arch in enumerate(DEFAULT_ARCHS):
+        cfg = nn.NNConfig(input_size=tx.shape[1], layer_sizes=tuple(arch),
+                          output_size=ty.shape[1], dropout_prob=0.5,
+                          weight_penalty=1e-3, learning_rate=1e-3,
+                          batch_size=100, seed=SEED)
+        nn.train(nn.init_state(cfg, DEVICE), cfg, tx, ty, vx, vy, 20)
+        state = nn.init_state(cfg, DEVICE)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            start.record()
+            state, (ta, va) = nn.train(state, cfg, tx, ty, vx, vy, NN_STEPS,
+                                       record_every_nth=NN_RECORD)
+            end.record()
+            enqueue = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / NN_STEPS
+        event_ms = start.elapsed_time(end) / NN_STEPS
+        leaves = nn.params_to_numpy(state.params)
+        train_acc = float(nn.accuracy(state.params, cfg, tx, ty))
+        val_acc = float(nn.accuracy(state.params, cfg, vx, vy))
+        curve = va.cpu().numpy()
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            nn.train(state, cfg, tx, ty, vx, vy, 50)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t1)
+        from torch.autograd import DeviceType
+        kernels = sum(1 for e in prof.events()
+                      if e.device_type == DeviceType.CUDA)
+        busy = _device_busy_ms(prof)
+        idle = 1.0 - busy / wall
+        print(f"  {str(tuple(arch)):16s} {host_ms:.4f} ms/step by the host "
+              f"clock ({1e3 * enqueue / NN_STEPS:.4f} to enqueue), "
+              f"{event_ms:.4f} by CUDA events; 0 host syncs in "
+              f"{NN_STEPS} steps (sync debug mode 'error'); device idle "
+              f"{100 * idle:.1f} % over 50 steps (busy {busy:.3f} of "
+              f"{wall:.3f} ms, {kernels / 50:.1f} device ops a step, "
+              f"torch.profiler); train acc {train_acc:.4f}, val acc "
+              f"{val_acc:.4f} (recorded every {NN_RECORD}: "
+              f"{np.round(curve, 4).tolist()})  [{card}]")
+        check(all(np.isfinite(a).all() for a in leaves),
+              f"{arch}: non-finite parameters")
+        check(val_acc >= majority,
+              f"{arch}: val acc {val_acc:.4f} under the majority rate "
+              f"{majority:.4f}")
+        check(len(curve) == NN_STEPS // NN_RECORD, f"{arch}: curve length")
+        if ai == 0:
+            runs = [nn.train(nn.init_state(cfg, DEVICE), cfg, tx, ty, vx,
+                             vy, NN_SAME_STEPS, record_every_nth=rec)[0]
+                    for rec in (NN_RECORD, 0)]
+            same = all(np.array_equal(a, b) for a, b in zip(
+                *(nn.params_to_numpy(r.params) for r in runs)))
+            print(f"  {tuple(arch)}: final parameters after "
+                  f"{NN_SAME_STEPS} steps with and without recording "
+                  f"{'equal' if same else 'DIFFER'}")
+            check(same, "recording changed the final parameters")
+        out[str(tuple(arch))] = dict(
+            host_ms_per_step=host_ms, event_ms_per_step=event_ms,
+            idle_share=idle, ops_per_step=kernels / 50,
+            train_acc=train_acc, val_acc=val_acc)
+    # the default grid: each architecture in 8 of the 32 settings, each
+    # setting 5 folds of NN_STEPS steps
+    n_per_arch = len(DEFAULT_DROPOUTS) * len(DEFAULT_PENALTIES)
+    grid_s = sum(5 * n_per_arch * NN_STEPS * v["host_ms_per_step"] / 1e3
+                 for v in out.values())
+    print(f"  extrapolated: the default grid (cli baseline nn: "
+          f"{n_per_arch * len(DEFAULT_ARCHS)} settings x 5 folds x "
+          f"{NN_STEPS} steps) trains for {grid_s / 60:.1f} min at these "
+          f"step times  [{card}]")
+    return {"archs": out, "majority": majority,
+            "default_grid_train_s": grid_s}
+
+
+def phase_nn_sweep(workdir: str, sup, card: str) -> dict:
+    """[24]: ``NNSweep(device="cuda")`` over the default 32-setting grid,
+    5 folds at NN_GRID_STEPS steps (cut from 5,000 for time), with
+    ``check_test``.  Gates: no fit error, every ledger value finite, the
+    JAX sweep's columns, a finite held-out battery."""
+    from multimodalautoencoder_tpu_torch.baselines.neural_net import NNSweep
+
+    t0 = time.perf_counter()
+    sweep = NNSweep(sup, num_steps=NN_GRID_STEPS, check_test=True,
+                    results_path=os.path.join(workdir, "nn_results"),
+                    verbose=False, device=DEVICE, seed=SEED)
+    best, test = sweep.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = sweep.ledger.rows
+    scores = np.asarray([[float(r[c]) for c in NN_LEDGER_COLUMNS[5:]]
+                         for r in rows])
+    print(f"  {len(rows)} settings x {sweep.num_cross_folds} folds x "
+          f"{NN_GRID_STEPS} steps: {wall:.1f} s wall; fit errors "
+          f"{sweep.fit_errors}; val_acc {scores[:, 0].min():.4f}-"
+          f"{scores[:, 0].max():.4f}, best {best['architecture']} keep "
+          f"{best['dropout_prob']} penalty {best['weight_penalty']}; "
+          f"held-out {({k: round(v, 4) for k, v in test.items()})}  "
+          f"[{card}]")
+    check(sweep.fit_errors == 0, f"{sweep.fit_errors} NN fit errors")
+    check(len(rows) == 32 and np.isfinite(scores).all(),
+          "NN sweep rows not all finite")
+    check(sweep.ledger.columns == NN_LEDGER_COLUMNS,
+          f"NN ledger columns {sweep.ledger.columns}")
+    check(test is not None and len(test) == 9
+          and np.isfinite(list(test.values())).all(),
+          f"held-out battery {test}")
+    return {"wall_s": wall, "fit_errors": sweep.fit_errors}
+
+
+def phase_feature_selection(study_path: str, card: str) -> dict:
+    """[25]: ``cli feature-select <study> pca 100 --backend jax`` and
+    ``skb 100 --label happiness_label`` on the card, then the PCA's SVD
+    against a float64 numpy SVD of the same Train rows (explained-variance
+    ratio within 1e-4, each component within 1e-3 up to its sign) and the
+    SKB indices against an F-score ranking by scipy.stats.f_oneway; the
+    SVD timed on the device by CUDA events."""
+    from scipy import stats
+
+    from multimodalautoencoder_tpu_torch.data import feature_selection as fs
+    from multimodalautoencoder_tpu_torch.data.loader import (label_values,
+                                                              read_csv)
+
+    outs = {}
+    for kind, extra in (("pca", []), ("skb", ["--label",
+                                              "happiness_label"])):
+        t0 = time.perf_counter()
+        rc, lines = _cli_lines(["feature-select", study_path, kind,
+                                str(PCA_DIMS), "--backend", "jax",
+                                "--fill-missing", "0", "--device", DEVICE]
+                               + extra, "wrote:")
+        check(rc == 0 and len(lines) == 1, f"feature-select {kind}")
+        outs[kind] = read_csv(lines[0].split()[-1])
+        print(f"  cli feature-select {kind} {PCA_DIMS}: "
+              f"{time.perf_counter() - t0:.2f} s wall")
+    frame, X_train, X_all, _ = fs.load_raw_data(study_path)
+    X_train, X_all = np.nan_to_num(X_train), np.nan_to_num(X_all)
+    dims = [f"pca_dim{i}" for i in range(PCA_DIMS)]
+    check(np.isfinite(outs["pca"].matrix(dims)).all()
+          and len(outs["pca"]) == len(frame), "pca output")
+
+    pca = fs.TorchPCA(PCA_DIMS, DEVICE).fit(X_train)
+    xc = X_train - X_train.mean(axis=0)
+    _, s, vt = np.linalg.svd(xc, full_matrices=False)
+    var = s ** 2 / (len(X_train) - 1)
+    evr_err = float(np.abs(pca.explained_variance_ratio_
+                           - (var / var.sum())[:PCA_DIMS]).max())
+    comp_err = float(max(min(np.abs(a - b).max(), np.abs(a + b).max())
+                         for a, b in zip(pca.components_, vt[:PCA_DIMS])))
+    xt = torch.as_tensor(xc, device=DEVICE)          # float64, as fit()
+    svd_ms = cuda_ms(lambda: torch.linalg.svd(xt, full_matrices=False),
+                     reps=3, inner=2)
+    print(f"  PCA on the card ({X_train.shape[0]} x {X_train.shape[1]} "
+          f"Train rows): explained-variance ratio {evr_err:.3e} from "
+          f"float64, components {comp_err:.3e} (up to sign); "
+          f"torch.linalg.svd {svd_ms:.3f} ms on the device  [{card}]")
+    check(evr_err <= 1e-4 and comp_err <= 1e-3,
+          f"PCA against float64: {evr_err}, {comp_err}")
+
+    y = label_values(frame, "happiness_label")[
+        frame.columns["dataset"] == "Train"]
+    keep = ~np.isnan(y)
+    xs, ys = X_train[keep], y[keep]
+    f_ref = np.nan_to_num(stats.f_oneway(
+        *[xs[ys == c] for c in np.unique(ys)], axis=0).statistic)
+    want = np.sort(np.argsort(f_ref)[::-1][:PCA_DIMS])
+    _, idx = fs.transform_select_K_best(xs, ys, X_all, PCA_DIMS, "jax")
+    got = outs["skb"].matrix([f"skb_dim{i}" for i in range(PCA_DIMS)])
+    same = np.array_equal(idx, want)
+    print(f"  skb: {PCA_DIMS} indices {'equal' if same else 'DIFFER from'} "
+          f"the scipy F-score ranking; written values within "
+          f"{float(np.abs(got - X_all[:, want]).max()):.1e}")
+    check(same, "skb indices")
+    check(np.allclose(got, X_all[:, want], rtol=1e-12, atol=0),
+          "skb written values")
+    return {"svd_ms": svd_ms, "evr_err": evr_err, "component_err": comp_err}
+
+
+def phase_data_layer(workdir: str, study_path: str, card: str) -> dict:
+    """[26]: the native engine built from native/csv_loader.cpp at first
+    use, against the default reader (the same columns and rows; each
+    native value the correctly rounded value of its text, the real check
+    of the parser, and within 1 ulp of pandas' reading, the values that
+    differ counted);
+    ``DataLoader(engine="native")``;
+    ``count_gaps_in_modalities``; and ``cli baseline svm`` without
+    scikit-learn, which must exit non-zero naming it."""
+    import csv as csv_lib
+    import importlib.util
+
+    from multimodalautoencoder_tpu_torch.data import fast_csv
+    from multimodalautoencoder_tpu_torch.data import preprocess as pp
+    from multimodalautoencoder_tpu_torch.data.loader import (DataLoader,
+                                                              read_csv)
+
+    t0 = time.perf_counter()
+    native = fast_csv.read_csv(study_path)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    default = read_csv(study_path)
+    t_default = time.perf_counter() - t0
+    feats = pp.get_wanted_feats_from_df(default.names)
+    check(native.names == default.names
+          and list(native.index) == list(default.index),
+          "native columns or rows differ")
+    for name in default.names:
+        if name not in feats:
+            check(list(native.columns[name]) == list(default.columns[name]),
+                  f"native text column {name}")
+    a, b = native.matrix(feats), default.matrix(feats)
+    with open(study_path, newline="") as f:
+        rows = list(csv_lib.reader(f))
+    cols = [rows[0].index(n) for n in feats]
+    exact = np.array([[float(r[j]) if r[j] else np.nan for j in cols]
+                      for r in rows[1:]])
+    check(np.array_equal(a, exact, equal_nan=True),
+          "native values not correctly rounded")
+    fin = ~np.isnan(a)
+    ulp = np.abs(a[fin].view(np.int64) - b[fin].view(np.int64))
+    print(f"  native engine: built {os.path.relpath(fast_csv.LIB.library)} "
+          f"with g++ in {fast_csv.LIB.build_seconds or 0.0:.1f} s; read in "
+          f"{t_native:.3f} s (default reader {t_default:.3f} s); "
+          f"{len(default)} rows x {len(default.names)} columns equal; every "
+          f"value correctly rounded; {int((ulp > 0).sum())} of "
+          f"{int(fin.sum())} values differ from the default (pandas') "
+          f"reading, by at most {int(ulp.max())} ulp")
+    # the study was rewritten from pandas' values when its folds were
+    # persisted, so the two readings agree within an ulp here and this
+    # gate cannot catch a parser fault (the correctly-rounded gate above
+    # does); on a raw CSV pandas' 17-digit cut can be 100+ ulp off
+    check(int(ulp.max()) <= 1,
+          f"native and default readings {int(ulp.max())} ulp apart")
+    dl = DataLoader(study_path, engine="native", cross_validation=True,
+                    normalize_and_fill=True, fill_gaps_with=-1.0,
+                    suppress_output=True, seed=SEED)
+    check(dl.train_X.shape[1] == len(feats) and np.isfinite(dl.train_X).all(),
+          "DataLoader(engine='native')")
+    gaps = pp.count_gaps_in_modalities(default)
+    print(f"  DataLoader(engine='native'): train {dl.train_X.shape}; "
+          f"count_gaps_in_modalities: {gaps}")
+    check(sum(gaps.values()) == len(default), "gap histogram rows")
+
+    hide = importlib.util.find_spec("sklearn") is not None
+    code = ("import sys\n"
+            + ("sys.modules['sklearn'] = None\n" if hide else "")
+            + "from multimodalautoencoder_tpu_torch import cli\n"
+              "sys.exit(cli.main(sys.argv[1:]))\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, "baseline", "svm", study_path,
+         "--normalize-and-fill", "--device", DEVICE, "--results-path",
+         os.path.join(workdir, "svm_results")],
+        capture_output=True, text=True, timeout=300)
+    msg = proc.stderr.strip().splitlines()[-1] if proc.stderr.strip() else ""
+    print(f"  cli baseline svm without scikit-learn"
+          f"{' (hidden)' if hide else ''}: exit {proc.returncode}, "
+          f"{msg!r}")
+    check(proc.returncode != 0 and "scikit-learn" in proc.stderr,
+          f"cli baseline svm: exit {proc.returncode}, {proc.stderr[-500:]}")
+    return {"differing_values": int((ulp > 0).sum()),
+            "max_ulp": int(ulp.max())}
+
+
+def phase_baselines(workdir: str, card: str) -> dict:
+    """[23]-[26] on the reference-scale study."""
+    from multimodalautoencoder_tpu_torch.data import synthetic
+
+    base = os.path.join(workdir, "baselines")
+    os.makedirs(base)
+    t0 = time.perf_counter()
+    _, sup = synthetic.reference_scale_loaders(base, num_rows=ROWS,
+                                               seed=SEED)
+    print(f"[23] the NN baseline at full width: {NN_STEPS} steps on fold 0 "
+          f"for each default architecture (study written and loaded in "
+          f"{time.perf_counter() - t0:.1f} s)")
+    nn_run = phase_nn_baseline(sup, card)
+    print(f"[24] NNSweep(device='{DEVICE}').run() over the default "
+          f"32-setting grid, 5 folds x {NN_GRID_STEPS} steps, check_test")
+    nn_grid = phase_nn_sweep(workdir, sup, card)
+    print(f"[25] feature selection on the card: cli feature-select pca / "
+          f"skb {PCA_DIMS} --backend jax --device {DEVICE}")
+    feat = phase_feature_selection(sup.filename, card)
+    print("[26] the data layer: engine='native', count_gaps_in_modalities, "
+          "and the missing-scikit-learn error")
+    data = phase_data_layer(workdir, sup.filename, card)
+    out = {"nn": nn_run, "nn_grid": nn_grid, "feature_selection": feat,
+           "data": data}
+    print(json.dumps({"baselines": out}))
+    return out
+
+
 def _cli_lines(argv, prefix: str):
     """Run ``cli.main(argv)``, echo its standard output, and return the
     lines that start with ``prefix``."""
@@ -2446,6 +2824,31 @@ def main_single_run() -> int:
     return 1 if FAILED else 0
 
 
+def main_baselines() -> int:
+    """[23]-[26] alone, every gate reported rather than only the first
+    that fails; the last line lists the failed checks, and the exit code
+    is 1 if there are any."""
+    global FAILED
+
+    FAILED = []
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"[1] card: {card}; torch {torch.__version__}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mmae_chip_smoke_") as workdir:
+        try:
+            phase_baselines(workdir, card)
+        except Exception as exc:   # reported with the checks
+            check(False, f"{type(exc).__name__}: {exc}")
+    for mod in ("jax", "pandas", "sklearn", "multimodalautoencoder_tpu"):
+        check(mod not in sys.modules, f"the baseline path imported {mod}")
+    print(f"  [23]-[26] in {time.perf_counter() - t0:.1f} s")
+    print(card)
+    print(json.dumps({"baselines": True, "failed_checks": FAILED}))
+    return 1 if FAILED else 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -2456,8 +2859,10 @@ def main() -> int:
         return main_tensor_core_products(int(sys.argv[2]))
     if sys.argv[1:] == ["--single-run"]:
         return main_single_run()
+    if sys.argv[1:] == ["--baselines"]:
+        return main_baselines()
     check(len(sys.argv) == 1, "usage: chip_smoke.py "
-          "[--tensor-core-products 1|2 | --single-run]")
+          "[--tensor-core-products 1|2 | --single-run | --baselines]")
     from multimodalautoencoder_tpu_torch.ops import cls_train_kernels as pck
     from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
     from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
@@ -2489,7 +2894,7 @@ def main() -> int:
             print(f"    {name}: {res}")
 
     print(f"[3] fused_dense kernel vs plain (TF32 off, atol=rtol={TOL})")
-    max_err, max_err_bf16 = phase_kernel_vs_plain(dk)
+    max_err, max_err_bf16, max_lean = phase_kernel_vs_plain(dk)
 
     with tempfile.TemporaryDirectory(prefix="mmae_chip_smoke_") as workdir:
         print("[4] serve path: cli fill/embed --device cuda from two "
@@ -2579,8 +2984,9 @@ def main() -> int:
         print(f"[22] cli train --device {DEVICE} --arch "
               f"{' '.join(map(str, LAYERS))}, reloaded and resumed")
         phase_cli_train(workdir, dl.filename, card)
+        phase_baselines(workdir, card)
         for mod in ("jax", "pandas", "sklearn", "multimodalautoencoder_tpu"):
-            check(mod not in sys.modules, f"the training path imported {mod}")
+            check(mod not in sys.modules, f"the port's paths imported {mod}")
 
     print(f"  whole run {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -2594,6 +3000,7 @@ def main() -> int:
               "serve_launches": launches,
               "train_launches": single["launches"],
               "max_abs_err": max_err, "max_abs_err_bf16": max_err_bf16,
+              "serve_max_abs_lean": max_lean,
               "train": dict(dense_train, **{k: v for k, v in single.items()
                                             if k != "launches"})},
              **dense),

@@ -102,11 +102,13 @@ class MultimodalAutoencoder:
                  compute_dtype: str = "float32",
                  normalize_and_fill: bool = False,
                  fill_gaps_with: Optional[float] = None,
-                 device="cuda"):
+                 device="cuda", engine: str = "pandas"):
         """The reference constructor's knobs (:59-70), plus
         ``normalize_and_fill`` / ``fill_gaps_with`` (the reference always
         builds its loader with normalize_and_fill=False, :190-194, assuming
-        cleaned files) and ``device``, where the model and data live."""
+        cleaned files), ``device``, where the model and data live, and
+        ``engine``, the CSV reader of the loaders built here
+        (:class:`DataLoader`)."""
         # the reference applies the VAE / z-score+entropy overrides before
         # building its loader (multimodal_autoencoder.py:174-194), so the
         # loaders see the effective normalization; MMAEConfig.validate
@@ -125,7 +127,7 @@ class MultimodalAutoencoder:
                 normalize_and_fill=normalize_and_fill,
                 normalization=normalization,
                 fill_missing_with=fill_missing_with,
-                fill_gaps_with=fill_gaps_with, seed=seed)
+                fill_gaps_with=fill_gaps_with, seed=seed, engine=engine)
         else:
             raise ValueError("must set either filename or data_loader")
 
@@ -139,7 +141,7 @@ class MultimodalAutoencoder:
                 normalize_and_fill=normalize_and_fill,
                 normalization=normalization,
                 fill_missing_with=fill_missing_with,
-                fill_gaps_with=fill_gaps_with, seed=seed)
+                fill_gaps_with=fill_gaps_with, seed=seed, engine=engine)
         # head width from the classification loader's label count, as the
         # reference (:323-327: 2 when unset)
         cls_dl = self.classification_data_loader

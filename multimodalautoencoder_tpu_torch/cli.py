@@ -1,10 +1,10 @@
-"""Command-line interface of the port: serving, single-run training and
-the two sweeps.
+"""Command-line interface of the port: serving, single-run training, the
+two sweeps, the comparison baselines and feature selection.
 
 Counterpart of ``multimodalautoencoder_tpu/cli.py`` (its ``fill``,
-``embed``, ``train``, ``sweep-mmae`` and ``sweep-classification``
-subcommands; the baseline and tool subcommands come with the rest of the
-port):
+``embed``, ``train``, ``sweep-mmae``, ``sweep-classification``,
+``baseline`` and ``feature-select`` subcommands; ``jobs`` and
+``merge-shards`` come with the rest of the port):
 
     python -m multimodalautoencoder_tpu_torch.cli train data.csv \\
         --arch 1000 100 --num-steps 30000 --normalize-and-fill
@@ -16,11 +16,19 @@ port):
         unsup.csv [sup.csv] --normalize-and-fill [--device cuda]
     python -m multimodalautoencoder_tpu_torch.cli sweep-classification \\
         unsup.csv sup.csv [label] --normalize-and-fill [--device cuda]
+    python -m multimodalautoencoder_tpu_torch.cli baseline {svm,rf,lr,nn} \\
+        data.csv [label] --normalize-and-fill [--device cuda]
+    python -m multimodalautoencoder_tpu_torch.cli feature-select \\
+        data.csv pca 100 --backend jax --fill-missing 0 [--device cuda]
 
 ``--device`` (default ``cuda``) is where the model runs; there is no
 fallback to another device.  ``--seed`` seeds the row shuffle of
 ``--normalize-and-fill``, the CV folds and every random draw of the run
-(the JAX CLI seeds the same places).
+(the JAX CLI seeds the same places).  ``--engine native`` reads CSVs with
+the C++ parser of ``native/csv_loader.cpp`` (``data/fast_csv.py``).
+``baseline svm|rf|lr``, ``sweep-mmae --probe svm`` and ``feature-select
+--backend sklearn`` need scikit-learn, which the port does not depend on:
+without it they exit with an error that names it.
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ def _restore(args):
                     normalize_and_fill=args.normalize_and_fill,
                     normalization=args.normalization,
                     fill_gaps_with=_fill_gaps(args), suppress_output=True,
-                    seed=args.seed)
+                    seed=args.seed, engine=args.engine)
     cfg = MMAEConfig(num_feats=dl.num_feats)
     params, cfg, _, _ = ckpt.load_checkpoint_auto(args.checkpoint, cfg,
                                                   device=args.device)
@@ -99,21 +107,23 @@ def cmd_train(args) -> int:
         normalization=args.normalization, fill_gaps_with=_fill_gaps(args),
         checkpoint_dir=args.checkpoint_dir, seed=args.seed,
         learning_rate=args.learning_rate, batch_size=args.batch_size,
-        device=args.device)
+        device=args.device, engine=args.engine)
     model.train(num_steps=args.num_steps)
     path = model.save_model()
     print("checkpoint:", path)
     return 0
 
 
-def _loader(path, supervised, args, wanted_label=None):
+def _loader(path, supervised, args, wanted_label=None,
+            labels_to_sign=False):
     """A cross-validation loader as the JAX CLI's ``_loader`` builds it."""
     return DataLoader(path, supervised=supervised, cross_validation=True,
                       normalize_and_fill=args.normalize_and_fill,
                       normalization=args.normalization,
                       fill_gaps_with=_fill_gaps(args),
-                      wanted_label=wanted_label, seed=args.seed,
-                      suppress_output=True)
+                      wanted_label=wanted_label,
+                      labels_to_sign=labels_to_sign, seed=args.seed,
+                      suppress_output=True, engine=args.engine)
 
 
 def _reject_z_score(args) -> None:
@@ -172,15 +182,77 @@ def cmd_sweep_classification(args) -> int:
     return 0
 
 
+def cmd_baseline(args) -> int:
+    from multimodalautoencoder_tpu_torch.baselines import (
+        logistic_regression, neural_net, random_forest, svm)
+
+    cls = {"svm": svm.SVMSweep, "rf": random_forest.RFSweep,
+           "lr": logistic_regression.LRSweep,
+           "nn": neural_net.NNSweep}[args.model]
+    dl = _loader(args.filename, True, args, wanted_label=args.label,
+                 labels_to_sign=(args.model == "svm"))
+    extra = (dict(device=args.device, seed=args.seed)
+             if args.model == "nn" else {})
+    try:
+        sweep = cls(dl, results_path=args.results_path, cont=args.cont,
+                    check_test=args.check_test, num_cross_folds=args.folds,
+                    wanted_label=args.label, **extra)
+    except ImportError as e:
+        raise SystemExit(f"baseline {args.model}: {e}") from e
+    best, test = sweep.run()
+    print(best)
+    if test:
+        print(test)
+    return 0
+
+
+def cmd_feature_select(args) -> int:
+    from multimodalautoencoder_tpu_torch.data import feature_selection as fs
+
+    try:
+        out = fs.create_transformed_dataset(
+            args.filename, args.transform, args.num_features,
+            label=args.label, backend=args.backend,
+            fill_missing=args.fill_missing, device=args.device,
+            engine=args.engine)
+    except ImportError as e:
+        raise SystemExit(f"feature-select: {e}") from e
+    print("wrote:", out)
+    return 0
+
+
+def _add_engine(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--engine", choices=("pandas", "native"),
+                   default="pandas",
+                   help="CSV reader: the port's own reader, which gives "
+                        "pandas' floats ('pandas'), or the C++ parser of "
+                        "native/csv_loader.cpp, correctly rounded")
+
+
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--normalize-and-fill", action="store_true",
                    help="normalize + impute the raw CSV on load")
     p.add_argument("--normalization",
                    choices=("between_0_and_1", "z_score"),
-                   default="between_0_and_1")
+                   default="between_0_and_1",
+                   help="z_score only for 'baseline' (the reference "
+                        "baseline CLIs' prep, comparison_algorithms/"
+                        "svm.py:14,143-150)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device the model runs on")
+    _add_engine(p)
+
+
+def _add_run_common(p: argparse.ArgumentParser) -> None:
+    """Flags the sweeps and the baselines take."""
+    p.add_argument("--results-path", default="results")
+    p.add_argument("--continue", "--cont", dest="cont", action="store_true",
+                   help="resume from a previous results CSV")
+    p.add_argument("--folds", type=int, default=5)
+    p.add_argument("--check-test", action="store_true",
+                   help="retrain the best setting on fold 0 and score it "
+                        "on the held-out test set")
 
 
 def _add_sweep_common(p: argparse.ArgumentParser) -> None:
@@ -190,13 +262,7 @@ def _add_sweep_common(p: argparse.ArgumentParser) -> None:
                    help="'auto' trains on the CUDA kernels where the shape "
                         "family allows and the device is a GPU, the plain "
                         "trainers otherwise; 'xla'/'pallas' force")
-    p.add_argument("--results-path", default="results")
-    p.add_argument("--continue", "--cont", dest="cont", action="store_true",
-                   help="resume from a previous results CSV")
-    p.add_argument("--folds", type=int, default=5)
-    p.add_argument("--check-test", action="store_true",
-                   help="retrain the best setting on fold 0 and score it "
-                        "on the held-out test set")
+    _add_run_common(p)
     p.add_argument("--save-best-params", action="store_true",
                    help="checkpoint the best setting's fold-0 parameters "
                         "at the end of the sweep (consumable by "
@@ -214,7 +280,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("device", "device-exact", "svm", "none"),
                    help="embedding-quality probe: the on-device RFF ridge "
                         "(default), the exact kernel ridge, the host "
-                        "sklearn SVC grid (not ported: refused), or none")
+                        "sklearn SVC grid (needs scikit-learn), or none")
     p.add_argument("--process-shard", nargs=2, type=int, default=None,
                    metavar=("I", "N"),
                    help="multi-host scale-out (not ported yet: refused)")
@@ -253,6 +319,28 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--checkpoint", required=True)
         _add_common(p)
         p.set_defaults(fn=fn)
+    p = sub.add_parser("baseline", help="comparison-baseline grid search")
+    p.add_argument("model", choices=("svm", "rf", "lr", "nn"))
+    p.add_argument("filename")
+    p.add_argument("label", nargs="?", default=None)
+    _add_run_common(p)
+    _add_common(p)
+    p.set_defaults(fn=cmd_baseline)
+    p = sub.add_parser("feature-select", help="PCA / SelectKBest dataset")
+    p.add_argument("filename")
+    p.add_argument("transform", choices=("pca", "skb"))
+    p.add_argument("num_features", type=int)
+    p.add_argument("--label", default=None)
+    p.add_argument("--backend", choices=("sklearn", "jax"),
+                   default="sklearn",
+                   help="'sklearn': scikit-learn's PCA / SelectKBest on the "
+                        "host; 'jax' (the JAX package's name): the port's "
+                        "own path, the PCA's SVD on --device")
+    p.add_argument("--fill-missing", type=float, default=None)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the 'jax' backend's SVD")
+    _add_engine(p)
+    p.set_defaults(fn=cmd_feature_select)
     return ap
 
 

@@ -1,70 +1,34 @@
-// fused_dense: out = act(x @ w + b) in one kernel, on the tensor cores of
-// an sm_90a card.
+// fused_dense: out = act(x @ w + b) in one kernel on an sm_90a card.
 //
 // Replaces the Pallas TPU kernel multimodalautoencoder_tpu/ops/
 // pallas_kernels.py::_kernel (driven by fused_dense / _fused_dense_impl),
 // which kept a whole (block_m, K) x (K, block_n) product in VMEM.  Here a
-// block owns a 128 x 128 output tile and walks K in BK = 32 deep slices
-// through a ring in dynamic shared memory (3 stages for f32, 4 for bf16),
-// filled by cp.async copies that run ahead of the products.  Bias and
-// activation are applied in the epilogue, so the pre-activation never goes
-// to device memory.
+// block owns an output tile and walks K in slices staged through shared
+// memory; bias and activation are applied in the epilogue, so the
+// pre-activation never goes to device memory.  Three kernels:
 //
-// f32 operands with at most FFMA_MAX_ROWS rows (training and evaluation
-// batches) take a third kernel, dense_ffma_kernel: exact f32 FMAs on the
-// CUDA cores, for the reasons given above it.  What follows is about the
-// serve path's many rows.
+// - f32 operands with at most FFMA_MAX_ROWS rows (training and evaluation
+//   batches): dense_ffma_kernel, 16 x 64 tiles of exact f32 FMAs;
+// - more f32 rows (serving, M = 2000): dense_sgemm_kernel, 128 x 128 tiles
+//   of exact f32 FMAs, an 8 x 8 register tile a thread.  At the serve
+//   shapes (K, N in {100, 1000}) a layer does 2*M*K*N <= 4 GFLOP on <= 20
+//   MB of operands and output, so it is bound by the f32 CUDA cores'
+//   67 TFLOP/s.  The tensor cores would be faster, but they take f32 only
+//   as TF32, and 3xTF32 ("big + small", each operand split into TF32 hi and
+//   lo parts), though within 5e-6 of f64 at K = 1000, leans toward zero:
+//   each wgmma instruction cuts its sum toward zero rather than rounding
+//   it (PERF.md keeps the measurements);
+// - bf16 operands (bf16 != 0), on mma.sync: every element is rounded to
+//   bf16 (round to nearest even) as its fragment is built, and the
+//   products run as mma.sync.m16n8k16 bf16 with f32 sums.  The products of
+//   bf16 values are exact in f32, the policy of models/mmae.py::mxu_dot.
 //
-// What bounds it on an H100: at the serve shapes (M = 2000 rows, K, N in
-// {100, 1000}) a layer does 2*M*K*N <= 4 GFLOP on <= 20 MB of operands and
-// output, far above the card's operations-per-byte line, so it is bound by
-// operations.  The f32 CUDA cores (67 TFLOP/s) are too slow for that; the
-// tensor cores take f32 only as TF32, which keeps 10 of f32's 23 mantissa
-// bits and would miss the port's 1e-4 tolerance at K = 1000.  So f32
-// operands run as 3xTF32 ("big + small", as CUTLASS's
-// ampere_3xtf32_fast_accurate_tensorop_gemm example): each operand v is
-// split into hi = tf32_rna(v) and lo = tf32_rna(v - hi), and the sum
-// takes lo*hi + hi*lo + hi*hi, three TF32 products with f32 accumulation,
-// dropping only lo*lo (about 2^-22 of each product).  Its bound is
-// 3 * 2*M*K*N over the TF32 rate (495 TFLOP/s).  The tensor cores cut each
-// instruction's sum toward zero, so each 32-deep slice is summed in a fresh
-// accumulator and added to an f32 register sum (TfAcc below).
-//
-// f32 operands, on wgmma.  wgmma reads B from shared memory, and takes
-// TF32 only K-major; the encoder's w is N-major and the tied decoder's
-// w.T view K-major.  So each staged slice of w, in whichever orientation
-// it lies, goes through one pass of all threads that splits it into hi
-// and lo and writes both K-major, 128-byte swizzled ([128 n][32 k], the
-// 16-byte chunk c of row n at c ^ (n % 8)): that layout serves both
-// orientations, and the split of w is done once per block rather than
-// once per warp.  x's slice is split in registers, which wgmma takes as
-// A.  Each of the two warpgroups issues, per 8-deep step, three
-// m64n128k8 products into a 64 x 128 accumulator that starts afresh each
-// slice and is added to the f32 sum in registers once its group is done;
-// the split of the next slice of w and x runs while they do.
-//
-// bf16 operands (bf16 != 0), on mma.sync: every element is rounded to
-// bf16 (round to nearest even) as its fragment is built, and the products
-// run as mma.sync.m16n8k16 bf16 with f32 sums.  The products of bf16
-// values are exact in f32, the policy of models/mmae.py::mxu_dot.
-//
-// Staging: x's slice is staged K-major ([BM][BK + 4]); w's as it lies in
-// memory, N-major ([BK][BN + pad]) for row-major w and K-major
-// ([BN][BK + 4]) for the w.T view, chosen by a template parameter from the
-// strides, so the transpose is never copied.  The pads put the reads of
-// either layout on 32 distinct banks.  Staging copies 16 bytes at a time
-// when every row starts 16-byte aligned (VEC), else 4 bytes at a time
-// with element strides; the wrapper picks the instantiation at launch, so
-// no loop has a run-time branch.  Ragged M, N and a partial last K slice
-// are zero-filled by the copies.
-//
-// Occupancy: 128 x 128 tiles give 16 x 8 = 128 blocks for the 1000-wide
-// layers, one wave on 132 SMs.  The 100-wide encoder output gives only
-// 16, so there the launch splits K across a thread-block cluster of 2, 4
-// or 8 blocks; each block leaves its partial tile in its shared memory,
-// and after a cluster barrier each block sums its share of rows over the
-// partials through distributed shared memory, in rank order, and runs the
-// epilogue on them.
+// Every f32 output is fmaf(x_k, w_k, sum) in ascending k, rounded to
+// nearest; where a few tiles leave the card idle (N = 100), K is split
+// across a thread-block cluster of 2, 4 or 8 blocks: each block leaves its
+// partial tile in its shared memory, and after a cluster barrier each block
+// sums its share of rows over the partials through distributed shared
+// memory, in rank order, and runs the epilogue on them.
 //
 // Activations are those of pallas_kernels._ACT_FNS, ids in
 // config.ACTIVATIONS order: 0 linear, 1 relu, 2 tanh, 3 softsign,
@@ -73,6 +37,15 @@
 //
 // The launcher takes raw pointers and a stream and returns the CUDA error
 // code of the launch; it allocates nothing and does not synchronise.
+//
+// The bf16 kernel stages x's slice K-major ([BM][BK + 4]) and w's as it lies in memory, N-major
+// ([BK][BN + pad]) for row-major w and K-major ([BN][BK + 4]) for the w.T
+// view, chosen by a template parameter from the strides, so the transpose
+// is never copied.  The pads put the reads of either layout on 32 distinct
+// banks.  Staging copies 16 bytes at a time when every row starts 16-byte
+// aligned (VEC), else 4 bytes at a time with element strides; the wrapper
+// picks the instantiation at launch, so no loop has a run-time branch.
+// Ragged M, N and a partial last K slice are zero-filled by the copies.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -85,7 +58,6 @@ namespace {
 
 constexpr int BK = 32;          // depth of one staged slice
 constexpr int STAGES = 4;       // slices in flight in the bf16 ring
-constexpr int TF32_STAGES = 3;  // in the TF32 ring, beside its split w
 constexpr int THREADS = 256;    // 8 warps: 2 warpgroups
 constexpr int MAX_SPLIT = 8;    // portable cluster size
 constexpr int MAX_DEVICES = 64;
@@ -96,20 +68,19 @@ constexpr int F_THREADS = 128;
 
 // The staged ring of a BM x BN tile, and the mma.sync warp layout of the
 // bf16 kernel (2 x 4 warps).
-template <bool BF16, bool B_KMAJOR, int NSTAGES = STAGES>
+template <bool B_KMAJOR>
 struct Geometry {
   static constexpr int BM = 128, BN = 128;
   static constexpr int WM = BM / 2, WN = BN / 4;
   static constexpr int MI = WM / 16, NI = WN / 8;  // mma tiles a warp
   // K-major rows: a stride of 36 words puts (row g, col t) on bank 4g + t.
   static constexpr int A_LD = BK + 4;
-  // N-major rows: (k t, col g) on bank 8t + g needs a stride of 8 mod 32
-  // (the TF32 split pass); (k 2t, col g) on 8t + g needs 4 mod 32 (bf16).
-  static constexpr int B_LD = B_KMAJOR ? BK + 4 : BN + (BF16 ? 4 : 8);
+  // N-major rows: (k 2t, col g) on bank 8t + g needs a stride of 4 mod 32.
+  static constexpr int B_LD = B_KMAJOR ? BK + 4 : BN + 4;
   static constexpr int A_FLOATS = BM * A_LD;
   static constexpr int B_FLOATS = B_KMAJOR ? BN * B_LD : BK * B_LD;
   static constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
-  static constexpr int RING_BYTES = NSTAGES * STAGE_FLOATS * 4;
+  static constexpr int RING_BYTES = STAGES * STAGE_FLOATS * 4;
   // the partial tile a split block leaves for its cluster
   static constexpr int RED_LD = BN + 8;
   static constexpr int RED_BYTES = BM * RED_LD * 4;
@@ -117,24 +88,6 @@ struct Geometry {
   static_assert(A_FLOATS % 4 == 0 && B_FLOATS % 4 == 0, "16-byte stages");
   static_assert(B_LD % 4 == 0 && RED_LD % 4 == 0, "16-byte rows");
   static_assert(RED_BYTES <= RING_BYTES, "the partial fits the ring");
-};
-
-// The wgmma accumulator of the TF32 kernel, seen per warp: warp w holds
-// rows [16 w, 16 w + 16) of the 128 x 128 tile, laid out as 16 mma.m16n8
-// fragments along N.
-template <bool B_KMAJOR>
-struct WgTile : Geometry<false, B_KMAJOR, TF32_STAGES> {
-  using Ring = Geometry<false, B_KMAJOR, TF32_STAGES>;
-  static constexpr int MI = 1, NI = 16;
-  // w's slice split into hi and lo, K-major, 128-byte swizzled; three
-  // pairs, since two groups of products are in flight while the next
-  // slice is split
-  static constexpr int SPLIT_BYTES = 128 * BK * 4;  // 16 KB, one of six
-  static constexpr int SPLIT_PAIRS = 3;
-  // the split buffers start on a 1024-byte boundary
-  static constexpr int SMEM_BYTES =
-      Ring::RING_BYTES + 2 * SPLIT_PAIRS * SPLIT_BYTES + 1024;
-  static_assert(Ring::RING_BYTES % 1024 == 0, "aligned split buffers");
 };
 
 __device__ __forceinline__ float relu_keep_nan(float z) {
@@ -183,15 +136,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// v = hi + lo + (what is left), hi and lo TF32 (round to nearest, ties
-// away: cvt.rna).
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
-  const float rest = v - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-}
-
 // (lo, hi) rounded to bf16 (nearest even), lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -205,68 +149,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Shared-memory matrix descriptor of a K-major, 128-byte swizzled tile
-// whose rows are 128 bytes and whose 8-row groups are 1024 bytes apart.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4)  // start address
-         | (uint64_t)1 << 16                 // leading offset (unused)
-         | (uint64_t)(1024 >> 4) << 32       // stride between row groups
-         | (uint64_t)1 << 62;                // 128-byte swizzle
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// D (64 x 128 f32, this warpgroup's rows) = A (64 x 8 TF32, registers;
-// each warp its 16 rows as in mma.m16n8k8) x B (8 x 128 TF32, shared
-// memory through ``desc``), plus D unless ``scale_d`` is 0.
-__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a,
-                                           uint64_t desc, int scale_d = 1) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(scale_d));
-}
-
-// Keeps the compiler from moving reads of an accumulator register across
-// the wgmma wait that makes it valid.
-__device__ __forceinline__ void fence_operand(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
 }
 
 struct Operands {
@@ -342,37 +224,6 @@ __device__ __forceinline__ void stage_tile(const Operands& p, float* As,
       cp_async4(Bs + r * G::B_LD + c,
                 in ? p.w + gk * p.swk + gn * p.swn : p.w, in ? 4 : 0);
     }
-  }
-}
-
-// w's staged slice (either orientation) into hi and lo, each K-major and
-// 128-byte swizzled: the 16-byte chunk c of row n at byte n * 128 +
-// ((c ^ (n % 8)) << 4).  A warp takes 32 neighbouring n of one chunk, so
-// both the reads and the 16-byte writes fall on distinct banks.
-template <class G, bool B_KMAJOR>
-__device__ __forceinline__ void split_w(const float* Bs, uint8_t* hi,
-                                        uint8_t* lo, int tid) {
-#pragma unroll
-  for (int it = 0; it < 128 * (BK / 4) / THREADS; ++it) {
-    const int task = tid + it * THREADS;
-    const int n = task % 128, c = task / 128;
-    float v[4];
-    if (B_KMAJOR) {
-      const float4 q =
-          *reinterpret_cast<const float4*>(Bs + n * G::B_LD + 4 * c);
-      v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-    } else {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) v[u] = Bs[(4 * c + u) * G::B_LD + n];
-    }
-    uint4 h, l;
-    split_tf32(v[0], h.x, l.x);
-    split_tf32(v[1], h.y, l.y);
-    split_tf32(v[2], h.z, l.z);
-    split_tf32(v[3], h.w, l.w);
-    const int off = n * 128 + ((c ^ (n & 7)) << 4);
-    *reinterpret_cast<uint4*>(hi + off) = h;
-    *reinterpret_cast<uint4*>(lo + off) = l;
   }
 }
 
@@ -524,173 +375,23 @@ __device__ __forceinline__ void finish(const Operands& p,
   cluster.sync();  // no block leaves while another reads its partial
 }
 
-// The K range of block z of ``split``: k-tiles [kt0, kt0 + nk).
-__device__ __forceinline__ void k_range(int K, int split, int& kt0,
-                                        int& nk) {
-  const int kt_all = (K + BK - 1) / BK;
+// The K range of block z of ``split``: k-tiles of depth ``bk``
+// [kt0, kt0 + nk).
+__device__ __forceinline__ void k_range(int K, int split, int& kt0, int& nk,
+                                        int bk = BK) {
+  const int kt_all = (K + bk - 1) / bk;
   const int per = (kt_all + split - 1) / split;
   kt0 = blockIdx.z * per;
   nk = max(0, min(kt_all, kt0 + per) - kt0);
 }
 
-// How a TF32 kernel sums its products.  The tensor cores add each
-// instruction's products into its accumulator and cut the result toward
-// zero rather than rounding it, so a sum carried across K in one wgmma
-// accumulator drifts toward zero by about half a unit in its last place per
-// instruction, 375 instructions at K = 1000.  PROMOTED, the served kernel:
-// each slice's 12 products go into a fresh accumulator, which is added to
-// an f32 register sum (rounded to nearest) once its group is done, so the
-// cut errors stay those of a 32-deep partial and their signs vary from
-// slice to slice.  The other two are kept for the accumulation test only:
-// ONE_ACC (the earlier scheme) and SMALL_ACC (lo*hi and hi*lo in a second
-// accumulator, hi*hi alone in the first).
-enum TfAcc { PROMOTED = 0, ONE_ACC, SMALL_ACC };
-
-// f32 operands, 3xTF32 on wgmma.  grid (M tiles, N tiles, split); a split
-// > 1 launches as a cluster of ``split`` blocks along z, one K range each.
-// TERMS < 3 drops hi*lo, then lo*hi (accumulation test only).
-//
-// Slice i: its x part is split into registers (two register sets, by the
-// parity of i) and its 12 products are issued as one wgmma group on split
-// buffer pair i % 3.  With ONE_ACC or SMALL_ACC the group of slice i - 1 is
-// then waited for, so the tensor cores always have the next group queued.
-// PROMOTED waits for slice i's own group once the threads have split slice
-// i + 1 (w and x) and refilled the copy ring, then adds it to the sum.
-template <bool B_KMAJOR, bool VEC, int TERMS = 3, int ACC = PROMOTED>
-__global__ void __launch_bounds__(THREADS, 1)
-dense_tf32_kernel(Operands p, int split) {
-  using G = WgTile<B_KMAJOR>;
-  constexpr int S = TF32_STAGES;
-  constexpr int NACC = G::NI * 4;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  uint8_t* smem =
-      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  float* ring = reinterpret_cast<float*>(smem);
-  uint8_t* split_buf = smem + G::RING_BYTES;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm0 = warp * 16;
-  const int m0 = blockIdx.x * G::BM, n0 = blockIdx.y * G::BN;
-  int kt0, nk;
-  k_range(p.K, split, kt0, nk);
-
-  float acc[1][G::NI][4];
-  float part[ACC == ONE_ACC ? 1 : NACC];  // the slice's or the small sum
-  float* sum = &acc[0][0][0];
-#pragma unroll
-  for (int j = 0; j < NACC; ++j) sum[j] = 0.f;
-#pragma unroll
-  for (int j = 0; j < (ACC == ONE_ACC ? 1 : NACC); ++j) part[j] = 0.f;
-  float* big = ACC == PROMOTED ? part : sum;
-  float* small = ACC == ONE_ACC ? sum : part;
-
-  auto stage = [&](int i) { return ring + (i % S) * G::STAGE_FLOATS; };
-  auto hi_buf = [&](int i) {
-    return split_buf + 2 * (i % G::SPLIT_PAIRS) * G::SPLIT_BYTES;
-  };
-  auto lo_buf = [&](int i) { return hi_buf(i) + G::SPLIT_BYTES; };
-  auto copy_slice = [&](int i) {
-    if (i < nk)
-      stage_tile<G, B_KMAJOR, VEC>(p, stage(i), stage(i) + G::A_FLOATS, m0,
-                                   n0, kt0 + i, tid);
-    cp_async_commit();  // empty groups keep the count
-  };
-  auto split_slice = [&](int i) {
-    split_w<G, B_KMAJOR>(stage(i) + G::A_FLOATS, hi_buf(i), lo_buf(i), tid);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  };
-  auto split_x = [&](int i, uint32_t (&ahi)[BK / 8][4],
-                     uint32_t (&alo)[BK / 8][4]) {
-    const float* As = stage(i);
-#pragma unroll
-    for (int kk = 0; kk < BK / 8; ++kk) {
-      const float* a = As + (wm0 + g) * G::A_LD + 8 * kk + t;
-      split_tf32(a[0], ahi[kk][0], alo[kk][0]);
-      split_tf32(a[8 * G::A_LD], ahi[kk][1], alo[kk][1]);
-      split_tf32(a[4], ahi[kk][2], alo[kk][2]);
-      split_tf32(a[8 * G::A_LD + 4], ahi[kk][3], alo[kk][3]);
-    }
-  };
-  auto issue = [&](int i, uint32_t (&ahi)[BK / 8][4],
-                   uint32_t (&alo)[BK / 8][4]) {
-    const uint32_t bh = smem_addr(hi_buf(i)), bl = smem_addr(lo_buf(i));
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 8; ++kk) {
-      // 8 TF32 of K are 32 bytes along the swizzled rows
-      const uint64_t dh = sw128_desc(bh + 32 * kk);
-      const uint64_t dl = sw128_desc(bl + 32 * kk);
-      // the small terms first, then the big one; a promoted slice starts
-      // its accumulator afresh
-      const int keep = ACC == PROMOTED && kk == 0 ? 0 : 1;
-      if (TERMS >= 2) wgmma_tf32(small, alo[kk], dh, keep);
-      if (TERMS >= 3) wgmma_tf32(small, ahi[kk], dl, 1);
-      wgmma_tf32(big, ahi[kk], dh, TERMS >= 2 ? 1 : keep);
-    }
-    wgmma_commit();
-  };
-  auto step = [&](int i, uint32_t (&ahi)[BK / 8][4],
-                  uint32_t (&alo)[BK / 8][4], uint32_t (&nhi)[BK / 8][4],
-                  uint32_t (&nlo)[BK / 8][4]) {
-    if (ACC != PROMOTED) split_x(i, ahi, alo);
-    issue(i, ahi, alo);
-    // slice i - 1's group is done: its registers and split pair are free
-    if (ACC != PROMOTED) wgmma_wait<1>();
-    if (i + 1 < nk) {
-      cp_async_wait<0>();  // slice i + 1 landed (this thread's copies)
-      __syncthreads();     // ... everyone's, and slice i's x was read
-      copy_slice(i + 2);
-      split_slice(i + 1);
-      if (ACC == PROMOTED) split_x(i + 1, nhi, nlo);
-      __syncthreads();
-    }
-    if (ACC == PROMOTED) {
-      wgmma_wait<0>();
-#pragma unroll
-      for (int j = 0; j < NACC; ++j) {
-        fence_operand(part[j]);
-        sum[j] += part[j];
-      }
-    }
-  };
-
-  copy_slice(0);
-  copy_slice(1);
-  uint32_t ahi0[BK / 8][4], alo0[BK / 8][4], ahi1[BK / 8][4], alo1[BK / 8][4];
-  if (nk > 0) {
-    cp_async_wait<1>();
-    __syncthreads();
-    split_slice(0);
-    if (ACC == PROMOTED) split_x(0, ahi0, alo0);
-    __syncthreads();
-  }
-  int i = 0;
-  for (; i + 1 < nk; i += 2) {
-    step(i, ahi0, alo0, ahi1, alo1);
-    step(i + 1, ahi1, alo1, ahi0, alo0);
-  }
-  if (i < nk) step(i, ahi0, alo0, ahi1, alo1);
-  wgmma_wait<0>();
-  if (ACC == SMALL_ACC) {
-#pragma unroll
-    for (int j = 0; j < NACC; ++j) {
-      fence_operand(sum[j]);
-      fence_operand(part[j]);
-      sum[j] += part[j];
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  finish<G>(p, acc, ring, split, m0, n0, wm0, 0, g, t, tid);
-}
-
 // bf16 operands on mma.sync: each of the 2 x 4 warps owns a WM x WN
-// sub-tile.  Same grid and split as the TF32 kernel.
+// sub-tile, on 128 x 128 tiles, K split across a cluster when they leave
+// most of the card idle.
 template <bool B_KMAJOR, bool VEC>
 __global__ void __launch_bounds__(THREADS, 1)
 dense_bf16_kernel(Operands p, int split) {
-  using G = Geometry<true, B_KMAJOR>;
+  using G = Geometry<B_KMAJOR>;
   extern __shared__ __align__(16) float smem[];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -889,6 +590,198 @@ dense_ffma_kernel(Operands p, int split) {
   ffma_finish<ACT>(p, acc, sm, split, m0, n0, tid);
 }
 
+// f32 operands with more rows (serving: M = 2000) take exact f32 FMAs in
+// k order as well, on 128 x 128 tiles.  3xTF32 on the tensor cores is
+// within 5e-6 of f64 at K = 1000, but its error leans toward zero (its
+// mean along the output's sign is about -0.6 of its root mean square),
+// because every wgmma instruction cuts its sum toward zero; a sum promoted
+// to f32 registers after every 8-deep step still leans (about -0.14).
+// Rounded to nearest, FMAs do not.
+// Bound: 2*M*K*N FMA operations over the f32 CUDA cores' 67 TFLOP/s (the
+// four serve layers at M = 2000: 0.131 ms), far above their bytes.  So a
+// thread keeps an 8 x 8 tile of outputs in registers and reads its 8 + 8
+// operands of each k as four 16-byte shared-memory loads, 64 FMAs per 4
+// loads: rows {4 ty + i, 64 + 4 ty + i} and columns {4 tx + j, 64 + 4 tx
+// + j} of the block's tile (16 x 16 threads).  Slices of BK_S = 8 of x
+// (stored k-major) and w (n-major, whichever orientation it lies in) go
+// through two buffers, the next slice loaded into registers while the
+// current one is multiplied; 16-byte loads where rows are 16-byte aligned
+// (VEC), else one element at a time through the strides.  Few tiles (N =
+// 100) split K across a cluster, whose partials are summed in rank order
+// as in the other kernels.
+constexpr int BK_S = 8;            // depth of one slice
+constexpr int S_LD = 128 + 4;      // a slice row: 128 rows or columns
+constexpr int S_SLICE = BK_S * S_LD;
+using SgemmRed = Geometry<false>;  // the split's partial tile
+constexpr int SGEMM_SMEM = SgemmRed::RED_BYTES;
+static_assert(4 * S_SLICE * 4 <= SGEMM_SMEM, "two slices of x and w fit");
+
+template <bool B_KMAJOR, bool VEC>
+__device__ __forceinline__ void sgemm_load(const Operands& p, int m0, int n0,
+                                           int k0, int tid, float (&xr)[4],
+                                           float (&wr)[4]) {
+  {  // x: row tid / 2, k 4 (tid % 2) + u
+    const int gm = m0 + tid / 2, gk = k0 + 4 * (tid % 2);
+    const float* src = p.x + (int64_t)gm * p.sxm;
+    if (VEC && gm < p.M && gk + 3 < p.K) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(src + gk));
+      xr[0] = v.x; xr[1] = v.y; xr[2] = v.z; xr[3] = v.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        xr[u] = gm < p.M && gk + u < p.K
+                    ? __ldg(src + (int64_t)(gk + u) * p.sxk) : 0.f;
+    }
+  }
+  // w along its contiguous axis: k for the w.T view, n otherwise
+  const int gk = B_KMAJOR ? k0 + 4 * (tid % 2) : k0 + tid / 32;
+  const int gn = B_KMAJOR ? n0 + tid / 2 : n0 + 4 * (tid % 32);
+  const float* src = p.w + (int64_t)gk * p.swk + (int64_t)gn * p.swn;
+  const bool in = B_KMAJOR ? gn < p.N && gk + 3 < p.K
+                           : gk < p.K && gn + 3 < p.N;
+  if (VEC && in) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(src));
+    wr[0] = v.x; wr[1] = v.y; wr[2] = v.z; wr[3] = v.w;
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = B_KMAJOR ? gk + u : gk, n = B_KMAJOR ? gn : gn + u;
+      wr[u] = k < p.K && n < p.N
+                  ? __ldg(p.w + (int64_t)k * p.swk + (int64_t)n * p.swn)
+                  : 0.f;
+    }
+  }
+}
+
+template <bool B_KMAJOR>
+__device__ __forceinline__ void sgemm_store(float* xs, float* ws, int tid,
+                                            const float (&xr)[4],
+                                            const float (&wr)[4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) xs[(4 * (tid % 2) + u) * S_LD + tid / 2] = xr[u];
+  if (B_KMAJOR) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      ws[(4 * (tid % 2) + u) * S_LD + tid / 2] = wr[u];
+  } else {
+    *reinterpret_cast<float4*>(ws + (tid / 32) * S_LD + 4 * (tid % 32)) =
+        make_float4(wr[0], wr[1], wr[2], wr[3]);
+  }
+}
+
+// The tile's row (or column) of a thread's i-th output row (column).
+__device__ __forceinline__ int sgemm_at(int t, int i) {
+  return (i < 4 ? 4 * t : 64 + 4 * t - 4) + i;
+}
+
+template <int ACT>
+__device__ __forceinline__ void sgemm_store_tile(const Operands& p,
+                                                 const float (&acc)[8][8],
+                                                 int m0, int n0, int ty,
+                                                 int tx, bool pairs) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; j += 2)
+      store_pair<ACT>(p, m0 + sgemm_at(ty, i), n0 + sgemm_at(tx, j),
+                      acc[i][j], acc[i][j + 1], pairs);
+}
+
+// grid (M tiles, N tiles, split); a split > 1 launches as a cluster of
+// ``split`` blocks along z, one K range each.
+template <bool B_KMAJOR, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+dense_sgemm_kernel(Operands p, int split) {
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;                // [2][BK_S][S_LD], k-major
+  float* ws = smem + 2 * S_SLICE;  // [2][BK_S][S_LD], n-major
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.x * 128, n0 = blockIdx.y * 128;
+  int kt0, nk;
+  k_range(p.K, split, kt0, nk, BK_S);
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  float xr[4], wr[4];
+  if (nk > 0) {
+    sgemm_load<B_KMAJOR, VEC>(p, m0, n0, kt0 * BK_S, tid, xr, wr);
+    sgemm_store<B_KMAJOR>(xs, ws, tid, xr, wr);
+  }
+  __syncthreads();
+  for (int s = 0; s < nk; ++s) {
+    const int buf = s & 1;
+    if (s + 1 < nk)
+      sgemm_load<B_KMAJOR, VEC>(p, m0, n0, (kt0 + s + 1) * BK_S, tid, xr,
+                                wr);
+    const float* xb = xs + buf * S_SLICE;
+    const float* wb = ws + buf * S_SLICE;
+#pragma unroll
+    for (int k = 0; k < BK_S; ++k) {
+      float a[8], b[8];
+      *reinterpret_cast<float4*>(a) =
+          *reinterpret_cast<const float4*>(xb + k * S_LD + 4 * ty);
+      *reinterpret_cast<float4*>(a + 4) =
+          *reinterpret_cast<const float4*>(xb + k * S_LD + 64 + 4 * ty);
+      *reinterpret_cast<float4*>(b) =
+          *reinterpret_cast<const float4*>(wb + k * S_LD + 4 * tx);
+      *reinterpret_cast<float4*>(b + 4) =
+          *reinterpret_cast<const float4*>(wb + k * S_LD + 64 + 4 * tx);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    // the other buffer was last read before the previous barrier
+    if (s + 1 < nk)
+      sgemm_store<B_KMAJOR>(xs + (buf ^ 1) * S_SLICE,
+                            ws + (buf ^ 1) * S_SLICE, tid, xr, wr);
+    __syncthreads();
+  }
+  const bool pairs = (p.N & 1) == 0;  // float2 stores stay 8-byte aligned
+  if (split == 1) {
+    switch (p.act) {
+      case 1: sgemm_store_tile<1>(p, acc, m0, n0, ty, tx, pairs); break;
+      case 2: sgemm_store_tile<2>(p, acc, m0, n0, ty, tx, pairs); break;
+      case 3: sgemm_store_tile<3>(p, acc, m0, n0, ty, tx, pairs); break;
+      case 4: sgemm_store_tile<4>(p, acc, m0, n0, ty, tx, pairs); break;
+      default: sgemm_store_tile<0>(p, acc, m0, n0, ty, tx, pairs);
+    }
+    return;
+  }
+  // the partial tile in this block's shared memory (free after the last
+  // barrier), summed over the cluster in rank order as finish() does
+  float* red = smem;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; j += 4)
+      *reinterpret_cast<float4*>(red + sgemm_at(ty, i) * SgemmRed::RED_LD +
+                                 sgemm_at(tx, j)) =
+          make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int rows = SgemmRed::BM / split;
+  const int r0 = static_cast<int>(cluster.block_rank()) * rows;
+  const float* parts[MAX_SPLIT];
+  for (int q = 0; q < split; ++q) parts[q] = cluster.map_shared_rank(red, q);
+  switch (p.act) {
+    case 1: store_reduced<1, SgemmRed>(p, parts, split, r0, rows, m0, n0, tid,
+                                       pairs); break;
+    case 2: store_reduced<2, SgemmRed>(p, parts, split, r0, rows, m0, n0, tid,
+                                       pairs); break;
+    case 3: store_reduced<3, SgemmRed>(p, parts, split, r0, rows, m0, n0, tid,
+                                       pairs); break;
+    case 4: store_reduced<4, SgemmRed>(p, parts, split, r0, rows, m0, n0, tid,
+                                       pairs); break;
+    default: store_reduced<0, SgemmRed>(p, parts, split, r0, rows, m0, n0,
+                                        tid, pairs);
+  }
+  cluster.sync();  // no block leaves while another reads its partial
+}
+
 int device_index() {
   int device = 0;
   if (cudaGetDevice(&device) != cudaSuccess || device >= MAX_DEVICES)
@@ -926,15 +819,15 @@ cudaError_t launch(int smem_bytes, int bm, int bn, const Operands& p,
   return cudaGetLastError();
 }
 
-template <bool B_KMAJOR, bool VEC, int TERMS = 3, int ACC = PROMOTED>
-cudaError_t launch_tf32(const Operands& p, int split, cudaStream_t s) {
-  return launch<dense_tf32_kernel<B_KMAJOR, VEC, TERMS, ACC>>(
-      WgTile<B_KMAJOR>::SMEM_BYTES, 128, 128, p, split, s);
+template <bool B_KMAJOR, bool VEC>
+cudaError_t launch_sgemm(const Operands& p, int split, cudaStream_t s) {
+  return launch<dense_sgemm_kernel<B_KMAJOR, VEC>>(SGEMM_SMEM, 128, 128, p,
+                                                   split, s);
 }
 
 template <bool B_KMAJOR, bool VEC>
 cudaError_t launch_bf16(const Operands& p, int split, cudaStream_t s) {
-  using G = Geometry<true, B_KMAJOR>;
+  using G = Geometry<B_KMAJOR>;
   return launch<dense_bf16_kernel<B_KMAJOR, VEC>>(G::RING_BYTES, G::BM, G::BN,
                                                   p, split, s);
 }
@@ -1007,9 +900,6 @@ int fused_dense_launch(const float* x, const float* w, const float* b,
   const int sms = sm_count();
   const int kt_all = (int)ceil_div(K, BK);
   const long long tiles = ceil_div(M, 128) * ceil_div(N, 128);
-  // 128 x 128 tiles, K split across a cluster when they leave most of the
-  // card idle
-  const int split = choose_split(tiles, kt_all, sms);
   if (!bf16 && M <= FFMA_MAX_ROWS) {
     if (ceil_div(N, F_BN) > 65535) return (int)cudaErrorInvalidConfiguration;
     // 16 x 64 tiles of 128 threads, several to an SM: K split across a
@@ -1020,59 +910,24 @@ int fused_dense_launch(const float* x, const float* w, const float* b,
                           : launch_ffma<false>(p, f_split, s));
   }
   if (!bf16) {
+    // 128 x 128 tiles, two to an SM: K split across a cluster while the
+    // tiles fill under half of those places
+    const int s_split = choose_split(tiles, (int)ceil_div(K, BK_S), 2LL * sms);
     if (b_kmajor)
-      return (int)(vec ? launch_tf32<true, true>(p, split, s)
-                       : launch_tf32<true, false>(p, split, s));
-    return (int)(vec ? launch_tf32<false, true>(p, split, s)
-                     : launch_tf32<false, false>(p, split, s));
+      return (int)(vec ? launch_sgemm<true, true>(p, s_split, s)
+                       : launch_sgemm<true, false>(p, s_split, s));
+    return (int)(vec ? launch_sgemm<false, true>(p, s_split, s)
+                     : launch_sgemm<false, false>(p, s_split, s));
   }
+  // 128 x 128 tiles, K split across a cluster when they leave most of the
+  // card idle
+  const int split = choose_split(tiles, kt_all, sms);
   if (b_kmajor)
     return (int)(vec ? launch_bf16<true, true>(p, split, s)
                      : launch_bf16<true, false>(p, split, s));
   return (int)(vec ? launch_bf16<false, true>(p, split, s)
                    : launch_bf16<false, false>(p, split, s));
 }
-
-#ifdef FUSED_DENSE_ACC_TEST
-// The accumulation test's entry point, built only with
-// -DFUSED_DENSE_ACC_TEST: out = x @ w (contiguous x, either orientation of
-// w, no bias or activation) by the TF32 kernel with the first ``terms`` of
-// hi*hi, lo*hi, hi*lo and the accumulation ``acc`` (TfAcc).  The served
-// kernel is terms 3, PROMOTED.
-int fused_dense_acc_test_launch(const float* x, const float* w,
-                                const float* b, float* out, int M, int N,
-                                int K, long long swk, long long swn,
-                                int terms, int acc, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  const Operands p{x, w, b, out, M, N, K, K, 1, swk, swn, 0};
-  const bool b_kmajor = swk == 1 && swn != 1;
-  const bool vec = K % 4 == 0 && aligned16(x) && aligned16(w) &&
-                   (b_kmajor ? swn % 4 == 0 : swn == 1 && swk % 4 == 0);
-  if (!vec) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int split = choose_split(ceil_div(M, 128) * ceil_div(N, 128),
-                                 (int)ceil_div(K, BK), sm_count());
-  const int mode = 3 * acc + terms;
-  if (b_kmajor) {
-    switch (mode) {
-      case 4: return (int)launch_tf32<true, true, 1, ONE_ACC>(p, split, s);
-      case 5: return (int)launch_tf32<true, true, 2, ONE_ACC>(p, split, s);
-      case 3: return (int)launch_tf32<true, true, 3, PROMOTED>(p, split, s);
-      case 6: return (int)launch_tf32<true, true, 3, ONE_ACC>(p, split, s);
-      case 9: return (int)launch_tf32<true, true, 3, SMALL_ACC>(p, split, s);
-    }
-  } else {
-    switch (mode) {
-      case 4: return (int)launch_tf32<false, true, 1, ONE_ACC>(p, split, s);
-      case 5: return (int)launch_tf32<false, true, 2, ONE_ACC>(p, split, s);
-      case 3: return (int)launch_tf32<false, true, 3, PROMOTED>(p, split, s);
-      case 6: return (int)launch_tf32<false, true, 3, ONE_ACC>(p, split, s);
-      case 9: return (int)launch_tf32<false, true, 3, SMALL_ACC>(p, split, s);
-    }
-  }
-  return (int)cudaErrorInvalidValue;
-}
-#endif
 
 const char* fused_dense_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -299,7 +299,12 @@ class DataLoader:
     normalization, and each ``X`` matrix gets its ``Y`` (one column per
     label, or a vector for one label; {-1, 1} with ``labels_to_sign``).
     ``separate_noisy_data`` splits every matrix by ``logistics_noisy``
-    into ``clean_*`` / ``noisy_*`` where the CSV has that column."""
+    into ``clean_*`` / ``noisy_*`` where the CSV has that column.
+
+    ``engine``: 'pandas' (the default) reads with :func:`read_csv`, which
+    gives pandas' floats; 'native' with ``data/fast_csv.py``'s C++ parser,
+    whose floats are correctly rounded (on 17-digit values they can differ
+    from pandas' by many units in the last place)."""
 
     def __init__(self, filename: str, supervised: bool = True,
                  suppress_output: bool = False,
@@ -314,7 +319,10 @@ class DataLoader:
                  separate_noisy_data: bool = True,
                  num_folds: int = pp.NUM_CROSS_VAL_FOLDS,
                  seed: int = 0,
-                 persist_cv_folds: bool = True):
+                 persist_cv_folds: bool = True,
+                 engine: str = "pandas"):
+        if engine not in ("pandas", "native"):
+            raise ValueError(f"unknown engine {engine!r} (pandas or native)")
         self.filename = filename
         self.supervised = supervised
         self.subdivide_phys = subdivide_physiology_features
@@ -322,15 +330,27 @@ class DataLoader:
         self.labels_to_sign = labels_to_sign
         self.num_folds = num_folds
         self._rng = np.random.default_rng(seed)
-        self.frame = read_csv(filename)
+        if engine == "native":
+            from multimodalautoencoder_tpu_torch.data import fast_csv
+            self.frame = fast_csv.read_csv(filename)
+        else:
+            self.frame = read_csv(filename)
         if cross_validation:
             had_folds = pp.FOLD_COLUMN in self.frame.columns
             self.frame = pp.assign_cross_val_folds(self.frame, num_folds,
                                                    seed)
             if not had_folds and persist_cv_folds:
                 # persist the assignment for stability across runs
-                # (data_funcs.py:222), before any normalization
-                self.frame.to_csv(filename)
+                # (data_funcs.py:222), before any normalization; after a
+                # native read only the fold column goes back, onto the
+                # file as the default reader reads it (loader.py:73-84)
+                out = self.frame
+                if engine == "native":
+                    raw = read_csv(filename)
+                    out = Frame(raw.index_name, raw.index, dict(
+                        raw.columns, **{pp.FOLD_COLUMN:
+                                        self.frame.columns[pp.FOLD_COLUMN]}))
+                out.to_csv(filename)
             self.fold = 0
         self.wanted_feats = pp.get_wanted_feats_from_df(self.frame.names)
 

@@ -14,7 +14,8 @@ column-name list, and :func:`normalize_fill_df` applies them to a
   and applied to all rows (:547-572);
 - drop columns fully null in any split (:574-621);
 - two-tier imputation: whole-modality gaps (row >80% NaN within one prefix)
-  filled first (:712-769), then every other missing cell (:419-420);
+  filled first (:712-769), then every other missing cell (:419-420), and
+  the histogram of those gaps (:771-833);
 - a seeded shuffle: ``pd.DataFrame.sample(frac=1, random_state=s)`` orders
   rows as ``np.random.RandomState(s).permutation(n)``, used here directly;
 - cross-validation folds drawn from ``np.random.default_rng(seed)``
@@ -24,7 +25,8 @@ column-name list, and :func:`normalize_fill_df` applies them to a
 from __future__ import annotations
 
 import warnings
-from typing import TYPE_CHECKING, List, Optional, Sequence, Tuple
+from typing import (TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 
@@ -143,6 +145,38 @@ def fill_gaps_in_modalities(X: np.ndarray, fill_value: float,
         rows = nan[:, s:e].mean(axis=1) > gap_threshold
         X[rows, s:e] = fill_value
     return X
+
+
+def count_gaps_in_modalities(data: Union["Frame", np.ndarray],
+                             wanted_feats: Optional[Sequence[str]] = None,
+                             gap_threshold: float = 0.8,
+                             subdivide_phys: bool = True) -> Dict[str, int]:
+    """Histogram of co-missing modality sets (data_funcs.py:771-833): maps
+    'modA, modB' to the number of rows where exactly that set of modalities
+    is more than ``gap_threshold`` NaN ('None' when none is).  ``data`` is
+    a ``loader.Frame`` (features found by name unless ``wanted_feats`` is
+    given) or a feature matrix whose columns are ``wanted_feats``."""
+    if isinstance(data, np.ndarray):
+        if wanted_feats is None:
+            raise ValueError("a feature matrix needs its wanted_feats")
+        X = np.asarray(data, dtype=np.float64)
+    else:
+        if wanted_feats is None:
+            wanted_feats = get_wanted_feats_from_df(data.names)
+        X = data.matrix(list(wanted_feats))
+    table = ModalityTable.from_feature_names(list(wanted_feats),
+                                             subdivide_phys=subdivide_phys)
+    nan = np.isnan(X)
+    missing = np.zeros((len(X), table.num_modalities), dtype=bool)
+    for m in range(table.num_modalities):
+        s, e = table.span(m)
+        missing[:, m] = nan[:, s:e].mean(axis=1) > gap_threshold
+    out: Dict[str, int] = {}
+    for row in missing:
+        names = [table.names[i] for i in np.nonzero(row)[0]]
+        key = ", ".join(names) if names else "None"
+        out[key] = out.get(key, 0) + 1
+    return out
 
 
 def shuffle_order(num_rows: int, seed: Optional[int]) -> np.ndarray:

@@ -16,7 +16,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
-from multimodalautoencoder_tpu_torch.data.loader import Frame
+from multimodalautoencoder_tpu_torch.data.loader import DataLoader, Frame
 from multimodalautoencoder_tpu_torch.data.modalities import ModalityTable
 
 DEFAULT_MODALITIES: Tuple[Tuple[str, int], ...] = (
@@ -112,3 +112,20 @@ def write_reference_scale_csv(workdir: str, num_rows: int = 2000,
     return write_csv(os.path.join(workdir, "acii.csv"), num_rows=num_rows,
                      seed=seed, modalities=REFERENCE_SCALE_MODALITIES,
                      label_names=REFERENCE_SCALE_LABELS)
+
+
+def reference_scale_loaders(workdir: str, num_rows: int = 2000,
+                            seed: int = 0):
+    """The reference-scale study written to ``<workdir>/acii.csv`` and
+    wrapped in the unsupervised and supervised cross-validation
+    DataLoaders the sweeps take (normalized and filled, whole-modality
+    gaps set to -1): the JAX package's ``reference_scale_loaders``, the
+    data of its benchmarks."""
+    path = write_reference_scale_csv(workdir, num_rows=num_rows, seed=seed)
+    unsup = DataLoader(path, supervised=False, cross_validation=True,
+                       suppress_output=True, normalize_and_fill=True,
+                       fill_gaps_with=-1.0)
+    sup = DataLoader(path, supervised=True, cross_validation=True,
+                     suppress_output=True, normalize_and_fill=True,
+                     fill_gaps_with=-1.0)
+    return unsup, sup

@@ -65,22 +65,27 @@ class NvccLibrary:
         return any(os.path.getmtime(p) > built
                    for p in (self.source,) + self.headers)
 
+    def command(self, out: str) -> list:
+        """The compiler's command line that builds the library as ``out``."""
+        return [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in self.defines),
+                "-o", out, self.source]
+
     def build(self) -> None:
-        """Compile the source with nvcc into ``library``; raises with the
-        compiler's output if it fails.  ``build_log`` keeps what ptxas
-        reported (registers, shared memory, spills)."""
+        """Compile the source (:meth:`command`) into ``library``; raises
+        with the compiler's output if it fails.  ``build_log`` keeps what
+        the compiler reported (ptxas: registers, shared memory, spills)."""
         os.makedirs(os.path.dirname(self.library), exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so",
                                    dir=os.path.dirname(self.library))
         os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in self.defines),
-               "-o", tmp, self.source]
+        cmd = self.command(tmp)
         t0 = time.perf_counter()
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                    f"{os.path.basename(cmd[0])} failed ({proc.returncode}):"
+                    f" {' '.join(cmd)}\n"
                     f"{proc.stdout}{proc.stderr}")
             os.replace(tmp, self.library)  # atomic: no half-written .so
         finally:

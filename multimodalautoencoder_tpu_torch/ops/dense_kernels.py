@@ -2,15 +2,13 @@
 
 Counterpart of ``multimodalautoencoder_tpu/ops/pallas_kernels.py``.  The
 Pallas TPU kernel there (``_kernel``, behind ``fused_dense``) becomes the
-hand-written CUDA C++ kernel in ``csrc/fused_dense.cu``: f32 operands
-with at most ``FFMA_MAX_ROWS`` rows (training and evaluation batches) as
-exact f32 FMAs in k order on the CUDA cores; more f32 rows (serving) as
-3xTF32 on ``wgmma`` (each product split into TF32 hi and lo parts, three
-tensor-core products, each 32-deep slice summed in a fresh accumulator and
-added to the f32 sum in registers, since the tensor cores cut every
-instruction's sum toward zero; within 5e-6 of f64 at K = 1000, but shrunk
-toward zero on average, which is why training batches stay off the tensor
-cores); bf16 operands on ``mma.sync``.  This module builds it, binds it and
+hand-written CUDA C++ kernel in ``csrc/fused_dense.cu``: f32 operands as
+exact f32 FMAs in k order on the CUDA cores, on 16 x 64 tiles for at most
+``FFMA_MAX_ROWS`` rows (training and evaluation batches) and on 128 x 128
+tiles of 8 x 8 register tiles for more (serving); bf16 operands on
+``mma.sync``.  (f32 serving ran as 3xTF32 on ``wgmma`` until its error,
+within 5e-6 of f64, was found to lean toward zero: the tensor cores cut
+every instruction's sum toward zero.)  This module builds it, binds it and
 dispatches to it:
 
 - on a CUDA tensor, :func:`fused_dense` launches the kernel or raises.  A
@@ -49,8 +47,8 @@ from multimodalautoencoder_tpu_torch.ops.cuda_library import (BUILD_DIR,
 SOURCE = os.path.join(CSRC_DIR, "fused_dense.cu")
 LIBRARY = os.path.join(BUILD_DIR, "libfused_dense.so")
 
-# f32 operands with at most this many rows take the FFMA kernel
-# (FFMA_MAX_ROWS in csrc/fused_dense.cu)
+# f32 operands with at most this many rows take the small-tile FFMA
+# kernel, more rows the 128 x 128 one (FFMA_MAX_ROWS in csrc/fused_dense.cu)
 FFMA_MAX_ROWS = 256
 
 # Activation id passed to the kernel = position in config.ACTIVATIONS.
@@ -92,9 +90,8 @@ class CudaLibrary(NvccLibrary):
     """``csrc/fused_dense.cu`` built and bound (see
     :class:`cuda_library.NvccLibrary`)."""
 
-    def __init__(self, source: str = SOURCE, library: str = LIBRARY,
-                 defines=()):
-        super().__init__(source, library, defines=defines)
+    def __init__(self, source: str = SOURCE, library: str = LIBRARY):
+        super().__init__(source, library)
 
     def _bind(self, lib: ctypes.CDLL) -> None:
         lib.fused_dense_launch.restype = ctypes.c_int

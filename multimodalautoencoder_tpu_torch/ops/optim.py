@@ -109,10 +109,14 @@ def adam_update(grads, state: AdamState, params, lr, b1: float = 0.9,
         grads = clip_by_global_norm(grads, clip_norm, batch_dims)
     count = state.count + 1
     cf = count.to(torch.float32)
-    f32 = dict(dtype=torch.float32, device=cf.device)
-    bc1 = 1.0 - torch.pow(torch.tensor(b1, **f32), cf)
-    bc2 = 1.0 - torch.pow(torch.tensor(b2, **f32), cf)
-    alpha = torch.as_tensor(lr, **f32) * torch.sqrt(bc2) / bc1
+    # Python scalars enter the f32 arithmetic as f32 values, as JAX's weak
+    # types do, and make no host-to-device copy (a copy a step would
+    # synchronise the host with the device)
+    bc1 = 1.0 - torch.pow(b1, cf)
+    bc2 = 1.0 - torch.pow(b2, cf)
+    if isinstance(lr, torch.Tensor):
+        lr = lr.to(dtype=torch.float32, device=cf.device)
+    alpha = lr * torch.sqrt(bc2) / bc1
     es2 = bc2 * (eps * eps)
 
     mu = tree_map(lambda m, g: (b1 * m.float() + (1 - b1) * g).to(m.dtype),

@@ -8,8 +8,9 @@ row dicts and writes the CSV the JAX package's pandas ledger writes and
 reads: an unnamed index column first, the columns in order of first
 appearance, list cells as ``str(list)``, floats as Python prints them,
 ``None`` and absent cells empty.  Either package's ledger resumes from the
-other's file.  ``SerialSweep`` (the host-side baselines' template) is not
-ported.
+other's file.  :class:`SerialSweep` is the reference's one-setting-at-a-time
+template (generic_wrapper.py ``Wrapper``), which the comparison baselines
+(``baselines/``) run on.
 """
 
 from __future__ import annotations
@@ -17,10 +18,13 @@ from __future__ import annotations
 import csv
 import math
 import os
-from typing import Any, Dict, List, Optional
+import sys
+import time
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from multimodalautoencoder_tpu_torch.sweep import grid as grid_lib
 from multimodalautoencoder_tpu_torch.utils import helpers
 
 
@@ -200,6 +204,79 @@ class TimeEstimator:
             int(avg * max(remaining, 0)))
         return (f"{self.num_done} settings processed, {remaining} left; "
                 f"~{h}h {m}m {s}s remaining")
+
+
+class SerialSweep:
+    """The reference's one-setting-at-a-time sweep (generic_wrapper.py
+    ``Wrapper``), for models fitted one setting at a time.
+
+    Subclasses implement :meth:`define_params` and
+    :meth:`get_cross_validation_results` (and :meth:`test_on_test` for
+    ``check_test``); :meth:`run` enumerates the grid, skips the settings
+    a resumed ledger already holds, appends one row per setting, and
+    picks the best.
+    """
+
+    def __init__(self, results_path: str, save_prefix: str,
+                 optimize_for: str, min_or_max: str = "max",
+                 cont: bool = False, check_test: bool = False,
+                 save_results_every_nth: int = 1, verbose: bool = True):
+        self.optimize_for = optimize_for
+        self.min_or_max = min_or_max
+        self.check_test = check_test
+        self.verbose = verbose
+        self.ledger = ResultsLedger(results_path, save_prefix, cont=cont,
+                                    save_every_nth=save_results_every_nth)
+        self.params: Dict[str, Sequence[Any]] = {}
+        self.define_params()
+        self.list_of_param_settings = self.trim_settings(
+            grid_lib.enumerate_grid(self.params))
+        self.num_settings = len(self.list_of_param_settings)
+
+    # hooks ---------------------------------------------------------------
+    def define_params(self) -> None:
+        raise NotImplementedError
+
+    def trim_settings(self, settings: List[Dict[str, Any]]
+                      ) -> List[Dict[str, Any]]:
+        return settings
+
+    def get_cross_validation_results(self, setting: Dict[str, Any]
+                                     ) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def test_on_test(self, setting: Dict[str, Any]):
+        raise NotImplementedError
+
+    # engine --------------------------------------------------------------
+    def sweep_all_parameters(self) -> None:
+        est = TimeEstimator(self.num_settings, self.ledger.started_from)
+        for setting in self.list_of_param_settings:
+            if self.ledger.started_from and self.ledger.already_done(setting):
+                continue
+            t0 = time.time()
+            self.ledger.append(self.get_cross_validation_results(
+                dict(setting)))
+            est.record(time.time() - t0)
+            if self.verbose:
+                print(est.summary())
+                sys.stdout.flush()
+        self.ledger.flush()
+
+    def get_final_results(self):
+        """(best ledger row, held-out scores or None)."""
+        best = self.ledger.find_best_setting(self.optimize_for,
+                                             self.min_or_max)
+        if self.verbose:
+            print(f"Best {self.optimize_for}: {best[self.optimize_for]}")
+        if self.check_test:
+            setting = grid_lib.convert_param_dict_for_use(best)
+            return best, self.test_on_test(setting)
+        return best, None
+
+    def run(self):
+        self.sweep_all_parameters()
+        return self.get_final_results()
 
 
 def nanmean(values) -> float:

@@ -19,10 +19,12 @@ contract is the reference's (``sweep/engine.py``).  ``check_test`` and
 exporting a winner from an earlier generation of a resumed ledger retrain
 one setting on fold 0 with the single-run trainer (``train/trainer.py``).
 
+``probe="svm"`` scores the embeddings with the reference's host
+scikit-learn SVC grid instead; scikit-learn is no dependency of the port,
+and without it that probe raises an ImportError that names it.
+
 Not ported: ``process_shard`` and the mesh (multi-GPU, ROADMAP Queue 1
-item 13), the JAX compile cache, and ``probe="svm"`` (the host sklearn SVC
-grid; scikit-learn is not a dependency of the port, Queue 1 item 12).
-Each of these raises ``NotImplementedError``.
+item 13), which raise ``NotImplementedError``, and the JAX compile cache.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from multimodalautoencoder_tpu_torch.config import MMAEConfig, TrainConfig
+from multimodalautoencoder_tpu_torch.models import mmae
 from multimodalautoencoder_tpu_torch.models.corruption import NoiseSpec
 from multimodalautoencoder_tpu_torch.ops import cls_train_kernels
 from multimodalautoencoder_tpu_torch.ops import metrics as metrics_lib
@@ -52,9 +55,6 @@ DEFAULT_NUM_CROSS_FOLDS = 5
 METRIC_ORDER = ("acc", "auc", "f1", "precision", "recall")
 MULTI_GPU = ("process_shard: multi-host scale-out (parallel/multihost.py, "
              "ROADMAP Queue 1 item 13) is not ported yet")
-SVM_PROBE = ("probe='svm': the host sklearn SVC grid needs scikit-learn, "
-             "which the port does not depend on (ROADMAP Queue 1 item 12); "
-             "use probe='device' or 'device-exact'")
 
 
 def _arch_tuple(a) -> tuple:
@@ -162,8 +162,9 @@ class MMAESweep:
         """The JAX ``MMAESweep``'s arguments, ``device`` in place of its
         mesh.  ``probe``: 'device' (default) scores embeddings with the
         random-Fourier ridge probe (``probe_rff_dim`` features),
-        'device-exact' with the exact kernel ridge, None disables; 'svm'
-        raises ``NotImplementedError``.  ``backend``: 'auto' trains on the
+        'device-exact' with the exact kernel ridge, 'svm' with the
+        reference's host SVC grid (scikit-learn), None disables.
+        ``backend``: 'auto' trains on the
         CUDA kernels where the shape family allows and the device is a
         GPU, the plain trainer otherwise; 'xla' / 'pallas' force.
         ``save_best_params`` checkpoints the best setting's fold-0
@@ -173,10 +174,12 @@ class MMAESweep:
         ``NotImplementedError``."""
         if process_shard is not None:
             raise NotImplementedError(MULTI_GPU)
-        if probe == "svm" and classification_data_loader is not None:
-            raise NotImplementedError(SVM_PROBE)
         if probe not in (None, "device", "device-exact", "svm"):
             raise ValueError(f"unknown probe {probe!r}")
+        if probe == "svm" and classification_data_loader is not None:
+            from multimodalautoencoder_tpu_torch.baselines.common import \
+                require_sklearn
+            require_sklearn("probe='svm'")
         self.device = torch.device(device)
         self.data_loader = data_loader
         self.cls_loader = classification_data_loader
@@ -247,6 +250,8 @@ class MMAESweep:
         self.folded = gt.FoldedData.from_loader(data_loader, num_cross_folds,
                                                 device=self.device)
         self._cls_folded = None
+        self._cls_folds = None
+        self.svm_probe_errors = 0   # SVC fits that raised (left at 0.0)
 
     @property
     def cls_folded(self):
@@ -258,6 +263,108 @@ class MMAESweep:
                 supervised=True,
                 noisy_flags="logistics_noisy" in self.cls_loader.frame.columns)
         return self._cls_folded
+
+    @property
+    def cls_folds(self):
+        """The SVM probe's host arrays of each classification fold
+        (autoencoder_wrapper.py:202-226 embeds train, val, noisy-val and
+        clean-val), built on first use."""
+        if self._cls_folds is None and self.cls_loader is not None:
+            self._cls_folds = [self._cls_fold_arrays(f)
+                               for f in range(self.num_cross_folds)]
+        return self._cls_folds
+
+    def _cls_fold_arrays(self, fold: int):
+        dl = self.cls_loader
+        dl.set_to_cross_validation_fold(fold)
+
+        def labels(y):
+            return np.atleast_2d(np.asarray(y).T).T
+
+        out = {"train_X": np.asarray(dl.train_X, np.float32),
+               "train_Y": labels(dl.train_Y),
+               "val_X": np.asarray(dl.val_X, np.float32),
+               "val_Y": labels(dl.val_Y)}
+        for part in ("noisy", "clean"):
+            if dl.separate_noisy_data:
+                x, y = getattr(dl, f"{part}_val_X"), getattr(
+                    dl, f"{part}_val_Y")
+            else:
+                x, y = dl.val_X[:0], dl.val_Y[:0]
+            out[f"{part}_X"] = np.asarray(x, np.float32)
+            out[f"{part}_Y"] = labels(y)
+        return out
+
+    def _embed_configs(self, params_f, cfg: MMAEConfig, hyper,
+                       x: np.ndarray) -> np.ndarray:
+        """(C, rows, E) embeddings of ``x`` under each config's fold-f
+        model, on the device; the VAE embeds with sampled z, as the
+        reference's probe does (multimodal_autoencoder.py:372-375,
+        autoencoder_wrapper.py:212-226)."""
+        act_id = hyper.act_id[:params_f.enc_w[0].shape[0]].to(self.device)
+        xt = torch.as_tensor(x, device=self.device).expand(
+            len(act_id), *x.shape)
+        generator = torch.Generator(device=self.device).manual_seed(
+            self.seed + 17)
+        with torch.no_grad():
+            emb = mmae.forward(params_f, cfg, xt, generator=generator,
+                               keep_prob=1.0, train=False, sample=True,
+                               act_id=act_id).embedding
+        return emb.cpu().numpy()
+
+    def _svm_probe_bucket(self, params, cfg: MMAEConfig, hyper,
+                          num_configs: int):
+        """The reference's RBF-SVM embedding probe
+        (autoencoder_wrapper.py:202-284): per fold and label, fit the SVC
+        (C, gamma) grid on each config's embedded train rows and keep the
+        best (acc and auc together) on val / noisy-val / clean-val.  A fit
+        that raises leaves its candidate out, as the reference prints and
+        goes on (:258-259); ``svm_probe_errors`` counts them.  Returns the
+        ledger rows of :meth:`_device_probe_rows`."""
+        from sklearn.svm import SVC
+
+        L, K = len(self.labels), self.num_cross_folds
+        best = np.full((num_configs, K, L, 3, 2), np.nan)
+        for f in range(K):
+            data = self.cls_folds[f]
+            params_f = optim.tree_map(lambda t: t[:num_configs, f], params)
+            emb = {k: self._embed_configs(params_f, cfg, hyper,
+                                          data[k + "_X"])
+                   for k in ("train", "val", "noisy", "clean")
+                   if len(data[k + "_X"]) > 0}
+            for c in range(num_configs):
+                for lab in range(min(L, data["train_Y"].shape[1])):
+                    top = np.zeros((3, 2))
+                    for C in self.svm_Cs:
+                        for g in self.svm_gammas:
+                            try:
+                                svm = SVC(C=C, kernel="rbf", gamma=g)
+                                svm.fit(emb["train"][c],
+                                        data["train_Y"][:, lab])
+                                for s, part in enumerate(("val", "noisy",
+                                                          "clean")):
+                                    self._best(svm, emb.get(part), c,
+                                               data[part + "_Y"], lab,
+                                               top[s])
+                            except Exception as e:
+                                self.svm_probe_errors += 1
+                                if self.verbose:
+                                    print("SVM probe error:", repr(e))
+                    best[c, f, lab] = top
+        return self._device_probe_rows(best, num_configs)
+
+    @staticmethod
+    def _best(svm, emb, c: int, Y, lab: int, top: np.ndarray) -> None:
+        """svm_pred_best_result (autoencoder_wrapper.py:272-284): replace
+        the [acc, auc] in ``top`` only when both improve."""
+        if emb is None or len(Y) == 0:
+            return
+        m = metrics_lib.all_classification_metrics(
+            torch.as_tensor(svm.predict(emb[c]), dtype=torch.float32),
+            torch.as_tensor(Y[:, lab], dtype=torch.float32))
+        acc, auc = float(m["acc"]), float(m["auc"])
+        if acc > top[0] and auc > top[1]:
+            top[:] = (acc, auc)
 
     def _cfg_for_bucket(self, setting: Dict[str, Any]) -> MMAEConfig:
         return self.base_cfg.replace(
@@ -337,8 +444,8 @@ class MMAESweep:
         self.phase_seconds["probe"] += now - t_train
         self.phase_seconds["probe_launch"] += now - t_train
         return {"bi": bi, "bucket": bucket, "launch_secs": now - t0,
-                "cfg": cfg, "params": params, "losses": losses,
-                "backend_used": backend_used,
+                "cfg": cfg, "hyper": hyper, "params": params,
+                "losses": losses, "backend_used": backend_used,
                 "inst_steps": (len(bucket) * self.num_cross_folds
                                * tcfg.num_steps),
                 "probe": probe_dev}
@@ -355,7 +462,10 @@ class MMAESweep:
 
         t2 = time.time()
         probe_rows = None
-        if st["probe"] is not None:
+        if self.probe == "svm":
+            probe_rows = self._svm_probe_bucket(
+                st["params"], st["cfg"], st["hyper"], len(bucket))
+        elif st["probe"] is not None:
             probe_rows = self._device_probe_rows(st["probe"], len(bucket))
         self.phase_seconds["probe"] += time.time() - t2
         self.phase_seconds["probe_wait"] += time.time() - t2

@@ -1,6 +1,8 @@
 """The port stands alone: it imports neither jax nor the JAX package, and
-neither the serve path nor the training, sweep and probe paths import
-pandas or scikit-learn.
+neither the serve path nor the training, sweep, probe, baseline and data
+paths import pandas or scikit-learn.  scikit-learn is imported only
+inside the functions that need it (the SVM, RF and LR baselines, the SVM
+probe, feature selection's sklearn backend), never at a module's top.
 
 The import check runs in a fresh interpreter, because this suite's
 conftest has already imported jax into the test process.
@@ -17,6 +19,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "multimodalautoencoder_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "multimodalautoencoder_tpu", "pandas",
              "sklearn")
+# imported inside a function at most, where a host estimator needs it
+LAZY_ONLY = ("sklearn",)
 
 
 def _sources():
@@ -27,10 +31,13 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
 
 
-def _top_level_imports(path):
+def _imports(path, module_level: bool):
+    """The top-level package of every import in the file, or only of those
+    at module level."""
     with open(path) as f:
         tree = ast.parse(f.read(), path)
-    for node in ast.walk(tree):
+    nodes = tree.body if module_level else ast.walk(tree)
+    for node in nodes:
         if isinstance(node, ast.Import):
             for a in node.names:
                 yield a.name.split(".")[0]
@@ -41,7 +48,9 @@ def _top_level_imports(path):
 @pytest.mark.parametrize("path", list(_sources()),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_source_imports_nothing_forbidden(path):
-    bad = sorted(set(_top_level_imports(path)) & set(FORBIDDEN))
+    anywhere = set(FORBIDDEN) - set(LAZY_ONLY)
+    bad = sorted((set(_imports(path, False)) & anywhere)
+                 | (set(_imports(path, True)) & set(LAZY_ONLY)))
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
@@ -107,6 +116,30 @@ def test_single_run_path_import_pulls_in_no_jax_pandas_or_sklearn():
         "import multimodalautoencoder_tpu_torch.utils.plotting\n"
         "import multimodalautoencoder_tpu_torch.ops.masking\n"
         "import multimodalautoencoder_tpu_torch.cli\n"
+        f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_baseline_and_data_paths_import_no_jax_pandas_or_sklearn():
+    """The comparison baselines, the NN model, feature selection, the
+    native CSV reader and the probe-parity harness: importing them loads
+    no jax, JAX package, pandas or scikit-learn."""
+    code = (
+        "import sys\n"
+        "import multimodalautoencoder_tpu_torch.baselines.common\n"
+        "import multimodalautoencoder_tpu_torch.baselines.svm\n"
+        "import multimodalautoencoder_tpu_torch.baselines.random_forest\n"
+        "import multimodalautoencoder_tpu_torch.baselines.logistic_regression"
+        "\n"
+        "import multimodalautoencoder_tpu_torch.baselines.neural_net\n"
+        "import multimodalautoencoder_tpu_torch.models.neural_net\n"
+        "import multimodalautoencoder_tpu_torch.data.feature_selection\n"
+        "import multimodalautoencoder_tpu_torch.data.fast_csv\n"
+        "import multimodalautoencoder_tpu_torch.sweep.probe_parity\n"
         f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

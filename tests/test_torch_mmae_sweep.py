@@ -2,10 +2,12 @@
 a tiny grid on the CPU through both sweeps on the same study (the same
 settings, buckets and ledger columns), the port's ledger resumed by the
 JAX ``ResultsLedger``, a resumed run that skips every setting, the export
-of the tracked winner, and the options the port refuses."""
+of the tracked winner, the SVM probe (``probe="svm"``) on the same
+parameters, and the options the port refuses."""
 
 import functools
 import os
+import sys
 
 import jax  # noqa: F401  (the JAX package runs on the CPU here)
 import numpy as np
@@ -93,8 +95,6 @@ def test_cli_sweep_mmae_matches_jax_ledger(tmp_path, monkeypatch, capsys):
     held_out = [line for line in capsys.readouterr().out.splitlines()
                 if line.startswith("held-out test:")]
     assert len(held_out) == 1 and np.isfinite(float(held_out[0].split()[-1]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        cli.main(args + ["--probe", "svm"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         cli.main(args + ["--process-shard", "0", "2"])
 
@@ -169,7 +169,7 @@ def test_mmae_sweep_without_probe_and_resume(tmp_path):
     assert s2.phase_seconds["train"] == 0.0
 
 
-def test_mmae_sweep_refuses_unported_options(tmp_path):
+def test_mmae_sweep_refuses_unported_options(tmp_path, monkeypatch):
     path = study(tmp_path)
     unsup, sup = loaders(path)
     kw = dict(results_path=str(tmp_path / "r"), device="cpu")
@@ -177,9 +177,12 @@ def test_mmae_sweep_refuses_unported_options(tmp_path):
     assert wrappers.MMAESweep(unsup, check_test=True, **kw).check_test
     with pytest.raises(NotImplementedError, match="item 13"):
         wrappers.MMAESweep(unsup, process_shard=(0, 2), **kw)
-    with pytest.raises(NotImplementedError, match="scikit-learn"):
+    # probe='svm' is ported; without scikit-learn it names what is missing
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+    with pytest.raises(ImportError, match="scikit-learn"):
         wrappers.MMAESweep(unsup, classification_data_loader=sup,
                            probe="svm", **kw)
+    monkeypatch.undo()
     sweep = wrappers.MMAESweep(unsup, num_steps=3, **kw)
     setting = sweep.list_of_param_settings[0]
     assert np.isfinite(sweep.test_on_test(setting))
@@ -277,3 +280,56 @@ def test_check_test_retrains_as_jax_and_scores_as_jax(tmp_path):
     best, test_score, _ = port.run()
     assert np.isfinite(test_score)
     assert test_score == pytest.approx(port.test_on_test(best), rel=1e-6)
+
+
+def test_svm_probe_ledger_matches_jax(tmp_path):
+    """probe='svm': ``cli sweep-mmae --probe svm`` writes the JAX SVM-probe
+    sweep's ledger columns and settings on the same tiny grid, and on the
+    same trained parameters (a bucket of the port's, copied into the JAX
+    package's tree) the two probes' rows agree within 1e-6: the same
+    embeddings, SVC grid and best-(acc and auc) rule."""
+    from multimodalautoencoder_tpu.models import mmae as jax_mmae
+    from multimodalautoencoder_tpu.parallel import grid_trainer as jax_gt
+    from multimodalautoencoder_tpu_torch.models import mmae as port_mmae
+
+    path = study(tmp_path)
+    grid = dict(GRID, layer_sizes=[[12, 6]], tie_weights=[True],
+                test_variational=False)
+    unsup, sup = loaders(path, jax_side=True)
+    js = jax_wrappers.MMAESweep(
+        unsup, classification_data_loader=sup, num_steps=2,
+        num_cross_folds=2, results_path=str(tmp_path / "jax"),
+        verbose=False, backend="xla", probe="svm", **grid)
+    js.sweep_all_parameters()
+    jax_df = pd.read_csv(js.ledger.path, index_col=0)
+
+    pu, ps = loaders(path)
+    port = wrappers.MMAESweep(
+        pu, classification_data_loader=ps, num_steps=2, num_cross_folds=2,
+        results_path=str(tmp_path / "port"), verbose=False, backend="xla",
+        probe="svm", device="cpu", **grid)
+    port.sweep_all_parameters()
+    assert port.ledger.columns == list(jax_df.columns)
+    assert [r["weight_penalty"] for r in port.ledger.rows] == list(
+        jax_df["weight_penalty"])
+    assert port.svm_probe_errors == 0
+    for col in ("svm_val_acc", "svm_val_auc"):
+        assert all(0.0 <= r[col] <= 1.0 for r in port.ledger.rows)
+
+    bucket = port.list_of_param_settings
+    st = port._launch_bucket(0, bucket)
+    cfg = js._cfg_for_bucket(bucket[0])
+    # the port's trained (configs, folds) stack in the JAX package's tree
+    treedef = jax.tree_util.tree_structure(
+        jax_mmae.init(jax.random.PRNGKey(0), cfg))
+    jparams = jax.tree_util.tree_unflatten(
+        treedef, port_mmae.params_to_numpy(st["params"]))
+    jhyper = jax_gt.HyperStack.from_settings(bucket, cfg, js.tcfg)
+    want = js._svm_probe_bucket(jparams, cfg, jhyper, len(bucket))
+    got = port._svm_probe_bucket(st["params"], st["cfg"], st["hyper"],
+                                 len(bucket))
+    assert len(got) == len(want) == len(bucket)
+    for g, w in zip(got, want):
+        assert list(g) == list(w)
+        np.testing.assert_allclose([g[k] for k in g], [w[k] for k in w],
+                                   rtol=0, atol=1e-6)
