@@ -51,7 +51,16 @@ features):
   ``NNSweep(device="cuda").run()`` over the default 32-setting grid, ``cli
   feature-select`` PCA / SKB on the card against float64 and a scipy
   F-score ranking, the native CSV engine against the default reader, and
-  ``cli baseline svm``'s error without scikit-learn (phases [23]-[26]).
+  ``cli baseline svm``'s error without scikit-learn (phases [23]-[26]);
+- the device split and the sharded sweeps: [9]'s tied bucket split over
+  ``["cuda:0", "cuda:0"]`` against one device, each instance expected bit
+  for bit; ``tools/multihost_sweep.py --hosts 2 --distributed`` on gloo
+  over the 108-setting grid with both ranks on the card, its merged ledger
+  against ``cli merge-shards`` and its global winner served through
+  ``fused_dense`` by ``cli fill``; ``cli sweep-classification
+  --process-shard i 2`` as two concurrent processes over the 576-setting
+  grid, merged; and the reference recipe's parity band on kernel 2, with
+  [9]'s utilization rows (phases [27]-[30]).
 
 Any failed phase ends the run with a non-zero exit; so does a machine
 without CUDA.  The last lines of standard output are the card's name and
@@ -68,6 +77,11 @@ reported rather than only the first that fails.  ``python3 chip_smoke.py
 --single-run`` runs [20] and [21] alone, [21] with a control route (the
 kernel route with bf16 operands), every gate reported; ``python3
 chip_smoke.py --baselines`` runs [23]-[26] alone, every gate reported.
+``python3 chip_smoke.py --split-cards`` runs [27] over every visible card
+at [9]'s 5,000 steps.  ``python3 chip_smoke.py --count-launches <cli
+arguments>`` runs one
+``cli`` command and prints its kernels' launch counts (how [29] reads
+them from processes of their own).
 """
 
 from __future__ import annotations
@@ -598,11 +612,24 @@ def phase_rng(ptk) -> dict:
     # 1024 Philox4x32-10 draws of ~120 integer operations; 4 KB written
     flop, nbytes = 1024 * 120.0, 4.0 * 1024
     t_f, t_b = flop / F32_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    # the launch floor: an empty kernel at the probe's launch shape, both
+    # queued ahead of the device (device_ms), in turns probe, empty,
+    # empty, probe
+    turns = [device_ms(fn) for fn in (
+        lambda: ptk.philox_probe(7, "cuda"), lambda: ptk.empty_launch("cuda"),
+        lambda: ptk.empty_launch("cuda"), lambda: ptk.philox_probe(7, "cuda"))]
+    probe_dev, floor = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     print(f"  probe kernel {ms:.4f} ms, twin on the card {plain_ms:.4f} ms "
           f"(one launch; bound {max(t_f, t_b):.2e} ms)")
+    print(f"  on the device, queued: probe {turns[0]:.5f} / {turns[3]:.5f} "
+          f"ms, empty kernel {turns[1]:.5f} / {turns[2]:.5f} ms a launch; "
+          f"the probe's bound with its launch floor {max(t_f, t_b, floor):.5f}"
+          f" ms ({100 * max(t_f, t_b, floor) / probe_dev:.1f} % of its device"
+          f" time reached)  [{card_line()}]")
     return {"launches": launches, "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_f, t_b),
-            "bound_by": "operations" if t_f >= t_b else "bytes"}
+            "bound_by": "operations" if t_f >= t_b else "bytes",
+            "device_ms": probe_dev, "launch_floor_ms": floor}
 
 
 def family_cfg(base, family: str):
@@ -876,7 +903,10 @@ def phase_train(workdir: str, ptk, dk, dl, folded, buckets, spec,
           f" saved to {os.path.basename(ck)} and served by cli fill "
           f"({dk.KERNELS.launches - before} fused_dense launches)")
     tied = next(r for r in results if r[0] == "tied")
-    return launches, tied
+    # (name, cfg, tcfg, instance-steps/s of the kernel loop) for [30]
+    rates = [(r[0], r[1], r[2], r[7].numel() * r[2].num_steps / r[10])
+             for r in results]
+    return launches, tied, rates
 
 
 def phase_step_timing(ptk, tied, folded, spec, card: str) -> dict:
@@ -2664,6 +2694,356 @@ def phase_baselines(workdir: str, card: str) -> dict:
     return out
 
 
+# [27]-[30]: the instance split, the sharded sweeps, the parity band
+SPLIT_STEPS = 500        # [27]'s run of [9]'s tied bucket
+SHARD_STEPS = 100        # each phase of [28] and [29]
+
+
+def phase_split(ptk, tied, folded, spec, card: str, devices=None,
+                steps: int = SPLIT_STEPS) -> dict:
+    """[9]'s tied 1000 -> 100 bucket (60 instances) at ``steps`` steps
+    through ``train_grid_sharded`` on one device and on ``devices``
+    (default ["cuda:0", "cuda:0"]): each chunk launches kernel 2 on its
+    own instances, and every instance's parameters and objective should
+    equal the unsplit run's bit for bit (each instance's Philox key is its
+    own seed); else they are held to [8]'s tolerance and the largest
+    difference is printed."""
+    from multimodalautoencoder_tpu_torch.ops import optim
+    from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
+    from multimodalautoencoder_tpu_torch.parallel import mesh
+
+    cfg, tcfg, hyper = tied[1], tied[2].replace(num_steps=steps), tied[3]
+    per_step = ptk.launches_per_step(cfg.tie_weights, cfg.variational)
+    runs, counts, walls, chunks = {}, {}, {}, {}
+    dev0 = f"{DEVICE}:0"
+    devices = [dev0, dev0] if devices is None else list(devices)
+    for name, devs in (("one", dev0), ("split", devices)):
+        seen = []
+        inner = ptk.train_grid_kernel
+
+        def counted(run, first, steps, seen=seen, inner=inner):
+            seen.append(run.n_inst)
+            inner(run, first, steps)
+
+        ptk.train_grid_kernel = counted
+        # the path: the count at 0 just before, read just after
+        ptk.KERNELS.launches = 0
+        t0 = time.perf_counter()
+        try:
+            runs[name] = gt.train_grid_sharded(devs, SEED, cfg, tcfg, spec,
+                                               hyper, folded,
+                                               backend="pallas")
+            torch.cuda.synchronize()
+        finally:
+            ptk.train_grid_kernel = inner
+        walls[name] = time.perf_counter() - t0
+        counts[name], chunks[name] = ptk.KERNELS.launches, sorted(seen)
+    pa, la = runs["one"]
+    pb, lb = runs["split"]
+    leaves = list(zip(optim.tree_leaves(pa), optim.tree_leaves(pb)))
+    same = all(torch.equal(a, b) for a, b in leaves) and torch.equal(la, lb)
+    worst = max(max(float((a - b).abs().max()) for a, b in leaves),
+                float((la - lb).abs().max() / lb.abs().max()))
+    N, D = la.numel(), len(devices)
+    print(f"  tied bucket N={N}, {steps} steps: one device "
+          f"{walls['one']:.2f} s wall, {counts['one']} launches; split over "
+          f"{[str(d) for d in devices]} {walls['split']:.2f} s wall, chunks "
+          f"of {chunks['split']} instances, {counts['split']} launches "
+          f"({counts['split'] // max(len(chunks['split']), 1)} a chunk)  "
+          f"[{card}]")
+    print(f"  every instance's parameters and objective bit-equal: {same}"
+          f" (largest difference {worst:.3e})")
+    check(chunks["one"] == [N] and chunks["split"] == sorted(
+        hi - lo for lo, hi in mesh.chunk_bounds(N, D)),
+          f"chunks {chunks}")
+    check(counts["one"] == steps * per_step
+          and counts["split"] == D * steps * per_step,
+          f"launches {counts}, {steps * per_step} a run expected")
+    check(same or worst <= TOL, f"the split run differs by {worst:.3e}")
+    return {"split_launches": counts["split"], "split_bit_equal": same,
+            "split_max_abs_err": worst, "one_wall_s": walls["one"],
+            "split_wall_s": walls["split"]}
+
+
+def worker_lines(out: str) -> list:
+    """The JSON lines of a sharded sweep's workers (those with "host")."""
+    rows = []
+    for line in out.splitlines():
+        if line.startswith("{") and '"host"' in line:
+            rows.append(json.loads(line))
+    return sorted(rows, key=lambda r: r["host"])
+
+
+def _setting_key(row, grid_cols) -> tuple:
+    return tuple(str(row[c]) for c in grid_cols)
+
+
+def phase_distributed_mmae(workdir: str, dk, ptk, study_path: str,
+                           card: str) -> dict:
+    """``tools/multihost_sweep.py --hosts 2 --distributed`` over the
+    default 108-setting ACII grid at SHARD_STEPS steps, both ranks on
+    cuda:0 in one gloo job, reading the study with the native engine;
+    then ``cli merge-shards --best-checkpoint best_mmae`` and the winner
+    served through kernel 1 by ``cli fill``."""
+    from multimodalautoencoder_tpu_torch import cli
+    from multimodalautoencoder_tpu_torch.config import MMAEConfig
+    from multimodalautoencoder_tpu_torch.data.loader import DataLoader
+    from multimodalautoencoder_tpu_torch.sweep import engine, grid
+    from multimodalautoencoder_tpu_torch.train import checkpoint as ckpt
+
+    out = os.path.join(workdir, "multihost")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
+        __file__)))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m",
+         "multimodalautoencoder_tpu_torch.tools.multihost_sweep",
+         "--hosts", "2", "--distributed", "--steps", str(SHARD_STEPS),
+         "--engine", "native", "--grid", "full", "--folds", "5", "--data",
+         study_path, "--device", DEVICE, "--out", out, "--seed", str(SEED),
+         "--timeout", "600"], capture_output=True, text=True, env=env,
+        timeout=660)
+    wall = time.perf_counter() - t0
+    sys.stdout.write("".join(f"  | {line}\n"
+                             for line in r.stdout.splitlines()))
+    if r.returncode:
+        sys.stdout.write(r.stderr[-4000:])
+    check(r.returncode == 0 and "merged 2 shards" in r.stdout,
+          f"the distributed sweep returned {r.returncode}")
+    workers = worker_lines(r.stdout)
+    settings = grid.add_extra_vae_params(grid.enumerate_grid(ACII_PARAMS))
+    grid_cols = list(settings[0])
+    ledger = engine.ResultsLedger(out, "MMAE-acii", cont=True)
+    keys = [_setting_key(row, grid_cols) for row in ledger.rows]
+    in_job = open(ledger.path).read()
+    rc, lines = _cli_lines(["merge-shards", out, "MMAE-acii", "--num-shards",
+                            "2", "--best-checkpoint", "best_mmae"],
+                           "global best checkpoint:")
+    check(rc == 0 and len(lines) == 1, f"cli merge-shards returned {rc}")
+    win = lines[0].split(": ", 1)[1] if lines else ""
+    again = open(ledger.path).read()
+    losses = np.asarray([engine.as_float(row["val_sigmoid_cross_entropy"])
+                         for row in ledger.rows])
+    best = ledger.rows[int(np.nanargmin(losses))] if np.isfinite(
+        losses).any() else {}
+    extra = ckpt.checkpoint_meta(win)["extra"] if win else {}
+    for w in workers:
+        print(f"  shard {w['host']}: {w['settings_trained']} settings in "
+              f"{w['wall_s']:.1f} s, kernel 2 launches "
+              f"{w['launches']['train']}  [{card}]")
+    print(f"  the pair: {wall:.1f} s wall from launch to merged ledger "
+          f"(beside [17]'s single-process sweep of the same grid above); "
+          f"{len(ledger)} rows, {len(set(keys))} distinct settings, "
+          f"{int(np.isfinite(losses).sum())} finite objectives; cli "
+          f"merge-shards rewrote the same ledger: "
+          f"{in_job == again}; global winner {os.path.basename(win)} "
+          f"(score {extra.get('score', float('nan')):.4f}, merged best "
+          f"{engine.as_float(best.get('val_sigmoid_cross_entropy')):.4f})")
+    check(len(workers) == 2 and all(w["launches"]["train"] > 0
+                                    for w in workers),
+          f"workers {workers}: kernel 2 did not run in both")
+    check(len(ledger) == 108 and sorted(keys) == sorted(
+        _setting_key(s_, grid_cols) for s_ in settings),
+          "the merged ledger does not hold the 108 settings once each")
+    check(in_job == again, "cli merge-shards gave other rows than the "
+          "in-job merge")
+    check(bool(best) and abs(float(extra.get("score", np.nan))
+                             - engine.as_float(
+                                 best["val_sigmoid_cross_entropy"])) < 1e-6
+          and {k: str(v) for k, v in extra.get("setting", {}).items()}
+          == {c: str(best[c]) for c in extra.get("setting", {})},
+          "the global winner is not the merged ledger's best finite row")
+
+    params, cfg, _, _ = ckpt.load_checkpoint_auto(
+        win, MMAEConfig(num_feats=1000), verbose=False, device="cpu")
+    served = ckpt.save_checkpoint(os.path.join(workdir, "ck_sharded"),
+                                  "winner", params,
+                                  cfg.replace(use_pallas=True),
+                                  step=SHARD_STEPS)
+    before = dk.KERNELS.launches
+    rc = cli.main(["fill", study_path, "--checkpoint", served,
+                   "--normalize-and-fill", "--device", DEVICE, "--seed",
+                   str(SEED)])
+    torch.cuda.synchronize()
+    served_launches = dk.KERNELS.launches - before
+    check(rc == 0 and served_launches > 0,
+          f"cli fill of the global winner returned {rc} with "
+          f"{served_launches} fused_dense launches")
+    check_served("fill", "global winner", study_path,
+                 DataLoader(study_path, supervised=False, fill_gaps_with=-1.0,
+                            suppress_output=True, seed=SEED))
+    print(f"  the winner ({cfg.layer_sizes}, tied {cfg.tie_weights}, "
+          f"variational {cfg.variational}) served by cli fill --device "
+          f"{DEVICE}: {served_launches} fused_dense launches")
+    return {"wall_s": wall, "shard_wall_s": [w["wall_s"] for w in workers],
+            "launches": [w["launches"]["train"] for w in workers],
+            "serve_launches": served_launches}
+
+
+def phase_sharded_classification(workdir: str, study_path: str,
+                                 card: str) -> dict:
+    """``cli sweep-classification --process-shard i 2 --device cuda`` for
+    i = 0, 1 as two concurrent processes over the 576-setting default
+    grid at SHARD_STEPS + SHARD_STEPS steps (each through
+    ``chip_smoke.py --count-launches``, which prints its kernels' launch
+    counts), then ``cli merge-shards --best-checkpoint best_mmae_cls``."""
+    from multimodalautoencoder_tpu_torch.sweep import engine
+    from multimodalautoencoder_tpu_torch.sweep.wrappers import \
+        MMAEClassificationSweep as Sweep
+
+    results = os.path.join(workdir, "cls_shards")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--count-launches",
+         "sweep-classification", study_path, study_path, "--num-steps",
+         str(SHARD_STEPS), "--device", DEVICE, "--normalize-and-fill",
+         "--seed", str(SEED), "--results-path", results,
+         "--save-best-params", "--process-shard", str(i), "2"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    counts = []
+    for i, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            sys.stdout.write(err[-4000:])
+        check(p.returncode == 0, f"shard {i} returned {p.returncode}")
+        line = [x for x in out.splitlines() if x.startswith("LAUNCHES ")]
+        counts.append(json.loads(line[-1][len("LAUNCHES "):]) if line
+                      else {})
+    rc, lines = _cli_lines(["merge-shards", results,
+                            "MMAE_NN_classifier-acii", "--num-shards", "2",
+                            "--best-checkpoint", "best_mmae_cls"],
+                           "global best checkpoint:")
+    check(rc == 0 and len(lines) == 1, f"cli merge-shards returned {rc}")
+    ledger = engine.ResultsLedger(results, "MMAE_NN_classifier-acii",
+                                  cont=True)
+    settings = Sweep.default_grid()[0]
+    grid_cols = list(settings[0])
+    keys = [_setting_key(row, grid_cols) for row in ledger.rows]
+    metrics = [c for c in ledger.columns
+               if c.startswith(("val_", "noisy_val", "clean_val"))]
+    vals = np.asarray([[engine.as_float(row.get(c)) for c in metrics]
+                       for row in ledger.rows])
+    finite_rows = int(np.isfinite(vals).all(axis=1).sum())
+    used = sorted({row["backend_used"] for row in ledger.rows})
+    for i, c in enumerate(counts):
+        print(f"  shard {i}: kernel 2 launches {c.get('train')}, kernel 4 "
+              f"launches {c.get('cls')}")
+    print(f"  two processes on cuda:0: {wall:.1f} s wall; merged {len(ledger)}"
+          f" rows, {len(set(keys))} distinct settings, {finite_rows} with "
+          f"every metric finite ({len(metrics)} metric columns), "
+          f"backend_used {used}; {lines[0] if lines else ''}  [{card}]")
+    check(len(ledger) == 576 and sorted(keys) == sorted(
+        _setting_key(s_, grid_cols) for s_ in settings),
+          "the merged ledger does not hold the 576 settings once each")
+    check(finite_rows == 576, f"{576 - finite_rows} rows with a non-finite "
+          "metric")
+    check(used == ["pallas"], f"backends {used}")
+    check(len(counts) == 2 and all(c.get("cls", 0) > 0 for c in counts),
+          f"kernel 4 did not launch in both processes: {counts}")
+    return {"wall_s": wall, "launches": [c.get("cls") for c in counts]}
+
+
+def phase_parity_band(ptk, rates, card: str) -> dict:
+    """``utils.parity.reference_recipe_observables(backend="pallas",
+    device="cuda", num_runs=3)``: the reference recipe's three runs on
+    kernel 2 land inside tests/fixtures/parity_band.json; then
+    ``utils.flops.utilization_row`` for [9]'s three buckets from their
+    measured instance-steps/s."""
+    from multimodalautoencoder_tpu_torch.utils import flops, parity
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "fixtures", "parity_band.json")) as f:
+        band = json.load(f)
+    steps = band["recipe"]["num_steps"]
+    ptk.KERNELS.launches = 0
+    obs = parity.reference_recipe_observables(
+        backend="pallas", num_runs=3, num_steps=steps, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = ptk.KERNELS.launches
+    problems = parity.check_band(obs, band)
+    print(f"  noisy-val loss {np.round(obs['noisy_val_loss'], 4).tolist()} "
+          f"in [{band['noisy_val_loss'][0]:.4f}, "
+          f"{band['noisy_val_loss'][1]:.4f}]; per-modality RMSE "
+          f"{np.round(obs['per_modality_rmse'], 4).tolist()}; kernel 2 "
+          f"launches {launches}; {len(problems)} outside the band")
+    for p_ in problems:
+        print(f"    {p_}")
+    check(launches == steps * ptk.launches_per_step(True, False),
+          f"{launches} kernel 2 launches")
+    check(not problems, "the kernel's recipe runs left the parity band")
+    rows = []
+    for name, cfg, tcfg, rate in rates:
+        row = flops.utilization_row(f"[9] {name}", cfg, tcfg, rate)
+        rows.append(row)
+        print(f"  utilization {row['name']}: {rate:,.0f} instance-steps/s, "
+              f"{row['useful_gflops_per_s']:,.0f} useful GFLOP/s "
+              f"({row['pct_f32_peak']:.1f} % of the f32 peak), "
+              f"{row['hbm_gb_per_s']:,.0f} GB/s ({row['pct_hbm_peak']:.1f} %"
+              f" of the memory rate)  [{card}]")
+    return {"launches": launches, "utilization": rows}
+
+
+def main_split_cards() -> int:
+    """[27] over every visible card (``mesh.local_devices()``): [9]'s tied
+    bucket at STEPS steps on cuda:0 alone and split over the cards, each
+    instance held bit for bit, wall times beside each other."""
+    from multimodalautoencoder_tpu_torch.config import TrainConfig
+    from multimodalautoencoder_tpu_torch.ops import train_kernels as ptk
+    from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
+    from multimodalautoencoder_tpu_torch.parallel import mesh
+
+    global FAILED
+    FAILED = []
+    devices = mesh.local_devices()
+    print(f"[27] over {len(devices)} cards: "
+          + "; ".join(torch.cuda.get_device_name(d) for d in devices))
+    build_kernels([ptk.KERNELS])
+    card = card_line()
+    with tempfile.TemporaryDirectory(prefix="mmae_chip_smoke_") as workdir:
+        _, folded, _, buckets, spec = training_study(workdir)
+        _, cfg, members = next(b for b in buckets if b[0] == "tied")
+        tcfg = TrainConfig(learning_rate=LR, batch_size=BATCH,
+                           num_steps=STEPS, decay=True, decay_steps=1000,
+                           decay_rate=0.95, clip_gradients=False, seed=SEED,
+                           optimizer_state_dtype="bfloat16")
+        hyper = gt.HyperStack.from_settings(members, cfg, tcfg)
+        phase_split(ptk, ("tied", cfg, tcfg, hyper), folded, spec, card,
+                    devices, STEPS)
+    print(f"failed: {FAILED}")
+    return 1 if FAILED else 0
+
+
+def main_count_launches(argv) -> int:
+    """``cli.main(argv)`` in this process, then one line ``LAUNCHES
+    {"train": n, "deep": n, "cls": n, "dense": n}`` with the training
+    kernels' and fused_dense's launch counts: how [29] reads the kernels'
+    launches in processes of their own."""
+    from multimodalautoencoder_tpu_torch import cli
+    from multimodalautoencoder_tpu_torch.ops import cls_train_kernels as pck
+    from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
+    from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
+    from multimodalautoencoder_tpu_torch.ops import train_kernels as ptk
+
+    rc = cli.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    print("LAUNCHES " + json.dumps({
+        "train": ptk.KERNELS.launches, "deep": pdk.KERNELS.launches,
+        "cls": pck.KERNELS.launches, "dense": dk.KERNELS.launches}),
+        flush=True)
+    return rc
+
+
 def _cli_lines(argv, prefix: str):
     """Run ``cli.main(argv)``, echo its standard output, and return the
     lines that start with ``prefix``."""
@@ -2850,6 +3230,8 @@ def main_baselines() -> int:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--count-launches"]:
+        return main_count_launches(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -2861,8 +3243,11 @@ def main() -> int:
         return main_single_run()
     if sys.argv[1:] == ["--baselines"]:
         return main_baselines()
+    if sys.argv[1:] == ["--split-cards"]:
+        return main_split_cards()
     check(len(sys.argv) == 1, "usage: chip_smoke.py "
-          "[--tensor-core-products 1|2 | --single-run | --baselines]")
+          "[--tensor-core-products 1|2 | --single-run | --baselines | "
+          "--split-cards | --count-launches <cli arguments>]")
     from multimodalautoencoder_tpu_torch.ops import cls_train_kernels as pck
     from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
     from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
@@ -2919,8 +3304,8 @@ def main() -> int:
         print(f"[9] grid training, end to end: the three 1000-wide ACII "
               f"buckets, {STEPS} steps each, through "
               f"train_grid_sharded(backend='pallas')")
-        train_launches, tied = phase_train(workdir, ptk, dk, study, folded,
-                                           buckets, spec, card)
+        train_launches, tied, rates = phase_train(
+            workdir, ptk, dk, study, folded, buckets, spec, card)
         print("[10] one training step, timed")
         step = phase_step_timing(ptk, tied, folded, spec, card)
 
@@ -2985,6 +3370,24 @@ def main() -> int:
               f"{' '.join(map(str, LAYERS))}, reloaded and resumed")
         phase_cli_train(workdir, dl.filename, card)
         phase_baselines(workdir, card)
+
+        print(f"[27] the instance split on the card: [9]'s tied bucket, "
+              f"{SPLIT_STEPS} steps, on [cuda:0, cuda:0] against one device")
+        split = phase_split(ptk, tied, folded, spec, card)
+        print(f"[28] the distributed MMAE sweep: tools/multihost_sweep.py "
+              f"--hosts 2 --distributed on gloo, the 108-setting grid at "
+              f"{SHARD_STEPS} steps, both ranks on cuda:0, --engine native")
+        sharded = phase_distributed_mmae(workdir, dk, ptk, study.filename,
+                                         card)
+        print(f"[29] the sharded classification sweep: cli "
+              f"sweep-classification --process-shard i 2 --device {DEVICE}"
+              f", two concurrent processes, 576 settings at {SHARD_STEPS} + "
+              f"{SHARD_STEPS} steps, then cli merge-shards")
+        sharded_cls = phase_sharded_classification(workdir, study.filename,
+                                                   card)
+        print("[30] the parity band on kernel 2: the reference recipe's "
+              "three runs, then [9]'s utilization rows")
+        band = phase_parity_band(ptk, rates, card)
         for mod in ("jax", "pandas", "sklearn", "multimodalautoencoder_tpu"):
             check(mod not in sys.modules, f"the port's paths imported {mod}")
 
@@ -2998,6 +3401,7 @@ def main() -> int:
                           ":63",
               "launches": launches + single["launches"],
               "serve_launches": launches,
+              "sharded_winner_serve_launches": sharded["serve_launches"],
               "train_launches": single["launches"],
               "max_abs_err": max_err, "max_abs_err_bf16": max_err_bf16,
               "serve_max_abs_lean": max_lean,
@@ -3008,6 +3412,8 @@ def main() -> int:
          "source": src + "train_kernel.cu",
          "replaces": "multimodalautoencoder_tpu/ops/train_kernel.py:274",
          "launches": train_launches, "max_abs_err": train_err,
+         "split": split, "sharded_launches": sharded["launches"],
+         "parity_band_launches": band["launches"],
          "ms": step["ms"], "plain_ms": step["plain_ms"],
          "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
          "library_ms": None,
@@ -3016,6 +3422,7 @@ def main() -> int:
          "source": src + "cls_train_kernel.cu",
          "replaces": "multimodalautoencoder_tpu/ops/train_kernel.py:1439",
          "launches": cls_launches, "max_abs_err": cls_err,
+         "sharded_launches": sharded_cls["launches"],
          "ms": cls_step["ms"], "plain_ms": cls_step["plain_ms"],
          "bound_ms": cls_step["bound_ms"], "bound_by": cls_step["bound_by"],
          "library_ms": None,

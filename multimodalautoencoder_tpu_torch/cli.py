@@ -1,10 +1,7 @@
 """Command-line interface of the port: serving, single-run training, the
 two sweeps, the comparison baselines and feature selection.
 
-Counterpart of ``multimodalautoencoder_tpu/cli.py`` (its ``fill``,
-``embed``, ``train``, ``sweep-mmae``, ``sweep-classification``,
-``baseline`` and ``feature-select`` subcommands; ``jobs`` and
-``merge-shards`` come with the rest of the port):
+Counterpart of ``multimodalautoencoder_tpu/cli.py``, every subcommand:
 
     python -m multimodalautoencoder_tpu_torch.cli train data.csv \\
         --arch 1000 100 --num-steps 30000 --normalize-and-fill
@@ -20,12 +17,22 @@ Counterpart of ``multimodalautoencoder_tpu/cli.py`` (its ``fill``,
         data.csv [label] --normalize-and-fill [--device cuda]
     python -m multimodalautoencoder_tpu_torch.cli feature-select \\
         data.csv pca 100 --backend jax --fill-missing 0 [--device cuda]
+    python -m multimodalautoencoder_tpu_torch.cli sweep-mmae unsup.csv \\
+        --normalize-and-fill --process-shard 0 2 --save-best-params
+    python -m multimodalautoencoder_tpu_torch.cli merge-shards results \\
+        MMAE-unsup --best-checkpoint best_mmae
+    python -m multimodalautoencoder_tpu_torch.cli jobs jobs.txt
 
 ``--device`` (default ``cuda``) is where the model runs; there is no
-fallback to another device.  ``--seed`` seeds the row shuffle of
-``--normalize-and-fill``, the CV folds and every random draw of the run
-(the JAX CLI seeds the same places).  ``--engine native`` reads CSVs with
-the C++ parser of ``native/csv_loader.cpp`` (``data/fast_csv.py``).
+fallback to another device.  The sweeps also take a comma-separated list
+(``--device cuda:0,cuda:1``) and split each bucket over it;
+``--process-shard I N`` sweeps the round-robin slice I of N into a ledger
+shard, and ``merge-shards`` merges a generation of shards and names the
+global winner among the shard-tagged checkpoints.  ``--seed`` seeds the
+row shuffle of ``--normalize-and-fill``, the CV folds and every random
+draw of the run (the JAX CLI seeds the same places).  ``--engine native``
+reads CSVs with the C++ parser of ``native/csv_loader.cpp``
+(``data/fast_csv.py``).
 ``baseline svm|rf|lr``, ``sweep-mmae --probe svm`` and ``feature-select
 --backend sklearn`` need scikit-learn, which the port does not depend on:
 without it they exit with an error that names it.
@@ -136,6 +143,17 @@ def _reject_z_score(args) -> None:
             "0-1-normalized inputs")
 
 
+def _sweep_devices(args):
+    """``--device``, a comma-separated list of devices to split each
+    bucket over."""
+    devices = [d.strip() for d in args.device.split(",") if d.strip()]
+    return devices if len(devices) > 1 else args.device
+
+
+def _shard(args):
+    return tuple(args.process_shard) if args.process_shard else None
+
+
 def cmd_sweep_mmae(args) -> int:
     _reject_z_score(args)
     unsup = _loader(args.filename, False, args)
@@ -147,9 +165,8 @@ def cmd_sweep_mmae(args) -> int:
         check_test=args.check_test, num_cross_folds=args.folds,
         num_steps=args.num_steps, seed=args.seed, backend=args.backend,
         probe=None if args.probe == "none" else args.probe,
-        process_shard=(tuple(args.process_shard) if args.process_shard
-                       else None),
-        save_best_params=args.save_best_params, device=args.device)
+        process_shard=_shard(args), save_best_params=args.save_best_params,
+        device=_sweep_devices(args))
     best, test_score, extras = sweep.run()
     print(best)
     if test_score is not None:
@@ -171,7 +188,8 @@ def cmd_sweep_classification(args) -> int:
         mmae_num_steps=args.num_steps,
         classification_num_steps=args.num_steps, seed=args.seed,
         compute_dtype=args.compute_dtype, backend=args.backend,
-        save_best_params=args.save_best_params, device=args.device)
+        process_shard=_shard(args), save_best_params=args.save_best_params,
+        device=_sweep_devices(args))
     for metric, row in sweep.run().items():
         if metric == "test":
             # the held-out battery: a plain {test_acc: ..., ...} dict
@@ -221,6 +239,34 @@ def cmd_feature_select(args) -> int:
     return 0
 
 
+def cmd_jobs(args) -> int:
+    from multimodalautoencoder_tpu_torch.utils import jobs
+
+    results = jobs.run_jobs(args.job_file, minimum_seconds=args.min_seconds)
+    return 0 if all(r.status != jobs.ERROR for r in results) else 1
+
+
+def cmd_merge_shards(args) -> int:
+    """After a --process-shard run: merge the ledger shards into one
+    results CSV (parallel/multihost.py) and, where the processes exported
+    slice winners, name the global best checkpoint."""
+    from multimodalautoencoder_tpu_torch.parallel import multihost
+
+    out = multihost.merge_ledger_shards(args.results_path, args.prefix,
+                                        num_shards=args.num_shards)
+    print("merged ledger:", out)
+    if args.best_checkpoint:
+        try:
+            win = multihost.select_global_best_checkpoint(
+                args.results_path, args.best_checkpoint,
+                num_shards=args.num_shards)
+            print("global best checkpoint:", win)
+        except (FileNotFoundError, ValueError) as e:
+            print(f"no global best checkpoint: {e}")
+            return 1
+    return 0
+
+
 def _add_engine(p: argparse.ArgumentParser) -> None:
     p.add_argument("--engine", choices=("pandas", "native"),
                    default="pandas",
@@ -240,7 +286,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "svm.py:14,143-150)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
-                   help="torch device the model runs on")
+                   help="torch device the model runs on (the sweeps: a "
+                        "comma-separated list to split each bucket over)")
     _add_engine(p)
 
 
@@ -262,6 +309,11 @@ def _add_sweep_common(p: argparse.ArgumentParser) -> None:
                    help="'auto' trains on the CUDA kernels where the shape "
                         "family allows and the device is a GPU, the plain "
                         "trainers otherwise; 'xla'/'pallas' force")
+    p.add_argument("--process-shard", nargs=2, type=int, default=None,
+                   metavar=("I", "N"),
+                   help="sweep only the round-robin slice I of N (0-based)"
+                        " and write a ledger shard; merge with "
+                        "merge-shards")
     _add_run_common(p)
     p.add_argument("--save-best-params", action="store_true",
                    help="checkpoint the best setting's fold-0 parameters "
@@ -281,9 +333,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="embedding-quality probe: the on-device RFF ridge "
                         "(default), the exact kernel ridge, the host "
                         "sklearn SVC grid (needs scikit-learn), or none")
-    p.add_argument("--process-shard", nargs=2, type=int, default=None,
-                   metavar=("I", "N"),
-                   help="multi-host scale-out (not ported yet: refused)")
     _add_sweep_common(p)
     _add_common(p)
     p.set_defaults(fn=cmd_sweep_mmae)
@@ -341,6 +390,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device of the 'jax' backend's SVD")
     _add_engine(p)
     p.set_defaults(fn=cmd_feature_select)
+    p = sub.add_parser("jobs", help="run a 4-line-per-job batch file")
+    p.add_argument("job_file")
+    p.add_argument("--min-seconds", type=float, default=600)
+    p.set_defaults(fn=cmd_jobs)
+    p = sub.add_parser("merge-shards",
+                       help="merge --process-shard ledger shards (and name "
+                            "the global best checkpoint)")
+    p.add_argument("results_path")
+    p.add_argument("prefix",
+                   help="ledger prefix, e.g. 'MMAE-acii' (the CSV name "
+                        "without .shardIofN.csv)")
+    p.add_argument("--num-shards", type=int, default=None,
+                   help="shard generation (the ofN suffix); default: the "
+                        "most recently written one")
+    p.add_argument("--best-checkpoint", default=None, metavar="NAME",
+                   help="also pick the global winner among "
+                        "NAME.shardIofN-*.npz exports (e.g. 'best_mmae' or"
+                        " 'best_mmae_cls')")
+    p.set_defaults(fn=cmd_merge_shards)
     return ap
 
 

@@ -170,6 +170,10 @@ __global__ void philox_probe_kernel(float* out, int seed) {
   }
 }
 
+// An empty kernel at the probe's launch shape: its time on the device is
+// the floor that one launch costs, the bound of the probe's tiny work.
+__global__ void empty_kernel() {}
+
 // ------------------------------------------------------------- the host loop
 struct Runner {
   const TrainArgs& a;
@@ -318,6 +322,11 @@ int philox_probe_launch(float* out, int seed, long long* launches,
   cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++*launches;
   return (int)err;
+}
+
+int empty_launch(void* stream) {
+  empty_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
 }
 
 const char* train_kernel_error_string(int code) {

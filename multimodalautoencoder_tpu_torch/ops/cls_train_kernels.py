@@ -644,7 +644,7 @@ def train_cls_kernel(run: ClsRun, first_step: int, num_steps: int,
                                      int(num_steps), ctypes.byref(launches),
                                      ctypes.cast(prof, ctypes.c_void_p)
                                      if prof is not None else None, stream)
-    KERNELS.launches += launches.value
+    KERNELS.count(launches.value)
     KERNELS.check(err, "mmae_cls_train_run")
     if profile is not None:
         for name, ms in zip(LAUNCH_TYPES, prof):
@@ -686,14 +686,15 @@ def val_predictions(params: mmae.MMAEParams, cfg: MMAEConfig, hyper, chyper,
 def phase2_pallas(seed: int, cfg: MMAEConfig, cls_tcfg: TrainConfig,
                   spec: NoiseSpec, params1: mmae.MMAEParams, hyper, chyper,
                   folded, cls_num_steps: Optional[int] = None,
-                  head0=None, adam_eps: float = 1e-8):
+                  head0=None, adam_eps: float = 1e-8, devices=None):
     """Phase 2 of a bucket on phase 1's parameters ``params1`` (leading
     (C, K) axes): the counterpart of ``_phase2_body``.  ``seed`` seeds one
     CPU generator that draws, in order, the fresh heads (unless ``head0``,
     (cls_w, cls_b) with leading (C, K) axes, is given), the instances'
     Philox seeds and the VAE's evaluation eps.  Runs where ``folded``
-    lies: the CUDA kernels on a GPU, the twin on the CPU.  Returns
-    ``(params, preds)``."""
+    lies: the CUDA kernels on a GPU, the twin on the CPU; with several
+    ``devices`` split over them (``train_kernels.run_steps``) and
+    gathered before the predictions.  Returns ``(params, preds)``."""
     cfg = cfg.validate()
     steps = cls_tcfg.num_steps if cls_num_steps is None \
         else int(cls_num_steps)
@@ -703,10 +704,8 @@ def phase2_pallas(seed: int, cfg: MMAEConfig, cls_tcfg: TrainConfig,
         head0 = init_heads(g, cfg, C, K)
     run = prepare_cls_run(g, cfg, cls_tcfg, spec, hyper, chyper, folded,
                           params1, head0, adam_eps)
-    if run.seeds.device.type == "cpu":
-        train_cls_kernel_reference(run, 0, steps)
-    else:
-        train_cls_kernel(run, 0, steps)
+    train_kernels.run_steps(run, steps, train_cls_kernel_reference,
+                            train_cls_kernel, devices)
     params = run.grid_params(C, K, params1)
     return params, val_predictions(params, cfg, hyper, chyper, folded, g)
 
@@ -717,7 +716,8 @@ def train_two_phase_pallas(seed: int, cfg: MMAEConfig, tcfg: TrainConfig,
                            num_steps: Optional[int] = None,
                            cls_num_steps: Optional[int] = None,
                            params0: Optional[mmae.MMAEParams] = None,
-                           head0=None, adam_eps: float = 1e-8):
+                           head0=None, adam_eps: float = 1e-8,
+                           devices=None):
     """Both phases of a bucket on the kernels; the counterpart of
     ``train_kernel.train_two_phase_pallas`` (:1728).  Phase 1 is
     ``train_kernels.train_grid_pallas`` on :func:`phase1_cfg` (seed
@@ -725,7 +725,8 @@ def train_two_phase_pallas(seed: int, cfg: MMAEConfig, tcfg: TrainConfig,
     :func:`phase2_pallas` (seed ``derive_seed(seed, 2)``, heads ``head0``).
     Returns ``(params, losses, preds)`` with leading (C, K) axes: phase-1
     noisy-val objectives and phase-2 val predictions.  ``adam_eps`` is
-    phase 2's.  Raises ``ValueError`` outside
+    phase 2's; ``devices`` splits both phases' runs as
+    ``train_kernels.run_steps`` does.  Raises ``ValueError`` outside
     :func:`supported_two_phase`."""
     cfg = cfg.validate()
     if not supported_two_phase(cfg, tcfg, cls_tcfg, spec):
@@ -733,8 +734,8 @@ def train_two_phase_pallas(seed: int, cfg: MMAEConfig, tcfg: TrainConfig,
                          "family; use the plain grid trainer")
     params1, losses = train_kernels.train_grid_pallas(
         derive_seed(seed, 1), phase1_cfg(cfg), tcfg, spec, hyper,
-        unsup_folded, num_steps, params0)
+        unsup_folded, num_steps, params0, devices)
     params, preds = phase2_pallas(derive_seed(seed, 2), cfg, cls_tcfg, spec,
                                   params1, hyper, chyper, sup_folded,
-                                  cls_num_steps, head0, adam_eps)
+                                  cls_num_steps, head0, adam_eps, devices)
     return params, losses, preds

@@ -43,7 +43,9 @@ class NvccLibrary:
 
     ``launches`` goes up by one for each kernel launch and nowhere else,
     so a caller can zero it, drive a path, and read how often the path
-    went through the kernels.
+    went through the kernels.  Wrappers add to it with :meth:`count`,
+    which holds a lock: chunks of a split bucket launch from several
+    threads at once.
     """
 
     def __init__(self, source: str, library: str,
@@ -57,6 +59,12 @@ class NvccLibrary:
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
+        self._count_lock = threading.Lock()
+
+    def count(self, launches: int) -> None:
+        """Add ``launches`` to :attr:`launches`."""
+        with self._count_lock:
+            self.launches += int(launches)
 
     def stale(self) -> bool:
         if not os.path.exists(self.library):

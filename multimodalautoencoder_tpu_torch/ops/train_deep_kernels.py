@@ -507,7 +507,7 @@ def train_deep_kernel(run: DeepGridRun, first_step: int, num_steps: int,
                                       int(num_steps), ctypes.byref(launches),
                                       ctypes.cast(prof, ctypes.c_void_p)
                                       if prof is not None else None, stream)
-    KERNELS.launches += launches.value
+    KERNELS.count(launches.value)
     KERNELS.check(err, "mmae_deep_train_run")
     if profile is not None:
         for name, ms in zip(LAUNCH_TYPES, prof):
@@ -519,14 +519,15 @@ def train_deep_kernel(run: DeepGridRun, first_step: int, num_steps: int,
 def train_deep_pallas(seed: int, cfg: MMAEConfig, tcfg: TrainConfig,
                       spec: NoiseSpec, hyper, folded,
                       num_steps: Optional[int] = None,
-                      params0: Optional[mmae.MMAEParams] = None):
+                      params0: Optional[mmae.MMAEParams] = None,
+                      devices=None):
     """Train every (config, fold) instance of a depth >= 3 bucket; the
     counterpart of ``_pipeline_deep``, with ``train_kernels.
     train_grid_pallas``'s contract: ``seed`` seeds one CPU generator that
     draws, in order, the initial parameters (unless ``params0``), the
     instances' Philox seeds and the objective's noise; the CUDA kernels on
-    a GPU, the twin on the CPU.  Returns ``(params, losses)`` with leading
-    (C, K) axes."""
+    a GPU, the twin on the CPU, split over several ``devices`` as there.
+    Returns ``(params, losses)`` with leading (C, K) axes."""
     cfg = cfg.validate()
     if not (3 <= len(cfg.layer_sizes) <= MAX_DEPTH
             and train_kernels.supported(cfg, tcfg, spec)):
@@ -539,10 +540,8 @@ def train_deep_pallas(seed: int, cfg: MMAEConfig, tcfg: TrainConfig,
         params0 = train_kernels.init_grid_params(generator, cfg, C, K)
     run = prepare_deep_run(generator, cfg, tcfg, spec, hyper, folded,
                            params0)
-    if run.seeds.device.type == "cpu":
-        train_deep_kernel_reference(run, 0, num_steps)
-    else:
-        train_deep_kernel(run, 0, num_steps)
+    train_kernels.run_steps(run, num_steps, train_deep_kernel_reference,
+                            train_deep_kernel, devices)
     params = run.grid_params(C, K)
     return params, train_kernels.noisy_val_losses(params, cfg, spec, hyper,
                                                   folded, generator)

@@ -37,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
 import torch
@@ -113,6 +114,8 @@ class TrainLibrary(NvccLibrary):
         lib.philox_probe_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
             ctypes.c_void_p]
+        lib.empty_launch.restype = ctypes.c_int
+        lib.empty_launch.argtypes = [ctypes.c_void_p]
         lib.train_kernel_error_string.restype = ctypes.c_char_p
         lib.train_kernel_error_string.argtypes = [ctypes.c_int]
 
@@ -663,11 +666,23 @@ def train_grid_kernel(run: GridRun, first_step: int, num_steps: int,
                                  int(num_steps), ctypes.byref(launches),
                                  ctypes.cast(prof, ctypes.c_void_p)
                                  if prof is not None else None, stream)
-    KERNELS.launches += launches.value
+    KERNELS.count(launches.value)
     KERNELS.check(err, "mmae_train_run")
     if profile is not None:
         for name, ms in zip(LAUNCH_TYPES, prof):
             profile[name] = profile.get(name, 0.0) + float(ms)
+
+
+def empty_launch(device="cuda") -> None:
+    """One launch of an empty kernel at the probe's launch shape on the
+    current stream (``csrc/train_kernel.cu`` ``empty_kernel``): timed on
+    the device beside :func:`philox_probe`, the floor one launch costs.
+    Counted nowhere: it computes nothing."""
+    device = torch.device(device)
+    lib = KERNELS.load()
+    with torch.cuda.device(device):
+        KERNELS.check(lib.empty_launch(
+            torch.cuda.current_stream(device).cuda_stream), "empty_launch")
 
 
 def philox_probe(seed: int = 7, device="cuda") -> torch.Tensor:
@@ -690,6 +705,61 @@ def philox_probe(seed: int = 7, device="cuda") -> torch.Tensor:
     KERNELS.probe_launches += launches.value
     KERNELS.check(err, "philox_probe_launch")
     return out
+
+
+# ---------------------------------------------------- split over devices
+
+# Fields of a run that every instance reads whole: the fold data and the
+# corruption tables.  Every other tensor of a run has the instance axis
+# first.
+SHARED_FIELDS = ("train", "labels", "type_table", "cum")
+
+
+def split_run(run, devices) -> list:
+    """``run`` (a :class:`GridRun`, a subclass or a ``ClsRun``) cut into
+    contiguous chunks of its instance axis, chunk i on ``devices[i]``
+    (``parallel/mesh.split_leading_axis``), the shared fields copied whole
+    to each device; empty chunks are left out.  Every instance keeps its
+    Philox seed, so on the card a chunk's steps give each of its
+    instances what the whole run gives it."""
+    from multimodalautoencoder_tpu_torch.parallel import mesh
+
+    parts = {}
+    for f in dataclasses.fields(run):
+        val = getattr(run, f.name)
+        if f.name in SHARED_FIELDS:
+            parts[f.name] = [val.to(d) for d in devices]
+        elif isinstance(val, (torch.Tensor, list)):
+            parts[f.name] = mesh.split_leading_axis(val, devices)
+    return [dataclasses.replace(run, **{k: v[i] for k, v in parts.items()})
+            for i, (lo, hi) in enumerate(mesh.chunk_bounds(run.n_inst,
+                                                           len(devices)))
+            if hi > lo]
+
+
+def run_steps(run, num_steps: int, twin, kernels, devices=None) -> None:
+    """Steps [0, num_steps) of ``run``, in place: ``kernels`` where the
+    run lies on a GPU, ``twin`` on the CPU.  With more than one device in
+    ``devices`` the instance axis is split (:func:`split_run`), each chunk
+    runs on its device from its own host thread (the ctypes calls and the
+    twin's torch operations release the interpreter lock), and the
+    parameters and moments are gathered back onto the run's device."""
+    def one(chunk):
+        (twin if chunk.seeds.device.type == "cpu" else kernels)(
+            chunk, 0, num_steps)
+        return chunk
+
+    if devices is None or len(devices) <= 1:
+        one(run)
+        return
+    from multimodalautoencoder_tpu_torch.parallel import mesh
+
+    chunks = split_run(run, devices)
+    with ThreadPoolExecutor(len(chunks)) as pool:
+        done = [f.result() for f in [pool.submit(one, c) for c in chunks]]
+    for name in ("params", "m", "v"):
+        setattr(run, name, mesh.gather_leading_axis(
+            [getattr(c, name) for c in done], run.seeds.device))
 
 
 # ------------------------------------------------------------- pipeline
@@ -728,7 +798,8 @@ def noisy_val_losses(params: mmae.MMAEParams, cfg: MMAEConfig,
 def train_grid_pallas(seed: int, cfg: MMAEConfig, tcfg: TrainConfig,
                       spec: NoiseSpec, hyper, folded,
                       num_steps: Optional[int] = None,
-                      params0: Optional[mmae.MMAEParams] = None):
+                      params0: Optional[mmae.MMAEParams] = None,
+                      devices=None):
     """Train every (config, fold) instance of a bucket; the counterpart of
     ``train_kernel.train_grid_pallas`` (:846).  Depth >= 3 goes to the
     deep family, ``train_deep_kernels.train_deep_pallas``, as ``_pipeline``
@@ -740,7 +811,12 @@ def train_grid_pallas(seed: int, cfg: MMAEConfig, tcfg: TrainConfig,
     generator that draws, in order, the initial parameters (unless
     ``params0``, leading (C, K) axes, is given), the instances' Philox
     seeds, and the objective's noise; so a seed gives the same run on
-    either device.  Raises ``ValueError`` outside :func:`supported`."""
+    either device.  With several ``devices`` (the first holding
+    ``folded``) the run is drawn whole, split over them by
+    :func:`run_steps` and gathered before the objective, so every
+    instance ends as it does on one device (on the CPU twin to the last
+    bit of a few exp / tanh evaluations: ``parallel/grid_trainer.py``).
+    Raises ``ValueError`` outside :func:`supported`."""
     cfg = cfg.validate()
     if not supported(cfg, tcfg, spec):
         raise ValueError("configuration outside the training kernels' "
@@ -749,17 +825,16 @@ def train_grid_pallas(seed: int, cfg: MMAEConfig, tcfg: TrainConfig,
         # imported here: the deep module builds on this one
         from multimodalautoencoder_tpu_torch.ops import train_deep_kernels
         return train_deep_kernels.train_deep_pallas(
-            seed, cfg, tcfg, spec, hyper, folded, num_steps, params0)
+            seed, cfg, tcfg, spec, hyper, folded, num_steps, params0,
+            devices)
     num_steps = tcfg.num_steps if num_steps is None else int(num_steps)
     generator = torch.Generator().manual_seed(int(seed))
     C, K = hyper.num_configs, folded.num_folds
     if params0 is None:
         params0 = init_grid_params(generator, cfg, C, K)
     run = prepare_run(generator, cfg, tcfg, spec, hyper, folded, params0)
-    if run.seeds.device.type == "cpu":
-        train_grid_kernel_reference(run, 0, num_steps)
-    else:
-        train_grid_kernel(run, 0, num_steps)
+    run_steps(run, num_steps, train_grid_kernel_reference, train_grid_kernel,
+              devices)
     params = run.grid_params(C, K)
     return params, noisy_val_losses(params, cfg, spec, hyper, folded,
                                     generator)

@@ -1,5 +1,5 @@
 """Config-parallel grid training, both phases of the two-phase sweep, on
-one device.
+one device or split over several.
 
 Counterpart of ``multimodalautoencoder_tpu/parallel/grid_trainer.py``.  The reference
 trains one (setting, fold) at a time (generic_wrapper.py:253-254,
@@ -19,8 +19,22 @@ and ``"xla"``, :func:`train_grid` and :func:`train_classification_grid`,
 batched eager PyTorch with autograd (the XLA trainers' semantics).  Phase 1
 ends in the noisy-val objective (multimodal_autoencoder.py:1019-1033),
 phase 2 in val predictions; both evaluators are shared by the backends.
-One device: the mesh of the JAX package (multi-chip sharding, its padding
-of the config axis and ``shard_map``) is not ported yet.
+
+The JAX package's mesh argument is a device or a device list here
+(``parallel/mesh.py``).  With several devices the ``"pallas"`` backend
+draws the bucket's run state whole (the instances' Philox seeds, initial
+parameters and fold ids), splits the instance axis into contiguous
+chunks, one per device, runs each chunk on its device from its own host
+thread (the kernels on a GPU, the twin on the CPU) and gathers the
+chunks onto the first device before the evaluators.  Each instance's
+Philox key is its own seed, so on the card every instance ends bit for
+bit as on one device.  The CPU twin matches to the last bit where an
+instance's rows fill whole vectors: PyTorch evaluates exp, tanh and
+sigmoid on a tensor's scalar tail with other code than on its vector
+lanes, and a cut can move an instance between the two.  The ``"xla"``
+backend draws every instance's randomness from one
+generator in sequence, so its instance axis does not split: it trains
+the whole bucket on the first device.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ from multimodalautoencoder_tpu_torch.models.corruption import (
     NoiseSpec, add_noise_to_batch)
 from multimodalautoencoder_tpu_torch.ops import cls_train_kernels, \
     optim, train_kernels
+from multimodalautoencoder_tpu_torch.parallel import mesh
 
 # activation-key aliases (sweep ledgers use activation_function, the
 # reference ctor uses activation_func)
@@ -295,18 +310,20 @@ def train_grid_sharded(device, seed: int, cfg: MMAEConfig,
                        num_steps: Optional[int] = None,
                        backend: str = "auto",
                        params0: Optional[mmae.MMAEParams] = None):
-    """Train a bucket on ``device`` (the JAX package's mesh, on one
-    device).  ``backend``: ``"pallas"`` (the CUDA training kernels; raises
-    ``ValueError`` outside their family), ``"xla"`` (:func:`train_grid`),
-    or ``"auto"`` (:func:`resolve_backend` for that device).  Returns
-    ``(params, losses)`` with leading (C, K) axes."""
-    device = torch.device(device)
-    folded = folded.to(device)
+    """Train a bucket on ``device``, a device or a device list (the JAX
+    package's mesh).  ``backend``: ``"pallas"`` (the CUDA training
+    kernels, split over the devices; raises ``ValueError`` outside their
+    family), ``"xla"`` (:func:`train_grid` on the first device), or
+    ``"auto"`` (:func:`resolve_backend` for those devices).  Returns
+    ``(params, losses)`` with leading (C, K) axes on the first device."""
+    devices = mesh.as_devices(device)
+    folded = folded.to(devices[0])
     backend = resolve_backend(backend, cfg, tcfg, spec,
-                              on_gpu=device.type == "cuda")
+                              on_gpu=devices[0].type == "cuda")
     if backend == "pallas":
         return train_kernels.train_grid_pallas(seed, cfg, tcfg, spec, hyper,
-                                               folded, num_steps, params0)
+                                               folded, num_steps, params0,
+                                               devices)
     if backend != "xla":
         raise ValueError(f"unknown backend {backend!r} "
                          "('auto', 'pallas' or 'xla')")
@@ -455,14 +472,15 @@ def train_phase2_shared_sharded(device, seed: int, cfg: MMAEConfig,
     """Phase 2 of a bucket on shared phase-1 results: ``params_u`` is the
     headless (U, K, ...) stack of :func:`train_phase1_shared`, ``p1_map``
     the (C,) phase-1 row of each of the bucket's settings.  ``"pallas"``
-    gathers and runs ``cls_train_kernels.phase2_pallas`` (seed ``seed``);
-    ``"xla"`` :func:`train_classification_dedup_grid`.  Returns ``(params,
-    preds)`` with leading (C, K) axes."""
-    device = torch.device(device)
-    sup_folded = sup_folded.to(device)
+    gathers and runs ``cls_train_kernels.phase2_pallas`` (seed ``seed``),
+    split over ``device`` when it is a list; ``"xla"``
+    :func:`train_classification_dedup_grid` on the first device.  Returns
+    ``(params, preds)`` with leading (C, K) axes."""
+    devices = mesh.as_devices(device)
+    sup_folded = sup_folded.to(devices[0])
     backend = resolve_backend_two_phase(backend, cfg, tcfg, cls_tcfg, spec,
-                                        on_gpu=device.type == "cuda")
-    params_u = optim.tree_map(lambda t: t.to(device), params_u)
+                                        on_gpu=devices[0].type == "cuda")
+    params_u = optim.tree_map(lambda t: t.to(devices[0]), params_u)
     if backend == "pallas":
         if not cls_train_kernels.supported_two_phase(cfg, tcfg, cls_tcfg,
                                                      spec):
@@ -470,7 +488,7 @@ def train_phase2_shared_sharded(device, seed: int, cfg: MMAEConfig,
                              " family; use the plain grid trainer")
         return cls_train_kernels.phase2_pallas(
             seed, cfg, cls_tcfg, spec, _gather_configs(params_u, p1_map),
-            hyper, chyper, sup_folded, cls_num_steps)
+            hyper, chyper, sup_folded, cls_num_steps, devices=devices)
     if backend != "xla":
         raise ValueError(f"unknown backend {backend!r} "
                          "('auto', 'pallas' or 'xla')")
@@ -488,23 +506,25 @@ def train_two_phase_sharded(device, seed: int, cfg: MMAEConfig,
                             num_steps: Optional[int] = None,
                             cls_num_steps: Optional[int] = None,
                             backend: str = "auto"):
-    """Both phases of a bucket on ``device``, every setting pretraining its
-    own MMAE as the reference does (the sweep shares phase 1 instead:
-    :func:`train_phase1_shared`).  ``"pallas"``:
-    ``cls_train_kernels.train_two_phase_pallas``; ``"xla"``: :func:`train_grid`
+    """Both phases of a bucket on ``device`` (a device or a device list),
+    every setting pretraining its own MMAE as the reference does (the
+    sweep shares phase 1 instead: :func:`train_phase1_shared`).
+    ``"pallas"``: ``cls_train_kernels.train_two_phase_pallas``, split over
+    the devices; ``"xla"``: :func:`train_grid`
     on the headless f32 view (seed ``derive_seed(seed, 1)``), fresh heads
     and :func:`train_classification_grid`.  Returns ``(params, losses,
     preds)`` with leading (C, K) axes: phase-1 noisy-val objectives and
     phase-2 val predictions (autoencoder_classification_wrapper.py
     :195-237)."""
-    device = torch.device(device)
-    unsup_folded, sup_folded = unsup_folded.to(device), sup_folded.to(device)
+    devices = mesh.as_devices(device)
+    unsup_folded = unsup_folded.to(devices[0])
+    sup_folded = sup_folded.to(devices[0])
     backend = resolve_backend_two_phase(backend, cfg, tcfg, cls_tcfg, spec,
-                                        on_gpu=device.type == "cuda")
+                                        on_gpu=devices[0].type == "cuda")
     if backend == "pallas":
         return cls_train_kernels.train_two_phase_pallas(
             seed, cfg, tcfg, cls_tcfg, spec, hyper, chyper, unsup_folded,
-            sup_folded, num_steps, cls_num_steps)
+            sup_folded, num_steps, cls_num_steps, devices=devices)
     if backend != "xla":
         raise ValueError(f"unknown backend {backend!r} "
                          "('auto', 'pallas' or 'xla')")

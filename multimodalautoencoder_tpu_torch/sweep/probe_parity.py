@@ -1,10 +1,10 @@
 """Probe selection parity: does the on-device ridge probe rank settings as
 the reference's SVM probe does?
 
-Counterpart of ``multimodalautoencoder_tpu/sweep/probe_parity.py``
-(:43-156).  The MMAE sweep's ``svm_val_acc`` / ``svm_val_auc`` columns
-drive the choice of the best embedding (autoencoder_wrapper.py:272-284,
-:384-385).  The reference computes them with host libsvm SVCs; the
+Counterpart of ``multimodalautoencoder_tpu/sweep/probe_parity.py``.  The
+MMAE sweep's ``svm_val_acc`` / ``svm_val_auc`` columns drive the choice
+of the best embedding (autoencoder_wrapper.py:272-284, :384-385).  The
+reference computes them with host libsvm SVCs; the
 sweep's default, with the on-device random-Fourier ridge probe
 (``sweep/probe.py``).  What matters for model selection is that both
 order the settings alike and pick the same (or an equivalent) winner, so
@@ -12,15 +12,20 @@ order the settings alike and pick the same (or an equivalent) winner, so
 probe, with the same data, settings and seed, and :func:`ranking_agreement`
 compares the per-setting probe columns: the Spearman rank correlation,
 each winner's rank under the other probe, and the score the device
-probe's winner loses under the SVM probe.  scipy and scikit-learn are
-imported at first use.
+probe's winner loses under the SVM probe.
+:func:`measure_probe_agreement_at_scale` makes the comparison at the
+reference's scale, both probes scoring each bucket's same trained
+parameters.  scipy and scikit-learn are imported at first use; without
+scikit-learn the SVM probe raises an ImportError that names it.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 import tempfile
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -133,3 +138,88 @@ def ranking_agreement(svm_rows: List[Dict],
                                     / max(abs(s[best_svm]), 1e-12)),
         }
     return out
+
+
+def measure_probe_agreement_at_scale(
+        num_steps: int = 15000, folds: int = 5, seed: int = 0,
+        backend: str = "auto", workdir: Optional[str] = None,
+        num_rows: int = 2000, partial_out: Optional[str] = None,
+        device="cuda",
+        layer_sizes=((1000, 100), (500, 100), (300, 100))
+) -> Dict[str, dict]:
+    """Probe agreement at the reference's scale: the 108-setting MMAE grid
+    (``layer_sizes`` and the VAE augmentation, autoencoder_wrapper.py
+    :127-136) trained ``num_steps`` steps on the reference-scale study
+    (``synthetic.reference_scale_loaders``), each bucket trained once on
+    ``device`` and scored by both probes on the same parameters, so any
+    disagreement is the probes' alone.  Buckets run widest architecture
+    first; ``partial_out`` receives the agreement so far after every
+    bucket, tagged with its coverage (``partial=True`` until the last).
+    The host SVC grid costs 108 settings x ``folds`` x 3 labels x 6 fits,
+    about quadratic in ``num_rows``.  Returns :func:`ranking_agreement`'s
+    dict with a ``_coverage`` entry."""
+    from multimodalautoencoder_tpu_torch.data import synthetic
+    from multimodalautoencoder_tpu_torch.ops import cls_train_kernels
+    from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
+    from multimodalautoencoder_tpu_torch.sweep import grid as grid_lib
+    from multimodalautoencoder_tpu_torch.sweep.wrappers import MMAESweep
+
+    own_tmp = workdir is None
+    workdir = workdir or tempfile.mkdtemp(prefix="probe_parity_scale_")
+    os.makedirs(workdir, exist_ok=True)
+    try:
+        unsup, sup = synthetic.reference_scale_loaders(
+            workdir, num_rows=num_rows, seed=seed)
+        sweep = MMAESweep(unsup, sup, layer_sizes=layer_sizes, probe="svm",
+                          results_path=os.path.join(workdir, "res"),
+                          num_steps=num_steps, num_cross_folds=folds,
+                          seed=seed, backend=backend, verbose=False,
+                          device=device)
+        buckets = sorted(grid_lib.bucket_settings(
+            sweep.list_of_param_settings),
+            key=lambda kb: -int(kb[1][0]["architecture"][0]))
+        if not buckets:
+            raise ValueError("the probe-parity grid has no shape buckets")
+        svm_rows, dev_rows, settings = [], [], []
+
+        def joined(rows):
+            return [{**s, **r} for s, r in zip(settings, rows)]
+
+        for bi, (_, bucket) in enumerate(buckets):
+            t0 = time.time()
+            cfg = sweep._cfg_for_bucket(bucket[0])
+            hyper = gt.HyperStack.from_settings(bucket, cfg, sweep.tcfg)
+            params, losses = gt.train_grid_sharded(
+                sweep.devices, cls_train_kernels.derive_seed(seed, 0, bi),
+                cfg, sweep.tcfg, sweep.spec, hyper, sweep.folded,
+                backend=backend)
+            losses.cpu()                # wait for the training
+            t1 = time.time()
+            dev = sweep._device_probe_rows(sweep._device_probe_launch(
+                params, cfg, hyper, len(bucket),
+                cls_train_kernels.derive_seed(seed, 3, bi)), len(bucket))
+            t2 = time.time()
+            svm = sweep._svm_probe_bucket(params, cfg, hyper, len(bucket))
+            print(f"bucket {bi + 1}/{len(buckets)} (arch "
+                  f"{bucket[0]['architecture']}, {len(bucket)} settings): "
+                  f"train {t1 - t0:.1f} s, device probe {t2 - t1:.1f} s, "
+                  f"svm probe {time.time() - t2:.1f} s", flush=True)
+            settings += [dict(s) for s in bucket]
+            svm_rows += svm
+            dev_rows += dev
+            coverage = {
+                "partial": bi + 1 < len(buckets),
+                "buckets_done": bi + 1, "buckets_total": len(buckets),
+                "settings_done": len(settings),
+                "settings_total": sweep.num_settings,
+                "num_steps": num_steps, "folds": folds,
+                "num_rows": num_rows}
+            out = ranking_agreement(joined(svm_rows), joined(dev_rows))
+            out["_coverage"] = coverage
+            if partial_out:
+                with open(partial_out, "w") as f:
+                    json.dump(out, f, indent=2)
+        return out
+    finally:
+        if own_tmp:
+            shutil.rmtree(workdir, ignore_errors=True)

@@ -1,4 +1,5 @@
-"""The MMAE sweep and the two-phase classification sweep on one device.
+"""The MMAE sweep and the two-phase classification sweep, on one device,
+split over several, or sharded over processes.
 
 Counterpart of ``MMAESweep`` (:154-725) and ``MMAEClassificationSweep``
 (:728-1467) in ``multimodalautoencoder_tpu/sweep/wrappers.py``, the
@@ -23,8 +24,13 @@ one setting on fold 0 with the single-run trainer (``train/trainer.py``).
 scikit-learn SVC grid instead; scikit-learn is no dependency of the port,
 and without it that probe raises an ImportError that names it.
 
-Not ported: ``process_shard`` and the mesh (multi-GPU, ROADMAP Queue 1
-item 13), which raise ``NotImplementedError``, and the JAX compile cache.
+``device`` is a device or a device list, the JAX package's mesh: each
+bucket's instances are split over the devices (``parallel/mesh.py``,
+``parallel/grid_trainer.py``).  ``process_shard=(i, n)`` sweeps only the
+round-robin slice i of n of the grid into the ledger shard
+``<prefix>.shard{i}of{n}`` and exports a shard-tagged winner, for
+``parallel/multihost.py`` to merge and to pick the global winner from.
+The JAX compile cache has no counterpart.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from multimodalautoencoder_tpu_torch.ops import cls_train_kernels
 from multimodalautoencoder_tpu_torch.ops import metrics as metrics_lib
 from multimodalautoencoder_tpu_torch.ops import optim
 from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
+from multimodalautoencoder_tpu_torch.parallel import mesh, multihost
 from multimodalautoencoder_tpu_torch.sweep import engine, grid as grid_lib
 from multimodalautoencoder_tpu_torch.sweep import probe as probe_lib
 from multimodalautoencoder_tpu_torch.train import trainer
@@ -53,8 +60,6 @@ from multimodalautoencoder_tpu_torch.utils import helpers
 LABELS_TO_PREDICT = ["happiness", "health", "calmness"]
 DEFAULT_NUM_CROSS_FOLDS = 5
 METRIC_ORDER = ("acc", "auc", "f1", "precision", "recall")
-MULTI_GPU = ("process_shard: multi-host scale-out (parallel/multihost.py, "
-             "ROADMAP Queue 1 item 13) is not ported yet")
 
 
 def _arch_tuple(a) -> tuple:
@@ -98,13 +103,28 @@ def _grid_setting_from_row(sweep, row: Dict[str, Any]) -> Dict[str, Any]:
     return {k: v for k, v in row.items() if k in keys}
 
 
+def _sharded(settings, prefix: str, results_path: str, process_shard):
+    """The settings and ledger prefix of ``process_shard`` = (i, n): the
+    round-robin slice i of n and ``<prefix>.shard{i}of{n}``, or both
+    unchanged without a shard."""
+    if process_shard is None:
+        return settings, prefix
+    i, n = process_shard
+    return (multihost.partition_settings(settings, i, n),
+            multihost.shard_ledger_path(results_path, prefix, i, n))
+
+
 def _export_best_checkpoint(sweep, *, base_name: str, step: int, resolve):
     """Checkpoint the ledger's winner (the persistence analog of the
     reference's save_model on the chosen setting,
     multimodal_autoencoder.py:766-800).  ``resolve(row, ledger_score) ->
     (setting, host params, cfg, score)`` decides between the parameters
     tracked in this process and a retrain; ``meta['extra']`` records the
-    winning setting and its score.  Returns the path (None on an empty
+    winning setting, its score, ``optimize_for`` and ``min_or_max``.
+    Under ``process_shard`` = (i, n) the name is ``{base_name}.shard{i}of
+    {n}``, so processes sharing a results directory never overwrite each
+    other's slice winner and ``multihost.select_global_best_checkpoint``
+    can pick the global one.  Returns the path (None on an empty
     ledger)."""
     from multimodalautoencoder_tpu_torch.train import checkpoint as ck
 
@@ -114,6 +134,9 @@ def _export_best_checkpoint(sweep, *, base_name: str, step: int, resolve):
                                          sweep.min_or_max)
     ledger_score = engine.as_float(row.get(sweep.optimize_for))
     setting, host_params, cfg, score = resolve(row, ledger_score)
+    if sweep.process_shard is not None:
+        i, n = sweep.process_shard
+        base_name = f"{base_name}.shard{i}of{n}"
     path = ck.save_checkpoint(
         os.path.dirname(sweep.ledger.path), base_name, host_params, cfg,
         step=step,
@@ -130,7 +153,7 @@ class MMAESweep:
     """Grid search over MMAE hyperparameters, scored by noisy-val
     reconstruction loss, with the on-device embedding-quality probe: the
     capabilities of MMAEWrapper (autoencoder_wrapper.py:27-385), on
-    ``device``."""
+    ``device`` (a device or a device list)."""
 
     def __init__(self, data_loader, classification_data_loader=None,
                  layer_sizes: Sequence[Sequence[int]] = ((1000, 100),
@@ -159,8 +182,9 @@ class MMAESweep:
                  save_best_params: bool = False, backend: str = "auto",
                  optimizers: Optional[Sequence[str]] = None,
                  optimizer_state_dtype: str = "bfloat16", device="cuda"):
-        """The JAX ``MMAESweep``'s arguments, ``device`` in place of its
-        mesh.  ``probe``: 'device' (default) scores embeddings with the
+        """The JAX ``MMAESweep``'s arguments, ``device`` (a device or a
+        device list, each bucket split over them) in place of its mesh.
+        ``probe``: 'device' (default) scores embeddings with the
         random-Fourier ridge probe (``probe_rff_dim`` features),
         'device-exact' with the exact kernel ridge, 'svm' with the
         reference's host SVC grid (scikit-learn), None disables.
@@ -170,17 +194,19 @@ class MMAESweep:
         ``save_best_params`` checkpoints the best setting's fold-0
         parameters as ``best_mmae`` at the end of the sweep.
         ``check_test`` retrains the best setting on fold 0 and scores it on
-        the test set (:meth:`test_on_test`).  ``process_shard`` raises
-        ``NotImplementedError``."""
-        if process_shard is not None:
-            raise NotImplementedError(MULTI_GPU)
+        the test set (:meth:`test_on_test`).  ``process_shard``: an
+        optional (process_index, process_count) that sweeps only this
+        process's round-robin slice of the grid into a ledger shard
+        (``parallel/multihost.py``)."""
         if probe not in (None, "device", "device-exact", "svm"):
             raise ValueError(f"unknown probe {probe!r}")
         if probe == "svm" and classification_data_loader is not None:
             from multimodalautoencoder_tpu_torch.baselines.common import \
                 require_sklearn
             require_sklearn("probe='svm'")
-        self.device = torch.device(device)
+        self.devices = mesh.as_devices(device)
+        self.device = self.devices[0]
+        self.process_shard = process_shard
         self.data_loader = data_loader
         self.cls_loader = classification_data_loader
         self.num_cross_folds = num_cross_folds
@@ -235,12 +261,13 @@ class MMAESweep:
         settings = grid_lib.enumerate_grid(params)
         if test_variational:
             settings = grid_lib.add_extra_vae_params(settings)
-        self.list_of_param_settings = settings
-        self.num_settings = len(settings)
-
         prefix = engine.get_save_prefix(
             results_path, classifier_name,
             getattr(data_loader, "filename", "data.csv"), replace=cont)
+        settings, prefix = _sharded(settings, prefix, results_path,
+                                    process_shard)
+        self.list_of_param_settings = settings
+        self.num_settings = len(settings)
         self.ledger = engine.ResultsLedger(
             results_path, prefix, cont=cont,
             save_every_nth=save_results_every_nth)
@@ -430,7 +457,7 @@ class MMAESweep:
         backend_used = gt.resolve_backend(self.backend, cfg, tcfg, self.spec,
                                           on_gpu=self.device.type == "cuda")
         params, losses = gt.train_grid_sharded(
-            self.device, cls_train_kernels.derive_seed(self.seed, 0, bi),
+            self.devices, cls_train_kernels.derive_seed(self.seed, 0, bi),
             cfg, tcfg, self.spec, hyper, self.folded, backend=backend_used)
         t_train = time.time()
         self.phase_seconds["train"] += t_train - t0
@@ -625,7 +652,8 @@ class MMAESweep:
 class MMAEClassificationSweep:
     """Two-phase grid search (MMAE denoising pretrain + classification
     head), the capabilities of MMAEClassificationWrapper
-    (autoencoder_classification_wrapper.py:26-369), on ``device``."""
+    (autoencoder_classification_wrapper.py:26-369), on ``device`` (a
+    device or a device list)."""
 
     def __init__(self, data_loader, classification_data_loader,
                  mmae_layer_sizes=((1000, 100), (200, 100), (500, 100)),
@@ -657,7 +685,8 @@ class MMAEClassificationSweep:
                  optimizer_state_dtype: str = "bfloat16",
                  share_phase1: bool = True,
                  compute_dtype: str = "float32",
-                 save_best_params: bool = False, device="cuda"):
+                 save_best_params: bool = False, device="cuda",
+                 process_shard=None):
         """``backend``: 'auto' trains both phases on the CUDA kernels where
         the shape family allows (``cls_train_kernels.supported_two_phase``)
         and the device is a GPU, the plain trainers otherwise; 'xla' /
@@ -665,13 +694,20 @@ class MMAEClassificationSweep:
         unique MMAE setting once per shape family and share it across the
         classifier settings that use it; False retrains the MMAE for every
         setting, as the reference does
-        (autoencoder_classification_wrapper.py:195-227).
+        (autoencoder_classification_wrapper.py:195-227); with a
+        ``process_shard`` the sharing is within this process's slice.
         ``save_best_params`` checkpoints the best setting's fold-0
         two-phase parameters at the end of the sweep, consumable by ``cli
         fill/embed --checkpoint``.  ``check_test`` retrains the best
         setting on fold 0 and scores it on the test set
-        (:meth:`test_on_test`)."""
-        self.device = torch.device(device)
+        (:meth:`test_on_test`).  ``device``: a device or a device list,
+        each bucket split over them.  ``process_shard``: an optional
+        (process_index, process_count) that sweeps only this process's
+        round-robin slice of the grid into a ledger shard
+        (``parallel/multihost.py``)."""
+        self.devices = mesh.as_devices(device)
+        self.device = self.devices[0]
+        self.process_shard = process_shard
         self.backend = backend
         self.share_phase1 = share_phase1
         self.save_best_params = save_best_params
@@ -722,14 +758,16 @@ class MMAEClassificationSweep:
             mmae_dropout_probs, mmae_weight_penalties, weight_initializers,
             mmae_activation_funcs, mmae_test_variational, weight_penalties,
             dropout_probs, activation_funcs)
-        self.list_of_param_settings = grid_lib.trim_vae_tied(
-            grid_lib.enumerate_grid(params))
-        self.num_settings = len(self.list_of_param_settings)
-
         prefix = engine.get_save_prefix(
             results_path, classifier_name,
             getattr(classification_data_loader, "filename", "data.csv"),
             wanted_label=wanted_label, replace=cont)
+        # the slice is cut before the phase-1 families are grouped, so
+        # phase 1 is shared within this process's slice
+        self.list_of_param_settings, prefix = _sharded(
+            grid_lib.trim_vae_tied(grid_lib.enumerate_grid(params)), prefix,
+            results_path, process_shard)
+        self.num_settings = len(self.list_of_param_settings)
         self.ledger = engine.ResultsLedger(
             results_path, prefix, cont=cont,
             save_every_nth=save_results_every_nth)
@@ -864,9 +902,11 @@ class MMAEClassificationSweep:
     def _prepare_families(self, buckets):
         """Group buckets by phase-1 family (first-seen family order) and
         list each family's unique MMAE sub-settings: its phase-1 stack is
-        trained once and shared by all its buckets.  On one device every
-        family shares (the JAX package's ``_share_family`` with one device
-        on the config axis)."""
+        trained once and shared by all its buckets.  Every family shares,
+        on one device or several: the JAX package's ``_share_family``
+        (:1037-1060) unshares families on a multi-device mesh only because
+        its shared Pallas phase 2 cannot run there, while the port's
+        shared phase 2 splits over a device list like every other run."""
         order, fam_buckets = [], {}
         for kb in buckets:
             fk = self._family_key(kb[1][0])
@@ -911,7 +951,7 @@ class MMAEClassificationSweep:
                 self.backend, cfg, self.tcfg, self.cls_tcfg, self.spec,
                 on_gpu=on_gpu)
             params, losses, preds = gt.train_two_phase_sharded(
-                self.device, seed, cfg, self.tcfg, self.cls_tcfg, self.spec,
+                self.devices, seed, cfg, self.tcfg, self.cls_tcfg, self.spec,
                 hyper, chyper, self.unsup_folded, self.sup_folded,
                 backend=backend_used)
             return self._launched(
@@ -936,7 +976,7 @@ class MMAEClassificationSweep:
             hyper_u = gt.HyperStack.from_settings(fam["uniq"], cfg,
                                                   self.tcfg)
             fam["launched"] = gt.train_phase1_shared(
-                self.device,
+                self.devices,
                 cls_train_kernels.derive_seed(self.seed, 1, fam["fi"]),
                 cfg, self.tcfg, self.spec, hyper_u, self.unsup_folded,
                 backend=p1_backend)
@@ -945,7 +985,7 @@ class MMAEClassificationSweep:
             [fam["index"][self._p1_key(ms)] for ms in mmae_settings],
             np.int64)
         params, preds = gt.train_phase2_shared_sharded(
-            self.device, seed, cfg, self.tcfg, self.cls_tcfg, self.spec,
+            self.devices, seed, cfg, self.tcfg, self.cls_tcfg, self.spec,
             params_u, p1_map, hyper, chyper, self.sup_folded,
             backend=p2_backend)
         return self._launched(t0, bi, bucket, losses, p1_map, backend_used,

@@ -95,8 +95,24 @@ def test_cli_sweep_mmae_matches_jax_ledger(tmp_path, monkeypatch, capsys):
     held_out = [line for line in capsys.readouterr().out.splitlines()
                 if line.startswith("held-out test:")]
     assert len(held_out) == 1 and np.isfinite(float(held_out[0].split()[-1]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        cli.main(args + ["--process-shard", "0", "2"])
+    # --process-shard: two ledger shards whose merge holds every setting
+    sharded = str(tmp_path / "shards")
+    for i in ("0", "1"):
+        assert cli.main(args[:-1] + [sharded, "--process-shard", i,
+                                     "2"]) == 0
+    shards = [pd.read_csv(os.path.join(sharded, f"MMAE-m.shard{i}of2.csv"),
+                          index_col=0) for i in (0, 1)]
+    assert [len(d) for d in shards] == [6, 6]
+    assert cli.main(["merge-shards", sharded, "MMAE-m",
+                     "--num-shards", "2"]) == 0
+    merged = pd.read_csv(os.path.join(sharded, "MMAE-m.csv"), index_col=0)
+    assert len(merged) == 12
+    assert sorted(map(str, zip(merged["architecture"],
+                               merged["tie_weights"],
+                               merged["variational"],
+                               merged["weight_penalty"]))) == sorted(
+        map(str, zip(port["architecture"], port["tie_weights"],
+                     port["variational"], port["weight_penalty"])))
 
 
 def test_mmae_sweep_settings_and_buckets_match_jax(tmp_path):
@@ -175,8 +191,13 @@ def test_mmae_sweep_refuses_unported_options(tmp_path, monkeypatch):
     kw = dict(results_path=str(tmp_path / "r"), device="cpu")
     # check_test is taken now: it retrains with the single-run trainer
     assert wrappers.MMAESweep(unsup, check_test=True, **kw).check_test
-    with pytest.raises(NotImplementedError, match="item 13"):
-        wrappers.MMAESweep(unsup, process_shard=(0, 2), **kw)
+    # process_shard is ported: the even settings into a shard ledger
+    whole = wrappers.MMAESweep(unsup, **kw).list_of_param_settings
+    shard = wrappers.MMAESweep(unsup, process_shard=(0, 2), **kw)
+    assert shard.list_of_param_settings == whole[0::2]
+    assert shard.ledger.path.endswith(".shard0of2.csv")
+    with pytest.raises(ValueError, match="0-based"):
+        wrappers.MMAESweep(unsup, process_shard=(2, 2), **kw)
     # probe='svm' is ported; without scikit-learn it names what is missing
     monkeypatch.setitem(sys.modules, "sklearn", None)
     with pytest.raises(ImportError, match="scikit-learn"):
