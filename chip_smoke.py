@@ -39,15 +39,17 @@ features):
   shapes against its plain twin and timed in turns with ``torch.addmm``,
   the single-run trainer (``trainer.train`` / ``train_classification``) at
   full width with ``use_pallas`` on and off (each step held against a
-  float64 step, 2,000-step runs, ms per step, the device's idle share), and
-  ``cli train`` with its checkpoint reloaded and resumed by the facade
-  (phases [20]-[22]).  [13] and [17] run their CLI sweeps with
+  float64 step; 2,000-step runs, which replay CUDA graphs, each bit-equal
+  to its eager-loop control; ms per step of both, the device's idle
+  share), and ``cli train`` with its checkpoint reloaded and resumed by
+  the facade (phases [20]-[22]).  [13] and [17] run their CLI sweeps with
   ``--check-test``, and [13] adds the validation bucket with
   ``share_phase1=False``;
 - the comparison baselines and the rest of the data layer, on the
   reference-scale study of ``synthetic.reference_scale_loaders``: the NN
-  baseline at full width (each default architecture 5,000 steps, no host
-  sync in the step loop, ms per step and the device's idle share),
+  baseline at full width (each default architecture 5,000 steps replayed
+  from CUDA graphs, no host sync in the step loop, bit-equal to its
+  eager-loop control, ms per step of both and the device's idle share),
   ``NNSweep(device="cuda").run()`` over the default 32-setting grid, ``cli
   feature-select`` PCA / SKB on the card against float64 and a scipy
   F-score ranking, the native CSV engine against the default reader, and
@@ -93,6 +95,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -1836,6 +1839,8 @@ TRAIN_ROWS = (10, 20, 100, 200)
 TIMED_ROWS = (20, 100)
 SINGLE_STEPS = 2000   # [21]'s runs and [22]'s cli train
 SINGLE_RECORD = 200   # record period of [21]'s runs
+# steps of the calls under torch.profiler ([21], [23]): eager, graphed
+IDLE_SHORT, IDLE_STEPS = 100, 500
 # [21]'s step gate: from the same state and draws, the kernel route's
 # gradient may be at most STEP_GATE times as far from a float64 plain
 # step's as the f32 plain route's is.  The gradient is read from Adam's
@@ -2079,28 +2084,59 @@ def phase_step_gate(arr, cfg, tcfg, cls_tcfg, spec) -> dict:
     return out
 
 
-def _device_busy_ms(prof) -> float:
-    """Device time of the profiled kernels and copies (ms); 0.0 when the
-    profiler saw none."""
+def device_busy_ms(fn) -> tuple:
+    """(device busy ms, device events) of ``fn()`` under torch.profiler,
+    CUDA activity only: the kernels' and copies' own durations, read from
+    the profiler's raw events (parsing them into FunctionEvents costs
+    seconds for every 10^5 events)."""
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    return sum(e.duration_ns() for e in events) / 1e6, len(events)
+
+
+def idle_share(call, steps: int, ms_per_step: float) -> dict:
+    """The device's idle share of a run that takes ``ms_per_step`` a step
+    (by CUDA events, unprofiled): 1 - its kernels' time a step over that,
+    the kernels' time a step from torch.profiler over ``call(steps)``, a
+    call of the same function (the run's set-up and records included),
+    with the device ops a step.  (The profiler's own clock would not do:
+    under CUPTI the gaps between a graph's kernels widen and vary from
+    call to call.)"""
+    busy, n = device_busy_ms(lambda: call(steps))
+    check(busy > 0, f"the profiler saw no device activity in {steps} steps")
+    return {"idle": 1.0 - busy / steps / ms_per_step,
+            "busy_ms_per_step": busy / steps, "ms_per_step": ms_per_step,
+            "ops_per_step": n / steps}
 
 
 def phase_single_run(dk, study_path: str, card: str,
                      control: bool = False) -> dict:
     """The single-run trainer at full width ([21]): the step gate, then a
     SINGLE_STEPS-step run of each phase on each route (the plain route
-    first), each finite with a falling noisy val loss, and the kernel
-    route's final parameters scored alike by both routes' forwards; ms per
-    step by host clock and by CUDA events, the kernel route's fused_dense
-    launches (the main path: counts at 0 just before each kernel-route run,
-    read just after), then a 200-step window of each route in turns, and
-    the device's idle share over 50 kernel-route steps from
-    torch.profiler.  With ``control``, the kernel route with bf16 operands
-    runs too, and its final losses are set beside the plain route's as the
-    two routes' are."""
+    first) through the entry points, which replay CUDA graphs
+    (``ops/step_graph.py``), each finite with a falling noisy val loss,
+    and the kernel route's final parameters scored alike by both routes'
+    forwards.  Each run has a control: the same step functions in the
+    eager loop (``step_graph.eager_route``) from the same state and
+    generator, which the graphed run must equal bit for bit (parameters,
+    optimizer state, step, curves) with as many fused_dense launches.  ms
+    per step by host clock and by CUDA events for both, the host syncs of
+    the graphed run (sync debug mode 'warn': the curves' one copy to the
+    host), the kernel route's fused_dense launches (the main path: counts
+    at 0 just before each graphed run, read just after), then a 200-step
+    window of each route in turns, and the device's idle share of the
+    kernel route's runs, graphed and eager (``idle_share``; graphed at
+    most 50 %).  With ``control``, the kernel
+    route with bf16 operands runs too, and its final losses are set
+    beside the plain route's as the two routes' are."""
+    from multimodalautoencoder_tpu_torch.ops import step_graph
     from multimodalautoencoder_tpu_torch.train import trainer
 
     dl, arr, cfg, tcfg, cls_tcfg, spec = single_run_setup(study_path)
@@ -2117,6 +2153,52 @@ def phase_single_run(dk, study_path: str, card: str,
     if control:
         routes["bf16"] = cfg.replace(use_pallas=True,
                                      compute_dtype="bfloat16")
+
+    def run(c, phase, state, steps=SINGLE_STEPS, eager=False,
+            record=SINGLE_RECORD):
+        """One entry-point run, timed by the host clock and CUDA events
+        (ms a step); with ``eager`` inside ``step_graph.eager_route()``,
+        the control.  Counts the host syncs (sync debug mode 'warn') and
+        the fused_dense launches."""
+        p1 = tcfg.replace(record_every_nth=record)
+        p2 = cls_tcfg.replace(record_every_nth=record)
+        torch.cuda.synchronize()
+        dk.KERNELS.launches = 0
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        with warnings.catch_warnings(record=True) as caught, \
+                (step_graph.eager_route() if eager
+                 else contextlib.nullcontext()):
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                ev0.record()
+                if phase == 1:
+                    new, curves = trainer.train(state, c, p1, spec, x, vx,
+                                                steps)
+                else:
+                    new, curves = trainer.train_classification(
+                        state, c, p2, spec, x, y, vx, vy, steps)
+                ev1.record()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        syncs = sum("called a synchronizing" in str(w.message)
+                    for w in caught)
+        return new, curves, {"host_ms": 1e3 * wall / steps,
+                             "event_ms": ev0.elapsed_time(ev1) / steps,
+                             "launches": dk.KERNELS.launches,
+                             "syncs": syncs}
+
+    def same_run(a, b):
+        (sa, ca), (sb, cb) = a, b
+        return (all(torch.equal(p, q) for p, q in zip(
+            trainer.optim.tree_leaves((sa.params, sa.opt_state, sa.step)),
+            trainer.optim.tree_leaves((sb.params, sb.opt_state, sb.step))))
+            and all(np.array_equal(p, q) for p, q in zip(ca, cb)))
+
     runs, launches = {}, {}
     for route, c in routes.items():
         st = trainer.init_state(SEED, c, tcfg, DEVICE)
@@ -2127,34 +2209,41 @@ def phase_single_run(dk, study_path: str, card: str,
                     st.params, cls_tcfg,
                     torch.Generator(device=DEVICE).set_state(
                         st.generator.get_state()))
-            torch.cuda.synchronize()
-            dk.KERNELS.launches = 0
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            ev0.record()
-            if phase == 1:
-                st, curves = trainer.train(st, c, tcfg, spec, x, vx,
-                                           SINGLE_STEPS)
-            else:
-                st, curves = trainer.train_classification(
-                    st, c, cls_tcfg, spec, x, y, vx, vy, SINGLE_STEPS)
-            ev1.record()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            n = dk.KERNELS.launches
+            gs = st.generator.get_state()
+            # the graphed route, the entry points' own: the main path
+            new, curves, m = run(c, phase, st)
+            # the control: the same step functions in the eager loop, from
+            # the same state and generator
+            ctl = st._replace(
+                generator=torch.Generator(device=DEVICE).set_state(gs))
+            c_new, c_curves, cm = run(c, phase, ctl, eager=True)
+            same = same_run((new, curves), (c_new, c_curves))
+            st = new
             loss = curves.val_loss
-            res[phase] = {"loss": loss, "host_ms": 1e3 * wall / SINGLE_STEPS,
-                          "event_ms": ev0.elapsed_time(ev1) / SINGLE_STEPS,
-                          "launches": n, "params": st.params}
+            res[phase] = dict(m, loss=loss, params=st.params,
+                              eager_host_ms=cm["host_ms"],
+                              eager_event_ms=cm["event_ms"],
+                              eager_launches=cm["launches"])
             if route == "kernel":
-                launches[phase] = n
+                launches[phase] = m["launches"]
             records = -(-SINGLE_STEPS // SINGLE_RECORD)
             print(f"  {route:6s} phase {phase}: {SINGLE_STEPS} steps, "
-                  f"{res[phase]['host_ms']:.4f} ms/step host clock, "
-                  f"{res[phase]['event_ms']:.4f} ms/step CUDA events; noisy "
-                  f"val loss {loss[0]:.4f} -> {loss[-1]:.4f} ({records} "
-                  f"records); fused_dense launches {n}  [{card}]")
+                  f"graphed {m['host_ms']:.4f} ms/step host clock, "
+                  f"{m['event_ms']:.4f} CUDA events; eager control "
+                  f"{cm['host_ms']:.4f} / {cm['event_ms']:.4f}; bit-equal "
+                  f"parameters, optimizer state and curves: {same}; host "
+                  f"syncs {m['syncs']} (the curves' one copy at the end; 0 "
+                  f"in the loop); noisy val loss {loss[0]:.4f} -> "
+                  f"{loss[-1]:.4f} ({records} records); fused_dense "
+                  f"launches {m['launches']} (eager {cm['launches']})  "
+                  f"[{card}]")
+            check(same, f"{route} phase {phase}: the graphed run differs "
+                        f"from the eager control")
+            check(m["syncs"] == 1, f"{route} phase {phase}: {m['syncs']} "
+                                   f"host syncs in the graphed run")
+            check(m["launches"] == cm["launches"],
+                  f"{route} phase {phase}: fused_dense launches graphed "
+                  f"{m['launches']}, eager {cm['launches']}")
             check(len(loss) == records and np.isfinite(loss).all(),
                   f"{route} phase {phase}: curves {loss}")
             check(loss[-1] < loss[0], f"{route} phase {phase}: the val loss "
@@ -2217,37 +2306,45 @@ def phase_single_run(dk, study_path: str, card: str,
         trainer.train(st, c, tcfg, spec, x, vx, window)
         torch.cuda.synchronize()
         turns[route].append(1e3 * (time.perf_counter() - t0) / window)
-    print(f"  {window}-step windows in turns, host clock: kernel "
+    print(f"  {window}-step windows in turns, host clock, graphed: kernel "
           f"{turns['kernel'][0]:.4f} / {turns['kernel'][1]:.4f} ms/step, "
           f"plain {turns['plain'][0]:.4f} / {turns['plain'][1]:.4f}  "
           f"[{card}]")
 
-    from torch.profiler import ProfilerActivity, profile
-
     kc = routes["kernel"]
-    st = trainer.init_state(SEED, kc, tcfg, DEVICE)
-    st, _ = trainer.train(st, kc, tcfg, spec, x, vx, 10)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.train(st, kc, tcfg.replace(record_every_nth=10 ** 9),
-                      spec, x, vx, 50)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    busy = _device_busy_ms(prof)
-    check(0 < busy <= wall_ms, f"the profiler saw {busy} ms of device "
-                               f"activity in {wall_ms} ms")
-    idle = 1.0 - busy / wall_ms
-    print(f"  device idle share over 50 kernel-route steps: "
-          f"{100 * idle:.1f} % (busy {busy:.3f} of {wall_ms:.3f} ms, "
-          f"torch.profiler)  [{card}]")
+    idle = {}
+    for phase in (1, 2):
+        st = trainer.init_state(SEED, kc, tcfg, DEVICE)
+        if phase == 2:
+            st = trainer.state_for_params(st.params, cls_tcfg, st.generator)
+        for eager in (False, True):
+            run(kc, phase, st, 10, eager)   # warm: libraries, profiler
+            ms = runs["kernel"][phase]["eager_event_ms" if eager
+                                       else "event_ms"]
+            sh = idle_share(lambda n: run(kc, phase, st, n, eager),
+                            IDLE_SHORT if eager else IDLE_STEPS, ms)
+            idle[f"phase{phase}_{'eager' if eager else 'graphed'}"] = sh
+            print(f"  device idle share of the kernel route's phase-{phase} "
+                  f"run, {'eager loop' if eager else 'graphed'}: "
+                  f"{100 * sh['idle']:.1f} % (kernels "
+                  f"{sh['busy_ms_per_step']:.4f} ms a step over a "
+                  f"{IDLE_SHORT if eager else IDLE_STEPS}-step call, "
+                  f"torch.profiler; the run {ms:.4f} ms a step; "
+                  f"{sh['ops_per_step']:.1f} device ops a step)  [{card}]")
+        graphed = idle[f"phase{phase}_graphed"]["idle"]
+        check(graphed <= 0.5, f"phase {phase}: the graphed run's device "
+                              f"idles {100 * graphed:.1f} % of it")
     return {"gate": gate, "launches": launches[1] + launches[2],
             "launches_per_step": per_step,
             "ms_per_step": {f"{r}_phase{p}": runs[r][p]["event_ms"]
                             for r in runs for p in (1, 2)},
             "host_ms_per_step": {f"{r}_phase{p}": runs[r][p]["host_ms"]
                                  for r in runs for p in (1, 2)},
+            "eager_ms_per_step": {f"{r}_phase{p}": runs[r][p]["eager_event_ms"]
+                                  for r in runs for p in (1, 2)},
+            "eager_host_ms_per_step": {
+                f"{r}_phase{p}": runs[r][p]["eager_host_ms"]
+                for r in runs for p in (1, 2)},
             "turns_ms": turns, "idle_share": idle}
 
 
@@ -2346,12 +2443,12 @@ def phase_unshared_bucket(workdir: str, pck, ptk, unsup, sup, card: str):
 NN_STEPS = 5000      # the NN baseline's num_steps (baselines/neural_net.py)
 NN_RECORD = 500      # [23]'s record period
 NN_SAME_STEPS = 1000  # [23]'s runs with and without recording
-# [24]'s default 32-setting grid at 5 folds: 50 steps a fit, cut from
-# 5,000 for the smoke's time limit.  A step is host-bound and follows the
-# host's load (3-8 ms on an H100 host): 200 steps a fit took 216 s once,
-# which beside [12] and [16] at their full 15,000 steps would bring the
-# run near the limit
-NN_GRID_STEPS = 50
+# [24]'s default 32-setting grid at 5 folds: 200 steps a fit, cut from
+# 5,000 for the smoke's time limit.  In the eager loop a step was
+# host-bound (3-8 ms on an H100 host) and 200 steps a fit took 216 s once,
+# so the smoke ran 50; replayed from CUDA graphs the sweep at 200 steps
+# takes well under that (PERF.md)
+NN_GRID_STEPS = 200
 PCA_DIMS = 100
 # the ledger columns of the JAX package's NNSweep, in its order (the smoke
 # cannot import the JAX package; tests/test_torch_baselines.py holds the
@@ -2374,18 +2471,23 @@ def phase_nn_baseline(sup, card: str) -> dict:
     100, NN_STEPS steps, accuracies recorded every NN_RECORD steps).  Each
     fit runs under ``torch.cuda.set_sync_debug_mode("error")``, so a host
     synchronisation inside the step loop fails the phase; ms per step by
-    the host clock and by CUDA events around the loop; the device's idle
-    share and its kernels per step from torch.profiler over 50 steps.
-    Gates: finite parameters, val accuracy at or above the majority rate,
-    and (first architecture, NN_SAME_STEPS steps) the same final
-    parameters with recording every NN_RECORD steps and without.
+    the host clock and by CUDA events around the loop.  The fit replays
+    CUDA graphs (``ops/step_graph.py``); the control runs the same step
+    in the eager loop (``step_graph.eager_route``) for NN_SAME_STEPS steps
+    from the same state, beside a graphed run of as many, both timed.  The
+    device's idle share of each and its kernels per step from
+    torch.profiler (``idle_share``).  Gates: finite parameters, val
+    accuracy at or above the majority rate, the graphed run bit-equal to
+    the eager control (parameters, Adam state, curves), the graphed
+    route's idle share at most 50 %, and (first architecture,
+    NN_SAME_STEPS steps) the same final parameters with recording every
+    NN_RECORD steps and without.
     Returns the per-architecture numbers and the extrapolated wall time of
     the default grid (``cli baseline nn``)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from multimodalautoencoder_tpu_torch.baselines.neural_net import (
         DEFAULT_ARCHS, DEFAULT_DROPOUTS, DEFAULT_PENALTIES)
     from multimodalautoencoder_tpu_torch.models import neural_net as nn
+    from multimodalautoencoder_tpu_torch.ops import optim, step_graph
 
     sup.set_to_cross_validation_fold(0)
     tx, vx = (torch.as_tensor(np.asarray(a, np.float32), device=DEVICE)
@@ -2426,26 +2528,59 @@ def phase_nn_baseline(sup, card: str) -> dict:
         val_acc = float(nn.accuracy(state.params, cfg, vx, vy))
         curve = va.cpu().numpy()
 
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
-            nn.train(state, cfg, tx, ty, vx, vy, 50)
+        # the control: the same step in the eager loop from the same
+        # state, NN_SAME_STEPS steps recorded every NN_RECORD
+        pair = []
+        for eager in (False, True):
             torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t1)
-        from torch.autograd import DeviceType
-        kernels = sum(1 for e in prof.events()
-                      if e.device_type == DeviceType.CUDA)
-        busy = _device_busy_ms(prof)
-        idle = 1.0 - busy / wall
-        print(f"  {str(tuple(arch)):16s} {host_ms:.4f} ms/step by the host "
-              f"clock ({1e3 * enqueue / NN_STEPS:.4f} to enqueue), "
-              f"{event_ms:.4f} by CUDA events; 0 host syncs in "
-              f"{NN_STEPS} steps (sync debug mode 'error'); device idle "
-              f"{100 * idle:.1f} % over 50 steps (busy {busy:.3f} of "
-              f"{wall:.3f} ms, {kernels / 50:.1f} device ops a step, "
-              f"torch.profiler); train acc {train_acc:.4f}, val acc "
-              f"{val_acc:.4f} (recorded every {NN_RECORD}: "
-              f"{np.round(curve, 4).tolist()})  [{card}]")
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            with (step_graph.eager_route() if eager
+                  else contextlib.nullcontext()):
+                t1 = time.perf_counter()
+                e0.record()
+                r = nn.train(nn.init_state(cfg, DEVICE), cfg, tx, ty, vx,
+                             vy, NN_SAME_STEPS, record_every_nth=NN_RECORD)
+                e1.record()
+                torch.cuda.synchronize()
+            pair.append((r, 1e3 * (time.perf_counter() - t1) / NN_SAME_STEPS,
+                         e0.elapsed_time(e1) / NN_SAME_STEPS))
+        (g_run, _, _), (e_run, eager_host, eager_event) = pair
+        same = all(torch.equal(a, b) for a, b in zip(
+            optim.tree_leaves((g_run[0].params, g_run[0].opt_state,
+                               g_run[0].step, *g_run[1])),
+            optim.tree_leaves((e_run[0].params, e_run[0].opt_state,
+                               e_run[0].step, *e_run[1]))))
+        check(same, f"{arch}: the graphed run differs from the eager "
+                    f"control after {NN_SAME_STEPS} steps")
+
+        idle = {}
+        for eager in (False, True):
+            with (step_graph.eager_route() if eager
+                  else contextlib.nullcontext()):
+                nn.train(state, cfg, tx, ty, vx, vy, 10)
+                idle["eager" if eager else "graphed"] = idle_share(
+                    lambda n: nn.train(state, cfg, tx, ty, vx, vy, n,
+                                       record_every_nth=NN_RECORD),
+                    IDLE_SHORT if eager else IDLE_STEPS,
+                    eager_event if eager else event_ms)
+        g_idle, e_idle = idle["graphed"], idle["eager"]
+        print(f"  {str(tuple(arch)):16s} graphed {host_ms:.4f} ms/step by "
+              f"the host clock ({1e3 * enqueue / NN_STEPS:.4f} to "
+              f"enqueue), {event_ms:.4f} by CUDA events; eager control "
+              f"{eager_host:.4f} / {eager_event:.4f} ms/step "
+              f"({NN_SAME_STEPS} steps), bit-equal parameters, Adam state "
+              f"and curves: {same}; 0 host syncs in {NN_STEPS} steps (sync "
+              f"debug mode 'error'); device idle {100 * g_idle['idle']:.1f}"
+              f" % graphed, {100 * e_idle['idle']:.1f} % eager (kernels "
+              f"{g_idle['busy_ms_per_step']:.4f} ms a step, "
+              f"{g_idle['ops_per_step']:.1f} device ops, torch.profiler); "
+              f"train acc "
+              f"{train_acc:.4f}, val acc {val_acc:.4f} (recorded every "
+              f"{NN_RECORD}: {np.round(curve, 4).tolist()})  [{card}]")
+        check(g_idle["idle"] <= 0.5, f"{arch}: the graphed run's device "
+                                     f"idles {100 * g_idle['idle']:.1f} % "
+                                     f"of it")
         check(all(np.isfinite(a).all() for a in leaves),
               f"{arch}: non-finite parameters")
         check(val_acc >= majority,
@@ -2464,7 +2599,9 @@ def phase_nn_baseline(sup, card: str) -> dict:
             check(same, "recording changed the final parameters")
         out[str(tuple(arch))] = dict(
             host_ms_per_step=host_ms, event_ms_per_step=event_ms,
-            idle_share=idle, ops_per_step=kernels / 50,
+            eager_host_ms_per_step=eager_host,
+            eager_event_ms_per_step=eager_event, idle_share=g_idle,
+            eager_idle_share=e_idle,
             train_acc=train_acc, val_acc=val_acc)
     # the default grid: each architecture in 8 of the 32 settings, each
     # setting 5 folds of NN_STEPS steps
@@ -2678,7 +2815,9 @@ def phase_baselines(workdir: str, card: str) -> dict:
     print(f"[23] the NN baseline at full width: {NN_STEPS} steps on fold 0 "
           f"for each default architecture (study written and loaded in "
           f"{time.perf_counter() - t0:.1f} s)")
+    t_phase = time.perf_counter()
     nn_run = phase_nn_baseline(sup, card)
+    print(f"  [23] took {time.perf_counter() - t_phase:.1f} s")
     print(f"[24] NNSweep(device='{DEVICE}').run() over the default "
           f"32-setting grid, 5 folds x {NN_GRID_STEPS} steps, check_test")
     nn_grid = phase_nn_sweep(workdir, sup, card)
@@ -3365,10 +3504,14 @@ def main() -> int:
         print(f"[21] the single-run trainer at full width: trainer.train / "
               f"train_classification, use_pallas on and off, "
               f"{SINGLE_STEPS} steps each")
+        t_phase = time.perf_counter()
         single = phase_single_run(dk, dl.filename, card)
+        print(f"  [21] took {time.perf_counter() - t_phase:.1f} s")
         print(f"[22] cli train --device {DEVICE} --arch "
               f"{' '.join(map(str, LAYERS))}, reloaded and resumed")
+        t_phase = time.perf_counter()
         phase_cli_train(workdir, dl.filename, card)
+        print(f"  [22] took {time.perf_counter() - t_phase:.1f} s")
         phase_baselines(workdir, card)
 
         print(f"[27] the instance split on the card: [9]'s tied bucket, "

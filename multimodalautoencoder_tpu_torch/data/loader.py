@@ -25,6 +25,7 @@ matrices on a torch device.
 from __future__ import annotations
 
 import csv
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -301,6 +302,11 @@ class DataLoader:
     ``separate_noisy_data`` splits every matrix by ``logistics_noisy``
     into ``clean_*`` / ``noisy_*`` where the CSV has that column.
 
+    ``extract_modalities=False`` leaves out the modality table and what
+    derives from it (``modality_table``, ``modality_names``,
+    ``modality_start_indices``, ``num_modalities``), as the JAX loader
+    does: such a loader serves the baselines, not the MMAE.
+
     ``engine``: 'pandas' (the default) reads with :func:`read_csv`, which
     gives pandas' floats; 'native' with ``data/fast_csv.py``'s C++ parser,
     whose floats are correctly rounded (on 17-digit values they can differ
@@ -313,6 +319,7 @@ class DataLoader:
                  normalization: Optional[str] = "between_0_and_1",
                  fill_missing_with: float = 0,
                  fill_gaps_with: Optional[float] = None,
+                 extract_modalities: bool = True,
                  subdivide_physiology_features: bool = False,
                  wanted_label: Optional[str] = None,
                  labels_to_sign: bool = False,
@@ -326,6 +333,7 @@ class DataLoader:
         self.filename = filename
         self.supervised = supervised
         self.subdivide_phys = subdivide_physiology_features
+        self.extract_modalities = extract_modalities
         self.cross_validation = cross_validation
         self.labels_to_sign = labels_to_sign
         self.num_folds = num_folds
@@ -401,12 +409,14 @@ class DataLoader:
                  self.noisy_val_Y) = self._noisy_clean(dataset == "Val")
         self.num_feats = int(self.train_X.shape[1])
 
-        self.modality_table = ModalityTable.from_feature_names(
-            self.wanted_feats, subdivide_phys=self.subdivide_phys)
-        self.modality_names = list(self.modality_table.names)
-        # includes the num_feats sentinel (data_funcs.py:122)
-        self.modality_start_indices = list(self.modality_table.start_indices)
-        self.num_modalities = self.modality_table.num_modalities
+        if extract_modalities:
+            self.modality_table = ModalityTable.from_feature_names(
+                self.wanted_feats, subdivide_phys=self.subdivide_phys)
+            self.modality_names = list(self.modality_table.names)
+            # includes the num_feats sentinel (data_funcs.py:122)
+            self.modality_start_indices = list(
+                self.modality_table.start_indices)
+            self.num_modalities = self.modality_table.num_modalities
         if not suppress_output:
             print(f"{len(self.train_X)} rows in training data; "
                   f"{len(self.val_X)} validation; {len(self.test_X)} test; "
@@ -550,19 +560,48 @@ class DataLoader:
                 missing.extend(range(s, e))
         return missing
 
-    def fill_df_with_reconstruction(self, frame: Frame, Xbar: np.ndarray,
-                                    verbose: bool = False) -> Frame:
+    def fill_frame_with_reconstruction(
+            self, frame: Frame, Xbar: np.ndarray, verbose: bool = False,
+            plot_to_debug: bool = False, plot_save_dir: Optional[str] = None,
+            max_debug_plots: int = 10) -> Frame:
         """Overwrite ONLY missing-modality entries with the reconstruction
-        (data_funcs.py:310-364), all rows at once per modality."""
-        X = frame.matrix(self.wanted_feats)
+        (data_funcs.py:310-364), all rows at once per modality.
+
+        ``plot_to_debug`` draws the reference's visual check
+        (data_funcs.py:339-355): an original / reconstructed / filled
+        overlay of each filled row, at most ``max_debug_plots`` of them
+        (the reference stops after 10), through ``utils/plotting.py``.
+        With ``plot_save_dir`` they are written there as PNGs
+        (``filled_row_<i>.png``) instead of shown."""
+        X_orig = frame.matrix(self.wanted_feats)
+        X = X_orig.copy()
         any_filled = np.zeros(len(frame), dtype=bool)
         for i in range(self.num_modalities):
             s, e = self.modality_table.span(i)
             missing_rows = X[:, s:e].sum(axis=1) == -1.0 * (e - s)
             X[missing_rows, s:e] = Xbar[missing_rows, s:e]
             any_filled |= missing_rows
+        if plot_to_debug:
+            from multimodalautoencoder_tpu_torch.utils import plotting
+            if plot_save_dir is not None:
+                os.makedirs(plot_save_dir, exist_ok=True)
+            for n_shown, ridx in enumerate(np.flatnonzero(any_filled)):
+                if n_shown >= max_debug_plots:
+                    if verbose:
+                        print(f"Okay you've looked at {n_shown} plots, "
+                              "quitting now")
+                    break
+                save_path = (None if plot_save_dir is None else
+                             os.path.join(plot_save_dir,
+                                          f"filled_row_{ridx}.png"))
+                plotting.plot_filled_row(X_orig[ridx], Xbar[ridx], X[ridx],
+                                         show=plot_save_dir is None,
+                                         save_path=save_path)
         if verbose:
             n = int(any_filled.sum())
             print(f"Filled {n} rows with reconstruction "
                   f"({n / max(len(frame), 1):.1%})")
         return frame.with_columns(self.wanted_feats, X)
+
+    # the JAX package's name (its frames are DataFrames)
+    fill_df_with_reconstruction = fill_frame_with_reconstruction

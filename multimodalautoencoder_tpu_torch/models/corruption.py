@@ -104,8 +104,12 @@ def add_noise_to_batch(generator: Optional[torch.Generator], x: torch.Tensor,
     elif spec.intelligent:
         probs = torch.exp(spec.type_log_probs.to(torch.float64))
         n = int(np.prod(lead)) if lead else 1
-        t = torch.multinomial(probs.to(g.device), n, replacement=True,
-                              generator=g).reshape(lead).to(dev)
+        # at least two draws: torch's one-draw path reads the
+        # probabilities back to the host, which a step captured in a
+        # CUDA graph cannot do (the draws are independent either way)
+        t = torch.multinomial(probs.to(g.device), max(n, 2),
+                              replacement=True, generator=g)[:n]
+        t = t.reshape(lead).to(dev)
         mod_mask = spec.type_masks.to(dev)[t]
     else:
         num_mods = spec.modality_masks.shape[0]

@@ -18,7 +18,11 @@ device; it gives other numbers than the JAX package's keys, so the tests
 feed both packages the same parameters and batches.  :func:`train` makes
 no host-synchronising call inside its step loop: the batch draw, the
 clipping and the recorded accuracies stay on the device, and the caller
-reads the curves once at the end.
+reads the curves once at the end.  Its step (:func:`train_step_`) and its
+evaluation work in place on the run's tensors, driven by
+``ops/step_graph.run``: on the card captured once per call as CUDA graphs
+and replayed (the JAX package's jitted ``lax.scan``), on the CPU called in
+a Python loop.
 
 Checkpoints (:func:`save_model` / :func:`load_model`) are the JAX
 package's npz layout (``param_i`` leaves in ``NNParams`` order: every
@@ -37,7 +41,7 @@ import numpy as np
 import torch
 
 from multimodalautoencoder_tpu_torch.models import losses as losses_lib
-from multimodalautoencoder_tpu_torch.ops import optim
+from multimodalautoencoder_tpu_torch.ops import optim, step_graph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,10 +167,19 @@ def init_state(cfg: NNConfig, device="cuda",
                    generator)
 
 
-def train_step(state: NNState, cfg: NNConfig, x: torch.Tensor,
-               y: torch.Tensor):
+def clone_state(state: NNState) -> NNState:
+    """A state with copies of ``state``'s tensors and the same
+    generator."""
+    return NNState(optim.tree_map(torch.clone, state.params),
+                   optim.tree_map(torch.clone, state.opt_state),
+                   state.step.clone(), state.generator)
+
+
+def train_step_(state: NNState, cfg: NNConfig, x: torch.Tensor,
+                y: torch.Tensor):
     """One Adam step on the batch ``(x, y)``, with real global-norm
-    clipping when ``cfg.clip_gradients``: (new state, loss, gradients)."""
+    clipping when ``cfg.clip_gradients``, written into ``state``'s own
+    tensors: returns (loss, gradients)."""
     n = len(state.params.w)
     leaves = [t.detach().requires_grad_()
               for t in (*state.params.w, *state.params.b)]
@@ -176,11 +189,19 @@ def train_step(state: NNState, cfg: NNConfig, x: torch.Tensor,
     grads = NNParams(w=tuple(g[:n]), b=tuple(g[n:]))
     clip = cfg.clip_norm if cfg.clip_gradients else None
     with torch.no_grad():
-        params, opt_state = optim.adam_update(
-            grads, state.opt_state, state.params, cfg.learning_rate,
-            clip_norm=clip)
-    return (NNState(params, opt_state, state.step + 1, state.generator),
-            loss.detach(), grads)
+        optim.adam_update(grads, state.opt_state, state.params,
+                          cfg.learning_rate, clip_norm=clip, inplace=True)
+        state.step.add_(1)
+    return loss.detach(), grads
+
+
+def train_step(state: NNState, cfg: NNConfig, x: torch.Tensor,
+               y: torch.Tensor):
+    """:func:`train_step_` on a copy of ``state``: (new state, loss,
+    gradients)."""
+    state = clone_state(state)
+    loss, grads = train_step_(state, cfg, x, y)
+    return state, loss, grads
 
 
 def train(state: NNState, cfg: NNConfig, train_x: torch.Tensor,
@@ -191,36 +212,40 @@ def train(state: NNState, cfg: NNConfig, train_x: torch.Tensor,
     every full period and returns ``(state, (train_accs, val_accs))``; a
     run shorter than one period records once at entry and runs exactly
     ``num_steps`` (:150-159).  Without it returns ``(state, losses)``.
-    The curves and losses are tensors on the device."""
+    The curves and losses are tensors on the device.  ``state``'s tensors
+    stay as they were (its generator advances); on the card the step and
+    the evaluation replay CUDA graphs (``ops/step_graph.run``)."""
     rows = train_x.shape[0]
+    device = train_x.device
+    state = clone_state(state)
+    record = record_every_nth is not None and record_every_nth > 0
+    losses = None if record else torch.zeros(num_steps, device=device)
+    at = torch.zeros(1, dtype=torch.int64, device=device)
 
-    def steps(state, count, out):
-        for _ in range(count):
-            idx = torch.randint(0, rows, (cfg.batch_size,),
-                                generator=state.generator,
-                                device=train_x.device)
-            state, loss, _ = train_step(state, cfg, train_x[idx],
-                                        train_y[idx])
-            if out is not None:
-                out.append(loss)
-        return state
+    def step():
+        idx = torch.randint(0, rows, (cfg.batch_size,),
+                            generator=state.generator, device=device)
+        loss, _ = train_step_(state, cfg, train_x[idx], train_y[idx])
+        if losses is not None:
+            losses.index_copy_(0, at, loss.reshape(1))
+            at.add_(1)
 
-    if record_every_nth and record_every_nth > 0:
-        ta, va = [], []
+    def evaluate():
+        return torch.stack((accuracy(state.params, cfg, train_x, train_y),
+                            accuracy(state.params, cfg, val_x, val_y)))
+
+    if record:
         n_periods = num_steps // record_every_nth
-        for _ in range(max(n_periods, 1)):
-            ta.append(accuracy(state.params, cfg, train_x, train_y))
-            va.append(accuracy(state.params, cfg, val_x, val_y))
-            state = steps(state, record_every_nth if n_periods else
-                          num_steps, None)
-        if n_periods:
-            state = steps(state, num_steps - n_periods * record_every_nth,
-                          None)
-        return state, (torch.stack(ta), torch.stack(va))
-    losses: list = []
-    state = steps(state, num_steps, losses)
-    return state, (torch.stack(losses) if losses else
-                   torch.zeros(0, device=train_x.device))
+        evals = range(0, n_periods * record_every_nth, record_every_nth) \
+            if n_periods else (0,)
+    else:
+        evals = ()
+    records = step_graph.run(step, evaluate, num_steps, evals,
+                             state.generator, device)
+    if record:
+        ta, va = torch.stack(records).T.contiguous()
+        return state, (ta, va)
+    return state, losses
 
 
 def save_model(directory: str, name: str, params: NNParams, cfg: NNConfig,

@@ -20,7 +20,10 @@ import subprocess
 import tempfile
 import threading
 import time
+import weakref
 from typing import Dict, Optional, Sequence
+
+import torch
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -45,8 +48,14 @@ class NvccLibrary:
     so a caller can zero it, drive a path, and read how often the path
     went through the kernels.  Wrappers add to it with :meth:`count`,
     which holds a lock: chunks of a split bucket launch from several
-    threads at once.
+    threads at once.  A launch recorded into a CUDA graph that is being
+    captured runs only when the graph is replayed: :meth:`count` then adds
+    to ``captured`` instead, and ``ops/step_graph.StepGraph`` adds the
+    launches its graph holds to ``launches`` at each replay.
+    ``NvccLibrary.instances`` holds every library made, weakly.
     """
+
+    instances: "weakref.WeakSet[NvccLibrary]" = weakref.WeakSet()
 
     def __init__(self, source: str, library: str,
                  headers: Sequence[str] = (), defines: Sequence[str] = ()):
@@ -55,16 +64,24 @@ class NvccLibrary:
         self.headers = tuple(headers)
         self.defines = tuple(defines)
         self.launches = 0
+        self.captured = 0
         self.build_seconds: Optional[float] = None
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
         self._count_lock = threading.Lock()
+        NvccLibrary.instances.add(self)
 
     def count(self, launches: int) -> None:
-        """Add ``launches`` to :attr:`launches`."""
+        """Add ``launches`` to :attr:`launches`, or to :attr:`captured`
+        while the current stream is capturing a CUDA graph."""
+        capturing = (torch.cuda.is_available()
+                     and torch.cuda.is_current_stream_capturing())
         with self._count_lock:
-            self.launches += int(launches)
+            if capturing:
+                self.captured += int(launches)
+            else:
+                self.launches += int(launches)
 
     def stale(self) -> bool:
         if not os.path.exists(self.library):

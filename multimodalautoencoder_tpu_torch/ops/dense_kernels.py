@@ -28,6 +28,15 @@ x^T gz``, ``db = sum(gz)`` with ``torch.matmul`` in f32, whatever ``bf16``
 is, as the JAX VJP does.  The single-run trainer (``train/trainer.py``)
 reaches it with ``MMAEConfig.use_pallas``; the grid trainer never does: an
 ``act_id`` turns ``use_pallas`` off.
+
+Captured: the trainer's step and evaluation replay CUDA graphs on the card
+(``ops/step_graph.py``), and the launcher records into them as it launches
+on the current stream.  Its one-time queries (the device's SM count, the
+shared-memory limit raised with ``cudaFuncSetAttribute``) are cached at a
+kernel's first launch, which the graph route's eager warm-up makes; the
+cluster launch (``cudaLaunchKernelEx``) is captured as any launch.  A
+launch recorded into a graph counts in ``KERNELS.launches`` at each replay
+(``NvccLibrary.count``).
 """
 
 from __future__ import annotations
@@ -119,7 +128,7 @@ class CudaLibrary(NvccLibrary):
             raise RuntimeError(
                 "fused_dense kernel launch failed: "
                 f"{lib.fused_dense_error_string(err).decode()} ({err})")
-        self.launches += 1
+        self.count(1)
 
 
 KERNELS = CudaLibrary()

@@ -6,8 +6,13 @@ formulas in the same float32 arithmetic.  A tree is an
 tensors; ``None`` leaves are skipped.  The learning rate and clip norm are
 floats or, for a stack of ``batch_dims`` leading instance axes, tensors of
 that shape, so one update serves a whole batch of configs (the JAX
-package gets this from ``vmap``).  Functions return new tensors; nothing
-is updated in place.
+package gets this from ``vmap``).  The updates return new tensors, or,
+with ``inplace=True``, write every result into the given parameters' and
+state's own tensors (the count too) and return them: a step captured in a
+CUDA graph (``ops/step_graph.py``) must leave its results where the next
+replay reads them.  Both modes run the same operations, so they agree bit
+for bit; only the last operation of each result writes elsewhere.  No
+update builds a tensor from a host scalar.
 
 Formulations match TF1 semantics:
 - adam: b1=0.9, b2=0.999, eps=1e-8, bias-corrected, in the rsqrt form
@@ -99,15 +104,24 @@ def clip_by_global_norm(grads, max_norm, batch_dims: int = 0):
     return tree_map(lambda g: g * _bcast(scale, g), grads)
 
 
+def _outs(tree, inplace: bool):
+    """Where an update writes: the tree's own tensors, or new ones."""
+    return tree if inplace else tree_map(torch.empty_like, tree)
+
+
+def _count(state, inplace: bool) -> torch.Tensor:
+    return torch.add(state.count, 1, out=_outs(state.count, inplace))
+
+
 def adam_update(grads, state: AdamState, params, lr, b1: float = 0.9,
                 b2: float = 0.999, eps: float = 1e-8,
-                clip_norm=None, batch_dims: int = 0):
+                clip_norm=None, batch_dims: int = 0, inplace: bool = False):
     """One Adam step; returns (params, state).  Moments keep the dtype
     ``adam_init`` gave them (bf16 state computes in f32 and stores
     down)."""
     if clip_norm is not None:
         grads = clip_by_global_norm(grads, clip_norm, batch_dims)
-    count = state.count + 1
+    count = _count(state, inplace)
     cf = count.to(torch.float32)
     # Python scalars enter the f32 arithmetic as f32 values, as JAX's weak
     # types do, and make no host-to-device copy (a copy a step would
@@ -119,12 +133,15 @@ def adam_update(grads, state: AdamState, params, lr, b1: float = 0.9,
     alpha = lr * torch.sqrt(bc2) / bc1
     es2 = bc2 * (eps * eps)
 
-    mu = tree_map(lambda m, g: (b1 * m.float() + (1 - b1) * g).to(m.dtype),
-                  state.mu, grads)
-    nu = tree_map(lambda v, g: (b2 * v.float() + (1 - b2) * g * g
-                                ).to(v.dtype), state.nu, grads)
-    new = tree_map(lambda p, m, v: p - (_bcast(alpha, p) * m.float())
-                   * torch.rsqrt(v.float() + es2), params, mu, nu)
+    mu = tree_map(lambda m, g, o: torch.add(b1 * m.float(), (1 - b1) * g,
+                                            out=o),
+                  state.mu, grads, _outs(state.mu, inplace))
+    nu = tree_map(lambda v, g, o: torch.add(b2 * v.float(),
+                                            (1 - b2) * g * g, out=o),
+                  state.nu, grads, _outs(state.nu, inplace))
+    new = tree_map(lambda p, m, v, o: torch.sub(
+        p, (_bcast(alpha, p) * m.float()) * torch.rsqrt(v.float() + es2),
+        out=o), params, mu, nu, _outs(params, inplace))
     return new, AdamState(count=count, mu=mu, nu=nu)
 
 
@@ -139,12 +156,13 @@ def sgd_init(params, state_dtype=None) -> SGDState:
 
 
 def sgd_update(grads, state: SGDState, params, lr, clip_norm=None,
-               batch_dims: int = 0):
+               batch_dims: int = 0, inplace: bool = False):
     """tf.train.GradientDescentOptimizer: p -= lr * g."""
     if clip_norm is not None:
         grads = clip_by_global_norm(grads, clip_norm, batch_dims)
-    new = tree_map(lambda p, g: p - _bcast(lr, p) * g, params, grads)
-    return new, SGDState(count=state.count + 1)
+    new = tree_map(lambda p, g, o: torch.sub(p, _bcast(lr, p) * g, out=o),
+                   params, grads, _outs(params, inplace))
+    return new, SGDState(count=_count(state, inplace))
 
 
 class AdagradState(NamedTuple):
@@ -164,15 +182,16 @@ def adagrad_init(params, state_dtype=None,
 
 
 def adagrad_update(grads, state: AdagradState, params, lr, clip_norm=None,
-                   batch_dims: int = 0):
+                   batch_dims: int = 0, inplace: bool = False):
     """tf.train.AdagradOptimizer: acc += g^2; p -= lr * g / sqrt(acc)."""
     if clip_norm is not None:
         grads = clip_by_global_norm(grads, clip_norm, batch_dims)
-    acc = tree_map(lambda a, g: (a.float() + g * g).to(a.dtype),
-                   state.acc, grads)
-    new = tree_map(lambda p, g, a: p - _bcast(lr, p) * g
-                   / torch.sqrt(a.float()), params, grads, acc)
-    return new, AdagradState(count=state.count + 1, acc=acc)
+    acc = tree_map(lambda a, g, o: torch.add(a.float(), g * g, out=o),
+                   state.acc, grads, _outs(state.acc, inplace))
+    new = tree_map(lambda p, g, a, o: torch.sub(
+        p, _bcast(lr, p) * g / torch.sqrt(a.float()), out=o),
+        params, grads, acc, _outs(params, inplace))
+    return new, AdagradState(count=_count(state, inplace), acc=acc)
 
 
 def opt_init(name: str, params, state_dtype=None):
@@ -189,16 +208,18 @@ def opt_init(name: str, params, state_dtype=None):
 
 
 def opt_update(name: str, grads, state, params, lr, clip_norm=None,
-               batch_dims: int = 0):
-    """One update step of the named optimizer."""
+               batch_dims: int = 0, inplace: bool = False):
+    """One update step of the named optimizer (in place with
+    ``inplace``)."""
     if name == "adam":
         return adam_update(grads, state, params, lr, clip_norm=clip_norm,
-                           batch_dims=batch_dims)
+                           batch_dims=batch_dims, inplace=inplace)
     if name == "sgd":
-        return sgd_update(grads, state, params, lr, clip_norm, batch_dims)
+        return sgd_update(grads, state, params, lr, clip_norm, batch_dims,
+                          inplace)
     if name == "adagrad":
         return adagrad_update(grads, state, params, lr, clip_norm,
-                              batch_dims)
+                              batch_dims, inplace)
     raise ValueError(f"unknown optimizer {name!r}; expected one of "
                      f"{OPTIMIZERS}")
 
@@ -206,10 +227,12 @@ def opt_update(name: str, grads, state, params, lr, clip_norm=None,
 def exponential_decay(lr0, step, decay_steps, decay_rate,
                       staircase: bool = False) -> torch.Tensor:
     """tf.train.exponential_decay: lr0 * rate^(step/steps) in float32
-    (multimodal_autoencoder.py:357-361)."""
+    (multimodal_autoencoder.py:357-361).  ``lr0`` and ``decay_rate`` may
+    be f32 tensors on ``step``'s device, built once for a run, so that a
+    step builds nothing from the host."""
     p = torch.as_tensor(step, dtype=torch.float32) / decay_steps
     if staircase:
         p = torch.floor(p)
-    rate = torch.tensor(decay_rate, dtype=torch.float32, device=p.device)
+    rate = torch.as_tensor(decay_rate, dtype=torch.float32, device=p.device)
     lr0 = torch.as_tensor(lr0, dtype=torch.float32)
     return lr0 * torch.pow(rate, p.to(lr0.device))

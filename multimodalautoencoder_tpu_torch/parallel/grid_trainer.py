@@ -497,6 +497,30 @@ def train_phase2_shared_sharded(device, seed: int, cfg: MMAEConfig,
                                            sup_folded, cls_num_steps)
 
 
+@torch.no_grad()
+def embed_grid(params_stacked: mmae.MMAEParams, cfg: MMAEConfig,
+               hyper: HyperStack, x: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               sample: bool = False) -> torch.Tensor:
+    """Embeddings of ``x`` (rows, F) under every (config, fold) trained
+    model of a stack with leading (C, K) axes: (C, K, rows, E), on the
+    parameters' device.  ``sample=False`` gives the deterministic mu even
+    for the VAE; with ``sample`` the VAE's z draws its eps from
+    ``generator`` (a fresh one seeded 0 when None, where the JAX package
+    takes a key).  The reference embeds with the sampled z
+    (:1062-1080)."""
+    cfg = cfg.validate()
+    first = optim.tree_leaves(params_stacked)[0]
+    C, K = int(first.shape[0]), int(first.shape[1])
+    flat = optim.tree_map(
+        lambda t: t.reshape((C * K,) + tuple(t.shape[2:])), params_stacked)
+    act = hyper.act_id.repeat_interleave(K).to(first.device)
+    out = mmae.forward(flat, cfg, x.to(first.device), generator=generator,
+                       sample=sample, act_id=act)
+    emb = out.embedding
+    return emb.reshape((C, K) + tuple(emb.shape[-2:]))
+
+
 def train_two_phase_sharded(device, seed: int, cfg: MMAEConfig,
                             tcfg: TrainConfig, cls_tcfg: TrainConfig,
                             spec: NoiseSpec, hyper: HyperStack,

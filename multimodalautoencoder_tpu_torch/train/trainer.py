@@ -3,8 +3,10 @@
 Counterpart of ``multimodalautoencoder_tpu/train/trainer.py``.  The
 reference's ``train()`` (multimodal_autoencoder.py:549-590) is a host loop:
 sample a batch, corrupt it, run the TF1 graph once per step.  The JAX package
-makes a whole run one jitted ``lax.scan``; here it is a Python loop of
-asynchronous launches on the state's device:
+makes a whole run one jitted ``lax.scan``; here a run is a step function
+and an evaluation that work in place on the run's tensors, driven by
+``ops/step_graph.run``: on the card captured once as CUDA graphs and
+replayed, on the CPU called in a Python loop.
 
 - batches are drawn with ``torch.randint`` from the device-resident train
   set (uniform with replacement, as ``np.random.choice`` at
@@ -12,7 +14,7 @@ asynchronous launches on the state's device:
 - corruption is ``models/corruption.add_noise_to_batch``;
 - records happen at steps 0, R, 2R, ... *before* the update at that step
   (:574-590), so a run of N steps gives ``ceil(N / R)`` curve entries in
-  both phases.  Losses stay on the device through the loop; each call
+  both phases.  Losses stay on the device through the run; each call
   copies its curves to the host once.
 
 Randomness: where the JAX state carries a PRNG key, :class:`TrainState`
@@ -21,7 +23,15 @@ step comes from it in a fixed order: batch indices, corruption, then
 dropout and the VAE's eps.  The generator is advanced in place, so a state
 is consumed by the step that takes it.  The draws differ from the JAX
 package's; with one training row, no corruption and keep probability 1 the
-two trainers take the same steps (tests/test_torch_trainer.py).
+two trainers take the same steps (tests/test_torch_trainer.py,
+tests/test_torch_step_graph.py).
+
+:func:`train` and :func:`train_classification` leave the tensors of the
+state they are given as they were (the generator excepted) and return a
+new state.  The step functions ending in ``_`` (:func:`unsupervised_step_`,
+:func:`classification_step_`) update a state's own tensors in place;
+:func:`unsupervised_step` and :func:`classification_step` are their
+functional forms.
 
 With ``MMAEConfig.use_pallas`` every encoder and decoder layer runs
 through ``ops/dense_kernels.fused_dense`` (the CUDA kernel on a GPU,
@@ -36,7 +46,7 @@ restore the reference's behaviour.
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,7 +56,7 @@ from multimodalautoencoder_tpu_torch.models import losses as losses_lib
 from multimodalautoencoder_tpu_torch.models import mmae
 from multimodalautoencoder_tpu_torch.models.corruption import (
     NoiseSpec, add_noise_to_batch)
-from multimodalautoencoder_tpu_torch.ops import optim
+from multimodalautoencoder_tpu_torch.ops import optim, step_graph
 from multimodalautoencoder_tpu_torch.ops.cls_train_kernels import derive_seed
 
 
@@ -72,19 +82,30 @@ class ClassificationCurves(NamedTuple):
     val_acc: np.ndarray
 
 
-def learning_rate_at(tcfg: TrainConfig, step) -> torch.Tensor:
-    """The LR schedule: tf.train.exponential_decay semantics
-    (multimodal_autoencoder.py:357-361), unless decay is off or
-    ``faithful_inert_decay`` reproduces the reference's never-incremented
-    global_step (SURVEY.md §2.8.1).  An f32 tensor on ``step``'s device.
-    (The JAX version's ``lr0`` override serves its vmapped sweeps.)"""
-    device = step.device if isinstance(step, torch.Tensor) else None
-    lr0 = torch.as_tensor(tcfg.learning_rate, dtype=torch.float32,
-                          device=device)
+def learning_rate_schedule(tcfg: TrainConfig, device=None
+                           ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The LR schedule as a function of the step counter: tf.train.
+    exponential_decay semantics (multimodal_autoencoder.py:357-361), unless
+    decay is off or ``faithful_inert_decay`` reproduces the reference's
+    never-incremented global_step (SURVEY.md §2.8.1).  Its constants are f32
+    tensors on ``device``, filled there once for a run, so that neither the
+    set-up nor a step copies from the host.  (The JAX version's ``lr0``
+    override serves its vmapped sweeps.)"""
+    lr0 = torch.full((), tcfg.learning_rate, dtype=torch.float32,
+                     device=device)
     if not tcfg.decay or tcfg.faithful_inert_decay:
-        return lr0
-    return optim.exponential_decay(lr0, step, tcfg.decay_steps,
-                                   tcfg.decay_rate, tcfg.decay_staircase)
+        return lambda step: lr0
+    rate = torch.full((), tcfg.decay_rate, dtype=torch.float32,
+                      device=device)
+    return lambda step: optim.exponential_decay(
+        lr0, step, tcfg.decay_steps, rate, tcfg.decay_staircase)
+
+
+def learning_rate_at(tcfg: TrainConfig, step) -> torch.Tensor:
+    """The learning rate at ``step``: an f32 tensor on ``step``'s
+    device."""
+    device = step.device if isinstance(step, torch.Tensor) else None
+    return learning_rate_schedule(tcfg, device)(step)
 
 
 def _state_dtype(tcfg: TrainConfig):
@@ -141,20 +162,37 @@ def _grads(loss_fn, params: mmae.MMAEParams) -> Tuple[torch.Tensor, Any]:
     return loss.detach(), optim.tree_map(lambda _: next(it), params)
 
 
-def _apply_update(state: TrainState, grads, tcfg: TrainConfig):
-    lr = learning_rate_at(tcfg, state.step)
+def clone_state(state: TrainState) -> TrainState:
+    """A state with copies of ``state``'s tensors and the same
+    generator."""
+    return TrainState(optim.tree_map(torch.clone, state.params),
+                      optim.tree_map(torch.clone, state.opt_state),
+                      state.step.clone(), state.generator)
+
+
+def _apply_update_(state: TrainState, grads, tcfg: TrainConfig,
+                   lr: Callable) -> None:
+    """The optimizer's update and ``step + 1``, written into ``state``'s
+    own tensors; ``lr`` is the run's :func:`learning_rate_schedule`."""
     clip = tcfg.clip_norm if tcfg.clip_gradients else None
     with torch.no_grad():
-        return optim.opt_update(tcfg.optimizer, grads, state.opt_state,
-                                state.params, lr, clip_norm=clip)
+        optim.opt_update(tcfg.optimizer, grads, state.opt_state,
+                         state.params, lr(state.step), clip_norm=clip,
+                         inplace=True)
+        state.step.add_(1)
 
 
-def unsupervised_step(state: TrainState, cfg: MMAEConfig, tcfg: TrainConfig,
-                      spec: NoiseSpec, train_x: torch.Tensor
-                      ) -> Tuple[TrainState, torch.Tensor]:
-    """One denoising step (multimodal_autoencoder.py:566-590).  (The JAX
-    step's per-config ``hyper`` overrides serve its vmapped sweeps; the
-    port's sweeps train on ``parallel/grid_trainer.py`` instead.)"""
+def unsupervised_step_(state: TrainState, cfg: MMAEConfig,
+                       tcfg: TrainConfig, spec: NoiseSpec,
+                       train_x: torch.Tensor,
+                       lr: Optional[Callable] = None) -> torch.Tensor:
+    """One denoising step (multimodal_autoencoder.py:566-590) in place:
+    the update goes into ``state``'s tensors and its generator advances;
+    returns the loss.  ``lr`` defaults to a schedule built for this step.
+    (The JAX step's per-config ``hyper`` overrides serve its vmapped
+    sweeps; the port's sweeps train on ``parallel/grid_trainer.py``
+    instead.)"""
+    lr = lr or learning_rate_schedule(tcfg, state.step.device)
     g = state.generator
     x = train_x[_sample_rows(g, train_x.shape[0], tcfg.batch_size,
                              train_x.device)]
@@ -166,8 +204,17 @@ def unsupervised_step(state: TrainState, cfg: MMAEConfig, tcfg: TrainConfig,
         return loss
 
     loss, grads = _grads(loss_fn, state.params)
-    params, opt_state = _apply_update(state, grads, tcfg)
-    return TrainState(params, opt_state, state.step + 1, g), loss
+    _apply_update_(state, grads, tcfg, lr)
+    return loss
+
+
+def unsupervised_step(state: TrainState, cfg: MMAEConfig, tcfg: TrainConfig,
+                      spec: NoiseSpec, train_x: torch.Tensor
+                      ) -> Tuple[TrainState, torch.Tensor]:
+    """:func:`unsupervised_step_` on a copy of ``state``: (new state,
+    loss); ``state``'s tensors stay as they were."""
+    state = clone_state(state)
+    return state, unsupervised_step_(state, cfg, tcfg, spec, train_x)
 
 
 @torch.no_grad()
@@ -196,42 +243,44 @@ def _eval_batches(state: TrainState, tcfg: TrainConfig,
 
 def _eval_period(state: TrainState, cfg: MMAEConfig, tcfg: TrainConfig,
                  spec: NoiseSpec, train_x: torch.Tensor, val_x: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 ) -> torch.Tensor:
     """The per-record evaluation (multimodal_autoencoder.py:704-737): the
     loss of a fresh noisy train batch and of a fresh noisy val batch, both
-    without dropout."""
+    without dropout, as one (2,) tensor."""
     t_idx, v_idx = _eval_batches(state, tcfg, train_x.shape[0],
                                  val_x.shape[0], train_x.device)
     g = state.generator
-    return (evaluate_reconstruction(state.params, cfg, spec, train_x[t_idx],
-                                    g),
-            evaluate_reconstruction(state.params, cfg, spec, val_x[v_idx], g))
+    return torch.stack((
+        evaluate_reconstruction(state.params, cfg, spec, train_x[t_idx], g),
+        evaluate_reconstruction(state.params, cfg, spec, val_x[v_idx], g)))
 
 
-def _host(values) -> np.ndarray:
-    """A list of 0-d device tensors as one host array (one copy)."""
-    if not values:
-        return np.zeros((0,), np.float32)
-    return torch.stack(values).cpu().numpy()
+def _host_columns(records, k: int) -> list:
+    """Per-record (k,) device tensors as k host arrays (one copy)."""
+    if not records:
+        return [np.zeros((0,), np.float32) for _ in range(k)]
+    table = torch.stack(records).cpu().numpy()
+    return [np.ascontiguousarray(table[:, i]) for i in range(k)]
 
 
 def train(state: TrainState, cfg: MMAEConfig, tcfg: TrainConfig,
           spec: NoiseSpec, train_x: torch.Tensor, val_x: torch.Tensor,
           num_steps: Optional[int] = None) -> Tuple[TrainState, Curves]:
     """``num_steps`` denoising steps, recording the curves every
-    ``record_every_nth`` steps before that step's update (:574-590)."""
+    ``record_every_nth`` steps before that step's update (:574-590).  On
+    the card the step and the evaluation replay CUDA graphs
+    (``ops/step_graph.run``)."""
     cfg = cfg.validate()
     num_steps = tcfg.num_steps if num_steps is None else num_steps
-    record = tcfg.record_every_nth
     spec = spec.to(train_x.device)
-    tl, vl = [], []
-    for s in range(num_steps):
-        if s % record == 0:
-            a, b = _eval_period(state, cfg, tcfg, spec, train_x, val_x)
-            tl.append(a)
-            vl.append(b)
-        state, _ = unsupervised_step(state, cfg, tcfg, spec, train_x)
-    return state, Curves(train_loss=_host(tl), val_loss=_host(vl))
+    state = clone_state(state)
+    lr = learning_rate_schedule(tcfg, state.step.device)
+    records = step_graph.run(
+        lambda: unsupervised_step_(state, cfg, tcfg, spec, train_x, lr),
+        lambda: _eval_period(state, cfg, tcfg, spec, train_x, val_x),
+        num_steps, range(0, num_steps, tcfg.record_every_nth),
+        state.generator, train_x.device)
+    return state, Curves(*_host_columns(records, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -239,13 +288,15 @@ def train(state: TrainState, cfg: MMAEConfig, tcfg: TrainConfig,
 # multimodal_autoencoder.py:606-647).
 # ---------------------------------------------------------------------------
 
-def classification_step(state: TrainState, cfg: MMAEConfig,
-                        tcfg: TrainConfig, spec: NoiseSpec,
-                        train_x: torch.Tensor, train_y: torch.Tensor
-                        ) -> Tuple[TrainState, torch.Tensor]:
-    """One supervised step: noisy batch -> classification loss -> Adam.
-    Gradients flow into the encoder (the reference's ``minimize`` spans
-    every upstream variable, :443); the decoder's are zero."""
+def classification_step_(state: TrainState, cfg: MMAEConfig,
+                         tcfg: TrainConfig, spec: NoiseSpec,
+                         train_x: torch.Tensor, train_y: torch.Tensor,
+                         lr: Optional[Callable] = None) -> torch.Tensor:
+    """One supervised step in place: noisy batch -> classification loss ->
+    Adam; returns the loss.  Gradients flow into the encoder (the
+    reference's ``minimize`` spans every upstream variable, :443); the
+    decoder's are zero."""
+    lr = lr or learning_rate_schedule(tcfg, state.step.device)
     g = state.generator
     idx = _sample_rows(g, train_x.shape[0], tcfg.batch_size, train_x.device)
     x, y = train_x[idx], train_y[idx]
@@ -258,8 +309,19 @@ def classification_step(state: TrainState, cfg: MMAEConfig,
         return loss
 
     loss, grads = _grads(loss_fn, state.params)
-    params, opt_state = _apply_update(state, grads, tcfg)
-    return TrainState(params, opt_state, state.step + 1, g), loss
+    _apply_update_(state, grads, tcfg, lr)
+    return loss
+
+
+def classification_step(state: TrainState, cfg: MMAEConfig,
+                        tcfg: TrainConfig, spec: NoiseSpec,
+                        train_x: torch.Tensor, train_y: torch.Tensor
+                        ) -> Tuple[TrainState, torch.Tensor]:
+    """:func:`classification_step_` on a copy of ``state``: (new state,
+    loss)."""
+    state = clone_state(state)
+    return state, classification_step_(state, cfg, tcfg, spec, train_x,
+                                       train_y)
 
 
 @torch.no_grad()
@@ -276,33 +338,43 @@ def evaluate_classification(params: mmae.MMAEParams, cfg: MMAEConfig,
     return loss, acc
 
 
+def _eval_classification(state: TrainState, cfg: MMAEConfig,
+                         tcfg: TrainConfig, train_x: torch.Tensor,
+                         train_y: torch.Tensor, val_x: torch.Tensor,
+                         val_y: torch.Tensor) -> torch.Tensor:
+    """A phase-2 record: (train loss, train acc, val loss, val acc) of a
+    fresh train batch and val batch, without noise or dropout."""
+    t_idx, v_idx = _eval_batches(state, tcfg, train_x.shape[0],
+                                 val_x.shape[0], train_x.device)
+    g = state.generator
+    return torch.stack((
+        *evaluate_classification(state.params, cfg, train_x[t_idx],
+                                 train_y[t_idx], g),
+        *evaluate_classification(state.params, cfg, val_x[v_idx],
+                                 val_y[v_idx], g)))
+
+
 def train_classification(state: TrainState, cfg: MMAEConfig,
                          tcfg: TrainConfig, spec: NoiseSpec,
                          train_x: torch.Tensor, train_y: torch.Tensor,
                          val_x: torch.Tensor, val_y: torch.Tensor,
                          num_steps: Optional[int] = None
                          ) -> Tuple[TrainState, ClassificationCurves]:
-    """The phase-2 loop with accuracy recording (:606-647); records as
-    :func:`train` does."""
+    """The phase-2 loop with accuracy recording (:606-647); records and
+    runs as :func:`train` does."""
     cfg = cfg.validate()
     num_steps = tcfg.num_steps if num_steps is None else num_steps
-    record = tcfg.record_every_nth
     spec = spec.to(train_x.device)
-    rec = ([], [], [], [])
-    for s in range(num_steps):
-        if s % record == 0:
-            t_idx, v_idx = _eval_batches(state, tcfg, train_x.shape[0],
-                                         val_x.shape[0], train_x.device)
-            g = state.generator
-            t_loss, t_acc = evaluate_classification(
-                state.params, cfg, train_x[t_idx], train_y[t_idx], g)
-            v_loss, v_acc = evaluate_classification(
-                state.params, cfg, val_x[v_idx], val_y[v_idx], g)
-            for lst, v in zip(rec, (t_loss, t_acc, v_loss, v_acc)):
-                lst.append(v)
-        state, _ = classification_step(state, cfg, tcfg, spec, train_x,
-                                       train_y)
-    return state, ClassificationCurves(*map(_host, rec))
+    state = clone_state(state)
+    lr = learning_rate_schedule(tcfg, state.step.device)
+    records = step_graph.run(
+        lambda: classification_step_(state, cfg, tcfg, spec, train_x,
+                                     train_y, lr),
+        lambda: _eval_classification(state, cfg, tcfg, train_x, train_y,
+                                     val_x, val_y),
+        num_steps, range(0, num_steps, tcfg.record_every_nth),
+        state.generator, train_x.device)
+    return state, ClassificationCurves(*_host_columns(records, 4))
 
 
 # ---------------------------------------------------------------------------

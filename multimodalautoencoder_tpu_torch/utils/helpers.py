@@ -1,13 +1,14 @@
 """Small helpers the sweeps need.
 
-A copy of the two functions of ``multimodalautoencoder_tpu/utils/helpers.py``
-that the classification sweep and its ledger use (reference:
+A copy of ``multimodalautoencoder_tpu/utils/helpers.py`` (reference:
 helper_funcs.py), kept here so the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
+
+import numpy as np
 
 # substring -> friendly name (helper_funcs.py:17-31)
 _FRIENDLY = (("happiness", "happiness"), ("happy", "happiness"),
@@ -23,6 +24,14 @@ def get_secs_mins_hours_from_secs(total_secs: float
     mins = (total_secs % 3600) // 60
     secs = total_secs % 60
     return hours, mins, secs
+
+
+def get_rmse(x, y) -> float:
+    """Root mean squared error between two arrays, in float64
+    (multimodal_autoencoder.py:1218-1220)."""
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    return float(np.sqrt(np.mean((x - y) ** 2)))
 
 
 def get_friendly_label_name(label_col: str) -> str:
