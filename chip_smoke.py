@@ -15,22 +15,24 @@ features):
   DAE and VAE, and each dense layer timed in turns with ``torch.addmm``
   against its f32 bound (phases [1]-[6]);
 - grid training: the in-kernel generator against its twin, the training
-  kernels against their plain twin at a small width and on the three
-  1000-wide ACII buckets (60 instances each), then those buckets through
+  kernels against their plain twin at small widths (the demo's among
+  them) and on the three 1000-wide ACII buckets (60 instances each), then
+  those buckets through
   ``train_grid_sharded(backend="pallas")`` for 5,000 steps with the
   sweep's recipe, the best instance saved and served by ``cli fill``, and
   the step timed by launch type (phases [7]-[10]);
 - the two-phase classification sweep: the phase-2 kernels against their
-  twin at a small width and on the validation bucket's 80 instances, the
-  validation bucket (tied 1000 -> 100, head 50 -> 20, 16 settings x 5
-  folds) through ``MMAEClassificationSweep.run()`` at 15,000 + 15,000
-  steps with its winner exported and served by ``cli embed``, the full
+  twin at small widths (the demo's among them) and on the validation
+  bucket's 80 instances, the validation bucket (tied 1000 -> 100, head
+  50 -> 20, 16 settings x 5 folds) through
+  ``MMAEClassificationSweep.run()`` at 5,000 + 5,000 steps with its
+  winner exported and served by ``cli embed``, the full
   576-setting default grid through ``cli sweep-classification`` at 100 +
   100 steps, and one phase-2 step timed (phases [11]-[14]);
 - the MMAE sweep: the depth >= 3 kernels against their twin at a small
   width and on the three 1000 -> 500 -> 100 buckets (60 instances each),
   those buckets through ``MMAESweep(backend="pallas", probe="device",
-  save_best_params=True).run()`` at 15,000 steps with its winner served by
+  save_best_params=True).run()`` at 5,000 steps with its winner served by
   ``cli fill``, the default 108-setting grid through ``cli sweep-mmae`` at
   100 steps, one deep step timed, and the device-memory stream probe
   against its twins, each stream timed in turns with its library call
@@ -62,7 +64,16 @@ features):
   ``fused_dense`` by ``cli fill``; ``cli sweep-classification
   --process-shard i 2`` as two concurrent processes over the 576-setting
   grid, merged; and the reference recipe's parity band on kernel 2, with
-  [9]'s utilization rows (phases [27]-[30]).
+  [9]'s utilization rows (phases [27]-[30]);
+- the end-to-end demo and the installed wheel: ``python -m
+  multimodalautoencoder_tpu_torch.examples.acii_pipeline`` on the card
+  (the MMAE sweep on kernel 2, the two-phase sweep on kernel 4, the best
+  model trained, a file repaired, the NN baseline on it), every printed
+  metric finite; and a wheel built from the checkout and installed
+  read-only with ``pip --target``, from which a fresh interpreter reads
+  the study with ``--engine native`` and serves it through ``fused_dense``
+  with ``cli fill``, its libraries built outside the install (phases
+  [31]-[32]).
 
 Any failed phase ends the run with a non-zero exit; so does a machine
 without CUDA.  The last lines of standard output are the card's name and
@@ -80,7 +91,9 @@ reported rather than only the first that fails.  ``python3 chip_smoke.py
 kernel route with bf16 operands), every gate reported; ``python3
 chip_smoke.py --baselines`` runs [23]-[26] alone, every gate reported.
 ``python3 chip_smoke.py --split-cards`` runs [27] over every visible card
-at [9]'s 5,000 steps.  ``python3 chip_smoke.py --count-launches <cli
+at [9]'s 5,000 steps; ``python3 chip_smoke.py --pipeline`` runs [8]'s
+and [11]'s F = 30 cases (the demo's widths among them), [31] and [32]
+alone, every gate reported.  ``python3 chip_smoke.py --count-launches <cli
 arguments>`` runs one
 ``cli`` command and prints its kernels' launch counts (how [29] reads
 them from processes of their own).
@@ -109,9 +122,12 @@ SEED = 0
 # the sweep's recipe (sweep/wrappers.py:173-186, :248-253)
 LR, BATCH = 1e-3, 20
 # [9]'s steps: the sweep's 15,000 cut to 5,000 for the smoke's time limit
-# ([12] and [16] keep the full 15,000)
+# (as are [12]'s and [16]'s, CLS_RUN_STEPS and MMAE_RUN_STEPS)
 STEPS = 5000
 NAMES = ("call", "location", "screen", "sms", "survey")
+# [31]'s widths (examples/acii_pipeline.py): the MMAE grid's two
+# architectures at 30 features and the two-phase sweep's (16, 8) + (8,)
+DEMO_LAYERS, DEMO_HEAD = ((24, 8), (16, 8)), (8,)
 # MMAESweep's default grid (sweep/wrappers.py:160-168, :257-265)
 ACII_PARAMS = {
     "architecture": [[1000, 100], [500, 100], [300, 100]],
@@ -457,7 +473,9 @@ def phase_timing(dk, params, cfg, x, card: str):
     CUDA-event timings, taken in the order plain, kernel, kernel, plain),
     and each dense layer of that forward alone on the device, in turns with
     ``torch.addmm`` (TF32 off), against its bound under the kernel's
-    arithmetic (f32 FMAs) and the earlier 3xTF32 kernel's bound."""
+    arithmetic (f32 FMAs) and the earlier 3xTF32 kernel's bound; then each
+    layer with bf16 operands, in turns with ``torch.addmm`` of bf16
+    tensors, against its bf16 bound."""
     from multimodalautoencoder_tpu_torch.models import mmae
 
     plain_cfg = cfg.replace(use_pallas=False)
@@ -512,6 +530,37 @@ def phase_timing(dk, params, cfg, x, card: str):
               f"({100 * tot['bound_ms'] / tot['ms']:.1f} %), 3xTF32 figure "
               f"{tot['tf32_ms']:.4f} ms; no slower than torch.addmm at "
               f"{wins} of 4 layers  [{card}]")
+        # bf16 operands (MMAEConfig(compute_dtype="bfloat16"), mma.sync),
+        # in turns with torch.addmm on bf16 copies of the operands
+        print("  bf16 operands, each layer on the device alone, in turns: "
+              "kernel, torch.addmm of bf16 tensors, torch.addmm, kernel")
+        bf16 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        by16 = {"bytes": 0.0, "operations": 0.0}
+        for name, a, w, b, act in layers:
+            a16, w16, b16 = a.bfloat16(), w.bfloat16(), b.bfloat16()
+            k1, l1, l2, k2 = (device_ms(f) for f in (
+                lambda: dk.fused_dense(a, w, b, act, True),
+                lambda: torch.addmm(b16, a16, w16),
+                lambda: torch.addmm(b16, a16, w16),
+                lambda: dk.fused_dense(a, w, b, act, True)))
+            t_p = device_ms(lambda: dk.fused_dense_reference(a, w, b, act,
+                                                             True))
+            m, k, n = a.shape[0], a.shape[1], w.shape[1]
+            t_b, bound_by, _ = dense_bounds(m, k, n, bf16=True)
+            by16[bound_by] += t_b
+            for key, v in (("ms", (k1 + k2) / 2), ("plain_ms", t_p),
+                           ("library_ms", (l1 + l2) / 2), ("bound_ms", t_b)):
+                bf16[key] += v
+            print(f"  {name:12s} ({m},{k},{n}) {act:8s} bf16: kernel "
+                  f"{k1:.4f} / {k2:.4f} ms, torch.addmm {l1:.4f} / {l2:.4f}"
+                  f" ms, plain {t_p:.4f} ms; bound {t_b:.4f} ms "
+                  f"({bound_by})  [{card}]")
+        bf16["bound_by"] = max(by16, key=by16.get)
+        print(f"  4 layers bf16: kernel {bf16['ms']:.4f} ms, torch.addmm "
+              f"{bf16['library_ms']:.4f} ms, plain {bf16['plain_ms']:.4f} "
+              f"ms, bound {bf16['bound_ms']:.4f} ms ({bf16['bound_by']}, "
+              f"{100 * bf16['bound_ms'] / bf16['ms']:.1f} % of it reached)"
+              f"  [{card}]")
         # host-paced, as a serve call pays it and as earlier runs timed it:
         # the 4 layers back to back from the host, in turns
         def kernel():
@@ -533,7 +582,7 @@ def phase_timing(dk, params, cfg, x, card: str):
             "bound_by": max(by, key=by.get),
             "timing": "host-paced; device_* on the device alone",
             "device_ms": tot["ms"], "device_plain_ms": tot["plain_ms"],
-            "device_library_ms": tot["library_ms"]}
+            "device_library_ms": tot["library_ms"], "device_bf16": bf16}
 
 
 def phase_breakdown(csv_path: str, ck_path: str, card: str) -> None:
@@ -645,10 +694,13 @@ def family_cfg(base, family: str):
 def phase_kernel_vs_twin(ptk, buckets, folded_full, spec_full) -> float:
     """The training kernels against their twin on the card over the first
     10 steps (corruption, dropout, L2 and decay on; same seeds and
-    params0), with f32 and bf16 moments, at two sizes: F = 30, (16, 6),
-    the three families with 2 settings x 2 folds; and the main path's own
-    runs, each 1000-wide ACII bucket's 12 settings x 5 folds (N = 60,
-    softsign and relu mixed per instance).
+    params0), with f32 and bf16 moments, at three sizes: F = 30, (16, 6),
+    the three families with 2 settings x 2 folds; F = 30 at the demo's
+    widths ([31]: (24, 8) and (16, 8)), its families (tied and untied
+    softsign, VAE) and its settings (dropout 1.0 and 0.5, no L2) x 2
+    folds; and the main path's own runs, each 1000-wide ACII bucket's 12
+    settings x 5 folds (N = 60, softsign and relu mixed per instance).
+    ``buckets`` may be empty (``--pipeline``: the F = 30 cases alone).
 
     Each step starts the kernels from the twin's state, so every step is
     held on its own: run free, a relu instance whose objective is already
@@ -682,6 +734,14 @@ def phase_kernel_vs_twin(ptk, buckets, folded_full, spec_full) -> float:
               small, NoiseSpec.build(family_cfg(base, family),
                                      ModalityTable.uniform(5, 6, NAMES)))
              for family in ("tied softsign", "untied relu", "vae")]
+    demo = [{"dropout_prob": 1.0, "weight_penalty": 0.0},
+            {"dropout_prob": 0.5, "weight_penalty": 0.0}]
+    for layers in DEMO_LAYERS:
+        for family in ("tied softsign", "untied softsign", "vae"):
+            cfg = family_cfg(base.replace(layer_sizes=layers), family)
+            cases.append((f"demo F=30 {layers} {family}", cfg, demo, small,
+                          NoiseSpec.build(cfg, ModalityTable.uniform(
+                              5, 6, NAMES))))
     cases += [(f"{name} bucket, N=60", cfg, members, folded_full, spec_full)
               for name, cfg, members in buckets]
     worst = 0.0
@@ -721,7 +781,7 @@ def phase_kernel_vs_twin(ptk, buckets, folded_full, spec_full) -> float:
             ok = (most <= bound and err <= 2 * LR and obj_rel <= TOL
                   and bool(torch.isfinite(objs[0]).all()))
             worst = max(worst, err)
-            print(f"  {label:32s} {moments:8s} max |dp| {err:.3e}; "
+            print(f"  {label:34s} {moments:8s} max |dp| {err:.3e}; "
                   f"{total} params over {TOL} in {steps} steps, at most "
                   f"{most} of an instance's {per_inst} in one step (bound "
                   f"{bound:.0f}); objective rel diff {obj_rel:.2e} "
@@ -984,6 +1044,8 @@ VALIDATION_BUCKET = dict(mmae_layer_sizes=[[1000, 100]],
                          classification_layer_sizes=[[50, 20]],
                          tie_weights=[True], mmae_test_variational=[False])
 CLS_STEPS = 15000    # each phase of the sweep (mmae_ and classification_)
+# [12]'s run of each phase: the sweep's 15,000 cut for the time limit
+CLS_RUN_STEPS = 5000
 GRID_STEPS = 100     # each phase of [13]'s full default grid
 CLS_LR = 1e-4        # the sweep's phase-2 learning rate
 # phase-2 kernels vs twin, one step from the same state, either operand
@@ -1038,12 +1100,15 @@ def phase_cls_kernel_vs_twin(pck, ptk, sup_folded, spec_full, cfg_full,
     regime (LINEAR_LR, LINEAR_EPS), where an update is proportional to its
     gradient and a wrong gradient shows: at F = 30, (16, 6), every head
     depth x loss x DAE/VAE x moment type x operand type with 2 settings x
-    2 folds, and the validation bucket's own 80 instances at full width
-    (bf16 and f32 moments).  Then those 80 at the sweep's lr 1e-4 and eps
-    1e-8, where the first updates are lr sign(g): there an instance may
-    have at most 1e-5 of its parameters (at least 8) over TOL_CLS in a
-    step, Adam sign flips where a gradient sits at rounding level.  Every
-    parameter must stay finite."""
+    2 folds; at F = 30 and the demo's widths ([31]: (16, 8), head (8,),
+    relu, dropout 1.0 and 0.5, no L2), loss x DAE/VAE x moment type x
+    operand type; and the validation bucket's own 80 instances at full
+    width (bf16 and f32 moments).  Then those 80 at the sweep's lr 1e-4
+    and eps 1e-8, where the first updates are lr sign(g): there an
+    instance may have at most 1e-5 of its parameters (at least 8) over
+    TOL_CLS in a step, Adam sign flips where a gradient sits at rounding
+    level.  Every parameter must stay finite.  Without ``cfg_full``
+    (``--pipeline``) the F = 30 cases run alone."""
     from multimodalautoencoder_tpu_torch.config import MMAEConfig, \
         TrainConfig
     from multimodalautoencoder_tpu_torch.data.modalities import \
@@ -1061,11 +1126,23 @@ def phase_cls_kernel_vs_twin(pck, ptk, sup_folded, spec_full, cfg_full,
             [rng.random((40, 30)), rng.random((33, 30))],
             [rng.random((9, 30)), rng.random((7, 30))], device=DEVICE,
             train_y_list=ys, val_y_list=[y[:9] for y in ys])
-        for head in ((), (8,), (8, 4)):
+        mixed = [{"mmae_dropout_prob": 0.5, "dropout_prob": 0.5,
+                  "weight_penalty": 0.01, "mmae_activation_function": "relu",
+                  "activation_func": "relu"},
+                 {"mmae_dropout_prob": 1.0, "dropout_prob": 1.0,
+                  "weight_penalty": 0.0,
+                  "mmae_activation_function": "softsign",
+                  "activation_func": "softsign"}]
+        demo = [{"mmae_dropout_prob": 1.0, "dropout_prob": p,
+                 "weight_penalty": 0.0, "mmae_activation_function": "relu",
+                 "activation_func": "relu"} for p in (1.0, 0.5)]
+        shapes = [((16, 6), head, mixed) for head in ((), (8,), (8, 4))]
+        shapes.append((DEMO_LAYERS[1], DEMO_HEAD, demo))
+        for layers, head, settings in shapes:
             for family in ("dae", "vae"):
                 for ops in ("float32", "bfloat16"):
                     cfg = MMAEConfig(
-                        num_feats=30, layer_sizes=(16, 6),
+                        num_feats=30, layer_sizes=layers,
                         tie_weights=family == "dae",
                         variational=family == "vae",
                         classification_layer_sizes=head, num_labels=3,
@@ -1073,21 +1150,15 @@ def phase_cls_kernel_vs_twin(pck, ptk, sup_folded, spec_full, cfg_full,
                         weight_initialization="normal").validate()
                     spec = NoiseSpec.build(cfg, ModalityTable.uniform(
                         5, 6, NAMES))
-                    settings = [
-                        {"mmae_dropout_prob": 0.5, "dropout_prob": 0.5,
-                         "weight_penalty": 0.01,
-                         "mmae_activation_function": "relu",
-                         "activation_func": "relu"},
-                        {"mmae_dropout_prob": 1.0, "dropout_prob": 1.0,
-                         "weight_penalty": 0.0,
-                         "mmae_activation_function": "softsign",
-                         "activation_func": "softsign"}]
                     for moments in ("float32", "bfloat16"):
-                        label = (f"F=30 {loss[:7]} head {head} {family} "
-                                 f"ops {ops[:4]}")
+                        label = (f"F=30 {layers} {loss[:7]} head {head} "
+                                 f"{family} ops {ops[:4]}")
                         cases.append((label, cfg, settings, small, spec,
                                       moments, LINEAR_LR, LINEAR_EPS))
+    small_cases = len(cases)
     for lr, eps in ((LINEAR_LR, LINEAR_EPS), (CLS_LR, 1e-8)):
+        if cfg_full is None:
+            break
         for moments in ("bfloat16", "float32"):
             cases.append((f"validation bucket N=80 lr {lr:g} eps {eps:g}",
                           cfg_full, settings_full, sup_folded, spec_full,
@@ -1135,8 +1206,9 @@ def phase_cls_kernel_vs_twin(pck, ptk, sup_folded, spec_full, cfg_full,
         check(ok, f"phase-2 kernels disagree with the twin: {label} "
                   f"{moments}")
         del run, twin
-    print(f"  {len(cases) - 4} cases at F = 30 held (worst max |dp| over "
-          f"all cases {worst:.3e})")
+    demo = sum(c[1].layer_sizes == DEMO_LAYERS[1] for c in cases)
+    print(f"  {small_cases} cases at F = 30 held, {demo} of them at the "
+          f"demo's widths (worst max |dp| over all cases {worst:.3e})")
     return worst
 
 
@@ -1156,8 +1228,8 @@ def phase_cls_sweep(workdir: str, pck, ptk, study_path: str, unsup, sup,
                     card: str):
     """The validation bucket end to end through
     MMAEClassificationSweep(backend="pallas", save_best_params=True).run()
-    at CLS_STEPS + CLS_STEPS steps, then the exported winner served by
-    ``cli embed``.  Returns (phase-2 launches, the ledger rows)."""
+    at CLS_RUN_STEPS + CLS_RUN_STEPS steps, then the exported winner
+    served by ``cli embed``.  Returns (phase-2 launches, the ledger rows)."""
     from multimodalautoencoder_tpu_torch import cli
     from multimodalautoencoder_tpu_torch.data.loader import DataLoader
     from multimodalautoencoder_tpu_torch.ops import cls_train_kernels
@@ -1172,8 +1244,8 @@ def phase_cls_sweep(workdir: str, pck, ptk, study_path: str, unsup, sup,
     with timed_loops(ptk, "train_grid_kernel") as p1, \
             timed_loops(cls_train_kernels, "train_cls_kernel") as p2:
         sweep = MMAEClassificationSweep(
-            unsup, sup, mmae_num_steps=CLS_STEPS,
-            classification_num_steps=CLS_STEPS, results_path=results,
+            unsup, sup, mmae_num_steps=CLS_RUN_STEPS,
+            classification_num_steps=CLS_RUN_STEPS, results_path=results,
             backend="pallas", save_best_params=True, seed=SEED,
             verbose=False, device=DEVICE, **VALIDATION_BUCKET)
         best = sweep.run()
@@ -1197,12 +1269,12 @@ def phase_cls_sweep(workdir: str, pck, ptk, study_path: str, unsup, sup,
             ("phase 2", s2, C * K, p2_launches,
              pck.launches_per_step(3, False))):
         print(f"  {name}: N={n_inst}, kernel loop {secs:.3f} s by CUDA "
-              f"events: {1e3 * secs / CLS_STEPS:.4f} ms/step, "
-              f"{n_inst * CLS_STEPS / secs:,.0f} instance-steps/s; "
+              f"events: {1e3 * secs / CLS_RUN_STEPS:.4f} ms/step, "
+              f"{n_inst * CLS_RUN_STEPS / secs:,.0f} instance-steps/s; "
               f"{launches} launches ({per_step} a step)  [{card}]")
-        check(launches == CLS_STEPS * per_step,
+        check(launches == CLS_RUN_STEPS * per_step,
               f"{name}: {launches} launches, expected "
-              f"{CLS_STEPS * per_step}")
+              f"{CLS_RUN_STEPS * per_step}")
     check(C == 16, f"the validation bucket wrote {C} rows")
     check(all(r["backend_used"] == "pallas" for r in rows),
           "a row did not run on the kernels")
@@ -1227,7 +1299,7 @@ def phase_cls_sweep(workdir: str, pck, ptk, study_path: str, unsup, sup,
     for mod in ("jax", "pandas", "sklearn", "multimodalautoencoder_tpu"):
         check(mod not in sys.modules, f"the sweep path imported {mod}")
 
-    ck = os.path.join(results, f"best_mmae_cls-{CLS_STEPS}.npz")
+    ck = os.path.join(results, f"best_mmae_cls-{CLS_RUN_STEPS}.npz")
     check(os.path.exists(ck), f"{ck} was not exported")
     rc = cli.main(["embed", study_path, "--checkpoint", ck,
                    "--normalize-and-fill", "--device", DEVICE, "--seed",
@@ -1239,7 +1311,7 @@ def phase_cls_sweep(workdir: str, pck, ptk, study_path: str, unsup, sup,
     check_served("embed", "best_mmae_cls", study_path, serve_dl)
     print(f"  exported {os.path.basename(ck)} and served it with cli embed "
           f"--device {DEVICE}: {ROWS} finite 100-wide embeddings")
-    return p2_launches, rows, s2 / CLS_STEPS * 1e3
+    return p2_launches, rows, s2 / CLS_RUN_STEPS * 1e3
 
 
 def phase_full_grid(workdir: str, pck, ptk, study_path: str, card: str):
@@ -1369,6 +1441,7 @@ def phase_cls_step_timing(pck, ptk, sup_folded, spec, cfg, settings,
 # settings in 3 buckets of 12 settings x 5 folds)
 DEEP_LAYERS = (1000, 500, 100)
 MMAE_STEPS = 15000   # the sweep's num_steps
+MMAE_RUN_STEPS = 5000  # [16]'s run: the sweep's 15,000 cut for the time limit
 MMAE_GRID_STEPS = 100  # [17]'s default 108-setting grid, cut for time
 SIGN_FLIP_FRACTION = 1e-5
 
@@ -1550,9 +1623,9 @@ def captured_calls(module, name: str):
 def phase_mmae_sweep(workdir: str, pdk, ptk, dk, study, sup, card: str):
     """The slice end to end: MMAESweep(layer_sizes=[DEEP_LAYERS],
     backend="pallas", probe="device", save_best_params=True).run() on the
-    study with its classification loader, MMAE_STEPS steps, then its exported
-    winner served by ``cli fill``.  Returns (kernel 3's launches, the tied
-    bucket's (cfg, tcfg, hyper, params), the rows)."""
+    study with its classification loader, MMAE_RUN_STEPS steps, then its
+    exported winner served by ``cli fill``.  Returns (kernel 3's launches,
+    the tied bucket's (cfg, tcfg, hyper, params), the rows)."""
     from multimodalautoencoder_tpu_torch import cli
     from multimodalautoencoder_tpu_torch.config import ACTIVATIONS
     from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
@@ -1568,7 +1641,7 @@ def phase_mmae_sweep(workdir: str, pdk, ptk, dk, study, sup, card: str):
         sweep = MMAESweep(study, classification_data_loader=sup,
                           layer_sizes=[DEEP_LAYERS], backend="pallas",
                           probe="device", save_best_params=True,
-                          num_steps=MMAE_STEPS, results_path=results,
+                          num_steps=MMAE_RUN_STEPS, results_path=results,
                           seed=SEED, verbose=False, device=DEVICE)
         best, _, extras = sweep.run()
         torch.cuda.synchronize()
@@ -1592,7 +1665,7 @@ def phase_mmae_sweep(workdir: str, pdk, ptk, dk, study, sup, card: str):
         cfg, tcfg, hyper = args[2], args[3], args[5]
         per_step = pdk.launches_per_step(len(cfg.layer_sizes),
                                          cfg.tie_weights, cfg.variational)
-        want += MMAE_STEPS * per_step
+        want += MMAE_RUN_STEPS * per_step
         secs = start.elapsed_time(end) / 1e3
         N = losses.numel()
         name = "vae" if cfg.variational else (
@@ -1603,8 +1676,8 @@ def phase_mmae_sweep(workdir: str, pdk, ptk, dk, study, sup, card: str):
         held = ~is_relu if cfg.variational else torch.ones_like(is_relu)
         finite = torch.isfinite(losses)
         print(f"  {name:6s} N={N}: kernel loop {secs:.3f} s by CUDA events:"
-              f" {1e3 * secs / MMAE_STEPS:.4f} ms/step, "
-              f"{N * MMAE_STEPS / secs:,.0f} instance-steps/s; "
+              f" {1e3 * secs / MMAE_RUN_STEPS:.4f} ms/step, "
+              f"{N * MMAE_RUN_STEPS / secs:,.0f} instance-steps/s; "
               f"{per_step} launches a step; "
               f"{int((held & finite & (losses < loss0)).sum())} of "
               f"{int(held.sum())} held instances finite and below their "
@@ -1636,7 +1709,7 @@ def phase_mmae_sweep(workdir: str, pdk, ptk, dk, study, sup, card: str):
         check(mod not in sys.modules, f"the MMAE sweep imported {mod}")
 
     from multimodalautoencoder_tpu_torch.data.loader import DataLoader
-    ck = os.path.join(results, f"best_mmae-{MMAE_STEPS}.npz")
+    ck = os.path.join(results, f"best_mmae-{MMAE_RUN_STEPS}.npz")
     check(os.path.exists(ck), f"{ck} was not exported")
     before = dk.KERNELS.launches
     rc = cli.main(["fill", study.filename, "--checkpoint", ck,
@@ -2720,7 +2793,7 @@ def phase_feature_selection(study_path: str, card: str) -> dict:
 
 
 def phase_data_layer(workdir: str, study_path: str, card: str) -> dict:
-    """[26]: the native engine built from native/csv_loader.cpp at first
+    """[26]: the native engine built from csrc/csv_loader.cpp at first
     use, against the default reader (the same columns and rows; each
     native value the correctly rounded value of its text, the real check
     of the parser, and within 1 ulp of pandas' reading, the values that
@@ -3132,6 +3205,241 @@ def phase_parity_band(ptk, rates, card: str) -> dict:
     return {"launches": launches, "utilization": rows}
 
 
+# [31]: the end-to-end demo at the sizes below; its widths stay the demo's
+# (30 features, (24, 8) and (16, 8)), which [6], [12], [17], [21] and [23]
+# drive at the reference's widths
+PIPELINE_ARGS = ("--rows", "2000", "--steps", "2000", "--folds", "5",
+                 "--baseline", "nn")
+
+
+def phase_pipeline(workdir: str, ptk, pck, card: str) -> dict:
+    """[31]: ``examples/acii_pipeline.py`` on the card with PIPELINE_ARGS,
+    as ``python -m multimodalautoencoder_tpu_torch.examples.acii_pipeline``
+    runs it: every printed metric finite, both sweeps' rows on the kernels
+    (``backend_used == "pallas"``), kernels 2 and 4 launched (counted from
+    0 before the run), the repaired file's observed cells the input's.
+    Returns the launches and each step's wall seconds."""
+    import io
+
+    from multimodalautoencoder_tpu_torch.data.loader import read_csv
+    from multimodalautoencoder_tpu_torch.data.preprocess import \
+        get_wanted_feats_from_df
+    from multimodalautoencoder_tpu_torch.examples import acii_pipeline
+    from multimodalautoencoder_tpu_torch.sweep import engine
+
+    out_dir = os.path.join(workdir, "pipeline")
+    buf = io.StringIO()
+    ptk.KERNELS.launches = 0
+    pck.KERNELS.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = acii_pipeline.main(list(PIPELINE_ARGS)
+                                 + ["--device", DEVICE, "--out", out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"mmae_train_step": ptk.KERNELS.launches,
+                "cls_train_step": pck.KERNELS.launches}
+    text = buf.getvalue()
+    sys.stdout.write("".join(f"  | {line}\n" for line in text.splitlines()))
+    numbers = acii_pipeline.printed_numbers(text)
+    print(f"  {len(numbers)} printed metrics, "
+          f"{sum(np.isfinite(numbers))} finite; kernel launches {launches}")
+    check(len(numbers) == 11 and bool(np.isfinite(numbers).all()),
+          f"the pipeline printed non-finite metrics: {numbers}")
+    for name in ("mmae_ledger", "cls_ledger"):
+        ledger = engine.ResultsLedger(
+            os.path.dirname(out[name]),
+            os.path.basename(out[name])[:-len(".csv")], cont=True)
+        used = ledger.column("backend_used")
+        print(f"  {os.path.basename(out[name])}: {len(ledger)} rows, "
+              f"backend_used {sorted(set(used))}")
+        check(len(used) > 0 and set(used) == {"pallas"},
+              f"{name}: rows off the kernels: {used}")
+    check(out["settings"] == 12, f"{out['settings']} MMAE settings, not 12")
+    for kernel, n in launches.items():
+        check(n > 0, f"[31] launched {kernel} {n} times")
+    before, after = read_csv(out["csv"]), read_csv(out["filled"])
+    feats = get_wanted_feats_from_df(before.names)
+    x, y = before.matrix(feats), after.matrix(feats)
+    seen = ~np.isnan(x)
+    same = (x.shape == y.shape and after.names == before.names
+            and bool(np.isclose(y[seen], x[seen], rtol=0, atol=1e-12).all()))
+    print(f"  repaired file {os.path.basename(out['filled'])}: "
+          f"{y.shape[0]} rows x {y.shape[1]} features, {int(seen.sum())} "
+          f"observed cells unchanged: {same}; {int(np.isnan(x).sum())} "
+          f"empty before, {int(np.isnan(y).sum())} after")
+    check(same, "the repaired file changed observed cells")
+    print("  step seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["seconds"].items()))
+    print(f"  [31] {wall:.1f} s wall  [{card}]")
+    return {"launches": launches, "wall_s": wall,
+            "seconds": out["seconds"]}
+
+
+WHEEL_PROBE = r"""
+import json, os, sys, time
+from concurrent.futures import ThreadPoolExecutor
+import numpy as np
+import torch
+import multimodalautoencoder_tpu_torch as port
+from multimodalautoencoder_tpu_torch import cli
+from multimodalautoencoder_tpu_torch.data import fast_csv
+from multimodalautoencoder_tpu_torch.data.preprocess import \
+    get_wanted_feats_from_df
+from multimodalautoencoder_tpu_torch.ops import cuda_library
+from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
+
+study, ck, values = sys.argv[1:4]
+t0 = time.perf_counter()
+with ThreadPoolExecutor(2) as pool:     # g++ and nvcc together
+    list(pool.map(lambda lib: lib.load(), (fast_csv.LIB, dk.KERNELS)))
+built = time.perf_counter() - t0
+frame = fast_csv.read_csv(study)
+np.save(values, frame.matrix(get_wanted_feats_from_df(frame.names)))
+dk.KERNELS.launches = 0
+t0 = time.perf_counter()
+rc = cli.main(["fill", study, "--checkpoint", ck, "--normalize-and-fill",
+               "--device", "cuda", "--engine", "native", "--seed", "0"])
+torch.cuda.synchronize()
+print("WHEEL " + json.dumps({
+    "rc": rc, "package": port.__file__, "build_dir": cuda_library.build_dir(),
+    "libraries": [fast_csv.LIB.library, dk.KERNELS.library],
+    "build_s": built, "fill_s": time.perf_counter() - t0,
+    "fused_dense_launches": dk.KERNELS.launches,
+    "modules": sorted(m for m in ("jax", "pandas", "sklearn",
+                                  "multimodalautoencoder_tpu")
+                      if m in sys.modules)}), flush=True)
+"""
+
+
+def serve_study(workdir: str):
+    """The reference-scale study, its loader, and a tied softsign 1000 ->
+    100 DAE checkpoint with ``use_pallas`` (random weights from SEED)."""
+    from multimodalautoencoder_tpu_torch.config import MMAEConfig
+    from multimodalautoencoder_tpu_torch.data import synthetic
+    from multimodalautoencoder_tpu_torch.data.loader import DataLoader
+    from multimodalautoencoder_tpu_torch.models import mmae
+    from multimodalautoencoder_tpu_torch.train import checkpoint as ckpt
+
+    csv_path = synthetic.write_reference_scale_csv(workdir, num_rows=ROWS,
+                                                   seed=SEED)
+    dl = DataLoader(csv_path, supervised=False, fill_gaps_with=-1.0,
+                    suppress_output=True, seed=SEED)
+    cfg = MMAEConfig(num_feats=dl.num_feats, layer_sizes=LAYERS,
+                     tie_weights=True, activation="softsign",
+                     use_pallas=True)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    ck = ckpt.save_checkpoint(os.path.join(workdir, "ck"), "dae",
+                              mmae.init(cfg, generator=g, device=DEVICE),
+                              cfg, step=1)
+    return csv_path, ck, dl
+
+
+def phase_installed_wheel(workdir: str, csv_path: str, ck_path: str, dl,
+                          card: str) -> dict:
+    """[32]: a wheel built from this checkout, installed with ``pip
+    --target`` into a directory made read-only; a fresh interpreter whose
+    imports resolve there (``PYTHONPATH`` the install alone, run from
+    another directory) reads the study with the native engine, values
+    equal to this checkout's reading, and runs ``cli fill --engine native``
+    on ``ck_path`` on the card: 4 ``fused_dense`` launches (one forward),
+    the libraries built outside the install."""
+    from multimodalautoencoder_tpu_torch.data import fast_csv
+    from multimodalautoencoder_tpu_torch.data.preprocess import \
+        get_wanted_feats_from_df
+    from multimodalautoencoder_tpu_torch.tools import wheel_check
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(workdir, "wheel")
+    run_dir = os.path.join(root, "run")
+    os.makedirs(run_dir)
+    values = os.path.join(root, "native.npy")
+    t0 = time.perf_counter()
+    with wheel_check.read_only_install(repo, root) as (site, env):
+        packaged = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", WHEEL_PROBE, csv_path,
+                            ck_path, values], capture_output=True,
+                           text=True, env=env, cwd=run_dir, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = [line for line in r.stdout.splitlines()
+             if line.startswith("WHEEL ")]
+    if r.returncode or not lines:
+        sys.stdout.write(r.stdout[-4000:] + r.stderr[-4000:])
+    check(r.returncode == 0 and len(lines) == 1,
+          f"the installed wheel's run returned {r.returncode}")
+    got = json.loads(lines[0][len("WHEEL "):])
+    install = os.path.realpath(site) + os.sep
+    outside = all(not os.path.realpath(p).startswith(install)
+                  for p in [got["build_dir"]] + got["libraries"])
+    frame = fast_csv.read_csv(csv_path)
+    mine = frame.matrix(get_wanted_feats_from_df(frame.names))
+    theirs = np.load(values)
+    equal = mine.shape == theirs.shape and np.array_equal(
+        mine.view(np.int64), theirs.view(np.int64))
+    print(f"  wheel built and installed in {packaged:.1f} s; the fresh "
+          f"interpreter imported {os.path.relpath(got['package'], root)}, "
+          f"built {', '.join(os.path.basename(p) for p in got['libraries'])}"
+          f" in {got['build_s']:.1f} s into {got['build_dir']} (outside "
+          f"the install: {outside})")
+    print(f"  --engine native from the install: {theirs.shape} values bit "
+          f"for bit this checkout's reading: {equal}; cli fill --engine "
+          f"native {got['fill_s']:.2f} s, fused_dense launches "
+          f"{got['fused_dense_launches']} (4 a forward); imported "
+          f"{got['modules'] or 'none'} of jax / pandas / sklearn / the JAX "
+          f"package  [{card}]")
+    check(got["rc"] == 0, f"cli fill from the wheel returned {got['rc']}")
+    check(got["package"].startswith(install),
+          f"the port was imported from {got['package']}, not the install")
+    check(outside, f"a library was built inside the install: {got}")
+    check(equal, "the installed native engine read other values")
+    check(got["fused_dense_launches"] == 2 * len(LAYERS),
+          f"{got['fused_dense_launches']} fused_dense launches, expected "
+          f"{2 * len(LAYERS)}")
+    check(not got["modules"], f"the installed port imported {got['modules']}")
+    check_served("fill", "wheel", csv_path, dl)
+    print(f"  [32] {wall + packaged:.1f} s wall  [{card}]")
+    return {"fused_dense_launches": got["fused_dense_launches"],
+            "wall_s": wall + packaged, "build_dir": got["build_dir"]}
+
+
+def main_pipeline() -> int:
+    """[31] and [32] alone, after [8]'s and [11]'s F = 30 cases (the
+    demo's widths among them), every gate reported rather than only the
+    first that fails; the last line lists the failed checks, and the exit
+    code is 1 if there are any."""
+    global FAILED
+    from multimodalautoencoder_tpu_torch.ops import cls_train_kernels as pck
+    from multimodalautoencoder_tpu_torch.ops import train_kernels as ptk
+
+    FAILED = []
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"[1] card: {card}; torch {torch.__version__}")
+    build_kernels([ptk.KERNELS, pck.KERNELS])
+    with tempfile.TemporaryDirectory(prefix="mmae_chip_smoke_") as workdir:
+        for label, title, fn in (
+                ("[8]", "kernel 2 vs its twin at F = 30",
+                 lambda: phase_kernel_vs_twin(ptk, [], None, None)),
+                ("[11]", "kernel 4 vs its twin at F = 30",
+                 lambda: phase_cls_kernel_vs_twin(pck, ptk, None, None,
+                                                  None, None)),
+                ("[31]", "the end-to-end demo",
+                 lambda: phase_pipeline(workdir, ptk, pck, card)),
+                ("[32]", "the installed wheel",
+                 lambda: phase_installed_wheel(
+                     workdir, *serve_study(workdir), card))):
+            print(f"{label} {title}")
+            try:
+                fn()
+            except Exception as exc:   # reported with the checks
+                check(False, f"{label}: {type(exc).__name__}: {exc}")
+    print(card)
+    print(json.dumps({"pipeline": True, "failed_checks": FAILED}))
+    return 1 if FAILED else 0
+
+
 def main_split_cards() -> int:
     """[27] over every visible card (``mesh.local_devices()``): [9]'s tied
     bucket at STEPS steps on cuda:0 alone and split over the cards, each
@@ -3384,9 +3692,11 @@ def main() -> int:
         return main_baselines()
     if sys.argv[1:] == ["--split-cards"]:
         return main_split_cards()
+    if sys.argv[1:] == ["--pipeline"]:
+        return main_pipeline()
     check(len(sys.argv) == 1, "usage: chip_smoke.py "
           "[--tensor-core-products 1|2 | --single-run | --baselines | "
-          "--split-cards | --count-launches <cli arguments>]")
+          "--split-cards | --pipeline | --count-launches <cli arguments>]")
     from multimodalautoencoder_tpu_torch.ops import cls_train_kernels as pck
     from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
     from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
@@ -3459,7 +3769,8 @@ def main() -> int:
                                            settings_v)
         print(f"[12] the validation bucket end to end: "
               f"MMAEClassificationSweep(backend='pallas', "
-              f"save_best_params=True).run(), {CLS_STEPS} + {CLS_STEPS} "
+              f"save_best_params=True).run(), {CLS_RUN_STEPS} + "
+              f"{CLS_RUN_STEPS} "
               "steps")
         cls_launches, _, _ = phase_cls_sweep(workdir, pck, ptk,
                                              study.filename, study, sup,
@@ -3483,7 +3794,7 @@ def main() -> int:
         deep_err = phase_deep_kernel_vs_twin(pdk, ptk, deep, folded, spec)
         print(f"[16] the MMAE sweep end to end: MMAESweep(layer_sizes="
               f"[{DEEP_LAYERS}], backend='pallas', probe='device', "
-              f"save_best_params=True).run(), {MMAE_STEPS} steps")
+              f"save_best_params=True).run(), {MMAE_RUN_STEPS} steps")
         deep_launches, tied_deep, _ = phase_mmae_sweep(
             workdir, pdk, ptk, dk, study, sup, card)
         print(f"[17] the default 108-setting grid through cli sweep-mmae "
@@ -3531,6 +3842,14 @@ def main() -> int:
         print("[30] the parity band on kernel 2: the reference recipe's "
               "three runs, then [9]'s utilization rows")
         band = phase_parity_band(ptk, rates, card)
+        print(f"[31] the end-to-end demo: python -m multimodalautoencoder_"
+              f"tpu_torch.examples.acii_pipeline {' '.join(PIPELINE_ARGS)} "
+              f"--device {DEVICE}")
+        pipeline = phase_pipeline(workdir, ptk, pck, card)
+        print("[32] the installed wheel: built from this checkout, installed"
+              " read-only with pip --target, --engine native and cli fill "
+              "from a fresh interpreter")
+        wheel = phase_installed_wheel(workdir, dl.filename, ck_dae, dl, card)
         for mod in ("jax", "pandas", "sklearn", "multimodalautoencoder_tpu"):
             check(mod not in sys.modules, f"the port's paths imported {mod}")
 
@@ -3545,6 +3864,8 @@ def main() -> int:
               "launches": launches + single["launches"],
               "serve_launches": launches,
               "sharded_winner_serve_launches": sharded["serve_launches"],
+              "installed_wheel_serve_launches":
+                  wheel["fused_dense_launches"],
               "train_launches": single["launches"],
               "max_abs_err": max_err, "max_abs_err_bf16": max_err_bf16,
               "serve_max_abs_lean": max_lean,
@@ -3556,6 +3877,7 @@ def main() -> int:
          "replaces": "multimodalautoencoder_tpu/ops/train_kernel.py:274",
          "launches": train_launches, "max_abs_err": train_err,
          "split": split, "sharded_launches": sharded["launches"],
+         "pipeline_launches": pipeline["launches"]["mmae_train_step"],
          "parity_band_launches": band["launches"],
          "ms": step["ms"], "plain_ms": step["plain_ms"],
          "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
@@ -3566,6 +3888,7 @@ def main() -> int:
          "replaces": "multimodalautoencoder_tpu/ops/train_kernel.py:1439",
          "launches": cls_launches, "max_abs_err": cls_err,
          "sharded_launches": sharded_cls["launches"],
+         "pipeline_launches": pipeline["launches"]["cls_train_step"],
          "ms": cls_step["ms"], "plain_ms": cls_step["plain_ms"],
          "bound_ms": cls_step["bound_ms"], "bound_by": cls_step["bound_by"],
          "library_ms": None,

@@ -31,7 +31,7 @@ shard, and ``merge-shards`` merges a generation of shards and names the
 global winner among the shard-tagged checkpoints.  ``--seed`` seeds the
 row shuffle of ``--normalize-and-fill``, the CV folds and every random
 draw of the run (the JAX CLI seeds the same places).  ``--engine native``
-reads CSVs with the C++ parser of ``native/csv_loader.cpp``
+reads CSVs with the C++ parser of ``csrc/csv_loader.cpp``
 (``data/fast_csv.py``).
 ``baseline svm|rf|lr``, ``sweep-mmae --probe svm`` and ``feature-select
 --backend sklearn`` need scikit-learn, which the port does not depend on:
@@ -272,7 +272,7 @@ def _add_engine(p: argparse.ArgumentParser) -> None:
                    default="pandas",
                    help="CSV reader: the port's own reader, which gives "
                         "pandas' floats ('pandas'), or the C++ parser of "
-                        "native/csv_loader.cpp, correctly rounded")
+                        "csrc/csv_loader.cpp, correctly rounded")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:

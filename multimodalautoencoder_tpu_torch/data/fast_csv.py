@@ -1,18 +1,20 @@
-"""The native CSV reader: ``native/csv_loader.cpp`` bound through ctypes.
+"""The native CSV reader: ``csrc/csv_loader.cpp`` bound through ctypes.
 
 Counterpart of ``multimodalautoencoder_tpu/data/fast_csv.py``, the
 engine behind ``DataLoader(engine="native")`` and the CLI's ``--engine
-native``.  The C++ source is the JAX package's, used as it is: a
-memory-mapped, multithreaded parser whose numbers are correctly rounded.
+native``.  The C++ source is a byte-for-byte copy of the JAX package's
+``native/csv_loader.cpp`` that ships inside the port, so an installed
+wheel has it too: a memory-mapped, multithreaded parser whose numbers
+are correctly rounded.
 The port's default reader (``loader.read_csv``) reproduces pandas' parser
 instead, which is not always correctly rounded: on a CSV whose values
 carry 17 significant digits (as pandas writes them) the two engines can
 differ by many units in the last place (180 for 0.002544689905312978);
 on values that pandas itself wrote back from its own reading they agree.
 
-The library is built with ``g++`` at first use into the port's ``_build/``
-(not the JAX package's ``native/build/``), and rebuilt when the source is
-newer.  It is built for the generic x86-64 (or whatever the compiler
+The library is built with ``g++`` at first use into the port's build
+directory (``cuda_library.build_dir()``, not the JAX package's
+``native/build/``), and rebuilt when the source is newer.  It is built for the generic x86-64 (or whatever the compiler
 targets by default), not for the building host's CPU, so a library
 carried to another machine still runs there; the parser rounds correctly
 whatever the instruction set.  Where it cannot be built or loaded, reading raises, naming the
@@ -29,18 +31,17 @@ import numpy as np
 
 from multimodalautoencoder_tpu_torch.data import preprocess as pp
 from multimodalautoencoder_tpu_torch.data.loader import Frame
-from multimodalautoencoder_tpu_torch.ops.cuda_library import (BUILD_DIR,
-                                                              PKG_DIR,
+from multimodalautoencoder_tpu_torch.ops.cuda_library import (CSRC_DIR,
                                                               NvccLibrary)
 
-SOURCE = os.path.join(os.path.dirname(PKG_DIR), "native", "csv_loader.cpp")
-LIBRARY = os.path.join(BUILD_DIR, "libcsvloader.so")
+SOURCE = os.path.join(CSRC_DIR, "csv_loader.cpp")
+LIBRARY = "libcsvloader.so"  # in cuda_library.build_dir()
 # native/Makefile's flags without -march=native
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
 
 
 class CsvLibrary(NvccLibrary):
-    """``native/csv_loader.cpp`` built with g++ and bound; ``launches``
+    """``csrc/csv_loader.cpp`` built with g++ and bound; ``launches``
     stays 0 (nothing runs on a device)."""
 
     def __init__(self, source: str = SOURCE, library: str = LIBRARY):
@@ -55,8 +56,8 @@ class CsvLibrary(NvccLibrary):
             return super().load()
         except (RuntimeError, OSError) as e:
             raise RuntimeError(
-                f"engine='native': building {self.source} into "
-                f"{self.library} failed: {e}") from e
+                f"engine='native': building {self.source} failed: {e}"
+            ) from e
 
     def _bind(self, lib: ctypes.CDLL) -> None:
         lib.csv_open.restype = ctypes.c_void_p

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import csv
 import os
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -238,14 +239,24 @@ class Frame:
         return Frame(self.index_name, self.index, cols)
 
     def to_csv(self, path: str) -> None:
-        """Write with the index first, as ``DataFrame.to_csv`` does."""
+        """Write with the index first, as ``DataFrame.to_csv`` does.  The
+        text goes to a file beside ``path`` that then replaces it, so a
+        process reading ``path`` meanwhile sees the old file or the new
+        one, never a part: the shards of a sweep persist the same CV folds
+        into one study at once."""
         cells = [self.index] + [
             _format_floats(c) if c.dtype.kind == "f" else c
             for c in self.columns.values()]
-        with open(path, "w", newline="") as f:
-            w = csv.writer(f, lineterminator="\n")
-            w.writerow([self.index_name] + self.names)
-            w.writerows(zip(*cells))
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        try:
+            with open(tmp, "w", newline="") as f:
+                w = csv.writer(f, lineterminator="\n")
+                w.writerow([self.index_name] + self.names)
+                w.writerows(zip(*cells))
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
 
 
 def read_csv(path: str) -> Frame:

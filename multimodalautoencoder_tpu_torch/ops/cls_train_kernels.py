@@ -54,14 +54,13 @@ from multimodalautoencoder_tpu_torch.models import mmae
 from multimodalautoencoder_tpu_torch.models.corruption import NoiseSpec
 from multimodalautoencoder_tpu_torch.ops import dense_kernels, optim, \
     philox, train_kernels
-from multimodalautoencoder_tpu_torch.ops.cuda_library import (BUILD_DIR,
-                                                              CSRC_DIR,
+from multimodalautoencoder_tpu_torch.ops.cuda_library import (CSRC_DIR,
                                                               NvccLibrary)
 
 SOURCE = os.path.join(CSRC_DIR, "cls_train_kernel.cu")
 HEADERS = (os.path.join(CSRC_DIR, "philox.cuh"),
            os.path.join(CSRC_DIR, "train_common.cuh"))
-LIBRARY = os.path.join(BUILD_DIR, "libcls_train_kernel.so")
+LIBRARY = "libcls_train_kernel.so"  # in cuda_library.build_dir()
 
 # The kernel's parameter slots (csrc/cls_train_kernel.cu ``Slot``), each
 # (N, rows, cols) or (N, cols); None where the bucket has no such tensor.

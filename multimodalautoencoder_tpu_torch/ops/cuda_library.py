@@ -4,15 +4,26 @@ interface (nvcc -> ``ctypes``), at first use.
 Each kernel module of the port (``ops/dense_kernels.py``,
 ``ops/train_kernels.py``) subclasses :class:`NvccLibrary` and binds its
 symbols in :meth:`NvccLibrary._bind`.  The library is compiled for
-``sm_90a`` into ``_build/`` beside the package and rebuilt when its source
-or one of its headers is newer.  The build needs no PyTorch headers, so it
-takes seconds.  A failed build raises with the compiler's output; nothing
-falls back.
+``sm_90a`` into :func:`build_dir` and rebuilt when its source or one of
+its headers is newer.  The build needs no PyTorch headers, so it takes
+seconds.  A failed build raises with the compiler's output; nothing falls
+back.
+
+:func:`build_dir` is named by a hash of the package's ``csrc/`` sources,
+under the package's own ``_build/`` where the package can be written (a
+checkout, a virtual environment) and otherwise (an installed wheel in a
+read-only site-packages) under a per-user cache directory.  A wheel's
+files carry the times of its zip, and an upgrade leaves the old
+``_build/`` in place, so the rebuild-when-newer rule alone could not tell
+one release's sources from another's; the hash does.  The rule stays for
+a library whose source lies outside ``csrc/``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import hashlib
 import os
 import re
 import shutil
@@ -27,9 +38,60 @@ import torch
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def writable(directory: str) -> bool:
+    """Whether files can be made in ``directory``: it exists, this process
+    may write it, and its mode does not mark it read-only (root may write
+    any directory, so a read-only install is known by its mode)."""
+    return (os.path.isdir(directory)
+            and os.access(directory, os.W_OK | os.X_OK)
+            and bool(os.stat(directory).st_mode & 0o222))
+
+
+def sources_key(csrc: str = CSRC_DIR) -> str:
+    """A hash of every file in ``csrc`` (names and contents)."""
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(csrc)):
+        path = os.path.join(csrc, name)
+        if os.path.isfile(path):
+            with open(path, "rb") as f:
+                h.update(name.encode() + b"\0" + f.read() + b"\0")
+    return h.hexdigest()[:16]
+
+
+def resolve_build_dir(pkg_dir: str = PKG_DIR) -> str:
+    """``<sources_key>`` under the package's ``_build/`` where that (or,
+    before the first build, the package directory) is writable, else under
+    the per-user cache, ``$XDG_CACHE_HOME`` (else ``~/.cache``)
+    ``/multimodalautoencoder_tpu_torch/``, made if need be.  Raises naming
+    both when neither can be written."""
+    key = sources_key(os.path.join(pkg_dir, "csrc"))
+    own_root = os.path.join(pkg_dir, "_build")
+    own = os.path.join(own_root, key)
+    if writable(own_root if os.path.isdir(own_root) else pkg_dir):
+        return own
+    root = (os.environ.get("XDG_CACHE_HOME")
+            or os.path.join(os.path.expanduser("~"), ".cache"))
+    cache = os.path.join(root, "multimodalautoencoder_tpu_torch", key)
+    try:
+        os.makedirs(cache, exist_ok=True)
+    except OSError:
+        pass
+    if writable(cache):
+        return cache
+    raise RuntimeError(
+        "no writable directory to build the port's libraries in: neither "
+        f"the package's {own} nor the per-user cache {cache}")
+
+
+@functools.lru_cache(maxsize=None)
+def build_dir() -> str:
+    """Where this process builds and loads the libraries:
+    :func:`resolve_build_dir`, resolved once."""
+    return resolve_build_dir()
 
 
 def nvcc() -> str:
@@ -53,6 +115,8 @@ class NvccLibrary:
     to ``captured`` instead, and ``ops/step_graph.StepGraph`` adds the
     launches its graph holds to ``launches`` at each replay.
     ``NvccLibrary.instances`` holds every library made, weakly.
+    ``library`` is a path, or a bare file name that lies in
+    :func:`build_dir`.
     """
 
     instances: "weakref.WeakSet[NvccLibrary]" = weakref.WeakSet()
@@ -72,6 +136,16 @@ class NvccLibrary:
         self._count_lock = threading.Lock()
         NvccLibrary.instances.add(self)
 
+    @property
+    def library(self) -> str:
+        if os.path.dirname(self._library):
+            return self._library
+        return os.path.join(build_dir(), self._library)
+
+    @library.setter
+    def library(self, path: str) -> None:
+        self._library = path
+
     def count(self, launches: int) -> None:
         """Add ``launches`` to :attr:`launches`, or to :attr:`captured`
         while the current stream is capturing a CUDA graph."""
@@ -84,9 +158,10 @@ class NvccLibrary:
                 self.launches += int(launches)
 
     def stale(self) -> bool:
-        if not os.path.exists(self.library):
+        library = self.library
+        if not os.path.exists(library):
             return True
-        built = os.path.getmtime(self.library)
+        built = os.path.getmtime(library)
         return any(os.path.getmtime(p) > built
                    for p in (self.source,) + self.headers)
 
@@ -99,9 +174,10 @@ class NvccLibrary:
         """Compile the source (:meth:`command`) into ``library``; raises
         with the compiler's output if it fails.  ``build_log`` keeps what
         the compiler reported (ptxas: registers, shared memory, spills)."""
-        os.makedirs(os.path.dirname(self.library), exist_ok=True)
+        library = self.library
+        os.makedirs(os.path.dirname(library), exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so",
-                                   dir=os.path.dirname(self.library))
+                                   dir=os.path.dirname(library))
         os.close(fd)
         cmd = self.command(tmp)
         t0 = time.perf_counter()
@@ -112,7 +188,7 @@ class NvccLibrary:
                     f"{os.path.basename(cmd[0])} failed ({proc.returncode}):"
                     f" {' '.join(cmd)}\n"
                     f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, self.library)  # atomic: no half-written .so
+            os.replace(tmp, library)  # atomic: no half-written .so
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)

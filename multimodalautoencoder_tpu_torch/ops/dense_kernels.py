@@ -17,7 +17,7 @@ dispatches to it:
   version of the same math, which the tests hold against the JAX package.
 
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
-``_build/`` beside the package (``ops/cuda_library.py``).
+``cuda_library.build_dir()``.
 
 Trainable: :func:`fused_dense` is a ``torch.autograd.Function`` on both
 devices, the counterpart of the Pallas version's custom VJP (``_fwd`` /
@@ -48,13 +48,12 @@ from typing import Optional, Sequence
 import torch
 
 from multimodalautoencoder_tpu_torch.config import ACTIVATIONS
-from multimodalautoencoder_tpu_torch.ops.cuda_library import (BUILD_DIR,
-                                                              CSRC_DIR,
+from multimodalautoencoder_tpu_torch.ops.cuda_library import (CSRC_DIR,
                                                               NVCC_FLAGS,
                                                               NvccLibrary)
 
 SOURCE = os.path.join(CSRC_DIR, "fused_dense.cu")
-LIBRARY = os.path.join(BUILD_DIR, "libfused_dense.so")
+LIBRARY = "libfused_dense.so"  # in cuda_library.build_dir()
 
 # f32 operands with at most this many rows take the small-tile FFMA
 # kernel, more rows the 128 x 128 one (FFMA_MAX_ROWS in csrc/fused_dense.cu)

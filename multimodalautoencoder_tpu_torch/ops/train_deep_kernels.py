@@ -44,15 +44,14 @@ from multimodalautoencoder_tpu_torch.config import MMAEConfig, TrainConfig
 from multimodalautoencoder_tpu_torch.models import mmae
 from multimodalautoencoder_tpu_torch.models.corruption import NoiseSpec
 from multimodalautoencoder_tpu_torch.ops import philox, train_kernels
-from multimodalautoencoder_tpu_torch.ops.cuda_library import (BUILD_DIR,
-                                                              CSRC_DIR,
+from multimodalautoencoder_tpu_torch.ops.cuda_library import (CSRC_DIR,
                                                               NvccLibrary)
 from multimodalautoencoder_tpu_torch.ops.train_kernels import (
     LAUNCH_TYPES, MAX_DEPTH, GridRun)
 
 SOURCE = os.path.join(CSRC_DIR, "train_deep_kernel.cu")
 HEADERS = train_kernels.HEADERS
-LIBRARY = os.path.join(BUILD_DIR, "libtrain_deep_kernel.so")
+LIBRARY = "libtrain_deep_kernel.so"  # in cuda_library.build_dir()
 
 # csrc/train_deep_kernel.cu ``Slot``: encode weights at [0, MAX_DEPTH),
 # decode weights at [MAX_DEPTH, 2 MAX_DEPTH), then their biases, wv, bv.

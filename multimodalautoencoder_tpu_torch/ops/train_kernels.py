@@ -48,14 +48,13 @@ from multimodalautoencoder_tpu_torch.models.corruption import (
     NoiseSpec, add_noise_to_batch)
 from multimodalautoencoder_tpu_torch.ops import dense_kernels, masking, \
     optim, philox
-from multimodalautoencoder_tpu_torch.ops.cuda_library import (BUILD_DIR,
-                                                              CSRC_DIR,
+from multimodalautoencoder_tpu_torch.ops.cuda_library import (CSRC_DIR,
                                                               NvccLibrary)
 
 SOURCE = os.path.join(CSRC_DIR, "train_kernel.cu")
 HEADERS = (os.path.join(CSRC_DIR, "philox.cuh"),
            os.path.join(CSRC_DIR, "train_common.cuh"))
-LIBRARY = os.path.join(BUILD_DIR, "libtrain_kernel.so")
+LIBRARY = "libtrain_kernel.so"  # in cuda_library.build_dir()
 
 # The kernel's parameter slots (csrc/train_kernel.cu ``Slot``), each
 # (N, rows, cols) or (N, cols); None where the bucket has no such tensor.

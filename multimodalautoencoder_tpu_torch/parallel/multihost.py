@@ -12,9 +12,15 @@ ledger and checkpoint files in a shared results directory.
 :func:`initialize` brings up ``torch.distributed`` on gloo (on the CPU or
 beside the GPUs alike: the only collective is :func:`barrier`) from
 torchrun's variables or its own arguments, and is a no-op in a single
-process, so the same sweep script runs everywhere.  The CSV is the
-port's own ledger format (``sweep/engine.py``), which the JAX package's
-pandas ledger reads and writes too.
+process, so the same sweep script runs everywhere.  The job meets through
+a store: process 0's TCP store at the coordinator address, or a file (a
+``FileStore`` in the run's directory, where no port has to be picked).
+A coordinator address with port 0 lets process 0's store take a free port
+and write it to the rendezvous file, where the others read it.
+:func:`shutdown` leaves the job in order: process 0, which hosts a TCP
+store, closes last.  The CSV is the port's own ledger format
+(``sweep/engine.py``), which the JAX package's pandas ledger reads and
+writes too.
 """
 
 from __future__ import annotations
@@ -22,49 +28,121 @@ from __future__ import annotations
 import datetime
 import os
 import re
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 BARRIER_TIMEOUT_MS = 1_800_000
 
+# the store the process group was made on, for shutdown()'s ordering (the
+# process group itself is torch.distributed's process-wide state)
+_STORE = None
+
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
-               timeout_ms: int = BARRIER_TIMEOUT_MS) -> Tuple[int, int]:
+               timeout_ms: int = BARRIER_TIMEOUT_MS,
+               rendezvous_file: Optional[str] = None) -> Tuple[int, int]:
     """Join the distributed job when one is configured; returns
     (process_index, process_count), (0, 1) in a single process.
 
-    The address is ``coordinator_address`` (``host:port``) or
-    ``MASTER_ADDR`` / ``MASTER_PORT``; the topology ``num_processes`` /
-    ``process_id`` or ``WORLD_SIZE`` / ``RANK`` (torchrun's names).  An
-    address without a topology raises ``ValueError``: with a defaulted
-    topology every process would believe it is process 0 of 1, train the
-    whole grid and clobber one shared ledger.  ``timeout_ms`` is the
-    gloo group's timeout, which bounds :func:`barrier`."""
+    The job meets at process 0's TCP store on ``coordinator_address``
+    (``host:port``) or ``MASTER_ADDR`` / ``MASTER_PORT``, or else at
+    ``rendezvous_file`` (a path every process can reach, not yet in use by
+    another job).  With port 0 and more than one process, process 0's
+    store takes a free port and writes it to ``rendezvous_file``, which the
+    others wait for (``timeout_ms`` at most).  The topology is
+    ``num_processes`` / ``process_id`` or ``WORLD_SIZE`` / ``RANK``
+    (torchrun's names).  A meeting place without a topology raises
+    ``ValueError``: with a defaulted topology every process would believe
+    it is process 0 of 1, train the whole grid and clobber one shared
+    ledger.  ``timeout_ms`` is the gloo group's timeout, which bounds
+    :func:`barrier`."""
     import torch.distributed as dist
 
+    global _STORE
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     addr = coordinator_address
     if addr is None and os.environ.get("MASTER_ADDR"):
         addr = (f"{os.environ['MASTER_ADDR']}:"
                 f"{os.environ.get('MASTER_PORT', '29500')}")
-    if not addr:
+    if not (addr or rendezvous_file):
         return 0, 1
     nproc = num_processes if num_processes is not None else \
         os.environ.get("WORLD_SIZE")
     pid = process_id if process_id is not None else os.environ.get("RANK")
     if nproc is None or pid is None:
         raise ValueError(
-            "coordinator address is set but num_processes/process_id are "
-            "not — pass them explicitly or set WORLD_SIZE and RANK on "
-            "every process")
-    dist.init_process_group(
-        "gloo", init_method=f"tcp://{addr}", world_size=int(nproc),
-        rank=int(pid), timeout=datetime.timedelta(milliseconds=timeout_ms))
+            "a coordinator address or rendezvous file is set but "
+            "num_processes/process_id are not — pass them explicitly or set"
+            " WORLD_SIZE and RANK on every process")
+    nproc, pid = int(nproc), int(pid)
+    timeout = datetime.timedelta(milliseconds=timeout_ms)
+    if addr:
+        host, port = addr.rsplit(":", 1)
+        publish = int(port) == 0 and nproc > 1
+        if publish and not rendezvous_file:
+            raise ValueError(
+                f"coordinator {addr}: port 0 with {nproc} processes needs a "
+                "rendezvous_file to publish the port through")
+        if publish and pid:
+            port = _published_port(rendezvous_file, timeout_ms)
+        store = dist.TCPStore(host, int(port), nproc, is_master=pid == 0,
+                              timeout=timeout, wait_for_workers=False)
+        if publish and not pid:
+            tmp = f"{rendezvous_file}.{os.getpid()}.tmp"
+            with open(tmp, "w") as f:
+                f.write(str(store.port))
+            os.replace(tmp, rendezvous_file)   # read whole or not at all
+    else:
+        store = dist.FileStore(rendezvous_file, nproc)
+    dist.init_process_group("gloo", store=store, world_size=nproc,
+                            rank=pid, timeout=timeout)
+    _STORE = store
     return dist.get_rank(), dist.get_world_size()
+
+
+def _published_port(path: str, timeout_ms: int) -> int:
+    """The port process 0 wrote to ``path``, waited for up to
+    ``timeout_ms``."""
+    deadline = time.monotonic() + timeout_ms / 1000
+    while True:
+        try:
+            with open(path) as f:
+                return int(f.read())
+        except FileNotFoundError:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"process 0 published no port at {path} "
+                                   f"in {timeout_ms} ms") from None
+            time.sleep(0.05)
+
+
+def shutdown(timeout_ms: int = BARRIER_TIMEOUT_MS) -> None:
+    """Leave the distributed job (no-op in a single process).  Every
+    process meets at a last :func:`barrier`; then the others close their
+    process groups and say so through the store, and process 0 closes its
+    own only when all have: it hosts the TCP store, which a peer still
+    closing would otherwise lose under it."""
+    import torch.distributed as dist
+
+    global _STORE
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    rank, count = dist.get_rank(), dist.get_world_size()
+    store, _STORE = _STORE, None
+    barrier("shutdown", timeout_ms)
+    if store is None:   # the group was made elsewhere: no store to order by
+        dist.destroy_process_group()
+    elif rank:
+        dist.destroy_process_group()
+        store.set(f"mmae_closed/{rank}", "1")
+    else:
+        store.wait([f"mmae_closed/{r}" for r in range(1, count)],
+                   datetime.timedelta(milliseconds=timeout_ms))
+        dist.destroy_process_group()
 
 
 def barrier(name: str = "mmae_sweep_barrier",

@@ -37,12 +37,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from multimodalautoencoder_tpu_torch.ops.cuda_library import (BUILD_DIR,
-                                                              CSRC_DIR,
+from multimodalautoencoder_tpu_torch.ops.cuda_library import (CSRC_DIR,
                                                               NvccLibrary)
 
 SOURCE = os.path.join(CSRC_DIR, "hbm_stream.cu")
-LIBRARY = os.path.join(BUILD_DIR, "libhbm_stream.so")
+LIBRARY = "libhbm_stream.so"  # in cuda_library.build_dir()
 PATTERNS = ("read", "write", "mixed")
 # the untied 1000 -> 100 bucket's bf16 m and v: 60 instances x (1000 x
 # 1000 x 2 + 1000 x 100 x 2) weights, 2 moments of 2 B each

@@ -10,10 +10,12 @@ Two modes:
 
 - default: N workers run one after another, each told its shard;
 - ``--distributed``: N concurrent workers join one ``torch.distributed``
-  job on gloo over TCP (``multihost.initialize``), take their shard from
-  their rank, meet at ``multihost.barrier()``, and rank 0 merges the
-  shards inside the job.  On several machines the only change is the
-  coordinator address.
+  job on gloo (``multihost.initialize``), take their shard from their
+  rank, meet at ``multihost.barrier()``, rank 0 merges the shards inside
+  the job, and they leave it with ``multihost.shutdown()``.  They meet
+  through a file in ``--out`` (no port to pick), or at rank 0's TCP store
+  on ``--coordinator host:port``, as on several machines (port 0: rank 0
+  takes a free port and writes it to that file).
 
 Run from anywhere (the workers get the repository on ``PYTHONPATH``)::
 
@@ -34,7 +36,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -93,15 +94,22 @@ def _prefix(args) -> str:
         os.path.basename(args.data), replace=True)
 
 
+def rendezvous_file(out: str) -> str:
+    """Where the workers of ``--distributed`` meet without a coordinator,
+    or find the port of ``--coordinator host:0``."""
+    return os.path.join(out, "rendezvous")
+
+
 def worker(args) -> None:
-    """One process: train this process's slice.  With ``--coordinator``
+    """One process: train this process's slice.  With ``--distributed``
     the shard comes from the distributed job's rank."""
     from multimodalautoencoder_tpu_torch.parallel import multihost
 
-    if args.coordinator:
+    if args.distributed:
         idx, count = multihost.initialize(
-            coordinator_address=args.coordinator, num_processes=args.hosts,
-            process_id=args.process_id)
+            coordinator_address=args.coordinator or None,
+            num_processes=args.hosts, process_id=args.process_id,
+            rendezvous_file=rendezvous_file(args.out))
         if (idx, count) != (args.process_id, args.hosts):
             raise SystemExit(f"joined as {idx} of {count}, expected "
                              f"{args.process_id} of {args.hosts}")
@@ -119,23 +127,14 @@ def worker(args) -> None:
                           "deep": train_deep_kernels.KERNELS.launches,
                           "cls": cls_train_kernels.KERNELS.launches}}),
           flush=True)
-    if args.coordinator:
-        import torch.distributed as dist
-
+    if args.distributed:
         # every shard on disk before the merge
         multihost.barrier("ledger_shards_written")
         if idx == 0:
             merged = multihost.merge_ledger_shards(args.out, _prefix(args),
                                                    num_shards=count)
             print(json.dumps({"merged": merged}), flush=True)
-        multihost.barrier("merge_done")
-        dist.destroy_process_group()
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+        multihost.shutdown()
 
 
 def main(args) -> None:
@@ -162,9 +161,12 @@ def main(args) -> None:
         + (["--classification"] if args.classification else [])
     t0 = time.perf_counter()
     if args.distributed:
-        coord = args.coordinator or f"127.0.0.1:{_free_port()}"
+        if args.coordinator:
+            base += ["--coordinator", args.coordinator]
+        if os.path.exists(rendezvous_file(args.out)):
+            os.remove(rendezvous_file(args.out))   # an ended job's
         procs = [subprocess.Popen(
-            base + ["--process-id", str(i), "--coordinator", coord],
+            base + ["--process-id", str(i), "--distributed"],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             env=env) for i in range(args.hosts)]
         try:
@@ -174,11 +176,14 @@ def main(args) -> None:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
+        failed = []
         for i, (p, (out, err)) in enumerate(zip(procs, outs)):
             sys.stdout.write(out)
             if p.returncode:
-                sys.stderr.write(err)
-                raise SystemExit(f"worker {i} failed ({p.returncode})")
+                sys.stderr.write(f"-- worker {i}:\n{err}")
+                failed.append(f"worker {i} failed ({p.returncode})")
+        if failed:
+            raise SystemExit("; ".join(failed))
     else:
         for i in range(args.hosts):
             r = subprocess.run(base + ["--process-id", str(i)],
@@ -243,11 +248,14 @@ def parse_args(argv=None):
     ap.add_argument("--process-id", type=int, default=0)
     ap.add_argument("--distributed", action="store_true",
                     help="concurrent workers in one torch.distributed job "
-                         "(gloo over TCP)")
+                         "(gloo)")
     ap.add_argument("--classification", action="store_true",
                     help="shard the two-phase classification sweep")
     ap.add_argument("--coordinator", default="",
-                    help="host:port of rank 0; picked by --distributed")
+                    help="host:port of rank 0's TCP store with "
+                         "--distributed; port 0: rank 0 takes a free port "
+                         "and writes it to a file in --out (default: the "
+                         "workers meet through a file in --out)")
     args = ap.parse_args(argv)
     args.out = os.path.abspath(args.out)
     if args.data:

@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither jax nor the JAX package, and
-neither the serve path nor the training, sweep, probe, baseline and data
-paths import pandas or scikit-learn.  scikit-learn is imported only
+neither the serve path nor the training, sweep, probe, baseline, data and
+demo paths import pandas or scikit-learn.  scikit-learn is imported only
 inside the functions that need it (the SVM, RF and LR baselines, the SVM
 probe, feature selection's sklearn backend), never at a module's top.
 
@@ -140,6 +140,27 @@ def test_baseline_and_data_paths_import_no_jax_pandas_or_sklearn():
         "import multimodalautoencoder_tpu_torch.data.feature_selection\n"
         "import multimodalautoencoder_tpu_torch.data.fast_csv\n"
         "import multimodalautoencoder_tpu_torch.sweep.probe_parity\n"
+        f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_demo_and_wheel_paths_import_no_jax_pandas_or_sklearn():
+    """The end-to-end demo and what an installed wheel resolves at first
+    use (the build directory, the multi-process helpers, the wheel
+    check): importing them
+    loads no jax, JAX package, pandas or scikit-learn."""
+    code = (
+        "import sys\n"
+        "import multimodalautoencoder_tpu_torch.examples.acii_pipeline\n"
+        "import multimodalautoencoder_tpu_torch.ops.cuda_library as cl\n"
+        "import multimodalautoencoder_tpu_torch.parallel.multihost\n"
+        "import multimodalautoencoder_tpu_torch.tools.multihost_sweep\n"
+        "import multimodalautoencoder_tpu_torch.tools.wheel_check\n"
+        "cl.build_dir()\n"
         f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

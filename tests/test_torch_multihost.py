@@ -6,7 +6,6 @@ both packages from files the port wrote, and a real two-process gloo
 sweep through ``tools/multihost_sweep.py`` (on the card too, ``cuda``)."""
 
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -173,6 +172,40 @@ def test_initialize_requires_explicit_topology(monkeypatch):
         multihost.initialize()
     with pytest.raises(ValueError, match="num_processes"):
         multihost.initialize(coordinator_address="127.0.0.1:1")
+    with pytest.raises(ValueError, match="num_processes"):
+        multihost.initialize(rendezvous_file="/nonexistent/rendezvous")
+
+
+def test_port_zero_needs_a_rendezvous_file(monkeypatch):
+    """With port 0 the other processes learn process 0's port only from
+    the rendezvous file."""
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(ValueError, match="rendezvous_file"):
+        multihost.initialize(coordinator_address="127.0.0.1:0",
+                             num_processes=2, process_id=1)
+
+
+@pytest.mark.parametrize("meet", ["file", "tcp"])
+def test_initialize_and_shutdown_one_process(tmp_path, monkeypatch, meet):
+    """A one-process job through each meeting place: a file, or a TCP
+    store that binds its own free port (port 0); ``shutdown`` leaves it
+    and clears the store."""
+    import torch.distributed as dist
+
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    kw = (dict(rendezvous_file=str(tmp_path / "rendezvous"))
+          if meet == "file" else dict(coordinator_address="127.0.0.1:0"))
+    try:
+        assert multihost.initialize(num_processes=1, process_id=0,
+                                    **kw) == (0, 1)
+        assert dist.is_initialized() and multihost._STORE is not None
+        multihost.barrier("one")
+        multihost.shutdown()
+        assert not dist.is_initialized() and multihost._STORE is None
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        multihost._STORE = None
 
 
 # -------------------------------------------------- against the JAX package
@@ -239,23 +272,60 @@ def test_global_winner_matches_jax_on_port_exports(tmp_path):
         str(tmp_path), "best_mmae")
 
 
+def test_study_rewritten_under_a_reader_is_read_whole(tmp_path):
+    """The shards of a distributed sweep load one study at once, and each
+    persists its CV folds into it (``DataLoader``): a reader must see the
+    old file or the new one, never a part (before ``Frame.to_csv`` wrote
+    through a replaced file, 2 of 50 runs of the two-process sweep below
+    failed beside 5 busy pytest workers: a rank read a half-written study
+    and the job lost it)."""
+    import threading
+
+    from multimodalautoencoder_tpu_torch.data import synthetic
+    from multimodalautoencoder_tpu_torch.data.loader import read_csv
+
+    path = synthetic.write_csv(str(tmp_path / "data.csv"), num_rows=1000,
+                               seed=11)
+    frame = read_csv(path)
+    done = threading.Event()
+
+    def writer():
+        try:
+            for _ in range(40):
+                frame.to_csv(path)
+        finally:
+            done.set()
+
+    t = threading.Thread(target=writer)
+    t.start()
+    reads = 0
+    try:
+        while not done.is_set() or reads == 0:
+            got = read_csv(path)
+            assert len(got) == 1000 and got.names == frame.names
+            reads += 1
+    finally:
+        t.join(timeout=120)
+    assert not t.is_alive()
+    assert sorted(os.listdir(tmp_path)) == ["data.csv"]
+
+
 # ------------------------------------------------ two processes on gloo
 
-def run_distributed(tmp_path, device):
-    """``tools/multihost_sweep.py --hosts 2 --distributed`` on a free port:
-    two concurrent workers join one gloo job, each trains its half of a
-    2-setting grid for 30 steps, they meet at the barrier and rank 0
-    merges the shards."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+def run_distributed(tmp_path, device, coordinator=None):
+    """``tools/multihost_sweep.py --hosts 2 --distributed``: two concurrent
+    workers join one gloo job, through a file in the run's directory or at
+    rank 0's TCP store on ``coordinator`` (no port is picked and released
+    for another process to take), each trains its half of a 2-setting grid
+    for 30 steps, they meet at the barrier, rank 0 merges the shards, and
+    rank 0 leaves the job last."""
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run(
         [sys.executable, "-m",
          "multimodalautoencoder_tpu_torch.tools.multihost_sweep",
          "--hosts", "2", "--distributed", "--steps", "30", "--device",
-         device, "--coordinator", f"127.0.0.1:{port}", "--out",
-         str(tmp_path / "out"), "--timeout", "240"],
+         device, "--out", str(tmp_path / "out"), "--timeout", "240"]
+        + (["--coordinator", coordinator] if coordinator else []),
         capture_output=True, text=True, cwd=str(tmp_path), env=env,
         timeout=300)
     assert r.returncode == 0, f"stdout:\n{r.stdout}\nstderr:\n{r.stderr}"
@@ -270,6 +340,21 @@ def run_distributed(tmp_path, device):
 def test_real_distributed_two_process_sweep(tmp_path):
     merged = run_distributed(tmp_path, "cpu")
     assert set(merged["backend_used"]) == {"xla"}
+
+
+def test_real_distributed_two_process_sweep_over_tcp(tmp_path):
+    """The same job at rank 0's TCP store, the way across machines: rank 0
+    binds port 0 and writes the port it got to the run's rendezvous file,
+    rank 1 reads it there, and rank 0, the store's host, leaves last.  The
+    merged ledger is the file route's."""
+    (tmp_path / "tcp").mkdir()
+    (tmp_path / "file").mkdir()
+    merged = run_distributed(tmp_path / "tcp", "cpu", "127.0.0.1:0")
+    assert set(merged["backend_used"]) == {"xla"}
+    by_file = run_distributed(tmp_path / "file", "cpu")
+    timed = ["time_per_setting_s", "inst_steps_per_s"]   # wall clock
+    pd.testing.assert_frame_equal(merged.drop(columns=timed),
+                                  by_file.drop(columns=timed))
 
 
 @pytest.fixture
