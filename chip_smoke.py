@@ -86,7 +86,15 @@ kernel, and the result:
 variant instead: the training libraries built with their products on the
 tensor cores (csrc/train_common.cuh, TRAIN_TENSOR_CORE_PRODUCTS), then the
 training gates and step timings ([8]-[11], [14], [15]), every gate
-reported rather than only the first that fails.  ``python3 chip_smoke.py
+reported rather than only the first that fails.  The variant no longer
+reaches kernel 3: its products run on gemm_batch_kernel, which has no
+tensor-core form, so [15] holds kernel 3 as the plain build has it.
+``python3 chip_smoke.py --deep`` runs [15] and [18] alone, every gate
+reported.  ``python3 chip_smoke.py --deep-ab <checkout>`` runs kernel 3 of
+another
+checkout (the parent's) and of this one, each in processes of its own,
+from the same state and seeds: parameters and moments after 10 steps
+compared bit for bit, and the tied deep step timed in turns.  ``python3 chip_smoke.py
 --single-run`` runs [20] and [21] alone, [21] with a control route (the
 kernel route with bf16 operands), every gate reported; ``python3
 chip_smoke.py --baselines`` runs [23]-[26] alone, every gate reported.
@@ -1797,18 +1805,68 @@ def deep_products(cfg, batch: int) -> dict:
             "weight_grad_adam": wgr}
 
 
+def launches_vs_bmm(per_launch, bounds, products, n_inst: int,
+                    card: str) -> list:
+    """Each launch of a deep step on the device beside ``torch.bmm`` of
+    its products (the update's: its weight-gradient products, without
+    Adam), in turns: the kernels' per-launch CUDA events over a window
+    (``per_launch()`` -> ms by launch), bmm launch by launch (device
+    alone), bmm again, the kernels again.  ``bounds`` is
+    ``deep_launch_bounds`` (launch order); ``products`` maps a launch's
+    index to its (m, k, n) products."""
+    ops = {i: [(torch.rand((n_inst, m, k), device=DEVICE),
+                torch.rand((n_inst, k, n), device=DEVICE))
+               for m, k, n in shapes] for i, shapes in products.items()}
+
+    def bmm_turn():
+        return {i: device_ms(lambda o=o: [torch.bmm(a, b) for a, b in o],
+                             reps=5, inner=5) for i, o in ops.items()}
+
+    k1 = per_launch()
+    b1, b2 = bmm_turn(), bmm_turn()
+    k2 = per_launch()
+    check(len(k1) == len(bounds) == len(k2),
+          f"{len(k1)} launches timed, {len(bounds)} planned")
+    print(f"    {'#':>2s} {'launch':16s} {'grid':>13s} {'ncol':>5s} "
+          f"{'K':>5s} {'ms (turn 1 / 2)':>17s} {'torch.bmm':>17s} "
+          f"{'bound':>7s} {'by':5s} share")
+    rows = []
+    for i, b in enumerate(bounds):
+        ms = (k1[i] + k2[i]) / 2
+        lib = (b1[i] + b2[i]) / 2 if i in ops else None
+        grid = "x".join(map(str, b["grid"])) if "grid" in b else "-"
+        kk = f"{b['K']}+{b['K2']}" if b.get("K2") else str(b.get("K", "-"))
+        vs = f"{b1[i]:.4f} / {b2[i]:.4f}" if i in ops else "-"
+        print(f"    {i:2d} {b['name']:16s} {grid:>13s} "
+              f"{str(b.get('ncol', '-')):>5s} {kk:>5s} "
+              f"{k1[i]:.4f} / {k2[i]:.4f} {vs:>17s} {b['bound_ms']:.4f} "
+              f"{b['bound_by'][:5]:5s} {100 * b['bound_ms'] / ms:.1f} %")
+        rows.append({"name": b["name"], "grid": b.get("grid"),
+                     "ncol": b.get("ncol"), "K": b.get("K"), "ms": ms,
+                     "library_ms": lib, "bound_ms": b["bound_ms"],
+                     "bound_by": b["bound_by"]})
+    print(f"    sum {sum(r['ms'] for r in rows):.4f} ms; bounds sum "
+          f"{sum(r['bound_ms'] for r in rows):.4f} ms  [{card}]")
+    return rows
+
+
 def phase_deep_step_timing(pdk, ptk, tied, folded, spec, card: str) -> dict:
     """One step of [16]'s tied bucket (60 instances, bf16 moments): the
     kernels by CUDA events from fresh parameters (the first 300 steps in
     one call, then windows of 50) and from the trained ones, each launch
-    type against its bound, the twin on the card, and the step's products
-    as torch.bmm calls (the library yardstick; the port never calls
-    it)."""
+    type against its bound, then each launch against its own bound
+    (``deep_launch_bounds``) with its grid, ``ncol`` and ``K``, the twin on
+    the card, and the step's products as torch.bmm calls (the library
+    yardstick; the port never calls it), in turns with the kernels.  The
+    grouped update's type bound is the weight and bias updates' together."""
     cfg, tcfg, hyper, params = tied
     C, K = hyper.num_configs, folded.num_folds
     N = C * K
     inner = 50
     bounds = pdk.deep_launch_type_bounds(cfg, N, BATCH, True)
+    w, b = bounds.pop("weight_grad_adam"), bounds.pop("bias_grad_adam")
+    bounds["weight_grad_adam"] = ptk._bound(w["bytes"] + b["bytes"],
+                                            w["flop"] + b["flop"])
     step = pdk.deep_step_bound(cfg, N, BATCH, True)
     print(f"  tied {cfg.num_feats} -> {' -> '.join(map(str, cfg.layer_sizes))}"
           f", N={N}, B={BATCH}, bf16 moments; bound {step['bound_ms']:.4f} "
@@ -1843,6 +1901,21 @@ def phase_deep_step_timing(pdk, ptk, tied, folded, spec, card: str) -> dict:
     print("  fresh parameters by launch type (events, serialised), in "
           "turns with torch.bmm of its products on the device")
     types = types_vs_bmm(profile, groups, bounds, N, card)
+
+    def per_launch():
+        ms: list = []
+        pdk.train_deep_kernel(run, 1000, inner, launch_ms=ms)
+        return [v / inner for v in ms]
+
+    each = pdk.deep_launch_bounds(cfg, N, BATCH, True)
+    products = {i: [(BATCH, b["K"] + b["K2"], b["ncol"])]
+                for i, b in enumerate(each) if "K" in b}
+    products[len(each) - 1] = groups["weight_grad_adam"]
+    print(f"  fresh parameters launch by launch (events, serialised), in "
+          f"turns with torch.bmm of its products; {len(each)} launches, "
+          f"pdk.launches_per_step "
+          f"{pdk.launches_per_step(len(cfg.layer_sizes), cfg.tie_weights, cfg.variational)}")
+    launches = launches_vs_bmm(per_launch, each, products, N, card)
     twin = run.clone()
     plain_ms = cuda_ms(lambda: pdk.train_deep_kernel_reference(twin, 0, 1),
                        reps=3, inner=3)
@@ -1853,7 +1926,7 @@ def phase_deep_step_timing(pdk, ptk, tied, folded, spec, card: str) -> dict:
           f"{bmm_ms:.4f} ms  [{card}]")
     return {"ms": out["fresh"][0], "plain_ms": plain_ms, "bmm_ms": bmm_ms,
             "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
-            "launch_types": types}
+            "launch_types": types, "launches": launches}
 
 
 def phase_hbm(hbm, card: str) -> dict:
@@ -3676,9 +3749,318 @@ def main_baselines() -> int:
     return 1 if FAILED else 0
 
 
+# --deep-ab: kernel 3 of this checkout against another tree's (PR 11's),
+# each in a process of its own, from the same state and seeds
+AB_STEPS = 10
+AB_TIMED_STEPS = 50
+
+
+def ab_cases(pdk, base_full, folded_full, spec_full):
+    """(label, cfg, settings, folded, spec, moments, lr, Adam eps): [15]'s
+    F = 30 families at depths 3 and 4 with f32 and bf16 moments, [16]'s
+    three full-width buckets with the sweep's bf16 moments, and the WIDE
+    cases of tests/test_torch_deep_kernel.py::
+    test_cuda_deep_kernels_match_twin (F = 330, (257, 130, 6), N = 60,
+    lr 1e-2, eps 0.1)."""
+    from multimodalautoencoder_tpu_torch.config import MMAEConfig
+    from multimodalautoencoder_tpu_torch.data.modalities import \
+        ModalityTable
+    from multimodalautoencoder_tpu_torch.models.corruption import NoiseSpec
+    from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
+
+    rng = np.random.default_rng(SEED)
+    small = gt.FoldedData.from_ragged(
+        [rng.random((40, 30)), rng.random((33, 30))],
+        [rng.random((9, 30)), rng.random((7, 30))], device=DEVICE)
+    two = [{"dropout_prob": 0.5, "weight_penalty": 0.01,
+            "activation_function": "relu"},
+           {"dropout_prob": 1.0, "weight_penalty": 0.001,
+            "activation_function": "softsign"}]
+    cases = []
+    for layers in ((16, 10, 6), (20, 14, 10, 6)):
+        base = MMAEConfig(num_feats=30, layer_sizes=layers,
+                          weight_initialization="normal")
+        for family in ("tied softsign", "untied relu", "vae"):
+            cfg = family_cfg(base, family)
+            spec = NoiseSpec.build(cfg, ModalityTable.uniform(5, 6, NAMES))
+            for moments in ("float32", "bfloat16"):
+                cases.append((f"F=30 {layers} {family} {moments}", cfg, two,
+                              small, spec, moments, LINEAR_LR, 1e-8))
+    for name, cfg, members in deep_buckets(base_full):
+        cases.append((f"{name} {DEEP_LAYERS} N=60 bfloat16", cfg, members,
+                      folded_full, spec_full, "bfloat16", LR, 1e-8))
+    rng = np.random.default_rng(1)
+    wide = gt.FoldedData.from_ragged(
+        [rng.random((40, 330)), rng.random((33, 330))],
+        [rng.random((9, 330)), rng.random((7, 330))], device=DEVICE)
+    pair = [{"dropout_prob": 0.5, "weight_penalty": 0.01},
+            {"dropout_prob": 1.0, "weight_penalty": 0.0,
+             "activation_function": "softsign"}]
+    thirty = [dict(pair[i % 2], weight_penalty=0.01 * (i % 3) / 2)
+              if i >= 2 else pair[i] for i in range(30)]
+    for family in ("tied", "vae"):
+        cfg = MMAEConfig(num_feats=330, layer_sizes=(257, 130, 6),
+                         tie_weights=family == "tied",
+                         variational=family == "vae",
+                         activation="softsign" if family == "tied"
+                         else "relu").validate()
+        spec = NoiseSpec.build(cfg, ModalityTable.uniform(5, 66, NAMES))
+        cases.append((f"WIDE {family} F=330 N=60 float32", cfg, thirty,
+                      wide, spec, "float32", LINEAR_LR, LINEAR_EPS))
+    return cases
+
+
+def profiler_launches(fn) -> list:
+    """(kernel name, device ms) of every kernel ``fn`` launches, in order
+    (copies left out), by torch.profiler; [] where the profiler sees no
+    device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.name.startswith(("Memcpy", "Memset"))),
+                    key=lambda e: e.time_range.start)
+    return [(e.name.replace("(anonymous namespace)::", "").split("(")[0]
+             .split("<")[0].split("::")[-1],
+             e.time_range.elapsed_us() / 1e3) for e in events]
+
+
+def main_deep_state(out_dir: str, dump: bool) -> int:
+    """Worker of --deep-ab, on the package under MMAE_PACKAGE_ROOT: with
+    ``dump``, kernel 3 runs AB_STEPS steps of each of :func:`ab_cases`
+    from the seed's state and saves parameters and moments; always, the
+    tied full-width bucket's step is timed (ms/step over windows of
+    AB_TIMED_STEPS, by launch type, and launch by launch by torch.profiler).
+    The last line is ``DEEP-STATE`` and a JSON object."""
+    import multimodalautoencoder_tpu_torch as pkg
+    from multimodalautoencoder_tpu_torch.config import TrainConfig
+    from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
+    from multimodalautoencoder_tpu_torch.ops import train_kernels as ptk
+    from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    pdk.KERNELS.load()
+    print(f"  package {os.path.dirname(pkg.__file__)}; kernel 3 built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = {"cases": []}
+    with tempfile.TemporaryDirectory(prefix="mmae_chip_smoke_") as workdir:
+        _, folded, base, _, spec = training_study(workdir)
+        cases = ab_cases(pdk, base, folded, spec)
+
+        def start(cfg, settings, fold, sp, moments, lr, eps):
+            tcfg = TrainConfig(learning_rate=lr, batch_size=BATCH,
+                               decay=True, decay_steps=1000,
+                               decay_rate=0.95, clip_gradients=False,
+                               optimizer_state_dtype=moments)
+            hyper = gt.HyperStack.from_settings(settings, cfg, tcfg)
+            C, K = hyper.num_configs, fold.num_folds
+            g = torch.Generator().manual_seed(SEED)
+            return pdk.prepare_deep_run(g, cfg, tcfg, sp, hyper, fold,
+                                        ptk.init_grid_params(g, cfg, C, K),
+                                        adam_eps=eps)
+
+        for i, case in enumerate(cases if dump else []):
+            label = case[0]
+            run = start(*case[1:])
+            twin = run.clone()
+            before = pdk.KERNELS.launches
+            pdk.train_deep_kernel(run, 0, AB_STEPS)
+            torch.cuda.synchronize()
+            torch.save({k: [t.cpu() for t in getattr(run, k)]
+                        for k in ("params", "m", "v")},
+                       os.path.join(out_dir, f"case{i}.pt"))
+            launches = pdk.KERNELS.launches - before
+            # one step from the seed's state against the f32 twin
+            del run
+            kern = twin.clone()
+            pdk.train_deep_kernel(kern, 0, 1)
+            pdk.train_deep_kernel_reference(twin, 0, 1)
+            torch.cuda.synchronize()
+            gaps = [(float((a - b).abs().max()),
+                     int(((a - b).abs() > TOL_CLS).sum()))
+                    for a, b in zip(kern.params, twin.params)]
+            out["cases"].append({"label": label, "launches": launches,
+                                 "step0_vs_twin": gaps})
+            del kern, twin
+        label, cfg, settings, fold, sp, moments, lr, eps = next(
+            c for c in cases if c[0].startswith("tied ("))
+        run = start(cfg, settings, fold, sp, moments, lr, eps)
+        pdk.train_deep_kernel(run, 0, 20)
+        out["ms"] = [cuda_ms(lambda: pdk.train_deep_kernel(
+            run, 20, AB_TIMED_STEPS), reps=5, inner=1) / AB_TIMED_STEPS
+            for _ in range(2)]
+        prof: dict = {}
+        pdk.train_deep_kernel(run, 1000, AB_TIMED_STEPS, profile=prof)
+        out["types"] = {t: v / AB_TIMED_STEPS for t, v in prof.items()}
+        per_step = pdk.launches_per_step(len(cfg.layer_sizes),
+                                         cfg.tie_weights, cfg.variational)
+        steps = 5
+        kernels = profiler_launches(
+            lambda: pdk.train_deep_kernel(run, 2000, steps))
+        out["launches"] = per_step
+        if len(kernels) == steps * per_step:
+            out["profiler"] = [
+                (kernels[i][0], sum(kernels[s * per_step + i][1]
+                                    for s in range(steps)) / steps)
+                for i in range(per_step)]
+        else:
+            out["profiler"] = []
+            print(f"  torch.profiler saw {len(kernels)} kernels for "
+                  f"{steps * per_step} launches")
+    print("DEEP-STATE " + json.dumps(out), flush=True)
+    return 0
+
+
+def main_deep_ab(parent_root: str) -> int:
+    """Kernel 3 of ``parent_root`` (a checkout of PR 11) against this
+    checkout's, each tree in processes of its own (--deep-state), in turns
+    parent, change, change, parent: parameters and moments after AB_STEPS
+    steps of :func:`ab_cases` compared bit for bit (the first two runs),
+    and the tied full-width step timed in all four."""
+    global FAILED
+    FAILED = []
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent_root = os.path.abspath(parent_root)
+    card = card_line()
+    runs = [("parent", parent_root), ("change", here), ("change", here),
+            ("parent", parent_root)]
+    results = []
+    with tempfile.TemporaryDirectory(prefix="mmae_chip_smoke_ab_") as tmp:
+        for i, (name, root) in enumerate(runs):
+            d = os.path.join(tmp, f"run{i}")
+            os.makedirs(d)
+            print(f"[ab {i}] {name}: {root}", flush=True)
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--deep-state",
+                 d, "dump" if i < 2 else "time"],
+                env=dict(os.environ, MMAE_PACKAGE_ROOT=root), cwd=root,
+                capture_output=True, text=True, timeout=1500)
+            lines = proc.stdout.splitlines()
+            for line in lines:
+                if not line.startswith("DEEP-STATE "):
+                    print(line)
+            if proc.returncode != 0:
+                print(proc.stderr[-4000:])
+            check(proc.returncode == 0, f"--deep-state {name} returned "
+                  f"{proc.returncode}")
+            state = [json.loads(line[len("DEEP-STATE "):]) for line in lines
+                     if line.startswith("DEEP-STATE ")]
+            results.append(state[0] if state else None)
+        if results[0] and results[1]:
+            bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+            for i, case in enumerate(results[0]["cases"]):
+                a = torch.load(os.path.join(tmp, "run0", f"case{i}.pt"))
+                b = torch.load(os.path.join(tmp, "run1", f"case{i}.pt"))
+                differ, total, first = 0, 0, []
+                for k in ("params", "m", "v"):
+                    for j, (x, y) in enumerate(zip(a[k], b[k])):
+                        ne = x.view(bits[x.dtype]) != y.view(bits[y.dtype])
+                        total += x.numel()
+                        differ += int(ne.sum())
+                        for idx in ne.nonzero()[:3].tolist():
+                            first.append((k, j, idx, float(x[tuple(idx)]),
+                                          float(y[tuple(idx)])))
+                print(f"  {case['label']:44s} {differ} of {total} "
+                      f"parameter and moment bits differ after {AB_STEPS} "
+                      f"steps; launches {case['launches']} (parent) / "
+                      f"{results[1]['cases'][i]['launches']}"
+                      + (f"; first {first[:6]}" if first else ""))
+                for name, r in (("parent", results[0]),
+                                ("change", results[1])):
+                    gaps = r["cases"][i]["step0_vs_twin"]
+                    print(f"    {name} step 0 vs the f32 twin: max |dp| "
+                          f"{max(g[0] for g in gaps):.3e}, "
+                          f"{sum(g[1] for g in gaps)} over {TOL_CLS} "
+                          f"(by tensor {[g[1] for g in gaps]})")
+                check(differ == 0, f"{case['label']}: {differ} elements "
+                      "differ from the parent's kernel 3")
+    timed = [r for r in results if r]
+    if len(timed) == 4:
+        print(f"  tied {DEEP_LAYERS} N=60 B={BATCH} bf16 moments, ms/step "
+              f"(two windows of {AB_TIMED_STEPS} each): "
+              + "; ".join(f"{runs[i][0]} {r['ms'][0]:.4f} / {r['ms'][1]:.4f}"
+                          for i, r in enumerate(timed)) + f"  [{card}]")
+        for i, r in enumerate(timed):
+            print(f"  {runs[i][0]} by launch type: " + ", ".join(
+                f"{t} {v:.4f}" for t, v in r["types"].items() if v > 0))
+            print(f"  {runs[i][0]} launch by launch (torch.profiler, "
+                  f"{r['launches']} a step): " + ", ".join(
+                      f"{n} {ms:.4f}" for n, ms in r["profiler"]))
+    print(card)
+    print(json.dumps({"deep_ab": True, "failed_checks": FAILED}))
+    return 1 if FAILED else 0
+
+
+def main_deep() -> int:
+    """[15] and [18] alone: kernel 3 against its twin, then one deep tied
+    step timed by launch type and launch by launch, its "trained"
+    parameters from MMAE_RUN_STEPS steps of the tied bucket through
+    ``train_deep_pallas``; every gate reported."""
+    global FAILED
+    from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
+    from multimodalautoencoder_tpu_torch.ops import train_kernels as ptk
+
+    FAILED = []
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    print(f"[1] card: {card}; torch {torch.__version__}")
+    build_kernels([pdk.KERNELS])
+    print(f"[2] ptxas ({pdk.KERNELS.build_seconds:.1f} s):")
+    for name, res in sorted(pdk.KERNELS.resources().items()):
+        print(f"    {name}: {res}")
+    with tempfile.TemporaryDirectory(prefix="mmae_chip_smoke_") as workdir:
+        _, folded, base, _, spec = training_study(workdir)
+        deep = deep_buckets(base)
+        for label, title, fn in (
+                ("[15]", "kernel 3 vs its twin",
+                 lambda: phase_deep_kernel_vs_twin(pdk, ptk, deep, folded,
+                                                   spec)),
+                ("[18]", "one deep tied step, timed",
+                 lambda: deep_step_alone(pdk, ptk, deep, folded, spec,
+                                         card))):
+            print(f"{label} {title}")
+            try:
+                fn()
+            except Exception as exc:   # reported with the checks
+                check(False, f"{label}: {type(exc).__name__}: {exc}")
+    print(card)
+    print(json.dumps({"deep": True, "failed_checks": FAILED}))
+    return 1 if FAILED else 0
+
+
+def deep_step_alone(pdk, ptk, deep, folded, spec, card: str) -> dict:
+    """[18] outside the smoke: the tied bucket trained MMAE_RUN_STEPS
+    steps by ``train_deep_pallas`` stands in for [16]'s parameters."""
+    from multimodalautoencoder_tpu_torch.config import TrainConfig
+    from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
+
+    _, cfg, members = next(b for b in deep if b[0] == "tied")
+    tcfg = TrainConfig(learning_rate=LR, batch_size=BATCH,
+                       num_steps=MMAE_RUN_STEPS, decay=True,
+                       decay_steps=1000, decay_rate=0.95,
+                       clip_gradients=False, seed=SEED,
+                       optimizer_state_dtype="bfloat16")
+    hyper = gt.HyperStack.from_settings(members, cfg, tcfg)
+    t0 = time.perf_counter()
+    params, _ = pdk.train_deep_pallas(SEED, cfg, tcfg, spec, hyper, folded)
+    torch.cuda.synchronize()
+    print(f"  tied bucket trained {MMAE_RUN_STEPS} steps in "
+          f"{time.perf_counter() - t0:.2f} s  [{card}]")
+    return phase_deep_step_timing(pdk, ptk, (cfg, tcfg, hyper, params),
+                                  folded, spec, card)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--count-launches"]:
         return main_count_launches(sys.argv[2:])
+    if sys.argv[1:2] == ["--deep-state"] and len(sys.argv) == 4:
+        # the package under MMAE_PACKAGE_ROOT, not this file's
+        sys.path.insert(0, os.environ["MMAE_PACKAGE_ROOT"])
+        return main_deep_state(sys.argv[2], sys.argv[3] == "dump")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -3694,9 +4076,14 @@ def main() -> int:
         return main_split_cards()
     if sys.argv[1:] == ["--pipeline"]:
         return main_pipeline()
+    if sys.argv[1:2] == ["--deep-ab"] and len(sys.argv) == 3:
+        return main_deep_ab(sys.argv[2])
+    if sys.argv[1:] == ["--deep"]:
+        return main_deep()
     check(len(sys.argv) == 1, "usage: chip_smoke.py "
           "[--tensor-core-products 1|2 | --single-run | --baselines | "
-          "--split-cards | --pipeline | --count-launches <cli arguments>]")
+          "--split-cards | --pipeline | --deep | --deep-ab <checkout> | "
+          "--count-launches <cli arguments>]")
     from multimodalautoencoder_tpu_torch.ops import cls_train_kernels as pck
     from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
     from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
@@ -3904,7 +4291,9 @@ def main() -> int:
          "ms": deep_step["ms"], "plain_ms": deep_step["plain_ms"],
          "bound_ms": deep_step["bound_ms"],
          "bound_by": deep_step["bound_by"], "library_ms": None,
-         "bmm_ms": deep_step["bmm_ms"], "launch_types": deep_step["launch_types"]},
+         "bmm_ms": deep_step["bmm_ms"],
+         "launch_types": deep_step["launch_types"],
+         "per_launch": deep_step["launches"]},
         dict({"name": "hbm_stream", "route": "cuda",
               "source": src + "hbm_stream.cu",
               "replaces": "tools/hbm_bench.py:60"},

@@ -848,6 +848,451 @@ __global__ void bias_adam_kernel(int C, int Bsz, const float* G, float* bias,
   bias[o] = adam_apply(bias[o], s, m + o, v + o, alpha, es2);
 }
 
+// --------------------------------------- products at a batch of <= 24
+// gemm_panel_kernel's product and epilogues, shaped for a batch of at most
+// BR rows: a thread owns B_RPT = 2 rows x 4 columns, TY = ceil(M / 2)
+// thread rows cover the batch (20 rows in 10 at M = 20, none padded), and
+// its 4 columns are contiguous for N-major B and strided for K-major B,
+// so both orientations are read 16 bytes at a time (gemm_panel_kernel
+// reads N-major B 4 bytes at a time).  A block is ceil(CT TY / 32) math
+// warps (CT = pw / 4 column threads) and one copy warp over one
+// instance's panel of pw = 64, 32 or 16 columns, picked per launch on
+// the host (ops/train_deep_kernels.panel_width); its ring of BSTAGES
+// slices of BK is sized to its panel, so a narrow panel holds less shared
+// memory and more blocks fit an SM.  Rows past BR go to the next row
+// block (grid.y).  The copy warp fills the ring as in gemm_panel_kernel
+// (16-byte copies where every staged row is 16-byte aligned, else 4).
+// Every output element is summed in k order, pair 0 before pair 1, from
+// zero, so each is bit for bit gemm_panel_kernel's (its zero-filled k tail
+// adds +0 to a sum that is never -0).
+constexpr int BR = 24, BK = 32, BSTAGES = 3, BPW = 64;
+constexpr int B_RPT = 2;
+constexpr int B_TY = BR / B_RPT;                // thread rows at most
+constexpr int BT_MAX = ((BPW / 4) * B_TY / 32 + 1) * 32;
+constexpr int BA_LD = BK + 4;   // K-major rows: conflict-free LDS.128
+constexpr int BA_FLOATS = BR * BA_LD;
+static_assert(BA_FLOATS % 4 == 0 && (BPW / 4) * B_TY % 32 == 0, "16 B");
+
+// Bytes of one ring slice for a panel of pw columns: A's rows of BA_LD,
+// then B's K-major rows of BA_LD or N-major rows of pw.
+__host__ __device__ constexpr int batch_stage_bytes(int pw) {
+  return 4 * (BA_FLOATS + pw * BA_LD);
+}
+
+__device__ __forceinline__ void copy_batch_slices(const GemmArgs& g,
+                                                  char* ring, uint64_t* full,
+                                                  uint64_t* empty, int n,
+                                                  int m0, int c0, int pw,
+                                                  int nk, int lane) {
+  const int nk0 = (g.K + BK - 1) / BK, stage = batch_stage_bytes(pw);
+  const int rows = min(BR, g.M - m0), cols = min(pw, g.ncol - c0);
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % BSTAGES, use = i / BSTAGES;
+    if (use > 0) mbar_wait(&empty[s], (use - 1) & 1);
+    const int pair = i >= nk0;
+    const int k0 = (pair ? i - nk0 : i) * BK;
+    const int kv = min(BK, (pair ? g.K2 : g.K) - k0);
+    const Mat a = pair ? g.A2 : g.A, b = pair ? g.B2 : g.B;
+    const float* ap = a.p + n * a.bs + (int64_t)m0 * a.rs + k0;
+    const float* bp = b.p + n * b.bs + (int64_t)k0 * b.rs
+                      + (int64_t)c0 * b.cs;
+    float* As = reinterpret_cast<float*>(ring + s * stage);
+    float* Bs = As + BA_FLOATS;
+    if (g.vec) {
+      for (int e = lane; e < rows * (BK / 4); e += 32) {
+        const int r = e / (BK / 4), k = (e % (BK / 4)) * 4;
+        const int nb = k < kv ? 16 : 0;
+        cp_async16(As + r * BA_LD + k, nb ? ap + r * a.rs + k : a.p, nb);
+      }
+      if (g.b_kmajor) {
+        for (int e = lane; e < cols * (BK / 4); e += 32) {
+          const int c = e / (BK / 4), k = (e % (BK / 4)) * 4;
+          const int nb = k < kv ? 16 : 0;
+          cp_async16(Bs + c * BA_LD + k, nb ? bp + c * b.cs + k : b.p, nb);
+        }
+      } else {
+        const int cq = (cols + 3) / 4;
+        for (int e = lane; e < BK * cq; e += 32) {
+          const int k = e / cq, c = (e % cq) * 4;
+          const int nb = k < kv ? 16 : 0;
+          cp_async16(Bs + k * pw + c, nb ? bp + k * b.rs + c : b.p, nb);
+        }
+      }
+    } else {
+      for (int e = lane; e < rows * BK; e += 32) {
+        const int r = e / BK, k = e % BK;
+        cp_async4(As + r * BA_LD + k, k < kv ? ap + r * a.rs + k : a.p,
+                  k < kv ? 4 : 0);
+      }
+      for (int e = lane; e < BK * cols; e += 32) {
+        const int k = g.b_kmajor ? e % BK : e / cols;
+        const int c = g.b_kmajor ? e / BK : e % cols;
+        cp_async4(Bs + (g.b_kmajor ? c * BA_LD + k : k * pw + c),
+                  k < kv ? bp + k * b.rs + c * b.cs : b.p, k < kv ? 4 : 0);
+      }
+    }
+    cp_async_arrive(&full[s]);
+  }
+}
+
+// A thread's panel column c < 4: tx + CT c for K-major B (distinct banks
+// for the 16-byte column reads along k), 4 tx + c for N-major B (one
+// 16-byte read a k row).
+template <bool KMAJOR>
+__device__ __forceinline__ int batch_col(int tx, int ct, int c) {
+  return KMAJOR ? tx + ct * c : 4 * tx + c;
+}
+
+// One slice into a thread's B_RPT x 4 sums (rows 2 ty + r), k in order,
+// over its first kv k rounded up to 4 (the copies zero-fill past kv).
+template <bool BF16, bool KMAJOR>
+__device__ __forceinline__ void batch_slice(const float* As, const float* Bs,
+                                            int kv, int tx, int ty, int ct,
+                                            int pw, float (&acc)[B_RPT][4]) {
+#pragma unroll 2
+  for (int k0 = 0; k0 < kv; k0 += 4) {
+    float4 a[B_RPT];
+#pragma unroll
+    for (int r = 0; r < B_RPT; ++r)
+      a[r] = *reinterpret_cast<const float4*>(
+          As + (B_RPT * ty + r) * BA_LD + k0);
+    float b[4][4];   // [k][column]
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (KMAJOR) {   // j is the column
+        const float4 q = *reinterpret_cast<const float4*>(
+            Bs + batch_col<true>(tx, ct, j) * BA_LD + k0);
+        b[0][j] = q.x; b[1][j] = q.y; b[2][j] = q.z; b[3][j] = q.w;
+      } else {                  // j is the k row
+        const float4 q = *reinterpret_cast<const float4*>(
+            Bs + (k0 + j) * pw + 4 * tx);
+        b[j][0] = q.x; b[j][1] = q.y; b[j][2] = q.z; b[j][3] = q.w;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < B_RPT; ++r) {
+        const float av = operand<BF16>((&a[r].x)[kk]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc[r][c] = fmaf(av, operand<BF16>(b[kk][c]), acc[r][c]);
+      }
+  }
+}
+
+template <bool BF16, bool KMAJOR, int EPI>
+__device__ __forceinline__ void batch_math(const GemmArgs& g,
+                                           const EpiArgs& e, char* ring,
+                                           uint64_t* full, uint64_t* empty,
+                                           int n, int m0, int c0, int pw,
+                                           int ty_rows, int nk, int tid) {
+  const int ct = pw / 4, lane = tid & 31, stage = batch_stage_bytes(pw);
+  const bool active = tid < ct * ty_rows;   // lanes past them only wait
+  const int tx = tid % ct, ty = min(tid / ct, ty_rows - 1);
+  float acc[B_RPT][4];
+#pragma unroll
+  for (int r = 0; r < B_RPT; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  const int nk0 = (g.K + BK - 1) / BK;
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % BSTAGES;
+    const int kv = i < nk0 ? min(BK, g.K - i * BK)
+                           : min(BK, g.K2 - (i - nk0) * BK);
+    mbar_wait(&full[s], (i / BSTAGES) & 1);
+    const float* As = reinterpret_cast<const float*>(ring + s * stage);
+    batch_slice<BF16, KMAJOR>(As, As + BA_FLOATS, kv, tx, ty, ct, pw, acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  if (!active) return;
+  const Epilogue<EPI> epi(e, n, g.M, g.ncol);
+#pragma unroll
+  for (int r = 0; r < B_RPT; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      epi(m0 + B_RPT * ty + r, c0 + batch_col<KMAJOR>(tx, ct, c),
+          acc[r][c]);
+}
+
+// grid (panels of pw columns, row blocks of BR, N); (ceil(pw / 4 ty_rows
+// / 32) + 1) warps, the last the copy warp; BSTAGES batch_stage_bytes(pw)
+// bytes of dynamic shared memory.
+template <int EPI, bool BF16>
+__global__ void __launch_bounds__(BT_MAX, 2)
+gemm_batch_kernel(const GemmArgs g, const EpiArgs e, int pw, int ty_rows) {
+  extern __shared__ __align__(128) char batch_ring[];
+  char* ring = batch_ring;
+  __shared__ uint64_t full[BSTAGES], empty[BSTAGES];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int copy_warp = blockDim.x / 32 - 1;
+  const int n = blockIdx.z, m0 = blockIdx.y * BR, c0 = blockIdx.x * pw;
+  const int nk = (g.K + BK - 1) / BK + (g.K2 + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < BSTAGES; ++s) {
+      mbar_init(&full[s], 32);          // one arrival per copy lane
+      mbar_init(&empty[s], copy_warp);  // one per math warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == copy_warp) {
+    copy_batch_slices(g, ring, full, empty, n, m0, c0, pw, nk, tid & 31);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+  if (g.b_kmajor)
+    batch_math<BF16, true, EPI>(g, e, ring, full, empty, n, m0, c0, pw,
+                                ty_rows, nk, tid);
+  else
+    batch_math<BF16, false, EPI>(g, e, ring, full, empty, n, m0, c0, pw,
+                                 ty_rows, nk, tid);
+}
+
+// ------------------------------------------ one grouped update a step
+// Every weight gradient + L2 + Adam and every bias gradient + Adam of a
+// step in one persistent launch.  The blocks walk a work list of items
+// (slot, instance, row 0, column 0), built once a run on the host
+// (ops/train_deep_kernels.update_work_list): the weight tiles of the
+// largest tensors first, then the bias items of 256 columns.  A weight
+// tensor's tile is TR x TC = 4 ty x 4 tx, tx threads across and ty = 256
+// / tx rounded down to even, tx per tensor from the host (16: 64 x 64; a
+// narrow tensor takes tx = ceil(C / 4), so the 500 x 100 weight runs 40 x
+// 100 tiles with 250 of 256 threads busy).  A thread owns 4 x 4 elements.
+// It sums their gradients over the batch in exact f32 FMAs from the
+// layer-input and gradient tiles, staged WBK batch rows at a time through
+// two cp.async buffers; the next item's first chunk and its W, m and v
+// loads (into registers) are issued before this item's last sums, so they
+// land during this item's sums, L2 + Adam and stores.  A warp issues in
+// order, so nothing on that path waits on device memory for an address:
+// the tensors' descriptors are copied to shared memory once, and each
+// work-list entry is read one item ahead of its use (reading them where
+// they are used cost a third of the launch's time on an H100).  Every
+// gradient element is summed over b in order, the tied weight's encode
+// pair before its decode pair, then rsqrt Adam on acc + l2 * w
+// (adam_step), and every bias element in bias_adam_kernel's order: each
+// bit for bit wgrad_adam_kernel's and bias_adam_kernel's.
+constexpr int UPD_LD = 160;   // a staged batch row: TR + TC floats at most
+constexpr int UPD_SLOTS = 66;  // descriptors (train_deep_kernel.cu NSLOT)
+
+struct UpdTensor {
+  int R, C, tx;        // rows (0 for a bias), columns, tile threads across
+  float pen;           // the L2 factor: 2 for a tied weight, else 1
+  const float* L; const float* Rm;   // the product pair (a bias: Rm = G)
+  const float* L2; const float* R2;  // the second pair, or null
+  float* W; void* m; void* v;        // parameters and moments, (N, R, C)
+};
+static_assert(sizeof(UpdTensor) <= 128, "ops/train_deep_kernels.DESC_BYTES");
+
+struct UpdArgs {
+  const UpdTensor* T;  // by parameter slot, UPD_SLOTS of them
+  const int4* items;   // (slot, instance, row 0, column 0)
+  int n_items, n_weight, B;
+  const float* lr; const float* wpen;
+  AdamStep st;
+};
+
+// Where a weight item's tile lies and which of its elements this thread
+// owns.
+struct UpdTile {
+  int slot, n, r0, c0, TR, TC, row0, col0, nc;
+  bool active;
+
+  __device__ __forceinline__ UpdTile(const UpdTensor* T, int4 it, int tid) {
+    slot = it.x; n = it.y; r0 = it.z; c0 = it.w;
+    const int tx = T[slot].tx, ty = (WTHREADS / tx) & ~1;
+    TR = 4 * ty; TC = 4 * tx;
+    active = tid < tx * ty;
+    row0 = r0 + 4 * (tid / tx);
+    col0 = c0 + 4 * (tid % tx);
+    nc = active ? max(0, min(4, T[slot].C - col0)) : 0;
+  }
+};
+
+// A thread's 4 x 4 of W, m and v.
+template <typename MT>
+struct WmvTile {
+  float4 w[4];
+  Moments4<MT> m, v;
+
+  __device__ __forceinline__ void load(const UpdTensor& t,
+                                       const UpdTile& tl) {
+    const MT* mp = static_cast<const MT*>(t.m);
+    const MT* vp = static_cast<const MT*>(t.v);
+    const bool vec = t.C % 4 == 0 && aligned16(t.W) && aligned16(t.m)
+                     && aligned16(t.v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int64_t o = ((int64_t)tl.n * t.R + tl.row0 + i) * t.C + tl.col0;
+      if (tl.row0 + i < t.R && tl.nc > 0) {
+        if (vec && tl.nc == 4) {
+          w[i] = *reinterpret_cast<const float4*>(t.W + o);
+        } else {
+          float* f = &w[i].x;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) f[c] = c < tl.nc ? t.W[o + c] : 0.f;
+        }
+        m.load(mp + o, i, tl.nc, vec);
+        v.load(vp + o, i, tl.nc, vec);
+      }
+    }
+  }
+};
+
+template <typename MT>
+__global__ void __launch_bounds__(WTHREADS, 2)
+update_group_kernel(const UpdArgs u) {
+  __shared__ __align__(16) float buf[2][WBK][UPD_LD];
+  __shared__ UpdTensor T[UPD_SLOTS];
+  const int tid = threadIdx.x;
+  const int B = u.B, chunks = (B + WBK - 1) / WBK;
+  for (int i = tid; i < (int)(sizeof(T) / 4); i += WTHREADS)
+    reinterpret_cast<int*>(T)[i] = reinterpret_cast<const int*>(u.T)[i];
+  __syncthreads();
+
+  // Stage chunk q (pair q / chunks) of item ``tl`` into ``dst``: the layer
+  // input's TR rows, then the gradient's TC columns.
+  auto stage = [&](const UpdTile& tl, int q, float (*dst)[UPD_LD]) {
+    const UpdTensor& t = T[tl.slot];
+    const int pair = q / chunks, b0 = (q % chunks) * WBK;
+    const float* lp = (pair ? t.L2 : t.L) + (int64_t)tl.n * B * t.R;
+    const float* rp = (pair ? t.R2 : t.Rm) + (int64_t)tl.n * B * t.C;
+    const int TR = tl.TR, W = tl.TR + tl.TC;
+    const bool vec = t.R % 4 == 0 && t.C % 4 == 0 && aligned16(t.L)
+                     && aligned16(t.Rm)
+                     && (!t.L2 || (aligned16(t.L2) && aligned16(t.R2)));
+    const int step = vec ? 4 : 1, per = W / step;
+    for (int e = tid; e < WBK * per; e += WTHREADS) {
+      const int b = e / per, j = (e - b * per) * step;
+      const int gb = b0 + b;
+      const bool lft = j < TR;
+      const int jj = lft ? tl.r0 + j : tl.c0 + j - TR;
+      const bool in = gb < B && jj < (lft ? t.R : t.C);
+      const float* src = lft ? lp + (int64_t)gb * t.R + jj
+                             : rp + (int64_t)gb * t.C + jj;
+      if (vec)
+        cp_async16(&dst[b][j], in ? src : lp, in ? 16 : 0);
+      else
+        cp_async4(&dst[b][j], in ? src : lp, in ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+
+  int q = 0;   // chunks staged by this block so far: buffer q & 1
+  const int G = gridDim.x;
+  int item = blockIdx.x;
+  const int4 none = make_int4(0, 0, 0, 0);
+  int4 it_cur = item < u.n_weight ? u.items[item] : none;
+  int4 it_next = item + G < u.n_weight ? u.items[item + G] : none;
+  WmvTile<MT> cur;
+  if (item < u.n_weight) {
+    const UpdTile tl(T, it_cur, tid);
+    stage(tl, 0, buf[0]);
+    cur.load(T[tl.slot], tl);
+  }
+  for (; item < u.n_weight; item += G) {
+    const UpdTile tl(T, it_cur, tid);
+    const UpdTensor& t = T[tl.slot];
+    const int next = item + G;
+    // the entry after next, read now and used one item later
+    const int4 it_after = next + G < u.n_weight ? u.items[next + G] : none;
+    const int steps = (t.L2 ? 2 : 1) * chunks;
+    WmvTile<MT> nxt;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+    for (int s = 0; s < steps; ++s, ++q) {
+      if (s + 1 < steps) {
+        stage(tl, s + 1, buf[(q + 1) & 1]);
+        cp_async_wait<1>();
+      } else if (next < u.n_weight) {
+        // the next item's first chunk and its W, m, v: in flight during
+        // this item's last sums and its epilogue
+        const UpdTile tn(T, it_next, tid);
+        stage(tn, 0, buf[(q + 1) & 1]);
+        nxt.load(T[tn.slot], tn);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int nb = min(WBK, B - (s % chunks) * WBK);
+      const float (*bq)[UPD_LD] = buf[q & 1];
+      const int ly = tl.row0 - tl.r0, rx = tl.TR + tl.col0 - tl.c0;
+      if (tl.active) {
+#pragma unroll 4
+        for (int b = 0; b < nb; ++b) {
+          const float4 l4 = *reinterpret_cast<const float4*>(&bq[b][ly]);
+          const float4 r4 = *reinterpret_cast<const float4*>(&bq[b][rx]);
+          const float lv[4] = {l4.x, l4.y, l4.z, l4.w};
+          const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              acc[i][c] = fmaf(lv[i], rv[c], acc[i][c]);
+        }
+      }
+      __syncthreads();   // the buffer is free for chunk q + 2
+    }
+    // L2 + Adam, and W, m, v back
+    float alpha, es2;
+    adam_scalars(u.st, u.lr[tl.n], &alpha, &es2);
+    const float l2 = t.pen * u.wpen[tl.n];
+    const bool vw = t.C % 4 == 0 && aligned16(t.W) && aligned16(t.m)
+                    && aligned16(t.v);
+    MT* mp = static_cast<MT*>(t.m);
+    MT* vp = static_cast<MT*>(t.v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (tl.row0 + i >= t.R || tl.nc == 0) continue;
+      const int64_t o = ((int64_t)tl.n * t.R + tl.row0 + i) * t.C + tl.col0;
+      float wn[4], mn[4], vn[4];
+      const float* wf = &cur.w[i].x;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        mn[c] = cur.m.get(i, c);
+        vn[c] = cur.v.get(i, c);
+        wn[c] = adam_step(wf[c], acc[i][c] + l2 * wf[c], mn[c], vn[c],
+                          alpha, es2);
+      }
+      if (vw && tl.nc == 4) {
+        *reinterpret_cast<float4*>(t.W + o) =
+            make_float4(wn[0], wn[1], wn[2], wn[3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (c < tl.nc) t.W[o + c] = wn[c];
+      }
+      cur.m.store(mp + o, i, mn, tl.nc, vw);
+      cur.v.store(vp + o, i, vn, tl.nc, vw);
+    }
+    cur = nxt;
+    it_cur = it_next;
+    it_next = it_after;
+  }
+  // bias items: 256 columns of one instance's bias, a column a thread
+  for (int it = u.n_weight + blockIdx.x; it < u.n_items; it += gridDim.x) {
+    const int4 w = u.items[it];
+    const UpdTensor& t = T[w.x];
+    const int n = w.y, col = w.w + tid;
+    if (col >= t.C) continue;
+    const float* g = t.Rm + (int64_t)n * B * t.C + col;
+    float s = 0.f;
+    for (int b = 0; b < B; ++b) s += g[(int64_t)b * t.C];
+    float alpha, es2;
+    adam_scalars(u.st, u.lr[n], &alpha, &es2);
+    const int64_t o = (int64_t)n * t.C + col;
+    t.W[o] = adam_apply(t.W[o], s, static_cast<MT*>(t.m) + o,
+                        static_cast<MT*>(t.v) + o, alpha, es2);
+  }
+}
+
 // ------------------------------------------------------- host helpers
 constexpr int MAX_DEVICES = 64;
 
@@ -907,6 +1352,46 @@ static cudaError_t launch_wgrad(const WgradArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// One batch-product launch: grid (panels of pw columns, row blocks, N),
+// ceil(M / B_RPT) thread rows (at most B_TY) of pw / 4 threads, the ring
+// sized to the panel.
+template <int EPI, bool BF16>
+static cudaError_t launch_gemm_batch(const GemmArgs& g, const EpiArgs& e,
+                                     int pw, int n_inst,
+                                     cudaStream_t stream) {
+  const int ty_rows = ((g.M < BR ? g.M : BR) + B_RPT - 1) / B_RPT;
+  const int math_warps = ((pw / 4) * ty_rows + 31) / 32;
+  const dim3 grid((g.ncol + pw - 1) / pw, (g.M + BR - 1) / BR, n_inst);
+  const size_t smem = BSTAGES * batch_stage_bytes(pw);
+  gemm_batch_kernel<EPI, BF16><<<grid, 32 * (math_warps + 1), smem,
+                                 stream>>>(g, e, pw, ty_rows);
+  return cudaGetLastError();
+}
+
+// The grouped update: as many persistent blocks as fit the SMs (or one an
+// item), the occupancy asked once per device and instantiation.
+template <typename MT>
+static cudaError_t launch_update_group(const UpdArgs& u,
+                                       cudaStream_t stream) {
+  static int occ[MAX_DEVICES] = {};
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0
+      || device >= MAX_DEVICES)
+    return cudaErrorInvalidDevice;
+  if (!occ[device]) {
+    int blocks = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, update_group_kernel<MT>, WTHREADS, 0);
+    if (err != cudaSuccess) return err;
+    occ[device] = blocks > 0 ? blocks : 1;
+  }
+  const long long cap = (long long)occ[device] * device_sms();
+  const long long blocks = u.n_items < cap ? u.n_items : cap;
+  if (blocks <= 0) return cudaErrorInvalidValue;
+  update_group_kernel<MT><<<(unsigned)blocks, WTHREADS, 0, stream>>>(u);
+  return cudaGetLastError();
+}
+
 // ------------------------------------------------------------ launcher
 // Enqueues the kernels above for ``n_inst`` instances of batch ``batch`` on
 // stream ``s``.  mark() after every launch checks it, adds one to
@@ -922,6 +1407,7 @@ struct Launcher {
   cudaEvent_t ev[MAX_EVENTS];
   int nev = 0;
   int types[MAX_EVENTS];
+  float* per_launch = nullptr;   // with ``prof``: each launch's ms, in order
 
   cudaError_t create_events() {
     if (!prof) return cudaSuccess;
@@ -949,6 +1435,7 @@ struct Launcher {
       float ms = 0.f;
       cudaEventElapsedTime(&ms, ev[i], ev[i + 1]);
       prof[types[i]] += ms;
+      if (per_launch) per_launch[i] += ms;
     }
     return cudaSuccess;
   }
@@ -975,14 +1462,16 @@ struct Launcher {
     return transposed ? Mat{w, bs, 1, cols} : Mat{w, bs, cols, 1};
   }
 
-  template <int EPI>
-  cudaError_t gemm(int type, int ncol, int K, Mat A, Mat B, int K2, Mat A2,
-                   Mat B2, const EpiArgs& e) {
+  // A product's arguments: B's orientation and whether every staged row
+  // is 16-byte aligned; false where the operands do not lie as the
+  // product blocks read them.
+  bool gemm_args(int ncol, int K, Mat A, Mat B, int K2, Mat A2, Mat B2,
+                 GemmArgs* g) const {
     if (K2 <= 0) { K2 = 0; A2 = A; B2 = B; }
     const bool kmajor = B.rs == 1 && B.cs != 1;
     // A is an activation, K-contiguous; both pairs' B lie alike
     if (A.cs != 1 || A2.cs != 1 || (B2.rs == 1 && B2.cs != 1) != kmajor)
-      return cudaErrorInvalidValue;
+      return false;
     auto rows16 = [](const Mat& a, int64_t step) {
       return aligned_host(a.p) && a.bs % 4 == 0 && step % 4 == 0;
     };
@@ -991,7 +1480,16 @@ struct Launcher {
                      && (kmajor ? rows16(B, B.cs) && rows16(B2, B2.cs)
                                 : rows16(B, B.rs) && rows16(B2, B2.rs)
                                   && ncol % 4 == 0);
-    const GemmArgs g{batch, ncol, K, K2, A, B, A2, B2, vec, kmajor};
+    *g = GemmArgs{batch, ncol, K, K2, A, B, A2, B2, vec, kmajor};
+    return true;
+  }
+
+  template <int EPI>
+  cudaError_t gemm(int type, int ncol, int K, Mat A, Mat B, int K2, Mat A2,
+                   Mat B2, const EpiArgs& e) {
+    GemmArgs g;
+    if (!gemm_args(ncol, K, A, B, K2, A2, B2, &g))
+      return cudaErrorInvalidValue;
     cudaError_t err;
     if (batch <= Panel<3>::ROWS)
       err = gemm_rows<EPI, 3>(g, e);
@@ -1025,6 +1523,34 @@ struct Launcher {
     } else {
       err = bf16 ? cudaErrorInvalidValue : launch_wgrad<MT, false>(a, s);
     }
+    if (err != cudaSuccess) return err;
+    return mark(type);
+  }
+
+  // gemm() on gemm_batch_kernel, in panels of ``pw`` columns (64, 32 or
+  // 16).
+  template <int EPI>
+  cudaError_t gemm_batch(int type, int pw, int ncol, int K, Mat A, Mat B,
+                         int K2, Mat A2, Mat B2, const EpiArgs& e) {
+    GemmArgs g;
+    if (!gemm_args(ncol, K, A, B, K2, A2, B2, &g)
+        || (pw != BPW && pw != 32 && pw != 16))
+      return cudaErrorInvalidValue;
+    cudaError_t err;
+    if constexpr (TRAIN_BF16_OPERANDS) {
+      err = e.bf16 ? launch_gemm_batch<EPI, true>(g, e, pw, n_inst, s)
+                   : launch_gemm_batch<EPI, false>(g, e, pw, n_inst, s);
+    } else {
+      err = e.bf16 ? cudaErrorInvalidValue
+                   : launch_gemm_batch<EPI, false>(g, e, pw, n_inst, s);
+    }
+    if (err != cudaSuccess) return err;
+    return mark(type);
+  }
+
+  template <typename MT>
+  cudaError_t update_group(int type, const UpdArgs& u) {
+    const cudaError_t err = launch_update_group<MT>(u, s);
     if (err != cudaSuccess) return err;
     return mark(type);
   }

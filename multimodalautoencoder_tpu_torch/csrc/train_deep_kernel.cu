@@ -11,24 +11,28 @@
 // - every instance's parameters and Adam moments live in device memory,
 //   stacked (N, rows, cols), in slots encW(L), decW(L, untied only),
 //   encB(L), decB(L), wv, bv, and are updated in place;
-// - each step is a fixed sequence of launches over all N instances, from
-//   train_common.cuh's blocks:
+// - each step is a fixed sequence of 4L + 1 launches (4L + 4 for a VAE)
+//   over all N instances, from train_common.cuh's blocks:
 //     1. sample + corrupt -> x, xn (the depth-2 draws, :669-705);
-//     2. L encode and L decode products with bias, activation and dropout
-//        in the epilogue on every layer except the linear embedding and
-//        the logits (:714-759), each hidden layer keeping its dropped
-//        activation and d * act'(z); a VAE takes its log-sigma head off
-//        the last hidden activation (:720-724) and samples z = mu + eps *
-//        exp(lv) (:731-736); the logit gradient sigmoid(y) - x is the last
-//        decode product's epilogue;
+//     2. L encode and L decode products (gemm_batch_kernel) with bias,
+//        activation and dropout in the epilogue on every layer except the
+//        linear embedding and the logits (:714-759), each hidden layer
+//        keeping its dropped activation and d * act'(z); a VAE takes its
+//        log-sigma head off the last hidden activation (:720-724) and
+//        samples z = mu + eps * exp(lv) (:731-736); the logit gradient
+//        sigmoid(y) - x is the last decode product's epilogue;
 //     3. the backward chain against W^T with d * act'(z) in the epilogue:
 //        down the decoder to gz, the KL terms on the sampled z, down the
 //        encoder with the wv term added into layer L-2 (:762-789);
-//     4. weight gradient + L2 + rsqrt Adam per weight, a tied weight
-//        summing its encode product and its decode product transposed,
-//        with the L2 doubled (:804-814), wv's L2 undoubled (:821-828);
-//     5. bias gradient + Adam; Adam's scalars with smooth decay (:791-800);
+//     4. one grouped update (update_group_kernel) over a work list: weight
+//        gradient + L2 + rsqrt Adam per weight, a tied weight summing its
+//        encode product and its decode product transposed, with the L2
+//        doubled (:804-814), wv's L2 undoubled (:821-828), then bias
+//        gradient + Adam; Adam's scalars with smooth decay (:791-800);
 // - the S-step loop runs in C (mmae_deep_train_run), one call per run.
+//   Each product's panel width and the update's work list come from the
+//   host (ops/train_deep_kernels.product_plan, update_work_list), once a
+//   run.
 //
 // Widths are not padded here, so the Pallas kernel's _mask_cols (which
 // zeroes the lane padding of activations and eps) has no counterpart: no
@@ -38,7 +42,12 @@
 // 1.55 M parameters an instance): each step streams W, m and v in and out,
 // 16 B a parameter with bf16 moments (1.49 GB a step, 0.44 ms at 3.35
 // TB/s), against about 40 FLOP per weight element; bytes bound it, as for
-// depth 2 (ops/train_deep_kernels.deep_step_bound computes it).  Random
+// depth 2 (ops/train_deep_kernels.deep_step_bound computes it; each
+// launch's own bound: deep_launch_bounds).  Measured (PERF.md, PR 12):
+// the update runs at about 57 % of its bound and the 1000-wide products
+// at 41-53 % of theirs, as torch.bmm does; their copies alone, with no
+// FMAs, reach about 60 %, and neither the tensor-map engine nor deeper
+// rings, wider panels or L2 prefetches moved them.  Random
 // numbers come from Philox4x32-10 with the deep purposes (philox.cuh); the
 // plain PyTorch twin (ops/train_deep_kernels.train_deep_kernel_reference)
 // draws the same bits.
@@ -51,6 +60,7 @@ constexpr int MAX_DEPTH = 16;   // ops/train_kernels.MAX_DEPTH
 // Parameter slots: layer i's encode weight at ENC_W + i, and so on.
 enum Slot { ENC_W = 0, DEC_W = MAX_DEPTH, ENC_B = 2 * MAX_DEPTH,
             DEC_B = 3 * MAX_DEPTH, WV = 4 * MAX_DEPTH, BV, NSLOT };
+static_assert(NSLOT == train::UPD_SLOTS, "the update's descriptor table");
 // Workspace buffers (N, B, width): encode layer i's output (its dropped
 // activation, or mu for the last), gate factor d * act'(z) and gradient at
 // its pre-activation; the same for decode layer j (no stored output for
@@ -59,8 +69,10 @@ enum Buf { X = 0, XN, LV, EPS, Z, GLV, ENC_OUT,
            ENC_GF = ENC_OUT + MAX_DEPTH, ENC_G = ENC_GF + MAX_DEPTH,
            DEC_OUT = ENC_G + MAX_DEPTH, DEC_GF = DEC_OUT + MAX_DEPTH,
            DEC_G = DEC_GF + MAX_DEPTH, NBUF = DEC_G + MAX_DEPTH };
-// Launch types, for the profile of one step.
+// Launch types, for the profile of one step (the grouped update is
+// P_WADAM).
 enum Prof { P_SAMPLE = 0, P_FWD, P_VAE, P_BWD, P_WADAM, P_BADAM, NPROF };
+constexpr int MAX_PRODUCTS = 4 * MAX_DEPTH;   // a step's products
 
 }  // namespace
 
@@ -70,6 +82,9 @@ struct DeepArgs {
   int n_inst, batch, depth, n_types, max_rows;
   int tied, variational, bf16_moments, decay;
   int dims[MAX_DEPTH + 1]; // F, H1, ..., HL
+  int panel[MAX_PRODUCTS]; // each product's panel width, in launch order
+  int tile_tx[NSLOT];      // each weight slot's update tile threads across
+  int n_items, n_weight_items;   // the update's work list
   float elem_p, mask_value, decay_steps, decay_rate;
   float adam_eps2;         // Adam's eps squared
   const int* seeds;        // (N,) instance seeds, >= 0
@@ -82,6 +97,8 @@ struct DeepArgs {
   const float* train;      // (K, max_rows, F) fold train rows
   const float* type_table; // (T, F) 1 where a modality set masks a feature
   const float* cum;        // (T,) cumulative modality-set probabilities
+  const int* items;        // (n_items, 4) slot, instance, row 0, column 0
+  void* upd_desc;          // NSLOT x 128 bytes of device scratch
   float* param[NSLOT];     // slot -> (N, rows, cols) or (N, cols), or null
   void* m[NSLOT];          // Adam first moments, f32 or bf16, like param
   void* v[NSLOT];          // Adam second moments
@@ -177,6 +194,7 @@ __global__ void deep_vae_grad_kernel(int64_t total, int batch,
 struct DeepRunner {
   const DeepArgs& a;
   Launcher L;
+  int product = 0;   // the step's next product, into a.panel
 
   Mat act_mat(int buf, int width) const { return L.act(a.ws[buf], width); }
   // encode weight i, (d[i] x d[i+1]), or its transpose
@@ -200,30 +218,61 @@ struct DeepRunner {
                  : (a.variational ? Z : ENC_OUT + a.depth - 1);
   }
 
-  template <typename MT>
-  cudaError_t wadam(int slot, int R, int C, int l, int r, int l2, int r2,
-                    float pen, const AdamStep& st) {
-    return L.wadam<MT>(P_WADAM, R, C, a.ws[l], a.ws[r],
-                       l2 < 0 ? nullptr : a.ws[l2],
-                       r2 < 0 ? nullptr : a.ws[r2], a.param[slot], a.m[slot],
-                       a.v[slot], a.lr, a.wpen, pen, st, 0);
+  template <int EPI>
+  cudaError_t gemm(int type, int ncol, int K, Mat A, Mat B, int K2, Mat A2,
+                   Mat B2, const EpiArgs& e) {
+    if (product >= MAX_PRODUCTS) return cudaErrorInvalidValue;
+    return L.gemm_batch<EPI>(type, a.panel[product++], ncol, K, A, B, K2,
+                             A2, B2, e);
   }
 
-  template <typename MT>
-  cudaError_t badam(int slot, int C, int g, const AdamStep& st) {
-    return L.badam<MT>(P_BADAM, C, a.ws[g], a.param[slot], a.m[slot],
-                       a.v[slot], a.lr, st);
+  // The update's tensors by slot: each weight with its product pair(s)
+  // (layer input, gradient at the output) and L2 factor, each bias with
+  // its gradient.
+  void update_tensors(UpdTensor* T) const {
+    const int D = a.depth;
+    const int* d = a.dims;
+    auto weight = [&](int slot, int R, int C, int l, int r, int l2, int r2,
+                      float pen) {
+      T[slot] = UpdTensor{R, C, a.tile_tx[slot], pen, a.ws[l], a.ws[r],
+                          l2 < 0 ? nullptr : a.ws[l2],
+                          r2 < 0 ? nullptr : a.ws[r2], a.param[slot],
+                          a.m[slot], a.v[slot]};
+    };
+    auto bias = [&](int slot, int C, int g) {
+      T[slot] = UpdTensor{0, C, 0, 0.f, nullptr, a.ws[g], nullptr, nullptr,
+                          a.param[slot], a.m[slot], a.v[slot]};
+    };
+    // a tied weight also takes decode layer L-1-i's product, transposed
+    for (int i = 0; i < D; ++i) {
+      const int j0 = D - 1 - i;
+      weight(ENC_W + i, d[i], d[i + 1], enc_in(i), ENC_G + i,
+             a.tied ? DEC_G + j0 : -1, a.tied ? dec_in(j0) : -1,
+             a.tied ? 2.f : 1.f);
+    }
+    if (!a.tied)
+      for (int j = 0; j < D; ++j)
+        weight(DEC_W + j, d[D - j], d[D - j - 1], dec_in(j), DEC_G + j, -1,
+               -1, 1.f);
+    if (a.variational)
+      weight(WV, d[D - 1], d[D], enc_in(D - 1), GLV, -1, -1, 1.f);
+    for (int i = 0; i < D; ++i) {
+      bias(ENC_B + i, d[i + 1], ENC_G + i);
+      bias(DEC_B + i, d[D - i - 1], DEC_G + i);
+    }
+    if (a.variational) bias(BV, d[D], GLV);
   }
 
   template <typename MT>
   cudaError_t step(int t) {
     const int D = a.depth;
     const int* d = a.dims;
-    const bool tied = a.tied, vae = a.variational;
+    const bool vae = a.variational;
     const Mat none{nullptr, 0, 0, 0};
     const AdamStep st{t, a.decay, a.decay_steps, a.decay_rate,
                       a.adam_eps2};
     cudaStream_t s = L.s;
+    product = 0;
     EpiArgs e{};
     e.seeds = a.seeds; e.act = a.act; e.keep = a.keep; e.step = t;
 
@@ -239,7 +288,7 @@ struct DeepRunner {
       const Mat A = act_mat(enc_in(i), d[i]);
       if (vae && i == D - 1) {
         e.bias = a.param[BV]; e.out0 = a.ws[LV];
-        TRAIN_TRY(L.gemm<E_BIAS>(
+        TRAIN_TRY(gemm<E_BIAS>(
             P_FWD, d[D], d[D - 1], A,
             Launcher::w_mat(a.param[WV], d[D - 1], d[D], false), 0, none,
             none, e));
@@ -248,11 +297,11 @@ struct DeepRunner {
       if (i < D - 1) {
         e.out1 = a.ws[ENC_GF + i];
         e.purpose = philox::DEEP_DROP + i;
-        TRAIN_TRY(L.gemm<E_ACT_DROP>(P_FWD, d[i + 1], d[i], A, enc_w(i, false),
-                                     0, none, none, e));
+        TRAIN_TRY(gemm<E_ACT_DROP>(P_FWD, d[i + 1], d[i], A, enc_w(i, false),
+                                   0, none, none, e));
       } else {
-        TRAIN_TRY(L.gemm<E_BIAS>(P_FWD, d[i + 1], d[i], A, enc_w(i, false),
-                                 0, none, none, e));
+        TRAIN_TRY(gemm<E_BIAS>(P_FWD, d[i + 1], d[i], A, enc_w(i, false),
+                               0, none, none, e));
       }
     }
     const int64_t n_emb = (int64_t)a.n_inst * a.batch * d[D];
@@ -270,27 +319,27 @@ struct DeepRunner {
       if (j < D - 1) {
         e.out0 = a.ws[DEC_OUT + j]; e.out1 = a.ws[DEC_GF + j];
         e.purpose = philox::DEEP_DROP + D + j;
-        TRAIN_TRY(L.gemm<E_ACT_DROP>(P_FWD, d[D - j - 1], d[D - j], A,
-                                     dec_w(j, false), 0, none, none, e));
+        TRAIN_TRY(gemm<E_ACT_DROP>(P_FWD, d[D - j - 1], d[D - j], A,
+                                   dec_w(j, false), 0, none, none, e));
       } else {
         e.aux = a.ws[X]; e.out0 = a.ws[DEC_G + j];
-        TRAIN_TRY(L.gemm<E_LOGIT_GRAD>(P_FWD, d[0], d[1], A, dec_w(j, false),
-                                       0, none, none, e));
+        TRAIN_TRY(gemm<E_LOGIT_GRAD>(P_FWD, d[0], d[1], A, dec_w(j, false),
+                                     0, none, none, e));
       }
     }
 
     // backward, decoder: g_j = (g_{j+1} W_{j+1}^T) * gf_j
     for (int j = D - 2; j >= 0; --j) {
       e.aux = a.ws[DEC_GF + j]; e.out0 = a.ws[DEC_G + j];
-      TRAIN_TRY(L.gemm<E_MUL>(P_BWD, d[D - j - 1], d[D - j - 2],
-                              act_mat(DEC_G + j + 1, d[D - j - 2]),
-                              dec_w(j + 1, true), 0, none, none, e));
+      TRAIN_TRY(gemm<E_MUL>(P_BWD, d[D - j - 1], d[D - j - 2],
+                            act_mat(DEC_G + j + 1, d[D - j - 2]),
+                            dec_w(j + 1, true), 0, none, none, e));
     }
     // gz = g_0 W_dec0^T, the embedding's gradient
     e.out0 = a.ws[ENC_G + D - 1];
-    TRAIN_TRY(L.gemm<E_NONE>(P_BWD, d[D], d[D - 1],
-                             act_mat(DEC_G, d[D - 1]), dec_w(0, true), 0,
-                             none, none, e));
+    TRAIN_TRY(gemm<E_NONE>(P_BWD, d[D], d[D - 1],
+                           act_mat(DEC_G, d[D - 1]), dec_w(0, true), 0,
+                           none, none, e));
     if (vae) {
       deep_vae_grad_kernel<<<264, 256, 0, s>>>(
           n_emb, a.batch, a.ws[LV], a.ws[Z], a.ws[EPS], a.ws[ENC_G + D - 1],
@@ -302,7 +351,7 @@ struct DeepRunner {
     for (int i = D - 2; i >= 0; --i) {
       const bool head = vae && i == D - 2;
       e.aux = a.ws[ENC_GF + i]; e.out0 = a.ws[ENC_G + i];
-      TRAIN_TRY(L.gemm<E_MUL>(
+      TRAIN_TRY(gemm<E_MUL>(
           P_BWD, d[i + 1], d[i + 2], act_mat(ENC_G + i + 1, d[i + 2]),
           enc_w(i + 1, true), head ? d[D] : 0,
           head ? act_mat(GLV, d[D]) : none,
@@ -310,27 +359,11 @@ struct DeepRunner {
           e));
     }
 
-    // weight gradients + L2 (doubled when tied) + Adam; a tied weight
-    // also takes decode layer L-1-i's product, transposed
-    for (int i = 0; i < D; ++i) {
-      const int j0 = D - 1 - i;
-      TRAIN_TRY(wadam<MT>(ENC_W + i, d[i], d[i + 1], enc_in(i), ENC_G + i,
-                          tied ? DEC_G + j0 : -1, tied ? dec_in(j0) : -1,
-                          tied ? 2.f : 1.f, st));
-    }
-    if (!tied)
-      for (int j = 0; j < D; ++j)
-        TRAIN_TRY(wadam<MT>(DEC_W + j, d[D - j], d[D - j - 1], dec_in(j),
-                            DEC_G + j, -1, -1, 1.f, st));
-    if (vae)
-      TRAIN_TRY(wadam<MT>(WV, d[D - 1], d[D], enc_in(D - 1), GLV, -1, -1, 1.f,
-                          st));
-    for (int i = 0; i < D; ++i) {
-      TRAIN_TRY(badam<MT>(ENC_B + i, d[i + 1], ENC_G + i, st));
-      TRAIN_TRY(badam<MT>(DEC_B + i, d[D - i - 1], DEC_G + i, st));
-    }
-    if (vae) TRAIN_TRY(badam<MT>(BV, d[D], GLV, st));
-    return cudaSuccess;
+    // every weight and bias update, in one launch over the work list
+    const UpdArgs u{static_cast<const UpdTensor*>(a.upd_desc),
+                    reinterpret_cast<const int4*>(a.items), a.n_items,
+                    a.n_weight_items, a.batch, a.lr, a.wpen, st};
+    return L.update_group<MT>(P_WADAM, u);
   }
 };
 
@@ -348,7 +381,10 @@ bool complete(const DeepArgs* a) {
                       || !a->ws[DEC_GF + i]))
       return false;
   }
-  if (!a->ws[X] || !a->ws[XN]) return false;
+  if (!a->ws[X] || !a->ws[XN] || !a->items || !a->upd_desc
+      || a->n_items <= 0 || a->n_weight_items <= 0
+      || a->n_weight_items > a->n_items)
+    return false;
   if (a->variational && (!a->param[WV] || !a->param[BV] || !a->ws[LV]
                          || !a->ws[EPS] || !a->ws[Z] || !a->ws[GLV]))
     return false;
@@ -362,10 +398,12 @@ extern "C" {
 // Steps [first_step, first_step + num_steps) of the bucket described by
 // ``a``, on ``stream``.  Adds the launches it made to ``*launches``.  With
 // ``prof_ms`` (NPROF floats) it also times every launch with CUDA events,
-// synchronising once a step, and adds each launch type's milliseconds.
+// synchronising once a step, and adds each launch type's milliseconds, and
+// with ``launch_ms`` too (MAX_EVENTS floats) each launch's, in order.
 // Returns the first CUDA error (0 on success).
 int mmae_deep_train_run(const DeepArgs* a, int first_step, int num_steps,
-                        long long* launches, float* prof_ms, void* stream) {
+                        long long* launches, float* prof_ms,
+                        float* launch_ms, void* stream) {
   if (a->n_inst <= 0 || num_steps <= 0) return 0;
   if (a->n_inst > 65535 || a->batch <= 0 || a->batch > 65535)
     return (int)cudaErrorInvalidConfiguration;
@@ -374,7 +412,12 @@ int mmae_deep_train_run(const DeepArgs* a, int first_step, int num_steps,
   DeepRunner r{*a, Launcher{a->n_inst, a->batch,
                             static_cast<cudaStream_t>(stream), launches,
                             prof_ms}};
-  cudaError_t err = r.L.create_events();
+  r.L.per_launch = launch_ms;
+  UpdTensor desc[NSLOT] = {};
+  r.update_tensors(desc);
+  cudaError_t err = cudaMemcpyAsync(a->upd_desc, desc, sizeof(desc),
+                                    cudaMemcpyHostToDevice, r.L.s);
+  if (err == cudaSuccess) err = r.L.create_events();
   for (int t = first_step; err == cudaSuccess && t < first_step + num_steps;
        ++t) {
     r.L.begin_step();

@@ -28,16 +28,21 @@ the VAE draws eps from ``philox.DEEP_EPS``.
 
 Parameters, moments and the runner's lists follow the Pallas contract
 order (:595-596, :1192-1213): ``encW(L), decW(L, untied only), encB(L),
-decB(L), wv, bv``.  What bounds a step: :func:`deep_step_bound`.
+decB(L), wv, bv``.  What bounds a step: :func:`deep_step_bound`; each
+launch: :func:`deep_launch_bounds`.  The host plans each run once: every
+product's panel width (:func:`product_plan`) and the grouped update's
+work list (:func:`update_work_list`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from multimodalautoencoder_tpu_torch.config import MMAEConfig, TrainConfig
@@ -65,6 +70,21 @@ NBUF = len(SINGLE_BUFFERS) + len(LAYER_BUFFERS) * MAX_DEPTH
 # the launcher times at most this many launches of one step
 # (train_common.cuh ``Launcher::MAX_EVENTS`` less two)
 MAX_PROFILED_LAUNCHES = 46
+MAX_EVENTS = 48
+# csrc/train_deep_kernel.cu ``MAX_PRODUCTS``: a step's products at most
+MAX_PRODUCTS = 4 * MAX_DEPTH
+# train_common.cuh's gemm_batch_kernel: panel widths and the rows a block
+# holds
+PANEL_WIDTHS = (64, 32, 16)
+BATCH_ROWS = 24
+# update_group_kernel: threads a block, rows of a thread's elements, bias
+# columns an item, bytes of one tensor's descriptor (``UpdTensor``, at
+# most)
+UPDATE_THREADS = 256
+UPDATE_ROWS = 4
+BIAS_COLS = 256
+DESC_BYTES = 128
+H100_SMS = 132
 
 
 class DeepArgs(ctypes.Structure):
@@ -74,13 +94,16 @@ class DeepArgs(ctypes.Structure):
         [(n, ctypes.c_int) for n in (
             "n_inst", "batch", "depth", "n_types", "max_rows", "tied",
             "variational", "bf16_moments", "decay")]
-        + [("dims", ctypes.c_int * (MAX_DEPTH + 1))]
+        + [("dims", ctypes.c_int * (MAX_DEPTH + 1)),
+           ("panel", ctypes.c_int * MAX_PRODUCTS),
+           ("tile_tx", ctypes.c_int * NSLOT),
+           ("n_items", ctypes.c_int), ("n_weight_items", ctypes.c_int)]
         + [(n, ctypes.c_float) for n in (
             "elem_p", "mask_value", "decay_steps", "decay_rate",
             "adam_eps2")]
         + [(n, ctypes.c_void_p) for n in (
             "seeds", "fold", "n_valid", "lr", "keep", "wpen", "act",
-            "train", "type_table", "cum")]
+            "train", "type_table", "cum", "items", "upd_desc")]
         + [("param", ctypes.c_void_p * NSLOT),
            ("m", ctypes.c_void_p * NSLOT),
            ("v", ctypes.c_void_p * NSLOT),
@@ -99,7 +122,7 @@ class DeepLibrary(NvccLibrary):
         lib.mmae_deep_train_run.argtypes = [
             ctypes.POINTER(DeepArgs), ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p]
         lib.deep_train_kernel_error_string.restype = ctypes.c_char_p
         lib.deep_train_kernel_error_string.argtypes = [ctypes.c_int]
 
@@ -114,12 +137,144 @@ KERNELS = DeepLibrary()
 
 def launches_per_step(depth: int, tied: bool, variational: bool) -> int:
     """Kernel launches of one step of ``mmae_deep_train_run``: sample +
-    corrupt, 2L forward and 2L - 1 backward products, L (tied) or 2L
-    weight-gradient + Adam kernels, 2L bias + Adam kernels; a VAE adds the
-    log-sigma product, two elementwise passes and wv's, bv's Adam.  At
-    L = 2 this is ``train_kernels.launches_per_step``."""
-    return (1 + 2 * depth + 2 * depth - 1 + (1 if tied else 2) * depth
-            + 2 * depth + (5 if variational else 0))
+    corrupt, 2L forward and 2L - 1 backward products, and one grouped
+    update of every weight and bias (whether tied or not); a VAE adds the
+    log-sigma product and two elementwise passes.  13 for a tied depth-3
+    step, 16 for a depth-3 VAE."""
+    del tied   # a tied step updates fewer tensors in the same launch
+    return 1 + 2 * depth + 2 * depth - 1 + 1 + (3 if variational else 0)
+
+
+# ----------------------------------------------------------- the plan
+
+def panel_width(ncol: int, n_inst: int, batch: int,
+                sms: int = H100_SMS) -> int:
+    """gemm_batch_kernel's panel width for a product of ``ncol`` columns
+    over ``n_inst`` instances: the widest of :data:`PANEL_WIDTHS`, no wider
+    than ``ncol`` needs, that gives at least two blocks an SM; with none,
+    the narrowest.  A block's time does not depend on its width (each
+    thread sums the same 2 x 4 elements over K), so a narrower panel only
+    spreads a launch over more SMs, and its ring is sized to the panel."""
+    row_blocks = -(-batch // BATCH_ROWS)
+    fits = [w for w in PANEL_WIDTHS if w < 2 * ncol or w == PANEL_WIDTHS[-1]]
+    for w in fits:
+        if n_inst * row_blocks * -(-ncol // w) >= 2 * sms:
+            return w
+    return fits[-1]
+
+
+def product_plan(sizes: Sequence[int], tied: bool, variational: bool,
+                 n_inst: int, batch: int, sms: int = H100_SMS
+                 ) -> List[Dict[str, object]]:
+    """Every product of one step in ``DeepRunner::step``'s launch order:
+    name, launch type, epilogue, columns ``ncol``, depth ``K`` (+ ``K2``
+    of the second pair), whether B is read K-major (a W^T view), the panel
+    width and the grid."""
+    d = list(sizes)
+    L = len(d) - 1
+    out = []
+
+    def add(name, kind, epi, ncol, K, kmajor, K2=0):
+        pw = panel_width(ncol, n_inst, batch, sms)
+        out.append({"name": name, "type": kind, "epi": epi, "ncol": ncol,
+                    "K": K, "K2": K2, "kmajor": kmajor, "panel": pw,
+                    "grid": (-(-ncol // pw), -(-batch // BATCH_ROWS),
+                             n_inst)})
+
+    fwd, bwd = "forward_products", "backward_products"
+    for i in range(L):
+        if variational and i == L - 1:
+            add("lv head", fwd, "bias", d[L], d[L - 1], False)
+        add(f"encode {i}", fwd, "act_drop" if i < L - 1 else "bias",
+            d[i + 1], d[i], False)
+    for j in range(L):
+        add(f"decode {j}", fwd, "act_drop" if j < L - 1 else "logit_grad",
+            d[L - j - 1], d[L - j], tied)
+    for j in range(L - 2, -1, -1):
+        add(f"decode {j} grad", bwd, "mul", d[L - j - 1], d[L - j - 2],
+            not tied)
+    add("gz", bwd, "none", d[L], d[L - 1], not tied)
+    for i in range(L - 2, -1, -1):
+        add(f"encode {i} grad", bwd, "mul", d[i + 1], d[i + 2], True,
+            d[L] if variational and i == L - 2 else 0)
+    return out
+
+
+def update_tile_threads(cols: int) -> int:
+    """update_group_kernel's threads across a weight tile of ``cols``
+    columns: 16 unless the columns end in a partial 64, up to 128
+    columns, where one tile spans them (at least 8 threads)."""
+    if cols > 128 or cols % 64 == 0:
+        return 16
+    return max(8, -(-cols // 4))
+
+
+def update_tile(tx: int) -> Tuple[int, int]:
+    """(rows, columns) of an update tile with ``tx`` threads across: each
+    thread owns UPDATE_ROWS x 4 elements, the thread rows (256 / tx) are
+    rounded down to even (64 x 64 at tx = 16, 40 x 100 at tx = 25)."""
+    return UPDATE_ROWS * ((UPDATE_THREADS // tx) & ~1), 4 * tx
+
+
+def update_tensors(sizes: Sequence[int], tied: bool, variational: bool
+                   ) -> Tuple[List[Tuple[int, int, int]],
+                              List[Tuple[int, int]]]:
+    """The grouped update's tensors: weights as (slot, rows, cols), biases
+    as (slot, cols), each in slot order."""
+    d = list(sizes)
+    L = len(d) - 1
+    weights = [(ENC_W + i, d[i], d[i + 1]) for i in range(L)]
+    if not tied:
+        weights += [(DEC_W + j, d[L - j], d[L - j - 1]) for j in range(L)]
+    if variational:
+        weights.append((WV, d[L - 1], d[L]))
+    biases = ([(ENC_B + i, d[i + 1]) for i in range(L)]
+              + [(DEC_B + j, d[L - j - 1]) for j in range(L)]
+              + ([(BV, d[L])] if variational else []))
+    return weights, biases
+
+
+def update_work_list(sizes: Sequence[int], tied: bool, variational: bool,
+                     n_inst: int) -> Tuple[np.ndarray, int, Dict[int, int]]:
+    """update_group_kernel's work list: (items, weight items, tile threads
+    across by slot).  Items are (slot, instance, row 0, column 0) int32
+    rows: every weight tile of every instance, the largest tensors first
+    (instance by instance, tiles row by row), then every bias's
+    :data:`BIAS_COLS`-column chunks, the widest first."""
+    weights, biases = update_tensors(sizes, tied, variational)
+    tile_tx = {slot: update_tile_threads(C) for slot, _, C in weights}
+
+    def block(slot, r0, c0):
+        """Every instance's (slot, n, r0, c0) over the given tile
+        corners, instance by instance."""
+        n = np.repeat(np.arange(n_inst), len(r0))
+        return np.column_stack([np.full(len(n), slot), n,
+                                np.tile(r0, n_inst), np.tile(c0, n_inst)])
+
+    rows = []
+    for slot, R, C in sorted(weights, key=lambda w: -w[1] * w[2]):
+        tr, tc = update_tile(tile_tx[slot])
+        r0, c0 = np.meshgrid(np.arange(0, R, tr), np.arange(0, C, tc),
+                             indexing="ij")
+        rows.append(block(slot, r0.ravel(), c0.ravel()))
+    n_weight = sum(len(r) for r in rows)
+    for slot, C in sorted(biases, key=lambda b: -b[1]):
+        c0 = np.arange(0, C, BIAS_COLS)
+        rows.append(block(slot, np.zeros_like(c0), c0))
+    items = np.concatenate(rows).astype(np.int32)
+    return items, n_weight, tile_tx
+
+
+@functools.lru_cache(maxsize=32)
+def _run_plan(sizes: Tuple[int, ...], tied: bool, variational: bool,
+              n_inst: int, batch: int, sms: int):
+    """A run's plan, made once a shape: the products' panel widths, the
+    update's work list (a CPU tensor), its weight items and tile widths."""
+    plan = product_plan(sizes, tied, variational, n_inst, batch, sms)
+    items, n_weight, tile_tx = update_work_list(sizes, tied, variational,
+                                                n_inst)
+    return (tuple(p["panel"] for p in plan), torch.from_numpy(items),
+            n_weight, tuple(tile_tx.items()))
 
 
 # ------------------------------------------------------------- bounds
@@ -208,6 +363,60 @@ def deep_launch_type_bounds(cfg: MMAEConfig, n_inst: int, batch: int,
                                                  + (d[L] if vae else 0)),
             N * (B + 10.0) * biases),
     }
+
+
+def deep_launch_bounds(cfg: MMAEConfig, n_inst: int, batch: int,
+                       bf16_moments: bool, sms: int = H100_SMS
+                       ) -> List[Dict[str, object]]:
+    """Each launch of one step in launch order, with its own bound: a
+    product reads its weight(s), bias and input once and writes its
+    outputs once (so a tied weight counts in both of its products, and the
+    products' sum exceeds :func:`deep_launch_type_bounds`' forward and
+    backward rows, which count each weight once); the sample and the VAE
+    passes split their types' rows; the grouped update is the weight- and
+    bias-update rows together.  Products carry :func:`product_plan`'s
+    fields."""
+    cfg = cfg.validate()
+    d = _widths(cfg)
+    L = len(d) - 1
+    N, B = n_inst, batch
+    vae = cfg.variational
+    types = deep_launch_type_bounds(cfg, n_inst, batch, bf16_moments)
+    philox_ops = 10 * 12
+    bound = train_kernels._bound
+
+    def product(p):
+        k = p["K"] + p["K2"]
+        outs = {"act_drop": 2, "bias": 1, "logit_grad": 1, "mul": 1,
+                "none": 1}[p["epi"]]
+        reads = 1 if p["epi"] in ("logit_grad", "mul") else 0
+        has_bias = p["epi"] in ("act_drop", "bias", "logit_grad")
+        nbytes = 4.0 * N * (k * p["ncol"] + (p["ncol"] if has_bias else 0)
+                            + B * (k + (outs + reads) * p["ncol"]))
+        flop = N * (2.0 * B * p["ncol"] * k
+                    + (B * p["ncol"] * philox_ops
+                       if p["epi"] == "act_drop" else 0))
+        return dict(p, **bound(nbytes, flop))
+
+    def share(name, kind, frac_bytes, frac_flop):
+        t = types[kind]
+        return dict({"name": name, "type": kind},
+                    **bound(t["bytes"] * frac_bytes, t["flop"] * frac_flop))
+
+    plan = product_plan(d, cfg.tie_weights, vae, n_inst, batch, sms)
+    n_fwd = L + (1 if vae else 0)
+    out = [share("sample", "sample_corrupt", 1.0, 1.0)]
+    out += [product(p) for p in plan[:n_fwd]]
+    if vae:
+        out.append(share("vae sample", "vae_elementwise", 0.4, 0.5))
+    out += [product(p) for p in plan[n_fwd:n_fwd + L + L]]
+    if vae:
+        out.append(share("vae grad", "vae_elementwise", 0.6, 0.5))
+    out += [product(p) for p in plan[n_fwd + L + L:]]
+    w, b = types["weight_grad_adam"], types["bias_grad_adam"]
+    out.append(dict({"name": "update", "type": "weight_grad_adam"},
+                    **bound(w["bytes"] + b["bytes"], w["flop"] + b["flop"])))
+    return out
 
 
 # ----------------------------------------------------------------- state
@@ -457,21 +666,30 @@ def _buffer_index(name: str, layer: int) -> int:
 
 
 def train_deep_kernel(run: DeepGridRun, first_step: int, num_steps: int,
-                      profile: Optional[Dict[str, float]] = None) -> None:
+                      profile: Optional[Dict[str, float]] = None,
+                      launch_ms: Optional[List[float]] = None) -> None:
     """Steps [first_step, first_step + num_steps) by the CUDA kernels, in
     place on ``run``'s tensors, on the current stream; one ctypes call
     whose C loop enqueues every launch.  With ``profile`` (a dict) every
     launch is timed with CUDA events and each launch type's milliseconds
-    are added to it (this synchronises once a step; at most
+    are added to it, and with ``launch_ms`` too (a list) each launch's, in
+    launch order, over the steps (this synchronises once a step; at most
     :data:`MAX_PROFILED_LAUNCHES` launches a step)."""
     dev = _check_cuda_run(run)
     if num_steps <= 0:
         return
-    if profile is not None and launches_per_step(
-            run.depth, run.tied, run.variational) > MAX_PROFILED_LAUNCHES:
+    per_step = launches_per_step(run.depth, run.tied, run.variational)
+    if (profile is not None or launch_ms is not None) \
+            and per_step > MAX_PROFILED_LAUNCHES:
         raise ValueError("too many launches a step to profile")
     lib = KERNELS.load()
     ws = _workspace(run, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    panels, items, n_weight, tile_tx = _run_plan(
+        tuple(run.sizes), bool(run.tied), bool(run.variational),
+        run.n_inst, run.batch, sms)
+    items_dev = items.to(dev)
+    desc = torch.empty(NSLOT * DESC_BYTES, dtype=torch.uint8, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -488,9 +706,15 @@ def train_deep_kernel(run: DeepGridRun, first_step: int, num_steps: int,
         fold=ptr(run.fold), n_valid=ptr(run.n_valid),
         lr=ptr(run.lr), keep=ptr(run.keep), wpen=ptr(run.wpen),
         act=ptr(run.act), train=ptr(run.train),
-        type_table=ptr(run.type_table), cum=ptr(run.cum))
+        type_table=ptr(run.type_table), cum=ptr(run.cum),
+        n_items=len(items), n_weight_items=n_weight,
+        items=items_dev.data_ptr(), upd_desc=desc.data_ptr())
     for i, w in enumerate(run.sizes):
         args.dims[i] = w
+    for i, pw in enumerate(panels):
+        args.panel[i] = pw
+    for slot, tx in tile_tx:
+        args.tile_tx[slot] = tx
     for i, slot in enumerate(run.c_slots()):
         args.param[slot] = ptr(run.params[i])
         args.m[slot] = ptr(run.m[i])
@@ -498,19 +722,27 @@ def train_deep_kernel(run: DeepGridRun, first_step: int, num_steps: int,
     for (name, layer), t in ws.items():
         args.ws[_buffer_index(name, layer)] = t.data_ptr()
     launches = ctypes.c_longlong(0)
-    prof = (ctypes.c_float * len(LAUNCH_TYPES))() if profile is not None \
-        else None
+    timed = profile is not None or launch_ms is not None
+    prof = (ctypes.c_float * len(LAUNCH_TYPES))() if timed else None
+    each = (ctypes.c_float * MAX_EVENTS)() if timed else None
+
+    def arg(buf):
+        return None if buf is None else ctypes.cast(buf, ctypes.c_void_p)
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mmae_deep_train_run(ctypes.byref(args), int(first_step),
                                       int(num_steps), ctypes.byref(launches),
-                                      ctypes.cast(prof, ctypes.c_void_p)
-                                      if prof is not None else None, stream)
+                                      arg(prof), arg(each), stream)
     KERNELS.count(launches.value)
     KERNELS.check(err, "mmae_deep_train_run")
     if profile is not None:
         for name, ms in zip(LAUNCH_TYPES, prof):
             profile[name] = profile.get(name, 0.0) + float(ms)
+    if launch_ms is not None:
+        launch_ms.extend([0.0] * (per_step - len(launch_ms)))
+        for i in range(per_step):
+            launch_ms[i] += float(each[i])
 
 
 # ------------------------------------------------------------- pipeline
