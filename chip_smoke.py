@@ -6,7 +6,8 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``multimodalautoencoder_tpu_torch/
-csrc`` with nvcc (one process per source, started together) and drives
+csrc`` with nvcc (one process per source, started together; [3]-[6] need
+``fused_dense`` alone and run while the others build) and drives
 every ported path at the reference scale (the 2000-row study of 5 x 200
 features):
 
@@ -18,7 +19,7 @@ features):
   kernels against their plain twin at small widths (the demo's among
   them) and on the three 1000-wide ACII buckets (60 instances each), then
   those buckets through
-  ``train_grid_sharded(backend="pallas")`` for 5,000 steps with the
+  ``train_grid_sharded(backend="pallas")`` for 2,000 steps with the
   sweep's recipe, the best instance saved and served by ``cli fill``, and
   the step timed by launch type (phases [7]-[10]);
 - the two-phase classification sweep: the phase-2 kernels against their
@@ -28,11 +29,13 @@ features):
   ``MMAEClassificationSweep.run()`` at 5,000 + 5,000 steps with its
   winner exported and served by ``cli embed``, the full
   576-setting default grid through ``cli sweep-classification`` at 100 +
-  100 steps, and one phase-2 step timed (phases [11]-[14]);
+  100 steps, and one phase-2 step timed by launch type and launch by
+  launch against each launch's bound and ``torch.bmm`` (phases
+  [11]-[14]);
 - the MMAE sweep: the depth >= 3 kernels against their twin at a small
   width and on the three 1000 -> 500 -> 100 buckets (60 instances each),
   those buckets through ``MMAESweep(backend="pallas", probe="device",
-  save_best_params=True).run()`` at 5,000 steps with its winner served by
+  save_best_params=True).run()`` at 2,000 steps with its winner served by
   ``cli fill``, the default 108-setting grid through ``cli sweep-mmae`` at
   100 steps, one deep step timed, and the device-memory stream probe
   against its twins, each stream timed in turns with its library call
@@ -41,7 +44,7 @@ features):
   shapes against its plain twin and timed in turns with ``torch.addmm``,
   the single-run trainer (``trainer.train`` / ``train_classification``) at
   full width with ``use_pallas`` on and off (each step held against a
-  float64 step; 2,000-step runs, which replay CUDA graphs, each bit-equal
+  float64 step; 500-step runs, which replay CUDA graphs, each bit-equal
   to its eager-loop control; ms per step of both, the device's idle
   share), and ``cli train`` with its checkpoint reloaded and resumed by
   the facade (phases [20]-[22]).  [13] and [17] run their CLI sweeps with
@@ -49,7 +52,7 @@ features):
   ``share_phase1=False``;
 - the comparison baselines and the rest of the data layer, on the
   reference-scale study of ``synthetic.reference_scale_loaders``: the NN
-  baseline at full width (each default architecture 5,000 steps replayed
+  baseline at full width (each default architecture 2,000 steps replayed
   from CUDA graphs, no host sync in the step loop, bit-equal to its
   eager-loop control, ms per step of both and the device's idle share),
   ``NNSweep(device="cuda").run()`` over the default 32-setting grid, ``cli
@@ -63,8 +66,9 @@ features):
   against ``cli merge-shards`` and its global winner served through
   ``fused_dense`` by ``cli fill``; ``cli sweep-classification
   --process-shard i 2`` as two concurrent processes over the 576-setting
-  grid, merged; and the reference recipe's parity band on kernel 2, with
-  [9]'s utilization rows (phases [27]-[30]);
+  grid, merged (started with [28], so both share the card); and the
+  reference recipe's parity band on kernel 2, with [9]'s utilization rows
+  (phases [27]-[30]);
 - the end-to-end demo and the installed wheel: ``python -m
   multimodalautoencoder_tpu_torch.examples.acii_pipeline`` on the card
   (the MMAE sweep on kernel 2, the two-phase sweep on kernel 4, the best
@@ -73,7 +77,12 @@ features):
   read-only with ``pip --target``, from which a fresh interpreter reads
   the study with ``--engine native`` and serves it through ``fused_dense``
   with ``cli fill``, its libraries built outside the install (phases
-  [31]-[32]).
+  [31]-[32]; the wheel is built, installed and run in a thread of its own
+  from [7] on and checked at [32]).
+
+Each phase's wall time follows it on a line of its own (``[n] took``).
+The winners of [9], [12], [16] and [28] are served with ``--engine
+native``; [4] and [6] serve with the default reader.
 
 Any failed phase ends the run with a non-zero exit; so does a machine
 without CUDA.  The last lines of standard output are the card's name and
@@ -86,20 +95,25 @@ kernel, and the result:
 variant instead: the training libraries built with their products on the
 tensor cores (csrc/train_common.cuh, TRAIN_TENSOR_CORE_PRODUCTS), then the
 training gates and step timings ([8]-[11], [14], [15]), every gate
-reported rather than only the first that fails.  The variant no longer
-reaches kernel 3: its products run on gemm_batch_kernel, which has no
-tensor-core form, so [15] holds kernel 3 as the plain build has it.
+reported rather than only the first that fails.  The variant reaches
+kernel 2 alone: kernels 3 and 4 run their products on gemm_batch_kernel
+and gemm_tile_kernel, which have no tensor-core form, so [11] and [15]
+hold them as the plain build has them.
 ``python3 chip_smoke.py --deep`` runs [15] and [18] alone, every gate
 reported.  ``python3 chip_smoke.py --deep-ab <checkout>`` runs kernel 3 of
-another
-checkout (the parent's) and of this one, each in processes of its own,
-from the same state and seeds: parameters and moments after 10 steps
-compared bit for bit, and the tied deep step timed in turns.  ``python3 chip_smoke.py
+another checkout (the parent's) and of this one, each in processes of its
+own, from the same state and seeds: parameters and moments after 10 steps
+compared bit for bit, and the tied deep step timed in turns; ``python3
+chip_smoke.py --cls-ab <checkout>`` does the same for kernel 4 over the
+validation bucket and its variants (f32 moments, bf16 operands, VAE,
+untied, a one-layer head, batches 37 and 20) and the F = 30 cases, and
+times the validation bucket's step launch by launch beside each launch's
+bound and ``torch.bmm`` of its products.  ``python3 chip_smoke.py
 --single-run`` runs [20] and [21] alone, [21] with a control route (the
 kernel route with bf16 operands), every gate reported; ``python3
 chip_smoke.py --baselines`` runs [23]-[26] alone, every gate reported.
 ``python3 chip_smoke.py --split-cards`` runs [27] over every visible card
-at [9]'s 5,000 steps; ``python3 chip_smoke.py --pipeline`` runs [8]'s
+at [9]'s 2,000 steps; ``python3 chip_smoke.py --pipeline`` runs [8]'s
 and [11]'s F = 30 cases (the demo's widths among them), [31] and [32]
 alone, every gate reported.  ``python3 chip_smoke.py --count-launches <cli
 arguments>`` runs one
@@ -112,6 +126,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -129,9 +144,9 @@ LAYERS = (1000, 100)
 SEED = 0
 # the sweep's recipe (sweep/wrappers.py:173-186, :248-253)
 LR, BATCH = 1e-3, 20
-# [9]'s steps: the sweep's 15,000 cut to 5,000 for the smoke's time limit
+# [9]'s steps: the sweep's 15,000 cut to 2,000 for the smoke's time limit
 # (as are [12]'s and [16]'s, CLS_RUN_STEPS and MMAE_RUN_STEPS)
-STEPS = 5000
+STEPS = 2000
 NAMES = ("call", "location", "screen", "sms", "survey")
 # [31]'s widths (examples/acii_pipeline.py): the MMAE grid's two
 # architectures at 30 features and the two-phase sweep's (16, 8) + (8,)
@@ -960,7 +975,7 @@ def phase_train(workdir: str, ptk, dk, dl, folded, buckets, spec,
     before = dk.KERNELS.launches
     rc = cli.main(["fill", dl.filename, "--checkpoint", ck,
                    "--normalize-and-fill", "--device", DEVICE, "--seed",
-                   str(SEED)])
+                   str(SEED), "--engine", "native"])
     torch.cuda.synchronize()
     check(rc == 0, f"cli fill of the trained checkpoint returned {rc}")
     from multimodalautoencoder_tpu_torch.data.loader import DataLoader
@@ -1311,7 +1326,7 @@ def phase_cls_sweep(workdir: str, pck, ptk, study_path: str, unsup, sup,
     check(os.path.exists(ck), f"{ck} was not exported")
     rc = cli.main(["embed", study_path, "--checkpoint", ck,
                    "--normalize-and-fill", "--device", DEVICE, "--seed",
-                   str(SEED)])
+                   str(SEED), "--engine", "native"])
     torch.cuda.synchronize()
     check(rc == 0, f"cli embed of the exported winner returned {rc}")
     serve_dl = DataLoader(study_path, supervised=False, fill_gaps_with=-1.0,
@@ -1382,9 +1397,12 @@ def phase_cls_step_timing(pck, ptk, sup_folded, spec, cfg, settings,
                           card: str) -> dict:
     """One phase-2 step of the validation bucket (80 instances, bf16
     moments): the kernels by CUDA events (windows of 50 steps), each
-    launch type, the bound, the twin on the card, and the step's 14
-    products as torch.bmm calls (the library yardstick; the port never
-    calls it)."""
+    launch type, then each launch against its own bound
+    (``cls_launch_bounds``) with its grid, panel and thread tile, the
+    bound, the twin on the card, and the step's 14 products as torch.bmm
+    calls (the library yardstick; the port never calls it), in turns with
+    the kernels.  The grouped update's type bound is the weight and bias
+    updates' together."""
     from multimodalautoencoder_tpu_torch.config import TrainConfig
 
     tcfg = TrainConfig(learning_rate=LR, batch_size=BATCH,
@@ -1402,6 +1420,9 @@ def phase_cls_step_timing(pck, ptk, sup_folded, spec, cfg, settings,
         pck.init_heads(g, cfg, C, K))
     bound = pck.cls_step_bound(cfg, N, B, True)
     bounds = pck.cls_launch_type_bounds(cfg, N, B, True)
+    w, b = bounds.pop("weight_grad_adam"), bounds.pop("bias_grad_adam")
+    bounds["weight_grad_adam"] = ptk._bound(w["bytes"] + b["bytes"],
+                                            w["flop"] + b["flop"])
     F, (H1, H2) = cfg.num_feats, cfg.layer_sizes
     print(f"  tied {F} -> {H1} -> {H2}, head 50 -> 20 -> 3, N={N}, B={B}, "
           f"bf16 moments; bound {bound['bound_ms']:.4f} ms/step "
@@ -1430,6 +1451,20 @@ def phase_cls_step_timing(pck, ptk, sup_folded, spec, cfg, settings,
     print("  by launch type (events, serialised), in turns with torch.bmm "
           "of its products on the device")
     types = types_vs_bmm(profile, groups, bounds, N, card)
+
+    def per_launch():
+        each: list = []
+        pck.train_cls_kernel(run, 1000, inner, launch_ms=each)
+        return [v / inner for v in each]
+
+    each = pck.cls_launch_bounds(cfg, N, B, True)
+    products = {i: [(B, b["K"] + b["K2"], b["ncol"])]
+                for i, b in enumerate(each) if "K" in b}
+    products[len(each) - 1] = groups["weight_grad_adam"]
+    print(f"  launch by launch (events, serialised), in turns with torch.bmm"
+          f" of its products; {len(each)} launches, pck.launches_per_step "
+          f"{pck.launches_per_step(len(d) - 1, cfg.variational)}")
+    launches = launches_vs_bmm(per_launch, each, products, N, card)
     twin = run.clone()
     plain_ms = cuda_ms(lambda: pck.train_cls_kernel_reference(twin, 0, 1),
                        reps=3, inner=3)
@@ -1440,7 +1475,7 @@ def phase_cls_step_timing(pck, ptk, sup_folded, spec, cfg, settings,
           f"{bmm_ms:.4f} ms  [{card}]")
     return {"ms": ms, "plain_ms": plain_ms, "bmm_ms": bmm_ms,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-            "launch_types": types}
+            "launch_types": types, "launches": launches}
 
 
 
@@ -1449,7 +1484,7 @@ def phase_cls_step_timing(pck, ptk, sup_folded, spec, cfg, settings,
 # settings in 3 buckets of 12 settings x 5 folds)
 DEEP_LAYERS = (1000, 500, 100)
 MMAE_STEPS = 15000   # the sweep's num_steps
-MMAE_RUN_STEPS = 5000  # [16]'s run: the sweep's 15,000 cut for the time limit
+MMAE_RUN_STEPS = 2000  # [16]'s run: the sweep's 15,000 cut for the time limit
 MMAE_GRID_STEPS = 100  # [17]'s default 108-setting grid, cut for time
 SIGN_FLIP_FRACTION = 1e-5
 
@@ -1722,7 +1757,7 @@ def phase_mmae_sweep(workdir: str, pdk, ptk, dk, study, sup, card: str):
     before = dk.KERNELS.launches
     rc = cli.main(["fill", study.filename, "--checkpoint", ck,
                    "--normalize-and-fill", "--device", DEVICE, "--seed",
-                   str(SEED)])
+                   str(SEED), "--engine", "native"])
     torch.cuda.synchronize()
     check(rc == 0, f"cli fill of best_mmae returned {rc}")
     serve_dl = DataLoader(study.filename, supervised=False,
@@ -1807,13 +1842,13 @@ def deep_products(cfg, batch: int) -> dict:
 
 def launches_vs_bmm(per_launch, bounds, products, n_inst: int,
                     card: str) -> list:
-    """Each launch of a deep step on the device beside ``torch.bmm`` of
-    its products (the update's: its weight-gradient products, without
-    Adam), in turns: the kernels' per-launch CUDA events over a window
-    (``per_launch()`` -> ms by launch), bmm launch by launch (device
-    alone), bmm again, the kernels again.  ``bounds`` is
-    ``deep_launch_bounds`` (launch order); ``products`` maps a launch's
-    index to its (m, k, n) products."""
+    """Each launch of a training step (kernel 3's or 4's) on the device
+    beside ``torch.bmm`` of its products (the update's: its weight-gradient
+    products, without Adam), in turns: the kernels' per-launch CUDA events
+    over a window (``per_launch()`` -> ms by launch), bmm launch by launch
+    (device alone), bmm again, the kernels again.  ``bounds`` is
+    ``deep_launch_bounds`` or ``cls_launch_bounds`` (launch order);
+    ``products`` maps a launch's index to its (m, k, n) products."""
     ops = {i: [(torch.rand((n_inst, m, k), device=DEVICE),
                 torch.rand((n_inst, k, n), device=DEVICE))
                for m, k, n in shapes] for i, shapes in products.items()}
@@ -1914,7 +1949,8 @@ def phase_deep_step_timing(pdk, ptk, tied, folded, spec, card: str) -> dict:
     print(f"  fresh parameters launch by launch (events, serialised), in "
           f"turns with torch.bmm of its products; {len(each)} launches, "
           f"pdk.launches_per_step "
-          f"{pdk.launches_per_step(len(cfg.layer_sizes), cfg.tie_weights, cfg.variational)}")
+          f"{pdk.launches_per_step(len(cfg.layer_sizes), cfg.tie_weights,
+                                   cfg.variational)}")
     launches = launches_vs_bmm(per_launch, each, products, N, card)
     twin = run.clone()
     plain_ms = cuda_ms(lambda: pdk.train_deep_kernel_reference(twin, 0, 1),
@@ -1983,7 +2019,7 @@ DENSE_LAYERS = ((1000, 1000, False, "softsign"), (1000, 100, False, "linear"),
                 (100, 1000, True, "softsign"), (1000, 1000, True, "linear"))
 TRAIN_ROWS = (10, 20, 100, 200)
 TIMED_ROWS = (20, 100)
-SINGLE_STEPS = 2000   # [21]'s runs and [22]'s cli train
+SINGLE_STEPS = 500    # [21]'s runs and [22]'s cli train
 SINGLE_RECORD = 200   # record period of [21]'s runs
 # steps of the calls under torch.profiler ([21], [23]): eager, graphed
 IDLE_SHORT, IDLE_STEPS = 100, 500
@@ -2587,8 +2623,9 @@ def phase_unshared_bucket(workdir: str, pck, ptk, unsup, sup, card: str):
 # [23]-[26]: the comparison baselines, feature selection and the rest of
 # the data layer, on the reference-scale study of reference_scale_loaders
 NN_STEPS = 5000      # the NN baseline's num_steps (baselines/neural_net.py)
+NN_RUN_STEPS = 2000  # [23]'s fits: NN_STEPS cut for the smoke's time limit
 NN_RECORD = 500      # [23]'s record period
-NN_SAME_STEPS = 1000  # [23]'s runs with and without recording
+NN_SAME_STEPS = 500  # [23]'s runs with and without recording
 # [24]'s default 32-setting grid at 5 folds: 200 steps a fit, cut from
 # 5,000 for the smoke's time limit.  In the eager loop a step was
 # host-bound (3-8 ms on an H100 host) and 200 steps a fit took 216 s once,
@@ -2614,9 +2651,9 @@ def _labels_2d(y) -> np.ndarray:
 def phase_nn_baseline(sup, card: str) -> dict:
     """[23]: the NN baseline's MLP at full width on the card, one fit of
     each default architecture on fold 0 (keep 0.5, penalty 1e-3, batch
-    100, NN_STEPS steps, accuracies recorded every NN_RECORD steps).  Each
-    fit runs under ``torch.cuda.set_sync_debug_mode("error")``, so a host
-    synchronisation inside the step loop fails the phase; ms per step by
+    100, NN_RUN_STEPS steps, accuracies recorded every NN_RECORD steps).
+    Each fit runs under ``torch.cuda.set_sync_debug_mode("error")``, so a
+    host synchronisation inside the step loop fails the phase; ms per step by
     the host clock and by CUDA events around the loop.  The fit replays
     CUDA graphs (``ops/step_graph.py``); the control runs the same step
     in the eager loop (``step_graph.eager_route``) for NN_SAME_STEPS steps
@@ -2660,15 +2697,16 @@ def phase_nn_baseline(sup, card: str) -> dict:
         try:
             t0 = time.perf_counter()
             start.record()
-            state, (ta, va) = nn.train(state, cfg, tx, ty, vx, vy, NN_STEPS,
+            state, (ta, va) = nn.train(state, cfg, tx, ty, vx, vy,
+                                       NN_RUN_STEPS,
                                        record_every_nth=NN_RECORD)
             end.record()
             enqueue = time.perf_counter() - t0
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-        host_ms = 1e3 * (time.perf_counter() - t0) / NN_STEPS
-        event_ms = start.elapsed_time(end) / NN_STEPS
+        host_ms = 1e3 * (time.perf_counter() - t0) / NN_RUN_STEPS
+        event_ms = start.elapsed_time(end) / NN_RUN_STEPS
         leaves = nn.params_to_numpy(state.params)
         train_acc = float(nn.accuracy(state.params, cfg, tx, ty))
         val_acc = float(nn.accuracy(state.params, cfg, vx, vy))
@@ -2712,13 +2750,14 @@ def phase_nn_baseline(sup, card: str) -> dict:
                     eager_event if eager else event_ms)
         g_idle, e_idle = idle["graphed"], idle["eager"]
         print(f"  {str(tuple(arch)):16s} graphed {host_ms:.4f} ms/step by "
-              f"the host clock ({1e3 * enqueue / NN_STEPS:.4f} to "
+              f"the host clock ({1e3 * enqueue / NN_RUN_STEPS:.4f} to "
               f"enqueue), {event_ms:.4f} by CUDA events; eager control "
               f"{eager_host:.4f} / {eager_event:.4f} ms/step "
               f"({NN_SAME_STEPS} steps), bit-equal parameters, Adam state "
-              f"and curves: {same}; 0 host syncs in {NN_STEPS} steps (sync "
-              f"debug mode 'error'); device idle {100 * g_idle['idle']:.1f}"
-              f" % graphed, {100 * e_idle['idle']:.1f} % eager (kernels "
+              f"and curves: {same}; 0 host syncs in {NN_RUN_STEPS} steps "
+              f"(sync debug mode 'error'); device idle "
+              f"{100 * g_idle['idle']:.1f} % graphed, "
+              f"{100 * e_idle['idle']:.1f} % eager (kernels "
               f"{g_idle['busy_ms_per_step']:.4f} ms a step, "
               f"{g_idle['ops_per_step']:.1f} device ops, torch.profiler); "
               f"train acc "
@@ -2732,7 +2771,8 @@ def phase_nn_baseline(sup, card: str) -> dict:
         check(val_acc >= majority,
               f"{arch}: val acc {val_acc:.4f} under the majority rate "
               f"{majority:.4f}")
-        check(len(curve) == NN_STEPS // NN_RECORD, f"{arch}: curve length")
+        check(len(curve) == NN_RUN_STEPS // NN_RECORD,
+              f"{arch}: curve length")
         if ai == 0:
             runs = [nn.train(nn.init_state(cfg, DEVICE), cfg, tx, ty, vx,
                              vy, NN_SAME_STEPS, record_every_nth=rec)[0]
@@ -2949,17 +2989,21 @@ def phase_data_layer(workdir: str, study_path: str, card: str) -> dict:
             "max_ulp": int(ulp.max())}
 
 
-def phase_baselines(workdir: str, card: str) -> dict:
-    """[23]-[26] on the reference-scale study."""
-    from multimodalautoencoder_tpu_torch.data import synthetic
+def phase_baselines(workdir: str, card: str, csv_path: str = None) -> dict:
+    """[23]-[26] on the reference-scale study (a copy of ``csv_path`` where
+    given) in the supervised loader of ``synthetic.reference_scale_loaders``
+    (normalized and filled, whole-modality gaps set to -1)."""
+    from multimodalautoencoder_tpu_torch.data.loader import DataLoader
 
     base = os.path.join(workdir, "baselines")
     os.makedirs(base)
     t0 = time.perf_counter()
-    _, sup = synthetic.reference_scale_loaders(base, num_rows=ROWS,
-                                               seed=SEED)
-    print(f"[23] the NN baseline at full width: {NN_STEPS} steps on fold 0 "
-          f"for each default architecture (study written and loaded in "
+    sup = DataLoader(reference_csv(base, csv_path), supervised=True,
+                     cross_validation=True, suppress_output=True,
+                     normalize_and_fill=True, fill_gaps_with=-1.0)
+    print(f"[23] the NN baseline at full width: {NN_RUN_STEPS} steps on "
+          f"fold 0 for each default architecture (study "
+          f"{'copied' if csv_path else 'written'} and loaded in "
           f"{time.perf_counter() - t0:.1f} s)")
     t_phase = time.perf_counter()
     nn_run = phase_nn_baseline(sup, card)
@@ -3148,7 +3192,7 @@ def phase_distributed_mmae(workdir: str, dk, ptk, study_path: str,
     before = dk.KERNELS.launches
     rc = cli.main(["fill", study_path, "--checkpoint", served,
                    "--normalize-and-fill", "--device", DEVICE, "--seed",
-                   str(SEED)])
+                   str(SEED), "--engine", "native"])
     torch.cuda.synchronize()
     served_launches = dk.KERNELS.launches - before
     check(rc == 0 and served_launches > 0,
@@ -3165,17 +3209,15 @@ def phase_distributed_mmae(workdir: str, dk, ptk, study_path: str,
             "serve_launches": served_launches}
 
 
-def phase_sharded_classification(workdir: str, study_path: str,
-                                 card: str) -> dict:
-    """``cli sweep-classification --process-shard i 2 --device cuda`` for
-    i = 0, 1 as two concurrent processes over the 576-setting default
-    grid at SHARD_STEPS + SHARD_STEPS steps (each through
-    ``chip_smoke.py --count-launches``, which prints its kernels' launch
-    counts), then ``cli merge-shards --best-checkpoint best_mmae_cls``."""
-    from multimodalautoencoder_tpu_torch.sweep import engine
-    from multimodalautoencoder_tpu_torch.sweep.wrappers import \
-        MMAEClassificationSweep as Sweep
-
+@contextlib.contextmanager
+def sharded_classification(workdir: str, study_path: str):
+    """[29]'s two processes: ``cli sweep-classification --process-shard i
+    2 --device cuda`` for i = 0, 1 over the 576-setting default grid at
+    SHARD_STEPS + SHARD_STEPS steps, each through ``chip_smoke.py
+    --count-launches`` (which prints its kernels' launch counts), started
+    on entry; yields (processes, results directory, start time) and kills
+    whichever still runs on exit.  The full run starts them before [28]
+    and checks them after it, so the two sharded sweeps share the card."""
     results = os.path.join(workdir, "cls_shards")
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
@@ -3186,15 +3228,25 @@ def phase_sharded_classification(workdir: str, study_path: str,
          "--save-best-params", "--process-shard", str(i), "2"],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for i in range(2)]
-    outs = []
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=600))
+        yield procs, results, t0
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+
+
+def phase_sharded_classification(started, card: str) -> dict:
+    """[29]: waits for ``sharded_classification``'s processes
+    (``started``), then ``cli merge-shards --best-checkpoint
+    best_mmae_cls`` over their 576 settings."""
+    from multimodalautoencoder_tpu_torch.sweep import engine
+    from multimodalautoencoder_tpu_torch.sweep.wrappers import \
+        MMAEClassificationSweep as Sweep
+
+    procs, results, t0 = started
+    outs = [p.communicate(timeout=600) for p in procs]
     wall = time.perf_counter() - t0
     counts = []
     for i, (p, (out, err)) in enumerate(zip(procs, outs)):
@@ -3223,8 +3275,9 @@ def phase_sharded_classification(workdir: str, study_path: str,
     for i, c in enumerate(counts):
         print(f"  shard {i}: kernel 2 launches {c.get('train')}, kernel 4 "
               f"launches {c.get('cls')}")
-    print(f"  two processes on cuda:0: {wall:.1f} s wall; merged {len(ledger)}"
-          f" rows, {len(set(keys))} distinct settings, {finite_rows} with "
+    print(f"  two processes on cuda:0 (beside [28]'s): {wall:.1f} s wall; "
+          f"merged {len(ledger)} rows, {len(set(keys))} distinct settings, "
+          f"{finite_rows} with "
           f"every metric finite ({len(metrics)} metric columns), "
           f"backend_used {used}; {lines[0] if lines else ''}  [{card}]")
     check(len(ledger) == 576 and sorted(keys) == sorted(
@@ -3408,18 +3461,13 @@ def serve_study(workdir: str):
     return csv_path, ck, dl
 
 
-def phase_installed_wheel(workdir: str, csv_path: str, ck_path: str, dl,
-                          card: str) -> dict:
-    """[32]: a wheel built from this checkout, installed with ``pip
-    --target`` into a directory made read-only; a fresh interpreter whose
-    imports resolve there (``PYTHONPATH`` the install alone, run from
-    another directory) reads the study with the native engine, values
-    equal to this checkout's reading, and runs ``cli fill --engine native``
-    on ``ck_path`` on the card: 4 ``fused_dense`` launches (one forward),
-    the libraries built outside the install."""
-    from multimodalautoencoder_tpu_torch.data import fast_csv
-    from multimodalautoencoder_tpu_torch.data.preprocess import \
-        get_wanted_feats_from_df
+def install_wheel(workdir: str, csv_path: str, ck_path: str) -> dict:
+    """[32]'s run: a wheel built from this checkout, installed with ``pip
+    --target`` into a directory made read-only, and WHEEL_PROBE in a fresh
+    interpreter whose imports resolve there (``PYTHONPATH`` the install
+    alone, run from another directory) on ``csv_path`` and ``ck_path``.
+    It prints nothing, so the full run starts it in a thread of its own
+    after [6] and checks it at [32]."""
     from multimodalautoencoder_tpu_torch.tools import wheel_check
 
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -3434,7 +3482,22 @@ def phase_installed_wheel(workdir: str, csv_path: str, ck_path: str, dl,
         r = subprocess.run([sys.executable, "-c", WHEEL_PROBE, csv_path,
                             ck_path, values], capture_output=True,
                            text=True, env=env, cwd=run_dir, timeout=600)
-    wall = time.perf_counter() - t0
+    return {"root": root, "site": site, "values": values,
+            "packaged": packaged, "wall": time.perf_counter() - t0, "r": r}
+
+
+def phase_installed_wheel(csv_path: str, dl, card: str, run: dict) -> dict:
+    """[32]: ``install_wheel``'s run (``run``) checked: the fresh
+    interpreter read the study with the native engine, values equal to
+    this checkout's reading, and ran ``cli fill --engine native`` on the
+    card: 4 ``fused_dense`` launches (one forward), the libraries built
+    outside the install."""
+    from multimodalautoencoder_tpu_torch.data import fast_csv
+    from multimodalautoencoder_tpu_torch.data.preprocess import \
+        get_wanted_feats_from_df
+
+    root, site, values, r = run["root"], run["site"], run["values"], run["r"]
+    packaged, wall = run["packaged"], run["wall"]
     lines = [line for line in r.stdout.splitlines()
              if line.startswith("WHEEL ")]
     if r.returncode or not lines:
@@ -3501,8 +3564,7 @@ def main_pipeline() -> int:
                 ("[31]", "the end-to-end demo",
                  lambda: phase_pipeline(workdir, ptk, pck, card)),
                 ("[32]", "the installed wheel",
-                 lambda: phase_installed_wheel(
-                     workdir, *serve_study(workdir), card))):
+                 lambda: installed_wheel_alone(workdir, card))):
             print(f"{label} {title}")
             try:
                 fn()
@@ -3511,6 +3573,13 @@ def main_pipeline() -> int:
     print(card)
     print(json.dumps({"pipeline": True, "failed_checks": FAILED}))
     return 1 if FAILED else 0
+
+
+def installed_wheel_alone(workdir: str, card: str) -> dict:
+    """[32] on a study and checkpoint of its own, in this thread."""
+    csv_path, ck_path, dl = serve_study(workdir)
+    return phase_installed_wheel(csv_path, dl, card,
+                                 install_wheel(workdir, csv_path, ck_path))
 
 
 def main_split_cards() -> int:
@@ -3580,11 +3649,10 @@ def _cli_lines(argv, prefix: str):
                 if line.startswith(prefix)]
 
 
-def training_study(workdir: str):
-    """The reference-scale study for training, its CV folds on the card,
-    the ACII grid's base config and 1000-wide buckets, and the noise
-    spec."""
-    from multimodalautoencoder_tpu_torch.data import synthetic
+def training_study(workdir: str, csv_path: str = None):
+    """The reference-scale study for training (a copy of ``csv_path``, the
+    same file, where given), its CV folds on the card, the ACII grid's
+    base config and 1000-wide buckets, and the noise spec."""
     from multimodalautoencoder_tpu_torch.data.loader import DataLoader
     from multimodalautoencoder_tpu_torch.models.corruption import NoiseSpec
     from multimodalautoencoder_tpu_torch.parallel import grid_trainer
@@ -3592,13 +3660,13 @@ def training_study(workdir: str):
     train_dir = os.path.join(workdir, "train")
     os.makedirs(train_dir)
     t0 = time.perf_counter()
-    study = DataLoader(synthetic.write_reference_scale_csv(
-        train_dir, num_rows=ROWS, seed=SEED), supervised=False,
+    study = DataLoader(reference_csv(train_dir, csv_path), supervised=False,
         cross_validation=True, fill_gaps_with=-1.0, suppress_output=True,
         seed=SEED)
     print(f"  study for training: {ROWS} rows, {study.num_feats} "
           f"features, {study.num_folds} CV folds "
-          f"({time.perf_counter() - t0:.1f} s to write and load)")
+          f"({time.perf_counter() - t0:.1f} s to "
+          f"{'copy' if csv_path else 'write'} and load)")
     folded = grid_trainer.FoldedData.from_loader(study, study.num_folds,
                                                  device=DEVICE)
     base, buckets = sweep_buckets(study)
@@ -3607,6 +3675,18 @@ def training_study(workdir: str):
           f"{folded.train_n.tolist()}, val rows "
           f"{folded.val_n.tolist()}")
     return study, folded, base, buckets, spec
+
+
+def reference_csv(directory: str, csv_path: str = None) -> str:
+    """The reference-scale study as ``<directory>/acii.csv``: a copy of
+    ``csv_path`` (written by ``synthetic.write_reference_scale_csv`` with
+    the same rows and seed) where given, else written anew."""
+    from multimodalautoencoder_tpu_torch.data import synthetic
+
+    if csv_path is None:
+        return synthetic.write_reference_scale_csv(directory, num_rows=ROWS,
+                                                   seed=SEED)
+    return shutil.copy(csv_path, os.path.join(directory, "acii.csv"))
 
 
 def supervised_study(study):
@@ -3916,78 +3996,29 @@ def main_deep_state(out_dir: str, dump: bool) -> int:
 
 
 def main_deep_ab(parent_root: str) -> int:
-    """Kernel 3 of ``parent_root`` (a checkout of PR 11) against this
+    """Kernel 3 of ``parent_root`` (the parent's checkout) against this
     checkout's, each tree in processes of its own (--deep-state), in turns
     parent, change, change, parent: parameters and moments after AB_STEPS
     steps of :func:`ab_cases` compared bit for bit (the first two runs),
     and the tied full-width step timed in all four."""
     global FAILED
     FAILED = []
-    here = os.path.dirname(os.path.abspath(__file__))
     parent_root = os.path.abspath(parent_root)
     card = card_line()
-    runs = [("parent", parent_root), ("change", here), ("change", here),
-            ("parent", parent_root)]
-    results = []
     with tempfile.TemporaryDirectory(prefix="mmae_chip_smoke_ab_") as tmp:
-        for i, (name, root) in enumerate(runs):
-            d = os.path.join(tmp, f"run{i}")
-            os.makedirs(d)
-            print(f"[ab {i}] {name}: {root}", flush=True)
-            proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--deep-state",
-                 d, "dump" if i < 2 else "time"],
-                env=dict(os.environ, MMAE_PACKAGE_ROOT=root), cwd=root,
-                capture_output=True, text=True, timeout=1500)
-            lines = proc.stdout.splitlines()
-            for line in lines:
-                if not line.startswith("DEEP-STATE "):
-                    print(line)
-            if proc.returncode != 0:
-                print(proc.stderr[-4000:])
-            check(proc.returncode == 0, f"--deep-state {name} returned "
-                  f"{proc.returncode}")
-            state = [json.loads(line[len("DEEP-STATE "):]) for line in lines
-                     if line.startswith("DEEP-STATE ")]
-            results.append(state[0] if state else None)
-        if results[0] and results[1]:
-            bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
-            for i, case in enumerate(results[0]["cases"]):
-                a = torch.load(os.path.join(tmp, "run0", f"case{i}.pt"))
-                b = torch.load(os.path.join(tmp, "run1", f"case{i}.pt"))
-                differ, total, first = 0, 0, []
-                for k in ("params", "m", "v"):
-                    for j, (x, y) in enumerate(zip(a[k], b[k])):
-                        ne = x.view(bits[x.dtype]) != y.view(bits[y.dtype])
-                        total += x.numel()
-                        differ += int(ne.sum())
-                        for idx in ne.nonzero()[:3].tolist():
-                            first.append((k, j, idx, float(x[tuple(idx)]),
-                                          float(y[tuple(idx)])))
-                print(f"  {case['label']:44s} {differ} of {total} "
-                      f"parameter and moment bits differ after {AB_STEPS} "
-                      f"steps; launches {case['launches']} (parent) / "
-                      f"{results[1]['cases'][i]['launches']}"
-                      + (f"; first {first[:6]}" if first else ""))
-                for name, r in (("parent", results[0]),
-                                ("change", results[1])):
-                    gaps = r["cases"][i]["step0_vs_twin"]
-                    print(f"    {name} step 0 vs the f32 twin: max |dp| "
-                          f"{max(g[0] for g in gaps):.3e}, "
-                          f"{sum(g[1] for g in gaps)} over {TOL_CLS} "
-                          f"(by tensor {[g[1] for g in gaps]})")
-                check(differ == 0, f"{case['label']}: {differ} elements "
-                      "differ from the parent's kernel 3")
+        results = run_ab_workers("--deep-state", "DEEP-STATE", parent_root,
+                                 tmp)
+        compare_ab_states(results, tmp, "kernel 3")
     timed = [r for r in results if r]
     if len(timed) == 4:
         print(f"  tied {DEEP_LAYERS} N=60 B={BATCH} bf16 moments, ms/step "
               f"(two windows of {AB_TIMED_STEPS} each): "
-              + "; ".join(f"{runs[i][0]} {r['ms'][0]:.4f} / {r['ms'][1]:.4f}"
+              + "; ".join(f"{AB_RUNS[i]} {r['ms'][0]:.4f} / {r['ms'][1]:.4f}"
                           for i, r in enumerate(timed)) + f"  [{card}]")
         for i, r in enumerate(timed):
-            print(f"  {runs[i][0]} by launch type: " + ", ".join(
+            print(f"  {AB_RUNS[i]} by launch type: " + ", ".join(
                 f"{t} {v:.4f}" for t, v in r["types"].items() if v > 0))
-            print(f"  {runs[i][0]} launch by launch (torch.profiler, "
+            print(f"  {AB_RUNS[i]} launch by launch (torch.profiler, "
                   f"{r['launches']} a step): " + ", ".join(
                       f"{n} {ms:.4f}" for n, ms in r["profiler"]))
     print(card)
@@ -4054,13 +4085,398 @@ def deep_step_alone(pdk, ptk, deep, folded, spec, card: str) -> dict:
                                   folded, spec, card)
 
 
+# --cls-ab: kernel 4 of this checkout against another tree's (the parent's),
+# each in a process of its own, from the same state and seeds; states of
+# more than AB_FULL_ELEMENTS elements are compared by digests of their bits
+AB_FULL_ELEMENTS = 20_000_000
+CLS_AB_BATCHES = (100, 37, 20)
+
+
+def bits_digest(t: torch.Tensor) -> list:
+    """Two 64-bit sums of ``t``'s raw bits, each element weighted by its
+    own odd weight: equal for bit-equal tensors, and for tensors that
+    differ in any element equal by chance only (integer sums wrap, so the
+    digest does not depend on the order of the sum)."""
+    b = t.reshape(-1).view(torch.int32 if t.element_size() == 4
+                           else torch.int16).to(torch.int64)
+    i = torch.arange(b.numel(), device=b.device, dtype=torch.int64)
+    w1 = (i * 2654435761 + 97) % 4294967291 * 2 + 1
+    w2 = (i * 40503 + 11) % 2147483629 * 2 + 1
+    return [int((b * w1).sum()), int((b * w2).sum()), b.numel()]
+
+
+def cls_ab_cases(sup_folded, spec_full, cfg_v, settings_v):
+    """(label, cfg, settings, folded, spec, moments, lr, Adam eps, batch):
+    the validation bucket at the sweep's lr 1e-4 / eps 1e-8 and batch 100
+    (bf16 moments), with f32 moments, bf16 operands, as a VAE, untied, with
+    a one-layer head, and at batch 37 and 20; then at F = 30 every loss x
+    head depth (n_cls 1-3) x DAE/VAE x operand type, the demo's widths
+    ((16, 8), head (8,)), and batches 37 and 20, in [11]'s linear regime."""
+    from multimodalautoencoder_tpu_torch.config import MMAEConfig
+    from multimodalautoencoder_tpu_torch.data.modalities import \
+        ModalityTable
+    from multimodalautoencoder_tpu_torch.models.corruption import NoiseSpec
+    from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
+
+    full = "validation bucket N=80"
+    cases = [(f"{full} B={b}", cfg_v, settings_v, sup_folded, spec_full,
+              "bfloat16", CLS_LR, 1e-8, b) for b in CLS_AB_BATCHES]
+    for label, cfg, moments in (
+            ("f32 moments", cfg_v, "float32"),
+            ("bf16 operands", cfg_v.replace(compute_dtype="bfloat16"),
+             "bfloat16"),
+            ("VAE", cfg_v.replace(variational=True, tie_weights=False),
+             "bfloat16"),
+            ("untied", cfg_v.replace(tie_weights=False), "bfloat16"),
+            ("head ()", cfg_v.replace(classification_layer_sizes=()),
+             "bfloat16")):
+        cases.append((f"{full} {label}", cfg.validate(), settings_v,
+                      sup_folded, spec_full, moments, CLS_LR, 1e-8, 100))
+    rng = np.random.default_rng(SEED)
+    mixed = [{"mmae_dropout_prob": 0.5, "dropout_prob": 0.5,
+              "weight_penalty": 0.01, "mmae_activation_function": "relu",
+              "activation_func": "relu"},
+             {"mmae_dropout_prob": 1.0, "dropout_prob": 1.0,
+              "weight_penalty": 0.0, "mmae_activation_function": "softsign",
+              "activation_func": "softsign"}]
+    for loss in ("sigmoid_cross_entropy", "softmax"):
+        ys = [rng.integers(0, 3, n).astype(np.float32) if loss == "softmax"
+              else rng.integers(0, 2, (n, 3)).astype(np.float32)
+              for n in (40, 33)]
+        small = gt.FoldedData.from_ragged(
+            [rng.random((40, 30)), rng.random((33, 30))],
+            [rng.random((9, 30)), rng.random((7, 30))], device=DEVICE,
+            train_y_list=ys, val_y_list=[y[:9] for y in ys])
+        shapes = [((16, 6), head, 100) for head in ((), (8,), (8, 4))]
+        shapes += [(DEMO_LAYERS[1], DEMO_HEAD, 100), ((16, 6), (8, 4), 37),
+                   ((16, 6), (8,), 20)]
+        for layers, head, batch in shapes:
+            for family in ("dae", "vae"):
+                for ops in ("float32", "bfloat16"):
+                    cfg = MMAEConfig(
+                        num_feats=30, layer_sizes=layers,
+                        tie_weights=family == "dae",
+                        variational=family == "vae",
+                        classification_layer_sizes=head, num_labels=3,
+                        classification_loss=loss, compute_dtype=ops,
+                        weight_initialization="normal").validate()
+                    spec = NoiseSpec.build(cfg, ModalityTable.uniform(
+                        5, 6, NAMES))
+                    cases.append((
+                        f"F=30 {layers} {loss[:7]} head {head} {family} "
+                        f"ops {ops[:4]} B={batch}", cfg, mixed, small, spec,
+                        ops, LINEAR_LR, LINEAR_EPS, batch))
+    return cases
+
+
+def cls_products(cfg, batch: int) -> list:
+    """(launch name, [(m, k, n)]) of every product launch of one phase-2
+    step in launch order, then the update's weight-gradient products: the
+    shapes ``torch.bmm`` is timed at beside each launch."""
+    F, (H1, H2) = cfg.num_feats, cfg.layer_sizes
+    d = [H2] + list(cfg.classification_layer_sizes) + [cfg.num_labels]
+    nc, B = len(d) - 1, batch
+    vae = cfg.variational
+    out = [("encode 1", [(B, F, H1)]), ("encode 2", [(B, H1, H2)])]
+    out += [("lv head", [(B, H1, H2)])] if vae else []
+    out += [(f"head {j}", [(B, d[j], d[j + 1])]) for j in range(nc)]
+    out += [(f"head {j} grad", [(B, d[j + 1], d[j])])
+            for j in range(nc - 1, -1, -1)]
+    out += [("g1", [(B, H2 * (2 if vae else 1), H1)])]
+    wgr = [(F, B, H1), (H1, B, H2)] + ([(H1, B, H2)] if vae else [])
+    out += [("update", wgr + [(d[j], B, d[j + 1]) for j in range(nc)])]
+    return out
+
+
+def cls_step_names(cfg) -> list:
+    """The launches of one phase-2 step by name, in launch order (the
+    grouped update last)."""
+    prods = [name for name, _ in cls_products(cfg, 1)]
+    vae = cfg.variational
+    nc = len(cfg.classification_layer_sizes) + 1
+    n_fwd = 2 + (1 if vae else 0) + nc
+    return (["sample"] + prods[:n_fwd - nc] + (["vae sample"] if vae else [])
+            + prods[n_fwd - nc:n_fwd] + ["loss grad"]
+            + prods[n_fwd:-2] + (["vae grad"] if vae else []) + prods[-2:])
+
+
+def main_cls_state(out_dir: str, dump: bool) -> int:
+    """Worker of --cls-ab, on the package under MMAE_PACKAGE_ROOT: with
+    ``dump``, kernel 4 runs AB_STEPS steps of each of :func:`cls_ab_cases`
+    from the seed's state and saves parameters and moments (bits, or
+    digests of them past AB_FULL_ELEMENTS); always, the validation
+    bucket's step is timed: ms/step over windows of AB_TIMED_STEPS, by
+    launch type, and launch by launch by torch.profiler in turns with
+    ``torch.bmm`` of each launch's products.  The last line is
+    ``CLS-STATE`` and a JSON object."""
+    import multimodalautoencoder_tpu_torch as pkg
+    from multimodalautoencoder_tpu_torch.config import TrainConfig
+    from multimodalautoencoder_tpu_torch.ops import cls_train_kernels as pck
+    from multimodalautoencoder_tpu_torch.ops import train_kernels as ptk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    pck.KERNELS.load()
+    print(f"  package {os.path.dirname(pkg.__file__)}; kernel 4 built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = {"cases": []}
+    with tempfile.TemporaryDirectory(prefix="mmae_chip_smoke_") as workdir:
+        study, _, _, _, spec = training_study(workdir)
+        _, sup_folded, cfg_v, settings_v = supervised_study(study)
+        cases = cls_ab_cases(sup_folded, spec, cfg_v, settings_v)
+
+        def start(cfg, settings, fold, sp, moments, lr, eps, batch):
+            tcfg = TrainConfig(learning_rate=LR, batch_size=BATCH,
+                               clip_gradients=False)
+            cls_tcfg = TrainConfig(learning_rate=lr, batch_size=batch,
+                                   clip_gradients=False,
+                                   optimizer_state_dtype=moments)
+            hyper, chyper = cls_hypers(cfg, settings, tcfg)
+            C, K = hyper.num_configs, fold.num_folds
+            g = torch.Generator().manual_seed(SEED)
+            return pck.prepare_cls_run(
+                g, cfg, cls_tcfg, sp, hyper, chyper, fold,
+                ptk.init_grid_params(g, pck.phase1_cfg(cfg), C, K),
+                pck.init_heads(g, cfg, C, K), adam_eps=eps)
+
+        for i, case in enumerate(cases if dump else []):
+            label = case[0]
+            run = start(*case[1:])
+            twin = run.clone()
+            before = pck.KERNELS.launches
+            pck.train_cls_kernel(run, 0, AB_STEPS)
+            torch.cuda.synchronize()
+            state = {k: [t for t in getattr(run, k) if t is not None]
+                     for k in ("params", "m", "v")}
+            if sum(t.numel() for ts in state.values() for t in ts) \
+                    > AB_FULL_ELEMENTS:
+                state = {k: [bits_digest(t) for t in ts]
+                         for k, ts in state.items()}
+            else:
+                state = {k: [t.cpu() for t in ts] for k, ts in state.items()}
+            torch.save(state, os.path.join(out_dir, f"case{i}.pt"))
+            launches = pck.KERNELS.launches - before
+            del run
+            kern = twin.clone()
+            pck.train_cls_kernel(kern, 0, 1)
+            pck.train_cls_kernel_reference(twin, 0, 1)
+            torch.cuda.synchronize()
+            gaps = [(float((a - b).abs().max()),
+                     int(((a - b).abs() > TOL_CLS).sum()))
+                    for a, b in zip(kern.params, twin.params)
+                    if a is not None]
+            out["cases"].append({"label": label, "launches": launches,
+                                 "step0_vs_twin": gaps})
+            del kern, twin
+        run = start(*cases[0][1:])
+        cfg = cases[0][1]
+        pck.train_cls_kernel(run, 0, 20)
+        out["ms"] = [cuda_ms(lambda: pck.train_cls_kernel(
+            run, 20, AB_TIMED_STEPS), reps=5, inner=1) / AB_TIMED_STEPS
+            for _ in range(2)]
+        prof: dict = {}
+        pck.train_cls_kernel(run, 1000, AB_TIMED_STEPS, profile=prof)
+        out["types"] = {t: v / AB_TIMED_STEPS for t, v in prof.items()}
+        nc = len(cfg.classification_layer_sizes) + 1
+        per_step = pck.launches_per_step(nc, cfg.variational)
+        names = cls_step_names(cfg)
+        steps = 5
+
+        def by_launch():
+            # one step more than is read: the profiler can miss the first
+            # kernel it traces
+            kernels = profiler_launches(
+                lambda: pck.train_cls_kernel(run, 2000, steps + 1))
+            if not steps * per_step <= len(kernels) <= (steps + 1) \
+                    * per_step:
+                print(f"  torch.profiler saw {len(kernels)} kernels for "
+                      f"{(steps + 1) * per_step} launches")
+                return []
+            kernels = kernels[-steps * per_step:]
+            each = [(kernels[i][0], sum(kernels[s * per_step + i][1]
+                                        for s in range(steps)) / steps)
+                    for i in range(per_step)]
+            # launches past the step's products are its update (one
+            # launch a weight and a bias in a tree before the grouped one)
+            head = each[:len(names) - 1]
+            tail = each[len(names) - 1:]
+            return head + [("+".join(sorted({k for k, _ in tail})),
+                            sum(ms for _, ms in tail))]
+
+        B = run.batch
+        ops = {name: [(torch.rand((run.n_inst, m, k), device=DEVICE),
+                       torch.rand((run.n_inst, k, n), device=DEVICE))
+                      for m, k, n in shapes]
+               for name, shapes in cls_products(cfg, B)}
+
+        def bmm_turn():
+            return {name: device_ms(
+                lambda o=o: [torch.bmm(a, b) for a, b in o], reps=5,
+                inner=5) for name, o in ops.items()}
+
+        k1 = by_launch()
+        b1, b2 = bmm_turn(), bmm_turn()
+        k2 = by_launch()
+        out["launches"] = per_step
+        out["names"] = names
+        out["profiler"] = ([(n1, (m1 + m2) / 2) for (n1, m1), (_, m2)
+                            in zip(k1, k2)] if k1 and k2 else [])
+        out["bmm"] = {name: (b1[name] + b2[name]) / 2 for name in b1}
+    print("CLS-STATE " + json.dumps(out), flush=True)
+    return 0
+
+
+def ab_states_differ(a: dict, b: dict):
+    """(elements that differ, elements, first differences) between two
+    saved states: bit for bit where both hold tensors, else by digest (a
+    tensor whose digests differ counts whole)."""
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    differ, total, first = 0, 0, []
+    for k in ("params", "m", "v"):
+        for j, (x, y) in enumerate(zip(a[k], b[k])):
+            if isinstance(x, list) or isinstance(y, list):
+                total += x[2]
+                if x != y:
+                    differ += x[2]
+                    first.append((k, j, "digest"))
+                continue
+            ne = x.view(bits[x.dtype]) != y.view(bits[y.dtype])
+            total += x.numel()
+            differ += int(ne.sum())
+            for idx in ne.nonzero()[:3].tolist():
+                first.append((k, j, idx, float(x[tuple(idx)]),
+                              float(y[tuple(idx)])))
+    return differ, total, first
+
+
+AB_RUNS = ("parent", "change", "change", "parent")
+
+
+def run_ab_workers(flag: str, tag: str, parent_root: str, tmp: str) -> list:
+    """The --deep-ab / --cls-ab workers (``flag``) in turns parent, change,
+    change, parent, each in a process of its own on its tree's package;
+    the first two dump their states into ``tmp``.  Returns each worker's
+    JSON object (None where it printed none)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    results = []
+    for i, name in enumerate(AB_RUNS):
+        root = parent_root if name == "parent" else here
+        d = os.path.join(tmp, f"run{i}")
+        os.makedirs(d)
+        print(f"[ab {i}] {name}: {root}", flush=True)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), flag, d,
+             "dump" if i < 2 else "time"],
+            env=dict(os.environ, MMAE_PACKAGE_ROOT=root), cwd=root,
+            capture_output=True, text=True, timeout=1500)
+        lines = proc.stdout.splitlines()
+        for line in lines:
+            if not line.startswith(tag + " "):
+                print(line)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:])
+        check(proc.returncode == 0, f"{flag} {name} returned "
+              f"{proc.returncode}")
+        state = [json.loads(line[len(tag) + 1:]) for line in lines
+                 if line.startswith(tag + " ")]
+        results.append(state[0] if state else None)
+    return results
+
+
+def compare_ab_states(results: list, tmp: str, kernel: str) -> None:
+    """The states the first parent and change workers dumped, case by
+    case: every parameter and moment bit for bit (a check each), beside
+    each tree's step 0 against the f32 twin."""
+    if not (results[0] and results[1]):
+        return
+    for i, case in enumerate(results[0]["cases"]):
+        a = torch.load(os.path.join(tmp, "run0", f"case{i}.pt"))
+        b = torch.load(os.path.join(tmp, "run1", f"case{i}.pt"))
+        differ, total, first = ab_states_differ(a, b)
+        print(f"  {case['label']:56s} {differ} of {total} parameter and "
+              f"moment elements differ after {AB_STEPS} steps; launches "
+              f"{case['launches']} (parent) / "
+              f"{results[1]['cases'][i]['launches']}"
+              + (f"; first {first[:6]}" if first else ""))
+        for name, r in (("parent", results[0]), ("change", results[1])):
+            gaps = r["cases"][i]["step0_vs_twin"]
+            print(f"    {name} step 0 vs the f32 twin: max |dp| "
+                  f"{max(g[0] for g in gaps):.3e}, "
+                  f"{sum(g[1] for g in gaps)} over {TOL_CLS} "
+                  f"(by tensor {[g[1] for g in gaps]})")
+        check(differ == 0, f"{case['label']}: {differ} elements differ "
+              f"from the parent's {kernel}")
+
+
+def main_cls_ab(parent_root: str) -> int:
+    """Kernel 4 of ``parent_root`` (the parent's checkout) against this
+    checkout's, each tree in processes of its own (--cls-state), in turns
+    parent, change, change, parent: parameters and moments after AB_STEPS
+    steps of :func:`cls_ab_cases` compared bit for bit (the first two
+    runs), and the validation bucket's step timed in all four, launch by
+    launch beside its own bound and ``torch.bmm`` of its products."""
+    global FAILED
+    from multimodalautoencoder_tpu_torch.config import MMAEConfig
+    from multimodalautoencoder_tpu_torch.ops import cls_train_kernels as pck
+
+    FAILED = []
+    parent_root = os.path.abspath(parent_root)
+    card = card_line()
+    with tempfile.TemporaryDirectory(prefix="mmae_chip_smoke_ab_") as tmp:
+        results = run_ab_workers("--cls-state", "CLS-STATE", parent_root,
+                                 tmp)
+        compare_ab_states(results, tmp, "kernel 4")
+    timed = [r for r in results if r]
+    if len(timed) == 4:
+        print(f"  validation bucket (tied 1000 -> 100, head 50 -> 20 -> 3, "
+              f"N=80, B=100, bf16 moments), ms/step (two windows of "
+              f"{AB_TIMED_STEPS} each): " + "; ".join(
+                  f"{AB_RUNS[i]} {r['ms'][0]:.4f} / {r['ms'][1]:.4f}"
+                  for i, r in enumerate(timed)) + f"  [{card}]")
+        for i, r in enumerate(timed):
+            print(f"  {AB_RUNS[i]} by launch type: " + ", ".join(
+                f"{t} {v:.4f}" for t, v in r["types"].items() if v > 0))
+        cfg = MMAEConfig(num_feats=1000, layer_sizes=LAYERS,
+                         classification_layer_sizes=(50, 20), num_labels=3,
+                         tie_weights=True).validate()
+        # a tree older than the per-launch bounds prints none
+        per_launch = getattr(pck, "cls_launch_bounds", None)
+        bounds = {b["name"]: b for b in (
+            per_launch(cfg, 80, 100, True) if per_launch else [])}
+        print(f"  launch by launch (torch.profiler, 5 steps; parent "
+              f"{timed[0]['launches']} launches a step, change "
+              f"{timed[1]['launches']}); ms parent / change, torch.bmm of "
+              f"the launch's products in turns, own bound  [{card}]")
+        both = [r["profiler"] for r in timed]
+        if all(both):
+            for j, name in enumerate(timed[1]["names"]):
+                ms = [p[j][1] for p in both]
+                bmm = timed[1]["bmm"].get(name)
+                b = bounds.get(name)
+                print(f"    {j:2d} {name:12s} {both[1][j][0][:24]:24s} "
+                      f"{(ms[0] + ms[3]) / 2:.4f} / {(ms[1] + ms[2]) / 2:.4f}"
+                      + (f"  bmm {bmm:.4f}" if bmm is not None else
+                         "  bmm -     ")
+                      + (f"  bound {b['bound_ms']:.4f} {b['bound_by'][:5]}"
+                         if b else "") + (f"  grid {b['grid']} panel "
+                                          f"{b['panel']}x{b['cols']}"
+                                          if b and "grid" in b else ""))
+            print(f"    parent's update launches: {both[0][-1][0]}")
+    print(card)
+    print(json.dumps({"cls_ab": True, "failed_checks": FAILED}))
+    return 1 if FAILED else 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--count-launches"]:
         return main_count_launches(sys.argv[2:])
-    if sys.argv[1:2] == ["--deep-state"] and len(sys.argv) == 4:
+    if sys.argv[1:2] in (["--deep-state"], ["--cls-state"]) \
+            and len(sys.argv) == 4:
         # the package under MMAE_PACKAGE_ROOT, not this file's
         sys.path.insert(0, os.environ["MMAE_PACKAGE_ROOT"])
-        return main_deep_state(sys.argv[2], sys.argv[3] == "dump")
+        worker = main_deep_state if sys.argv[1] == "--deep-state" \
+            else main_cls_state
+        return worker(sys.argv[2], sys.argv[3] == "dump")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -4078,12 +4494,14 @@ def main() -> int:
         return main_pipeline()
     if sys.argv[1:2] == ["--deep-ab"] and len(sys.argv) == 3:
         return main_deep_ab(sys.argv[2])
+    if sys.argv[1:2] == ["--cls-ab"] and len(sys.argv) == 3:
+        return main_cls_ab(sys.argv[2])
     if sys.argv[1:] == ["--deep"]:
         return main_deep()
     check(len(sys.argv) == 1, "usage: chip_smoke.py "
           "[--tensor-core-products 1|2 | --single-run | --baselines | "
           "--split-cards | --pipeline | --deep | --deep-ab <checkout> | "
-          "--count-launches <cli arguments>]")
+          "--cls-ab <checkout> | --count-launches <cli arguments>]")
     from multimodalautoencoder_tpu_torch.ops import cls_train_kernels as pck
     from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
     from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
@@ -4091,6 +4509,14 @@ def main() -> int:
     from multimodalautoencoder_tpu_torch.tools import hbm_bench as hbm
 
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def took(tag: str) -> None:
+        """The time since the last phase's end, as its own line."""
+        now = time.perf_counter()
+        print(f"  {tag} took {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -4098,62 +4524,90 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}")
 
-    build_kernels([dk.KERNELS, ptk.KERNELS, pck.KERNELS, pdk.KERNELS,
-                   hbm.KERNELS])
+    # one nvcc process per source, all started together; [3]-[6] need
+    # fused_dense alone and run while the training libraries build
+    libs = (dk.KERNELS, hbm.KERNELS, ptk.KERNELS, pck.KERNELS, pdk.KERNELS)
+    builder = ThreadPoolExecutor(len(libs))
+    builds = [builder.submit(lib.build) for lib in libs]
+    builds[0].result()
+    dk.KERNELS.load()
     print(f"[2] built {os.path.relpath(dk.KERNELS.library)} from "
           f"{os.path.relpath(dk.KERNELS.source)} with nvcc "
-          f"{' '.join(dk.NVCC_FLAGS)} in {dk.KERNELS.build_seconds:.1f} s;"
-          f" {os.path.relpath(hbm.KERNELS.library)} in "
-          f"{hbm.KERNELS.build_seconds:.1f} s; the training libraries in "
-          f"{ptk.KERNELS.build_seconds:.1f} / {pck.KERNELS.build_seconds:.1f}"
-          f" / {pdk.KERNELS.build_seconds:.1f} s (all five together); "
-          "ptxas:")
-    for lib in (dk.KERNELS, hbm.KERNELS, ptk.KERNELS, pck.KERNELS,
-                pdk.KERNELS):
-        print(f"  {os.path.basename(lib.library)}")
-        for name, res in sorted(lib.resources().items()):
-            print(f"    {name}: {res}")
+          f"{' '.join(dk.NVCC_FLAGS)} in {dk.KERNELS.build_seconds:.1f} s; "
+          "the other four build beside [3]-[6]")
+    took("[1]-[2]")
 
     print(f"[3] fused_dense kernel vs plain (TF32 off, atol=rtol={TOL})")
     max_err, max_err_bf16, max_lean = phase_kernel_vs_plain(dk)
+    took("[3]")
 
-    with tempfile.TemporaryDirectory(prefix="mmae_chip_smoke_") as workdir:
+    # [32]'s wheel is built, installed and run in a thread of its own from
+    # [7] on (it prints nothing there; [32] checks it); the pool's exit
+    # waits for it before the work directory goes
+    with tempfile.TemporaryDirectory(prefix="mmae_chip_smoke_") as workdir, \
+            ThreadPoolExecutor(1) as background, builder:
         print("[4] serve path: cli fill/embed --device cuda from two "
               "use_pallas checkpoints (tied softsign DAE, VAE)")
         launches, ck_dae, dl = phase_serve(workdir, dk)
         params, cfg, x = phase_reconstruction(dk, ck_dae, dl)
+        took("[4]")
         print("[5] timing")
         dense = phase_timing(dk, params, cfg, x, card)
+        took("[5]")
         print("[6] one cli fill call (DAE), step by step")
         phase_breakdown(dl.filename, ck_dae, card)
+        took("[6]")
+        for fut in builds:
+            fut.result()
+        for lib in libs[1:]:
+            lib.load()
+        print(f"  built {os.path.relpath(hbm.KERNELS.library)} in "
+              f"{hbm.KERNELS.build_seconds:.1f} s, the training libraries "
+              f"in {ptk.KERNELS.build_seconds:.1f} / "
+              f"{pck.KERNELS.build_seconds:.1f} / "
+              f"{pdk.KERNELS.build_seconds:.1f} s (all five started "
+              "together); ptxas:")
+        for lib in libs:
+            print(f"    {os.path.basename(lib.library)}")
+            for name, res in sorted(lib.resources().items()):
+                print(f"      {name}: {res}")
+        took("builds after [6]")
+        wheel_run = background.submit(install_wheel, workdir, dl.filename,
+                                      ck_dae)
 
         print(f"[7] built {os.path.relpath(ptk.KERNELS.library)} from "
               f"{os.path.relpath(ptk.KERNELS.source)} in "
-              f"{ptk.KERNELS.build_seconds:.1f} s (ptxas in [2])")
+              f"{ptk.KERNELS.build_seconds:.1f} s (ptxas after [6])")
         probe = phase_rng(ptk)
 
-        study, folded, base, buckets, spec = training_study(workdir)
+        study, folded, base, buckets, spec = training_study(workdir,
+                                                            dl.filename)
+        took("[7]")
         print(f"[8] training kernels vs their twin on the card (TF32 off,"
               f" 10 steps, lr {LR}, tolerance {TOL})")
         train_err = phase_kernel_vs_twin(ptk, buckets, folded, spec)
+        took("[8]")
 
         print(f"[9] grid training, end to end: the three 1000-wide ACII "
               f"buckets, {STEPS} steps each, through "
               f"train_grid_sharded(backend='pallas')")
         train_launches, tied, rates = phase_train(
             workdir, ptk, dk, study, folded, buckets, spec, card)
+        took("[9]")
         print("[10] one training step, timed")
         step = phase_step_timing(ptk, tied, folded, spec, card)
+        took("[10]")
 
         print(f"[11] built {os.path.relpath(pck.KERNELS.library)} from "
               f"{os.path.relpath(pck.KERNELS.source)} in "
               f"{pck.KERNELS.build_seconds:.1f} s (with the others; ptxas "
-              "in [2])")
+              "after [6])")
         sup, sup_folded, cfg_v, settings_v = supervised_study(study)
         print(f"  phase-2 kernels vs their twin on the card (TF32 off, 10 "
               f"steps, tolerance {TOL_CLS} with either operand type)")
         cls_err = phase_cls_kernel_vs_twin(pck, ptk, sup_folded, spec, cfg_v,
                                            settings_v)
+        took("[11]")
         print(f"[12] the validation bucket end to end: "
               f"MMAEClassificationSweep(backend='pallas', "
               f"save_best_params=True).run(), {CLS_RUN_STEPS} + "
@@ -4162,81 +4616,98 @@ def main() -> int:
         cls_launches, _, _ = phase_cls_sweep(workdir, pck, ptk,
                                              study.filename, study, sup,
                                              card)
+        took("[12]")
         print(f"[13] the full default grid through cli sweep-classification"
               f" --device {DEVICE} --check-test, {GRID_STEPS} + {GRID_STEPS}"
               " steps, then the validation bucket unshared")
         phase_full_grid(workdir, pck, ptk, study.filename, card)
         phase_unshared_bucket(workdir, pck, ptk, study, sup, card)
+        took("[13]")
         print("[14] one phase-2 step of the validation bucket, timed")
         cls_step = phase_cls_step_timing(pck, ptk, sup_folded, spec, cfg_v,
                                          settings_v, card)
+        took("[14]")
 
         print(f"[15] built {os.path.relpath(pdk.KERNELS.library)} from "
               f"{os.path.relpath(pdk.KERNELS.source)} in "
               f"{pdk.KERNELS.build_seconds:.1f} s (with the others; ptxas "
-              "in [2])")
+              "after [6])")
         deep = deep_buckets(base)
         print(f"  kernel 3 vs its twin on the card (TF32 off, 10 steps, "
               f"tolerance {TOL_CLS})")
         deep_err = phase_deep_kernel_vs_twin(pdk, ptk, deep, folded, spec)
+        took("[15]")
         print(f"[16] the MMAE sweep end to end: MMAESweep(layer_sizes="
               f"[{DEEP_LAYERS}], backend='pallas', probe='device', "
               f"save_best_params=True).run(), {MMAE_RUN_STEPS} steps")
         deep_launches, tied_deep, _ = phase_mmae_sweep(
             workdir, pdk, ptk, dk, study, sup, card)
+        took("[16]")
         print(f"[17] the default 108-setting grid through cli sweep-mmae "
               f"--device {DEVICE} --check-test, {MMAE_GRID_STEPS} steps")
         phase_full_mmae_grid(workdir, pdk, ptk, study.filename, card)
+        took("[17]")
         print("[18] one deep tied step, timed")
         deep_step = phase_deep_step_timing(pdk, ptk, tied_deep, folded,
                                            spec, card)
+        took("[18]")
         print(f"[19] built {os.path.relpath(hbm.KERNELS.library)} in "
               f"{hbm.KERNELS.build_seconds:.1f} s (with the others); the "
               f"bandwidth probe over {hbm.MOMENT_BYTES / 1e9:.3f} GB, "
               f"{hbm.STEPS} passes a pattern")
         stream = phase_hbm(hbm, card)
+        took("[19]")
 
         print(f"[20] fused_dense under autograd at the training shapes (TF32"
               f" off, atol=rtol={TOL})")
         dense_train = phase_dense_autograd(dk, card)
+        took("[20]")
         print(f"[21] the single-run trainer at full width: trainer.train / "
               f"train_classification, use_pallas on and off, "
               f"{SINGLE_STEPS} steps each")
-        t_phase = time.perf_counter()
         single = phase_single_run(dk, dl.filename, card)
-        print(f"  [21] took {time.perf_counter() - t_phase:.1f} s")
+        took("[21]")
         print(f"[22] cli train --device {DEVICE} --arch "
               f"{' '.join(map(str, LAYERS))}, reloaded and resumed")
-        t_phase = time.perf_counter()
         phase_cli_train(workdir, dl.filename, card)
-        print(f"  [22] took {time.perf_counter() - t_phase:.1f} s")
-        phase_baselines(workdir, card)
+        took("[22]")
+        phase_baselines(workdir, card, dl.filename)
+        took("[23]-[26]")
 
         print(f"[27] the instance split on the card: [9]'s tied bucket, "
               f"{SPLIT_STEPS} steps, on [cuda:0, cuda:0] against one device")
         split = phase_split(ptk, tied, folded, spec, card)
-        print(f"[28] the distributed MMAE sweep: tools/multihost_sweep.py "
-              f"--hosts 2 --distributed on gloo, the 108-setting grid at "
-              f"{SHARD_STEPS} steps, both ranks on cuda:0, --engine native")
-        sharded = phase_distributed_mmae(workdir, dk, ptk, study.filename,
-                                         card)
-        print(f"[29] the sharded classification sweep: cli "
-              f"sweep-classification --process-shard i 2 --device {DEVICE}"
-              f", two concurrent processes, 576 settings at {SHARD_STEPS} + "
-              f"{SHARD_STEPS} steps, then cli merge-shards")
-        sharded_cls = phase_sharded_classification(workdir, study.filename,
-                                                   card)
+        took("[27]")
+        with sharded_classification(workdir, study.filename) as shards:
+            print(f"[28] the distributed MMAE sweep: "
+                  f"tools/multihost_sweep.py --hosts 2 --distributed on "
+                  f"gloo, the 108-setting grid at {SHARD_STEPS} steps, both "
+                  f"ranks on cuda:0, --engine native, beside [29]'s "
+                  f"processes")
+            sharded = phase_distributed_mmae(workdir, dk, ptk,
+                                             study.filename, card)
+            print(f"[29] the sharded classification sweep: cli "
+                  f"sweep-classification --process-shard i 2 --device "
+                  f"{DEVICE}, two concurrent processes started with [28], "
+                  f"576 settings at {SHARD_STEPS} + {SHARD_STEPS} steps, "
+                  f"then cli merge-shards")
+            sharded_cls = phase_sharded_classification(shards, card)
+        took("[28]-[29]")
         print("[30] the parity band on kernel 2: the reference recipe's "
               "three runs, then [9]'s utilization rows")
         band = phase_parity_band(ptk, rates, card)
+        took("[30]")
         print(f"[31] the end-to-end demo: python -m multimodalautoencoder_"
               f"tpu_torch.examples.acii_pipeline {' '.join(PIPELINE_ARGS)} "
               f"--device {DEVICE}")
         pipeline = phase_pipeline(workdir, ptk, pck, card)
+        took("[31]")
         print("[32] the installed wheel: built from this checkout, installed"
               " read-only with pip --target, --engine native and cli fill "
-              "from a fresh interpreter")
-        wheel = phase_installed_wheel(workdir, dl.filename, ck_dae, dl, card)
+              "from a fresh interpreter (started after [6])")
+        wheel = phase_installed_wheel(dl.filename, dl, card,
+                                      wheel_run.result())
+        took("[32]")
         for mod in ("jax", "pandas", "sklearn", "multimodalautoencoder_tpu"):
             check(mod not in sys.modules, f"the port's paths imported {mod}")
 
@@ -4279,7 +4750,9 @@ def main() -> int:
          "ms": cls_step["ms"], "plain_ms": cls_step["plain_ms"],
          "bound_ms": cls_step["bound_ms"], "bound_by": cls_step["bound_by"],
          "library_ms": None,
-         "bmm_ms": cls_step["bmm_ms"], "launch_types": cls_step["launch_types"]},
+         "bmm_ms": cls_step["bmm_ms"],
+         "launch_types": cls_step["launch_types"],
+         "per_launch": cls_step["launches"]},
         dict({"name": "philox_probe", "route": "cuda",
               "source": src + "train_kernel.cu",
               "replaces": "tests_tpu/test_hardware.py:28",

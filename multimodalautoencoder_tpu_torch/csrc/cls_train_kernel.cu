@@ -21,12 +21,23 @@
 //     4. the loss gradient: (sigmoid - y) / (B L) for sigmoid-CE,
 //        (softmax - onehot) / B for softmax, times the last layer's gate;
 //     5. backward data products down the head and the encoder (no KL);
-//     6. weight gradient + Adam for every weight (L2 on the head's weights
-//        only, :1645) and bias gradient + Adam, rsqrt Adam at a constant lr;
+//     6. one grouped update (update_group_kernel) over a work list: weight
+//        gradient + Adam for every weight (L2 on the head's weights only,
+//        :1645) and bias gradient + Adam, rsqrt Adam at a constant lr;
+//   6 + 2 n_cls launches a step (12 for the validation bucket's head of
+//   3 layers), 3 more for a VAE;
 // - the S-step loop runs in C (mmae_cls_train_run), one call per run.
+//   Each product's panel and thread tile and the update's work list come
+//   from the host (ops/cls_train_kernels.cls_product_plan,
+//   cls_update_work_list), once a run.
 //
-// The products, Adam and launcher are shared with the phase-1 kernels
-// (train_common.cuh).  With bf16 operands every product operand, the
+// The blocks, Adam and launcher are shared with the other training
+// kernels (train_common.cuh): at phase 2's batch of 100 the products run
+// on gemm_tile_kernel (8 x 8 register tiles), at a batch of at most 24 on
+// gemm_batch_kernel.  Every sum keeps the order of the earlier
+// gemm_panel_kernel / wgrad_adam_kernel / bias_adam_kernel launches, so
+// every parameter and moment is bit for bit theirs (chip_smoke.py
+// --cls-ab).  With bf16 operands every product operand, the
 // backward cotangents of the weight-gradient products included, is
 // rounded to bf16 and sums stay f32 (:1470-1477).  Random numbers come
 // from Philox4x32-10 with phase 2's own purposes; the plain PyTorch twin
@@ -37,7 +48,8 @@
 // nearly all in the 100 x 1000 x 1000 forward product and the W1 gradient,
 // against about 16 B of parameter and moment traffic per parameter (1.1 M
 // parameters) with bf16 moments: f32 CUDA-core operations bound it
-// (ops/cls_train_kernels.cls_step_bound computes both from the shapes).
+// (ops/cls_train_kernels.cls_step_bound computes both from the shapes;
+// each launch's own bound: cls_launch_bounds).
 
 // bf16 operands (bf16_ops) take their own instantiations of the shared
 // blocks
@@ -53,8 +65,10 @@ enum Slot { W1 = 0, B1, W2, B2, WV, BV, C1, CB1, C2, CB2, C3, CB3, NSLOT };
 // GC* the gradients at their pre-activations.
 enum Buf { XN = 0, Y, A1D, GF1, MU, LV, EPS, EMB, H1B, H2B, H3B, GFH1,
            GFH2, GFH3, GC1, GC2, GC3, GEMB, GLV, G1, NBUF };
-// Launch types, for the profile of one step.
+// Launch types, for the profile of one step (the grouped update is
+// P_WADAM).
 enum Prof { P_SAMPLE = 0, P_FWD, P_ELEM, P_BWD, P_WADAM, P_BADAM, NPROF };
+constexpr int MAX_PRODUCTS = 12;   // a step's products at most
 
 }  // namespace
 
@@ -66,6 +80,10 @@ struct ClsArgs {
   int dims[4];             // head widths: dims[0] = H2 ... dims[n_cls] = L
   int gates[3];            // activation + dropout on head layer j
   int variational, softmax, bf16_moments, bf16_ops;
+  int panel[MAX_PRODUCTS];     // each product's panel width, in launch order
+  int tile_cols[MAX_PRODUCTS]; // each product's thread columns (tile kernel)
+  int tile_tx[NSLOT];      // each weight slot's update tile threads across
+  int n_items, n_weight_items;   // the update's work list
   float elem_p, mask_value, adam_eps;
   const int* seeds;        // (N,) instance seeds, >= 0
   const int* fold;         // (N,)
@@ -79,10 +97,12 @@ struct ClsArgs {
   const float* labels;     // (K, max_rows, L) their labels (one-hot if ints)
   const float* type_table; // (T, F) 1 where a modality set masks a feature
   const float* cum;        // (T,) cumulative modality-set probabilities
-  float* param[12];        // slot -> (N, rows, cols) or (N, cols); null if absent
-  void* m[12];             // Adam first moments, f32 or bf16, like param
-  void* v[12];             // Adam second moments
-  float* ws[20];           // workspace, Buf order
+  const int* items;        // (n_items, 4) slot, instance, row 0, column 0
+  void* upd_desc;          // UPD_SLOTS x 128 bytes of device scratch
+  float* param[NSLOT];     // slot -> (N, rows, cols) or (N, cols); null if absent
+  void* m[NSLOT];          // Adam first moments, f32 or bf16, like param
+  void* v[NSLOT];          // Adam second moments
+  float* ws[NBUF];         // workspace, Buf order
 };
 }
 
@@ -190,24 +210,55 @@ __global__ void cls_loss_grad_kernel(ClsArgs a, const float* logits,
 struct ClsRunner {
   const ClsArgs& a;
   Launcher L;
+  int product = 0;   // the step's next product, into a.panel
 
   Mat act_mat(int buf, int width) const { return L.act(a.ws[buf], width); }
   Mat w_mat(int slot, int rows, int cols, bool transposed) const {
     return Launcher::w_mat(a.param[slot], rows, cols, transposed);
   }
 
-  template <typename MT>
-  cudaError_t wadam(int slot, int R, int C, int l, int r, float pen,
-                    const AdamStep& st) {
-    return L.wadam<MT>(P_WADAM, R, C, a.ws[l], a.ws[r], nullptr, nullptr,
-                       a.param[slot], a.m[slot], a.v[slot], a.lr, a.wpen,
-                       pen, st, a.bf16_ops);
+  // The next product of the step on its planned block: gemm_batch_kernel
+  // at a batch of at most BR, else gemm_tile_kernel.
+  template <int EPI>
+  cudaError_t gemm(int type, int ncol, int K, Mat A, Mat B, int K2, Mat A2,
+                   Mat B2, const EpiArgs& e) {
+    if (product >= MAX_PRODUCTS) return cudaErrorInvalidValue;
+    const int pw = a.panel[product], tc = a.tile_cols[product];
+    ++product;
+    if (a.batch <= BR)
+      return L.gemm_batch<EPI>(type, pw, ncol, K, A, B, K2, A2, B2, e);
+    return L.gemm_tile<EPI>(type, pw, tc, ncol, K, A, B, K2, A2, B2, e);
   }
 
-  template <typename MT>
-  cudaError_t badam(int slot, int C, int g, const AdamStep& st) {
-    return L.badam<MT>(P_BADAM, C, a.ws[g], a.param[slot], a.m[slot],
-                       a.v[slot], a.lr, st);
+  // The update's tensors by slot: each weight with its product pair (layer
+  // input, gradient at the output) and L2 factor (0 on the encoder, 1 on
+  // the head), each bias with its gradient.
+  void update_tensors(UpdTensor* T) const {
+    const int nc = a.n_cls;
+    auto weight = [&](int slot, int R, int C, int l, int r, float pen) {
+      T[slot] = UpdTensor{R, C, a.tile_tx[slot], pen, a.ws[l], a.ws[r],
+                          nullptr, nullptr, a.param[slot], a.m[slot],
+                          a.v[slot]};
+    };
+    auto bias = [&](int slot, int C, int g) {
+      T[slot] = UpdTensor{0, C, 0, 0.f, nullptr, a.ws[g], nullptr, nullptr,
+                          a.param[slot], a.m[slot], a.v[slot]};
+    };
+    const int emb = a.variational ? EMB : MU;
+    const int hb[4] = {emb, H1B, H2B, H3B};
+    const int gcb[4] = {-1, GC1, GC2, GC3};
+    weight(W1, a.feats, a.h1, XN, G1, 0.f);
+    weight(W2, a.h1, a.h2, A1D, GEMB, 0.f);
+    bias(B1, a.h1, G1);
+    bias(B2, a.h2, GEMB);
+    if (a.variational) {
+      weight(WV, a.h1, a.h2, A1D, GLV, 0.f);
+      bias(BV, a.h2, GLV);
+    }
+    for (int j = 0; j < nc; ++j) {
+      weight(C1 + 2 * j, a.dims[j], a.dims[j + 1], hb[j], gcb[j + 1], 1.f);
+      bias(CB1 + 2 * j, a.dims[j + 1], gcb[j + 1]);
+    }
   }
 
   template <typename MT>
@@ -217,6 +268,7 @@ struct ClsRunner {
     const Mat none{nullptr, 0, 0, 0};
     const AdamStep st{t, 0, 1.f, 1.f, a.adam_eps * a.adam_eps};
     cudaStream_t s = L.s;
+    product = 0;
     EpiArgs e{};
     e.seeds = a.seeds; e.keep = a.keep; e.step = t; e.bf16 = a.bf16_ops;
 
@@ -226,14 +278,14 @@ struct ClsRunner {
     // encoder: z1 = xn W1 + b1 -> a1d, gf1; mu = a1d W2 + b2
     e.act = a.eact; e.purpose = philox::CLS_DROP1;
     e.bias = a.param[B1]; e.out0 = a.ws[A1D]; e.out1 = a.ws[GF1];
-    TRAIN_TRY(L.gemm<E_ACT_DROP>(P_FWD, H1, F, act_mat(XN, F),
+    TRAIN_TRY(gemm<E_ACT_DROP>(P_FWD, H1, F, act_mat(XN, F),
                                  w_mat(W1, F, H1, false), 0, none, none, e));
     e.bias = a.param[B2]; e.out0 = a.ws[MU];
-    TRAIN_TRY(L.gemm<E_BIAS>(P_FWD, H2, H1, act_mat(A1D, H1),
+    TRAIN_TRY(gemm<E_BIAS>(P_FWD, H2, H1, act_mat(A1D, H1),
                              w_mat(W2, H1, H2, false), 0, none, none, e));
     if (vae) {
       e.bias = a.param[BV]; e.out0 = a.ws[LV];
-      TRAIN_TRY(L.gemm<E_BIAS>(P_FWD, H2, H1, act_mat(A1D, H1),
+      TRAIN_TRY(gemm<E_BIAS>(P_FWD, H2, H1, act_mat(A1D, H1),
                                w_mat(WV, H1, H2, false), 0, none, none, e));
       cls_vae_sample_kernel<<<264, 256, 0, s>>>(a, t);
       TRAIN_TRY(L.mark(P_ELEM));
@@ -253,10 +305,10 @@ struct ClsRunner {
       if (a.gates[j]) {
         e.out1 = a.ws[gfb[j + 1]];
         e.purpose = philox::CLS_HEAD_DROP + j;
-        TRAIN_TRY(L.gemm<E_ACT_DROP>(P_FWD, dout, din, A, W, 0, none, none,
+        TRAIN_TRY(gemm<E_ACT_DROP>(P_FWD, dout, din, A, W, 0, none, none,
                                      e));
       } else {
-        TRAIN_TRY(L.gemm<E_BIAS>(P_FWD, dout, din, A, W, 0, none, none, e));
+        TRAIN_TRY(gemm<E_BIAS>(P_FWD, dout, din, A, W, 0, none, none, e));
       }
     }
 
@@ -277,13 +329,13 @@ struct ClsRunner {
       const Mat Wt = w_mat(C1 + 2 * j, din, dout, true);
       if (j == 0) {
         e.out0 = a.ws[GEMB];
-        TRAIN_TRY(L.gemm<E_NONE>(P_BWD, din, dout, A, Wt, 0, none, none, e));
+        TRAIN_TRY(gemm<E_NONE>(P_BWD, din, dout, A, Wt, 0, none, none, e));
       } else if (a.gates[j - 1]) {
         e.aux = a.ws[gfb[j]]; e.out0 = a.ws[gcb[j]];
-        TRAIN_TRY(L.gemm<E_MUL>(P_BWD, din, dout, A, Wt, 0, none, none, e));
+        TRAIN_TRY(gemm<E_MUL>(P_BWD, din, dout, A, Wt, 0, none, none, e));
       } else {
         e.out0 = a.ws[gcb[j]];
-        TRAIN_TRY(L.gemm<E_NONE>(P_BWD, din, dout, A, Wt, 0, none, none, e));
+        TRAIN_TRY(gemm<E_NONE>(P_BWD, din, dout, A, Wt, 0, none, none, e));
       }
     }
     if (vae) {
@@ -292,23 +344,17 @@ struct ClsRunner {
     }
     // g1 = (gemb W2^T [+ glv Wv^T]) * gf1
     e.aux = a.ws[GF1]; e.out0 = a.ws[G1];
-    TRAIN_TRY(L.gemm<E_MUL>(P_BWD, H1, H2, act_mat(GEMB, H2),
+    TRAIN_TRY(gemm<E_MUL>(P_BWD, H1, H2, act_mat(GEMB, H2),
                             w_mat(W2, H1, H2, true), vae ? H2 : 0,
                             vae ? act_mat(GLV, H2) : none,
                             vae ? w_mat(WV, H1, H2, true) : none, e));
 
-    // weight gradients + Adam (L2 on the head's weights only)
-    TRAIN_TRY(wadam<MT>(W1, F, H1, XN, G1, 0.f, st));
-    TRAIN_TRY(wadam<MT>(W2, H1, H2, A1D, GEMB, 0.f, st));
-    if (vae) TRAIN_TRY(wadam<MT>(WV, H1, H2, A1D, GLV, 0.f, st));
-    for (int j = 0; j < nc; ++j)
-      TRAIN_TRY(wadam<MT>(C1 + 2 * j, a.dims[j], a.dims[j + 1], hb[j],
-                          gcb[j + 1], 1.f, st));
-    TRAIN_TRY(badam<MT>(B1, H1, G1, st));
-    TRAIN_TRY(badam<MT>(B2, H2, GEMB, st));
-    if (vae) TRAIN_TRY(badam<MT>(BV, H2, GLV, st));
-    for (int j = 0; j < nc; ++j)
-      TRAIN_TRY(badam<MT>(CB1 + 2 * j, a.dims[j + 1], gcb[j + 1], st));
+    // every weight and bias update (L2 on the head's weights only), in
+    // one launch over the work list
+    const UpdArgs u{static_cast<const UpdTensor*>(a.upd_desc),
+                    reinterpret_cast<const int4*>(a.items), a.n_items,
+                    a.n_weight_items, a.batch, a.lr, a.wpen, st};
+    TRAIN_TRY(L.update_group<MT>(P_WADAM, u, a.bf16_ops));
     return cudaSuccess;
   }
 };
@@ -321,9 +367,11 @@ extern "C" {
 // described by ``a``, on ``stream``.  Adds the launches it made to
 // ``*launches``.  With ``prof_ms`` (NPROF floats) it also times every
 // launch with CUDA events, synchronising once a step, and adds each launch
-// type's milliseconds.  Returns the first CUDA error (0 on success).
+// type's milliseconds, and with ``launch_ms`` too (MAX_EVENTS floats) each
+// launch's, in order.  Returns the first CUDA error (0 on success).
 int mmae_cls_train_run(const ClsArgs* a, int first_step, int num_steps,
-                       long long* launches, float* prof_ms, void* stream) {
+                       long long* launches, float* prof_ms, float* launch_ms,
+                       void* stream) {
   if (a->n_inst <= 0 || num_steps <= 0) return 0;
   if (a->n_inst > 65535 || a->batch <= 0 || a->batch > 65535)
     return (int)cudaErrorInvalidConfiguration;
@@ -335,10 +383,18 @@ int mmae_cls_train_run(const ClsArgs* a, int first_step, int num_steps,
       return (int)cudaErrorInvalidValue;
   if (a->variational && (!a->param[WV] || !a->param[BV]))
     return (int)cudaErrorInvalidValue;
+  if (!a->items || !a->upd_desc || a->n_weight_items <= 0
+      || a->n_weight_items > a->n_items)
+    return (int)cudaErrorInvalidValue;
   ClsRunner r{*a, Launcher{a->n_inst, a->batch,
                            static_cast<cudaStream_t>(stream), launches,
                            prof_ms}};
-  cudaError_t err = r.L.create_events();
+  r.L.per_launch = launch_ms;
+  UpdTensor desc[UPD_SLOTS] = {};
+  r.update_tensors(desc);
+  cudaError_t err = cudaMemcpyAsync(a->upd_desc, desc, sizeof(desc),
+                                    cudaMemcpyHostToDevice, r.L.s);
+  if (err == cudaSuccess) err = r.L.create_events();
   for (int t = first_step; err == cudaSuccess && t < first_step + num_steps;
        ++t) {
     r.L.begin_step();

@@ -1,11 +1,14 @@
 // Device code shared by the training kernels of csrc/train_kernel.cu (the
 // phase-1 DAE/VAE run), csrc/train_deep_kernel.cu (depth >= 3) and
 // csrc/cls_train_kernel.cu (the phase-2 classification run): activations,
-// rsqrt Adam, the instance-batched small-M product with its epilogues
-// (gemm_panel_kernel), the weight-gradient + L2 + Adam kernel
-// (wgrad_adam_kernel), the bias-gradient + Adam kernel, and a launcher
-// that enqueues them on one stream, counts every launch and can time each
-// with CUDA events.
+// rsqrt Adam, the instance-batched small-M products with their epilogues
+// (gemm_panel_kernel for kernel 2; gemm_batch_kernel for kernel 3 and
+// for kernel 4 at a batch of at most 24; gemm_tile_kernel for kernel 4
+// above it), the
+// weight-gradient + L2 + Adam and bias-gradient + Adam kernels of kernel 2
+// and the grouped update of kernels 3 and 4 (update_group_kernel), and a
+// launcher that enqueues them on one stream, counts every launch and can
+// time each with CUDA events.
 //
 // The products run in exact f32 FMAs from a ring of slices that one copy
 // warp fills with cp.async on mbarriers.  The BF16 instantiations round
@@ -278,30 +281,83 @@ struct Epilogue {
     }
   }
 
+  // E_ACT_DROP's dropout draw of (row, col): whether the unit is kept.
+  __device__ __forceinline__ bool kept(int row, int col) const {
+    return philox::uniform(philox::bits(seed, e.purpose, e.step, row, col))
+           < keep;
+  }
+
   __device__ __forceinline__ void operator()(int row, int col,
                                              float s) const {
     if (row >= M || col >= ncol) return;
-    const int64_t o = ((int64_t)n * M + row) * ncol + col;
-    const float bias = (EPI == E_ACT_DROP || EPI == E_BIAS
-                        || EPI == E_LOGIT_GRAD)
-        ? e.bias[(int64_t)n * ncol + col] : 0.f;
+    store(row, col, s, EPI == E_ACT_DROP && kept(row, col));
+  }
+
+  // An element's outputs from its sum ``s``, its bias and aux values and
+  // E_ACT_DROP's draw ``in``: out0 in v0, E_ACT_DROP's gate factor in v1.
+  __device__ __forceinline__ void outputs(float s, float bias, float aux,
+                                          bool in, float& v0,
+                                          float& v1) const {
     if (EPI == E_ACT_DROP) {
       const float z = s + bias;
-      const float u = philox::uniform(
-          philox::bits(seed, e.purpose, e.step, row, col));
-      const float d = u < keep ? inv_keep : 0.f;
-      e.out0[o] = act_fn(z, act) * d;
-      e.out1[o] = d * act_grad(z, act);
+      const float d = in ? inv_keep : 0.f;
+      v0 = act_fn(z, act) * d;
+      v1 = d * act_grad(z, act);
     } else if (EPI == E_BIAS) {
-      e.out0[o] = s + bias;
+      v0 = s + bias;
     } else if (EPI == E_LOGIT_GRAD) {
       const float z = s + bias;
-      e.out0[o] = 1.f / (1.f + expf(-z)) - e.aux[o];
+      v0 = 1.f / (1.f + expf(-z)) - aux;
     } else if (EPI == E_MUL) {
-      e.out0[o] = s * e.aux[o];
+      v0 = s * aux;
     } else {
-      e.out0[o] = s;
+      v0 = s;
     }
+  }
+
+  static constexpr bool BIAS = EPI == E_ACT_DROP || EPI == E_BIAS
+                               || EPI == E_LOGIT_GRAD;
+  static constexpr bool AUX = EPI == E_LOGIT_GRAD || EPI == E_MUL;
+
+  // The element's outputs, given E_ACT_DROP's draw ``in`` (else unused).
+  __device__ __forceinline__ void store(int row, int col, float s,
+                                        bool in) const {
+    if (row >= M || col >= ncol) return;
+    const int64_t o = ((int64_t)n * M + row) * ncol + col;
+    float v0, v1;
+    outputs(s, BIAS ? e.bias[(int64_t)n * ncol + col] : 0.f,
+            AUX ? e.aux[o] : 0.f, in, v0, v1);
+    e.out0[o] = v0;
+    if (EPI == E_ACT_DROP) e.out1[o] = v1;
+  }
+
+  // Four elements of a row from column ``col`` (a multiple of 4), bit c of
+  // ``in4`` E_ACT_DROP's draw of col + c: 16-byte loads and stores where
+  // the row holds all four and its rows are 16-byte aligned, else one at a
+  // time; each element's value as store() makes it.
+  __device__ __forceinline__ void store4(int row, int col, const float* s,
+                                         unsigned in4) const {
+    if (row >= M) return;
+    if ((ncol & 3) || col + 3 >= ncol) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) store(row, col + c, s[c], (in4 >> c) & 1);
+      return;
+    }
+    const int64_t o = ((int64_t)n * M + row) * ncol + col;
+    const float4 b = BIAS ? *reinterpret_cast<const float4*>(
+                                e.bias + (int64_t)n * ncol + col)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 x = AUX ? *reinterpret_cast<const float4*>(e.aux + o)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    float v0[4], v1[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      outputs(s[c], (&b.x)[c], (&x.x)[c], (in4 >> c) & 1, v0[c], v1[c]);
+    *reinterpret_cast<float4*>(e.out0 + o) =
+        make_float4(v0[0], v0[1], v0[2], v0[3]);
+    if (EPI == E_ACT_DROP)
+      *reinterpret_cast<float4*>(e.out1 + o) =
+          make_float4(v1[0], v1[1], v1[2], v1[3]);
   }
 };
 
@@ -1052,6 +1108,270 @@ gemm_batch_kernel(const GemmArgs g, const EpiArgs e, int pw, int ty_rows) {
                                  ty_rows, nk, tid);
 }
 
+// --------------------------------------- products at a batch above 24
+// gemm_panel_kernel's product and epilogues, shaped for phase 2's batch
+// of 100, where f32 FMAs and the shared loads that feed them bound the
+// 1000-wide products.  A block holds one instance's whole batch (up to
+// TM_MAX = 104 rows; more go to the next row block, grid.y) against a
+// panel of pw columns, so each weight element is read from device memory
+// once a product.  A thread owns a register tile of TR = 8 rows x TC = 8
+// (or 4) columns: ty_rows = ceil(M / 8) thread rows (13 at M = 100, its
+// last 4 rows idle) by ct = pw / TC thread columns, panel and tile chosen
+// per launch on the host (ops/cls_train_kernels.tile_panel).
+//
+// K walks in TK-deep slices through a ring of TSTAGES slices, every
+// thread copying with cp.async and one __syncthreads a slice:
+//
+// - A is staged transposed, [k][m], by 4-byte copies (A rows are
+//   K-contiguous), so a thread reads its 8 rows of one k as two 16-byte
+//   loads; B is staged as it lies, N-major ([k][n]) for W and K-major
+//   ([n][k]) for the W^T views, 16 bytes a copy where every staged row is
+//   16-byte aligned, else 4, so no transpose of B is copied;
+// - N-major B: a thread's columns are 4 tx .. 4 tx + 3 (and pw / 2 + 4 tx
+//   .. for TC = 8), two 16-byte loads a k, so each k costs 4 shared loads
+//   for 64 FMAs; the next k's operands are loaded into a second register
+//   set during this k's FMAs;
+// - K-major B: a thread's columns are tx + ct c (distinct rows, so
+//   distinct banks), read 16 bytes (4 k) at a time per column;
+// - E_ACT_DROP's dropout draws are made during the slices, a few a slice,
+//   into a bit mask of the thread's outputs, so the Philox rounds overlap
+//   the FMAs instead of stalling the block's end; an instance whose keep
+//   probability is 1 draws nothing (u < 1 always holds, so every unit is
+//   kept, as the draw would decide).
+//
+// Past K, the copies zero-fill, and rows and columns past M and ncol feed
+// only outputs that are not stored.  Every output element is one f32 sum
+// from zero, k in order, pair 0 before pair 1, so each is bit for bit
+// gemm_panel_kernel's (the zero-filled k tail adds +0 to a sum that is
+// never -0); bf16 operands (BF16) are rounded as they are read.  A block
+// is at most TT_MAX threads: 7 warps take 8 warps' registers, so two
+// blocks an SM leave a thread 128.
+constexpr int TR = 8, TK = 16, TSTAGES = 4;
+constexpr int TM_MAX = 104, TT_MAX = 208, TPW_MAX = 128;
+constexpr int TB_LD = TK + 4;   // K-major B rows: conflict-free LDS.128
+
+// Floats of one ring slice: A^T's TK rows of rows + 4 (16-byte aligned),
+// then B's TK N-major rows of pw or pw K-major rows of TB_LD.
+__host__ __device__ constexpr int tile_a_ld(int ty_rows) {
+  return TR * ty_rows + 4;
+}
+__host__ __device__ constexpr int tile_stage_floats(int ty_rows, int pw,
+                                                    bool kmajor) {
+  return TK * tile_a_ld(ty_rows) + (kmajor ? pw * TB_LD : TK * pw);
+}
+
+// Slice i's copies into ``As`` (A^T) and ``Bs``: pair 0's slices, then
+// pair 1's.
+__device__ __forceinline__ void copy_tile_slice(const GemmArgs& g, float* As,
+                                                float* Bs, int n, int m0,
+                                                int c0, int pw, int ty_rows,
+                                                int nk0, int i, int tid,
+                                                int nt) {
+  const int pair = i >= nk0;
+  const int k0 = (pair ? i - nk0 : i) * TK;
+  const int kv = min(TK, (pair ? g.K2 : g.K) - k0);
+  const Mat a = pair ? g.A2 : g.A, b = pair ? g.B2 : g.B;
+  const float* ap = a.p + n * a.bs + (int64_t)m0 * a.rs + k0;
+  const float* bp = b.p + n * b.bs + (int64_t)k0 * b.rs + (int64_t)c0 * b.cs;
+  const int rows = TR * ty_rows, lda = tile_a_ld(ty_rows);
+  const int mv = min(rows, g.M - m0), cv = min(pw, g.ncol - c0);
+  // A^T: a thread copies half a row's TK k, one k a copy
+  for (int e = tid; e < rows * 2; e += nt) {
+    const int m = e >> 1, kh = (e & 1) * (TK / 2);
+    const float* src = ap + (int64_t)m * a.rs + kh;
+    float* dst = As + kh * lda + m;
+#pragma unroll
+    for (int k = 0; k < TK / 2; ++k) {
+      const bool in = m < mv && kh + k < kv;
+      cp_async4(dst + k * lda, in ? src + k : a.p, in ? 4 : 0);
+    }
+  }
+  if (g.vec) {
+    if (g.b_kmajor) {
+      for (int e = tid; e < pw * (TK / 4); e += nt) {
+        const int c = e / (TK / 4), k = (e % (TK / 4)) * 4;
+        const int nb = c < cv && k < kv ? 16 : 0;
+        cp_async16(Bs + c * TB_LD + k, nb ? bp + (int64_t)c * b.cs + k : b.p,
+                   nb);
+      }
+    } else {
+      const int cq = pw / 4;
+      for (int e = tid; e < TK * cq; e += nt) {
+        const int k = e / cq, c = (e - k * cq) * 4;
+        const int nb = c < cv && k < kv ? 16 : 0;
+        cp_async16(Bs + k * pw + c, nb ? bp + (int64_t)k * b.rs + c : b.p,
+                   nb);
+      }
+    }
+  } else {
+    for (int e = tid; e < TK * pw; e += nt) {
+      const int k = g.b_kmajor ? e % TK : e / pw;
+      const int c = g.b_kmajor ? e / TK : e % pw;
+      const bool in = c < cv && k < kv;
+      cp_async4(Bs + (g.b_kmajor ? c * TB_LD + k : k * pw + c),
+                in ? bp + (int64_t)k * b.rs + (int64_t)c * b.cs : b.p,
+                in ? 4 : 0);
+    }
+  }
+}
+
+// A thread's 8 rows of k from A^T.
+template <bool BF16>
+__device__ __forceinline__ void tile_rows(const float* As, int lda, int k,
+                                          int ty, float (&a)[TR]) {
+  const float4 lo = *reinterpret_cast<const float4*>(As + k * lda + TR * ty);
+  const float4 hi = *reinterpret_cast<const float4*>(As + k * lda + TR * ty
+                                                     + 4);
+  a[0] = operand<BF16>(lo.x); a[1] = operand<BF16>(lo.y);
+  a[2] = operand<BF16>(lo.z); a[3] = operand<BF16>(lo.w);
+  a[4] = operand<BF16>(hi.x); a[5] = operand<BF16>(hi.y);
+  a[6] = operand<BF16>(hi.z); a[7] = operand<BF16>(hi.w);
+}
+
+// A thread's TC columns of k from N-major B: 4 tx .. (and pw / 2 + 4 tx ..).
+template <bool BF16, int TC>
+__device__ __forceinline__ void tile_cols_n(const float* Bs, int pw, int k,
+                                            int tx, float (&b)[TC]) {
+#pragma unroll
+  for (int h = 0; h < TC / 4; ++h) {
+    const float4 q = *reinterpret_cast<const float4*>(
+        Bs + k * pw + h * (pw / 2) + 4 * tx);
+    b[4 * h] = operand<BF16>(q.x); b[4 * h + 1] = operand<BF16>(q.y);
+    b[4 * h + 2] = operand<BF16>(q.z); b[4 * h + 3] = operand<BF16>(q.w);
+  }
+}
+
+template <int TC>
+__device__ __forceinline__ void tile_fma(const float (&a)[TR],
+                                         const float (&b)[TC],
+                                         float (&acc)[TR][TC]) {
+#pragma unroll
+  for (int r = 0; r < TR; ++r)
+#pragma unroll
+    for (int c = 0; c < TC; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+}
+
+// One slice into a thread's TR x TC sums, k in order.
+template <bool BF16, int TC>
+__device__ __forceinline__ void tile_slice_n(const float* As, const float* Bs,
+                                             int lda, int pw, int tx, int ty,
+                                             float (&acc)[TR][TC]) {
+  float a[2][TR], b[2][TC];
+  tile_rows<BF16>(As, lda, 0, ty, a[0]);
+  tile_cols_n<BF16, TC>(Bs, pw, 0, tx, b[0]);
+#pragma unroll
+  for (int k = 0; k < TK; ++k) {
+    if (k + 1 < TK) {   // the next k's operands, during this k's FMAs
+      tile_rows<BF16>(As, lda, k + 1, ty, a[(k + 1) & 1]);
+      tile_cols_n<BF16, TC>(Bs, pw, k + 1, tx, b[(k + 1) & 1]);
+    }
+    tile_fma<TC>(a[k & 1], b[k & 1], acc);
+  }
+}
+
+// K-major B: a thread's TC columns of 4 k at a time (one 16-byte load a
+// column), the rows of each k loaded during the previous k's FMAs.
+template <bool BF16, int TC>
+__device__ __forceinline__ void tile_slice_k(const float* As, const float* Bs,
+                                             int lda, int ct, int tx, int ty,
+                                             float (&acc)[TR][TC]) {
+#pragma unroll
+  for (int k0 = 0; k0 < TK; k0 += 4) {
+    float bq[TC][4];   // [column][k]
+#pragma unroll
+    for (int c = 0; c < TC; ++c) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          Bs + (tx + ct * c) * TB_LD + k0);
+      bq[c][0] = operand<BF16>(v.x); bq[c][1] = operand<BF16>(v.y);
+      bq[c][2] = operand<BF16>(v.z); bq[c][3] = operand<BF16>(v.w);
+    }
+    float a[2][TR];
+    tile_rows<BF16>(As, lda, k0, ty, a[0]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk + 1 < 4) tile_rows<BF16>(As, lda, k0 + kk + 1, ty,
+                                      a[(kk + 1) & 1]);
+      float b[TC];
+#pragma unroll
+      for (int c = 0; c < TC; ++c) b[c] = bq[c][kk];
+      tile_fma<TC>(a[kk & 1], b, acc);
+    }
+  }
+}
+
+// grid (panels of pw columns, row blocks of TM_MAX, N); ty_rows x pw / TC
+// threads; TSTAGES tile_stage_floats(ty_rows, pw, kmajor) floats of
+// dynamic shared memory.
+template <int EPI, bool BF16, int TC>
+__global__ void __launch_bounds__(TT_MAX, 2)
+gemm_tile_kernel(const GemmArgs g, const EpiArgs e, int pw, int ty_rows) {
+  extern __shared__ __align__(128) float tile_ring[];
+  const int tid = threadIdx.x, nt = blockDim.x, ct = pw / TC;
+  const int tx = tid % ct, ty = tid / ct;
+  const int n = blockIdx.z, m0 = blockIdx.y * TM_MAX, c0 = blockIdx.x * pw;
+  const int nk0 = (g.K + TK - 1) / TK;
+  const int nk = nk0 + (g.K2 + TK - 1) / TK;
+  const int lda = tile_a_ld(ty_rows);
+  const int stage = tile_stage_floats(ty_rows, pw, g.b_kmajor);
+  const int a_floats = TK * lda;
+  const Epilogue<EPI> epi(e, n, g.M, g.ncol);
+  // E_ACT_DROP's dropout draws: bit r TC + c set where the unit is kept,
+  // a few each slice
+  constexpr int OUTS = TR * TC;
+  const bool draw = EPI == E_ACT_DROP && epi.keep < 1.f;
+  const int per = (OUTS + nk - 1) / nk;
+  uint64_t kept = 0ull;
+  auto col_of = [&](int c) {   // the panel column of the thread's c-th
+    return g.b_kmajor ? tx + ct * c : (c / 4) * (pw / 2) + 4 * tx + c % 4;
+  };
+  auto issue = [&](int i) {
+    float* As = tile_ring + (i % TSTAGES) * stage;
+    copy_tile_slice(g, As, As + a_floats, n, m0, c0, pw, ty_rows, nk0, i,
+                    tid, nt);
+  };
+  float acc[TR][TC];
+#pragma unroll
+  for (int r = 0; r < TR; ++r)
+#pragma unroll
+    for (int c = 0; c < TC; ++c) acc[r][c] = 0.f;
+  for (int i = 0; i < TSTAGES - 1; ++i) {   // the ring's first slices
+    if (i < nk) issue(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nk; ++i) {
+    cp_async_wait<TSTAGES - 2>();   // slice i has landed (this thread's
+    __syncthreads();   // copies), everyone's; slice i - 1 is read by all
+    if (i + TSTAGES - 1 < nk) issue(i + TSTAGES - 1);
+    cp_async_commit();
+    for (int j = 0; draw && j < per; ++j) {
+      const int q = i * per + j;
+      const int row = m0 + TR * ty + q / TC, col = c0 + col_of(q % TC);
+      if (q < OUTS && row < g.M && col < g.ncol && epi.kept(row, col))
+        kept |= 1ull << q;
+    }
+    const float* As = tile_ring + (i % TSTAGES) * stage;
+    if (g.b_kmajor)
+      tile_slice_k<BF16, TC>(As, As + a_floats, lda, ct, tx, ty, acc);
+    else
+      tile_slice_n<BF16, TC>(As, As + a_floats, lda, pw, tx, ty, acc);
+  }
+  if (!draw) kept = ~0ull;
+#pragma unroll
+  for (int r = 0; r < TR; ++r) {
+    const int row = m0 + TR * ty + r;
+    if (g.b_kmajor) {
+#pragma unroll
+      for (int c = 0; c < TC; ++c)
+        epi.store(row, c0 + col_of(c), acc[r][c], (kept >> (r * TC + c)) & 1);
+    } else {   // a thread's columns in runs of 4
+#pragma unroll
+      for (int h = 0; h < TC / 4; ++h)
+        epi.store4(row, c0 + col_of(4 * h), &acc[r][4 * h],
+                   (unsigned)(kept >> (r * TC + 4 * h)) & 15u);
+    }
+  }
+}
+
 // ------------------------------------------ one grouped update a step
 // Every weight gradient + L2 + Adam and every bias gradient + Adam of a
 // step in one persistent launch.  The blocks walk a work list of items
@@ -1070,12 +1390,26 @@ gemm_batch_kernel(const GemmArgs g, const EpiArgs e, int pw, int ty_rows) {
 // order, so nothing on that path waits on device memory for an address:
 // the tensors' descriptors are copied to shared memory once, and each
 // work-list entry is read one item ahead of its use (reading them where
-// they are used cost a third of the launch's time on an H100).  Every
+// they are used cost a third of the launch's time on an H100).  Where the
+// batch exceeds WBK rows (DEEP: phase 2's 100), it is staged in two
+// chunks of half the batch (at most UPD_DEEP_ROWS rows, in dynamic shared
+// memory), since on an H100 fewer, longer chunks hid the staging better
+// than 32- or 16-row ones; an item's own W, m and v are loaded at its
+// start, in flight during its sums, and no second set is held.  Every
 // gradient element is summed over b in order, the tied weight's encode
 // pair before its decode pair, then rsqrt Adam on acc + l2 * w
 // (adam_step), and every bias element in bias_adam_kernel's order: each
-// bit for bit wgrad_adam_kernel's and bias_adam_kernel's.
+// bit for bit wgrad_adam_kernel's and bias_adam_kernel's.  With bf16
+// operands (BF16, phase 2's compute_dtype) the layer inputs and gradients
+// are rounded as they are read, as wgrad_adam_kernel rounds them.
 constexpr int UPD_LD = 160;   // a staged batch row: TR + TC floats at most
+constexpr int UPD_DEEP_ROWS = 64;   // a DEEP chunk's batch rows at most
+
+// A DEEP chunk's batch rows: half the batch (so B = 100 takes two chunks
+// of 50), at most UPD_DEEP_ROWS.
+__host__ __device__ constexpr int upd_deep_rows(int B) {
+  return (B + 1) / 2 < UPD_DEEP_ROWS ? (B + 1) / 2 : UPD_DEEP_ROWS;
+}
 constexpr int UPD_SLOTS = 66;  // descriptors (train_deep_kernel.cu NSLOT)
 
 struct UpdTensor {
@@ -1142,13 +1476,24 @@ struct WmvTile {
   }
 };
 
-template <typename MT>
+template <typename MT, bool BF16, bool DEEP>
 __global__ void __launch_bounds__(WTHREADS, 2)
 update_group_kernel(const UpdArgs u) {
-  __shared__ __align__(16) float buf[2][WBK][UPD_LD];
   __shared__ UpdTensor T[UPD_SLOTS];
+  // two chunk buffers of ch batch rows: WBK in static shared memory, or
+  // for DEEP half the batch (at most UPD_DEEP_ROWS) in dynamic
+  extern __shared__ __align__(16) float upd_rows[];
+  float (*buf)[UPD_LD];
+  int ch = WBK;
+  if constexpr (DEEP) {
+    buf = reinterpret_cast<float (*)[UPD_LD]>(upd_rows);
+    ch = upd_deep_rows(u.B);
+  } else {
+    __shared__ __align__(16) float rows[2 * WBK][UPD_LD];
+    buf = rows;
+  }
   const int tid = threadIdx.x;
-  const int B = u.B, chunks = (B + WBK - 1) / WBK;
+  const int B = u.B, chunks = (B + ch - 1) / ch;
   for (int i = tid; i < (int)(sizeof(T) / 4); i += WTHREADS)
     reinterpret_cast<int*>(T)[i] = reinterpret_cast<const int*>(u.T)[i];
   __syncthreads();
@@ -1157,7 +1502,7 @@ update_group_kernel(const UpdArgs u) {
   // input's TR rows, then the gradient's TC columns.
   auto stage = [&](const UpdTile& tl, int q, float (*dst)[UPD_LD]) {
     const UpdTensor& t = T[tl.slot];
-    const int pair = q / chunks, b0 = (q % chunks) * WBK;
+    const int pair = q / chunks, b0 = (q % chunks) * ch;
     const float* lp = (pair ? t.L2 : t.L) + (int64_t)tl.n * B * t.R;
     const float* rp = (pair ? t.R2 : t.Rm) + (int64_t)tl.n * B * t.C;
     const int TR = tl.TR, W = tl.TR + tl.TC;
@@ -1165,18 +1510,40 @@ update_group_kernel(const UpdArgs u) {
                      && aligned16(t.Rm)
                      && (!t.L2 || (aligned16(t.L2) && aligned16(t.R2)));
     const int step = vec ? 4 : 1, per = W / step;
-    for (int e = tid; e < WBK * per; e += WTHREADS) {
-      const int b = e / per, j = (e - b * per) * step;
-      const int gb = b0 + b;
+    if constexpr (DEEP) {
+      // a thread copies one column piece of every pass-th row: one
+      // division a chunk where the loop below takes one a copy
+      const int pass = WTHREADS / per, bt = tid / per;
+      const int j = (tid - bt * per) * step;
       const bool lft = j < TR;
       const int jj = lft ? tl.r0 + j : tl.c0 + j - TR;
-      const bool in = gb < B && jj < (lft ? t.R : t.C);
-      const float* src = lft ? lp + (int64_t)gb * t.R + jj
-                             : rp + (int64_t)gb * t.C + jj;
-      if (vec)
-        cp_async16(&dst[b][j], in ? src : lp, in ? 16 : 0);
-      else
-        cp_async4(&dst[b][j], in ? src : lp, in ? 4 : 0);
+      const bool jin = jj < (lft ? t.R : t.C);
+      const int64_t ld = lft ? t.R : t.C;
+      const float* base = (lft ? lp : rp) + jj;
+      // threads past the last whole pass copy nothing
+      for (int b = bt < pass ? bt : ch; b < ch; b += pass) {
+        const int gb = b0 + b;
+        const bool in = jin && gb < B;
+        const float* src = base + gb * ld;
+        if (vec)
+          cp_async16(&dst[b][j], in ? src : lp, in ? 16 : 0);
+        else
+          cp_async4(&dst[b][j], in ? src : lp, in ? 4 : 0);
+      }
+    } else {
+      for (int e = tid; e < WBK * per; e += WTHREADS) {
+        const int b = e / per, j = (e - b * per) * step;
+        const int gb = b0 + b;
+        const bool lft = j < TR;
+        const int jj = lft ? tl.r0 + j : tl.c0 + j - TR;
+        const bool in = gb < B && jj < (lft ? t.R : t.C);
+        const float* src = lft ? lp + (int64_t)gb * t.R + jj
+                               : rp + (int64_t)gb * t.C + jj;
+        if (vec)
+          cp_async16(&dst[b][j], in ? src : lp, in ? 16 : 0);
+        else
+          cp_async4(&dst[b][j], in ? src : lp, in ? 4 : 0);
+      }
     }
     cp_async_commit();
   };
@@ -1190,8 +1557,8 @@ update_group_kernel(const UpdArgs u) {
   WmvTile<MT> cur;
   if (item < u.n_weight) {
     const UpdTile tl(T, it_cur, tid);
-    stage(tl, 0, buf[0]);
-    cur.load(T[tl.slot], tl);
+    stage(tl, 0, buf);
+    if (!DEEP) cur.load(T[tl.slot], tl);
   }
   for (; item < u.n_weight; item += G) {
     const UpdTile tl(T, it_cur, tid);
@@ -1200,6 +1567,8 @@ update_group_kernel(const UpdArgs u) {
     // the entry after next, read now and used one item later
     const int4 it_after = next + G < u.n_weight ? u.items[next + G] : none;
     const int steps = (t.L2 ? 2 : 1) * chunks;
+    // DEEP: this item's W, m, v, in flight during its sums
+    if (DEEP) cur.load(t, tl);
     WmvTile<MT> nxt;
     float acc[4][4];
 #pragma unroll
@@ -1208,29 +1577,31 @@ update_group_kernel(const UpdArgs u) {
       for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
     for (int s = 0; s < steps; ++s, ++q) {
       if (s + 1 < steps) {
-        stage(tl, s + 1, buf[(q + 1) & 1]);
+        stage(tl, s + 1, buf + ((q + 1) & 1) * ch);
         cp_async_wait<1>();
       } else if (next < u.n_weight) {
-        // the next item's first chunk and its W, m, v: in flight during
-        // this item's last sums and its epilogue
+        // the next item's first chunk (and, but for DEEP, its W, m, v): in
+        // flight during this item's last sums and its epilogue
         const UpdTile tn(T, it_next, tid);
-        stage(tn, 0, buf[(q + 1) & 1]);
-        nxt.load(T[tn.slot], tn);
+        stage(tn, 0, buf + ((q + 1) & 1) * ch);
+        if (!DEEP) nxt.load(T[tn.slot], tn);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
       __syncthreads();
-      const int nb = min(WBK, B - (s % chunks) * WBK);
-      const float (*bq)[UPD_LD] = buf[q & 1];
+      const int nb = min(ch, B - (s % chunks) * ch);
+      const float (*bq)[UPD_LD] = buf + (q & 1) * ch;
       const int ly = tl.row0 - tl.r0, rx = tl.TR + tl.col0 - tl.c0;
       if (tl.active) {
 #pragma unroll 4
         for (int b = 0; b < nb; ++b) {
           const float4 l4 = *reinterpret_cast<const float4*>(&bq[b][ly]);
           const float4 r4 = *reinterpret_cast<const float4*>(&bq[b][rx]);
-          const float lv[4] = {l4.x, l4.y, l4.z, l4.w};
-          const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
+          const float lv[4] = {operand<BF16>(l4.x), operand<BF16>(l4.y),
+                               operand<BF16>(l4.z), operand<BF16>(l4.w)};
+          const float rv[4] = {operand<BF16>(r4.x), operand<BF16>(r4.y),
+                               operand<BF16>(r4.z), operand<BF16>(r4.w)};
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -1272,7 +1643,7 @@ update_group_kernel(const UpdArgs u) {
       cur.m.store(mp + o, i, mn, tl.nc, vw);
       cur.v.store(vp + o, i, vn, tl.nc, vw);
     }
-    cur = nxt;
+    if (!DEEP) cur = nxt;
     it_cur = it_next;
     it_next = it_after;
   }
@@ -1368,27 +1739,73 @@ static cudaError_t launch_gemm_batch(const GemmArgs& g, const EpiArgs& e,
   return cudaGetLastError();
 }
 
+// One register-tile product launch: grid (panels of pw columns, row
+// blocks of TM_MAX, N), ceil(M / TR) thread rows (at most TM_MAX / TR) of
+// pw / TC threads, the ring sized to the panel and the rows; the dynamic
+// shared-memory limit raised once per device and instantiation.
+template <int EPI, bool BF16, int TC>
+static cudaError_t launch_gemm_tile(const GemmArgs& g, const EpiArgs& e,
+                                    int pw, int n_inst,
+                                    cudaStream_t stream) {
+  static bool raised[MAX_DEVICES] = {};
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0
+      || device >= MAX_DEVICES)
+    return cudaErrorInvalidDevice;
+  constexpr int max_smem =
+      TSTAGES * tile_stage_floats(TM_MAX / TR, TPW_MAX, true) * 4;
+  if (!raised[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemm_tile_kernel<EPI, BF16, TC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+    if (err != cudaSuccess) return err;
+    raised[device] = true;
+  }
+  const int ty_rows = ((g.M < TM_MAX ? g.M : TM_MAX) + TR - 1) / TR;
+  const int threads = ty_rows * (pw / TC);
+  if (pw % TC || pw / TC < 2 || pw > TPW_MAX || threads > TT_MAX)
+    return cudaErrorInvalidValue;
+  const dim3 grid((g.ncol + pw - 1) / pw, (g.M + TM_MAX - 1) / TM_MAX,
+                  n_inst);
+  const size_t smem = TSTAGES * tile_stage_floats(ty_rows, pw, g.b_kmajor)
+                      * sizeof(float);
+  gemm_tile_kernel<EPI, BF16, TC><<<grid, threads, smem, stream>>>(
+      g, e, pw, ty_rows);
+  return cudaGetLastError();
+}
+
 // The grouped update: as many persistent blocks as fit the SMs (or one an
 // item), the occupancy asked once per device and instantiation.
-template <typename MT>
+template <typename MT, bool BF16, bool DEEP>
 static cudaError_t launch_update_group(const UpdArgs& u,
                                        cudaStream_t stream) {
+  // DEEP's two chunk buffers in dynamic shared memory, the limit raised
+  // once per device and instantiation with the occupancy asked at it
+  constexpr int max_smem = DEEP ? 2 * UPD_DEEP_ROWS * UPD_LD * 4 : 0;
+  const int smem = DEEP ? 2 * upd_deep_rows(u.B) * UPD_LD * 4 : 0;
   static int occ[MAX_DEVICES] = {};
   int device = 0;
   if (cudaGetDevice(&device) != cudaSuccess || device < 0
       || device >= MAX_DEVICES)
     return cudaErrorInvalidDevice;
   if (!occ[device]) {
+    if (DEEP) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          update_group_kernel<MT, BF16, DEEP>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+      if (err != cudaSuccess) return err;
+    }
     int blocks = 0;
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, update_group_kernel<MT>, WTHREADS, 0);
+        &blocks, update_group_kernel<MT, BF16, DEEP>, WTHREADS, max_smem);
     if (err != cudaSuccess) return err;
     occ[device] = blocks > 0 ? blocks : 1;
   }
   const long long cap = (long long)occ[device] * device_sms();
   const long long blocks = u.n_items < cap ? u.n_items : cap;
   if (blocks <= 0) return cudaErrorInvalidValue;
-  update_group_kernel<MT><<<(unsigned)blocks, WTHREADS, 0, stream>>>(u);
+  update_group_kernel<MT, BF16, DEEP>
+      <<<(unsigned)blocks, WTHREADS, smem, stream>>>(u);
   return cudaGetLastError();
 }
 
@@ -1548,9 +1965,46 @@ struct Launcher {
     return mark(type);
   }
 
+  // gemm() on gemm_tile_kernel, in panels of ``pw`` columns and thread
+  // tiles of TR x ``tc`` (8 or 4).
+  template <int EPI>
+  cudaError_t gemm_tile(int type, int pw, int tc, int ncol, int K, Mat A,
+                        Mat B, int K2, Mat A2, Mat B2, const EpiArgs& e) {
+    GemmArgs g;
+    if (!gemm_args(ncol, K, A, B, K2, A2, B2, &g) || (tc != 8 && tc != 4))
+      return cudaErrorInvalidValue;
+    cudaError_t err;
+    if constexpr (TRAIN_BF16_OPERANDS) {
+      if (e.bf16)
+        err = tc == 8 ? launch_gemm_tile<EPI, true, 8>(g, e, pw, n_inst, s)
+                      : launch_gemm_tile<EPI, true, 4>(g, e, pw, n_inst, s);
+      else
+        err = tc == 8 ? launch_gemm_tile<EPI, false, 8>(g, e, pw, n_inst, s)
+                      : launch_gemm_tile<EPI, false, 4>(g, e, pw, n_inst, s);
+    } else {
+      err = e.bf16 ? cudaErrorInvalidValue
+            : tc == 8 ? launch_gemm_tile<EPI, false, 8>(g, e, pw, n_inst, s)
+                      : launch_gemm_tile<EPI, false, 4>(g, e, pw, n_inst, s);
+    }
+    if (err != cudaSuccess) return err;
+    return mark(type);
+  }
+
   template <typename MT>
-  cudaError_t update_group(int type, const UpdArgs& u) {
-    const cudaError_t err = launch_update_group<MT>(u, s);
+  cudaError_t update_group(int type, const UpdArgs& u, int bf16 = 0) {
+    cudaError_t err;
+    if constexpr (TRAIN_BF16_OPERANDS) {
+      if (u.B > WBK)
+        err = bf16 ? launch_update_group<MT, true, true>(u, s)
+                   : launch_update_group<MT, false, true>(u, s);
+      else
+        err = bf16 ? launch_update_group<MT, true, false>(u, s)
+                   : launch_update_group<MT, false, false>(u, s);
+    } else {
+      err = bf16 ? cudaErrorInvalidValue
+            : u.B > WBK ? launch_update_group<MT, false, true>(u, s)
+                        : launch_update_group<MT, false, false>(u, s);
+    }
     if (err != cudaSuccess) return err;
     return mark(type);
   }

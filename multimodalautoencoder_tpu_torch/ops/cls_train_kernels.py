@@ -35,13 +35,17 @@ included) rounded to bf16 with f32 sums.  The decoder passes through.
 No memory budget: the JAX predicate refuses shapes whose moments do not
 fit VMEM (``cls_vmem_bytes``, ``needs_cls_streaming``); every moment here
 lives in device memory, so :func:`supported_two_phase` differs from it
-only there.  What bounds a step: :func:`cls_step_bound`.
+only there.  What bounds a step: :func:`cls_step_bound`; each launch:
+:func:`cls_launch_bounds`.  The host plans each run once: every product's
+panel and thread tile (:func:`cls_product_plan`) and the grouped update's
+work list (:func:`cls_update_work_list`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
 from typing import Dict, List, Optional, Tuple
 
@@ -53,7 +57,7 @@ from multimodalautoencoder_tpu_torch.models import losses as losses_lib
 from multimodalautoencoder_tpu_torch.models import mmae
 from multimodalautoencoder_tpu_torch.models.corruption import NoiseSpec
 from multimodalautoencoder_tpu_torch.ops import dense_kernels, optim, \
-    philox, train_kernels
+    philox, train_deep_kernels, train_kernels
 from multimodalautoencoder_tpu_torch.ops.cuda_library import (CSRC_DIR,
                                                               NvccLibrary)
 
@@ -70,10 +74,26 @@ SLOTS = ("w1", "b1", "w2", "b2", "wv", "bv", "c1", "cb1", "c2", "cb2", "c3",
 BUFFERS = ("xn", "y", "a1d", "gf1", "mu", "lv", "eps", "emb", "h1", "h2",
            "h3", "gfh1", "gfh2", "gfh3", "gc1", "gc2", "gc3", "gemb", "glv",
            "g1")
-# Launch types of one step (``Prof``), for per-type CUDA-event timing.
+# Launch types of one step (``Prof``), for per-type CUDA-event timing; the
+# grouped update of every weight and bias is ``weight_grad_adam``, and
+# ``bias_grad_adam`` has no launch of its own.
 LAUNCH_TYPES = ("sample_corrupt", "forward_products", "elementwise",
                 "backward_products", "weight_grad_adam", "bias_grad_adam")
 MAX_LABELS = 128      # the Pallas kernel's one lane tile of labels
+# csrc/cls_train_kernel.cu ``MAX_PRODUCTS``: a step's products at most
+MAX_PRODUCTS = 12
+# train_common.cuh's gemm_tile_kernel, the products at a batch above
+# train_deep_kernels.BATCH_ROWS: a thread owns TILE_ROWS rows x 8 or 4
+# columns, a block up to TILE_BLOCK_ROWS rows (the whole batch of 100) and
+# a panel of at most TILE_MAX_PANEL columns, staged TILE_K deep in
+# TILE_STAGES slices
+TILE_ROWS = 8
+TILE_COLS = (8, 4)
+TILE_BLOCK_ROWS = 104
+TILE_MAX_PANEL = 128
+TILE_MAX_THREADS = 208
+TILE_K = 16
+TILE_STAGES = 4
 
 
 class ClsArgs(ctypes.Structure):
@@ -86,11 +106,15 @@ class ClsArgs(ctypes.Structure):
         + [("dims", ctypes.c_int * 4), ("gates", ctypes.c_int * 3)]
         + [(n, ctypes.c_int) for n in (
             "variational", "softmax", "bf16_moments", "bf16_ops")]
+        + [("panel", ctypes.c_int * MAX_PRODUCTS),
+           ("tile_cols", ctypes.c_int * MAX_PRODUCTS),
+           ("tile_tx", ctypes.c_int * len(SLOTS)),
+           ("n_items", ctypes.c_int), ("n_weight_items", ctypes.c_int)]
         + [(n, ctypes.c_float) for n in ("elem_p", "mask_value",
                                          "adam_eps")]
         + [(n, ctypes.c_void_p) for n in (
             "seeds", "fold", "n_valid", "lr", "keep", "wpen", "eact", "cact",
-            "train", "labels", "type_table", "cum")]
+            "train", "labels", "type_table", "cum", "items", "upd_desc")]
         + [("param", ctypes.c_void_p * len(SLOTS)),
            ("m", ctypes.c_void_p * len(SLOTS)),
            ("v", ctypes.c_void_p * len(SLOTS)),
@@ -109,7 +133,7 @@ class ClsLibrary(NvccLibrary):
         lib.mmae_cls_train_run.argtypes = [
             ctypes.POINTER(ClsArgs), ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p]
         lib.cls_train_kernel_error_string.restype = ctypes.c_char_p
         lib.cls_train_kernel_error_string.argtypes = [ctypes.c_int]
 
@@ -124,10 +148,11 @@ KERNELS = ClsLibrary()
 
 def launches_per_step(n_cls: int, variational: bool) -> int:
     """Kernel launches of one phase-2 step: sample, 2 + n_cls forward
-    products, the loss gradient, n_cls + 1 backward products, 2 + n_cls
-    weight-gradient + Adam and 2 + n_cls bias + Adam kernels; a VAE adds
-    the log-sigma product, two elementwise passes and Wv's, bv's Adam."""
-    return 9 + 4 * n_cls + (5 if variational else 0)
+    products, the loss gradient, n_cls + 1 backward products and one
+    grouped update of every weight and bias; a VAE adds the log-sigma
+    product and two elementwise passes.  12 for the validation bucket
+    (n_cls = 3), 15 for its VAE."""
+    return 6 + 2 * n_cls + (3 if variational else 0)
 
 
 def derive_seed(seed: int, *words: int) -> int:
@@ -216,7 +241,8 @@ def cls_launch_type_bounds(cfg: MMAEConfig, n_inst: int, batch: int,
     """:func:`cls_step_bound` split by launch type (:data:`LAUNCH_TYPES`),
     each counting the weights it reads, the (N, B, width) activations it
     reads from other types once and the ones it writes once, and its
-    operations; 12 integer operations per Philox round for the draws."""
+    operations; 12 integer operations per Philox round for the draws,
+    which only the gated layers make."""
     cfg = cfg.validate()
     F, (H1, H2) = cfg.num_feats, cfg.layer_sizes
     vae = cfg.variational
@@ -228,8 +254,11 @@ def cls_launch_type_bounds(cfg: MMAEConfig, n_inst: int, batch: int,
     emb = H2 * (2 if vae else 1)      # mu (+ lv)
     biases = H1 + emb + sum(dims[1:])
     outs, ins = sum(dims[1:]), sum(dims[:-1])
+    # the outputs of the gated head layers: they alone draw dropout bits
+    # and write a gate factor
+    gated = sum(d for d, g in zip(dims[1:], cls_gates(cfg)) if g)
     act = 4.0 * N * B                 # bytes per unit of activation width
-    philox_ops = 10 * 12
+    philox_ops = PHILOX_OPS
     moment = 8 if bf16_moments else 16
     bound = train_kernels._bound
     return {
@@ -237,11 +266,11 @@ def cls_launch_type_bounds(cfg: MMAEConfig, n_inst: int, batch: int,
         "sample_corrupt": bound(act * 2 * (F + L),
                                 N * B * (F + 2) * philox_ops),
         # xn in; a, d act' of layer 1, mu (+ lv), each head layer's output
-        # and gate factor out
+        # and a gated layer's gate factor out
         "forward_products": bound(
-            4.0 * N * (weights + biases) + act * (F + 2 * H1 + emb
-                                                  + 2 * outs),
-            N * (2.0 * B * weights + B * (H1 + outs) * philox_ops)),
+            4.0 * N * (weights + biases) + act * (F + 2 * H1 + emb + outs
+                                                  + gated),
+            N * (2.0 * B * weights + B * (H1 + gated) * philox_ops)),
         # the loss gradient (and the VAE's sample and glv)
         "elementwise": bound(act * (3 * L + (6 * H2 if vae else 0)),
                              N * B * (20 * L + (40 * H2 if vae else 0))),
@@ -259,6 +288,200 @@ def cls_launch_type_bounds(cfg: MMAEConfig, n_inst: int, batch: int,
                                 + act * (H1 + emb + outs),
                                 N * (B + 10.0) * biases),
     }
+
+
+# 12 integer operations per Philox round, 10 rounds a draw
+PHILOX_OPS = 10 * 12
+
+
+def cls_launch_bounds(cfg: MMAEConfig, n_inst: int, batch: int,
+                      bf16_moments: bool,
+                      sms: int = train_deep_kernels.H100_SMS
+                      ) -> List[Dict[str, object]]:
+    """Each launch of one phase-2 step in launch order, with its own bound
+    (``train_deep_kernels.deep_launch_bounds`` for kernel 4): a product
+    reads its weight(s), bias and input once and writes its outputs once,
+    so the products' bytes sum to more than :func:`cls_launch_type_bounds`'
+    rows, which count activations made and used inside a type once; their
+    operations sum to the rows'.  The sample is its type's row, the loss
+    gradient and the VAE's two passes split the elementwise row, and the
+    grouped update is the weight- and bias-update rows together.  Products
+    carry :func:`cls_product_plan`'s fields."""
+    cfg = cfg.validate()
+    F, (H1, H2) = cfg.num_feats, cfg.layer_sizes
+    vae, L = cfg.variational, cfg.num_labels
+    N, B = n_inst, batch
+    types = cls_launch_type_bounds(cfg, n_inst, batch, bf16_moments)
+    bound = train_kernels._bound
+    act = 4.0 * N * B
+
+    def product(p):
+        k = p["K"] + p["K2"]
+        outs = 2 if p["epi"] == "act_drop" else 1
+        reads = 1 if p["epi"] == "mul" else 0
+        has_bias = p["epi"] in ("act_drop", "bias")
+        nbytes = 4.0 * N * (k * p["ncol"] + (p["ncol"] if has_bias else 0)
+                            + B * (k + (outs + reads) * p["ncol"]))
+        flop = N * (2.0 * B * p["ncol"] * k
+                    + (B * p["ncol"] * PHILOX_OPS
+                       if p["epi"] == "act_drop" else 0))
+        return dict(p, **bound(nbytes, flop))
+
+    plan = cls_product_plan(F, H1, cls_dims(cfg), cls_gates(cfg), vae,
+                            n_inst, batch, sms)
+    enc = 3 if vae else 2                 # encode 1, encode 2 (+ lv head)
+    fwd = enc + len(cls_dims(cfg)) - 1    # ... and the head
+    elem = dict(type="elementwise")
+    out = [dict({"name": "sample", "type": "sample_corrupt"},
+                **types["sample_corrupt"])]
+    out += [product(p) for p in plan[:enc]]
+    if vae:
+        out.append(dict(elem, name="vae sample",
+                        **bound(act * 3 * H2, N * B * 20.0 * H2)))
+    out += [product(p) for p in plan[enc:fwd]]
+    out.append(dict(elem, name="loss grad",
+                    **bound(act * 3 * L, N * B * 20.0 * L)))
+    out += [product(p) for p in plan[fwd:-1]]
+    if vae:
+        out.append(dict(elem, name="vae grad",
+                        **bound(act * 3 * H2, N * B * 20.0 * H2)))
+    out.append(product(plan[-1]))
+    w, b = types["weight_grad_adam"], types["bias_grad_adam"]
+    out.append(dict({"name": "update", "type": "weight_grad_adam"},
+                    **bound(w["bytes"] + b["bytes"], w["flop"] + b["flop"])))
+    return out
+
+
+# ----------------------------------------------------------- the plan
+
+def tile_thread_rows(batch: int) -> int:
+    """gemm_tile_kernel's thread rows: a row block of up to
+    TILE_BLOCK_ROWS batch rows in TILE_ROWS-row thread tiles (13 at batch
+    100, the last 4 of their 104 rows idle; a batch of 128 takes two row
+    blocks)."""
+    return -(-min(batch, TILE_BLOCK_ROWS) // TILE_ROWS)
+
+
+def tile_panel(ncol: int, n_inst: int, batch: int,
+               sms: int = train_deep_kernels.H100_SMS) -> Tuple[int, int]:
+    """(panel width, columns a thread) of a gemm_tile_kernel product of
+    ``ncol`` columns over ``n_inst`` instances.  8 x 8 thread tiles over
+    the fewest panels of at most TILE_MAX_PANEL columns, each the multiple
+    of 8 that leaves the fewest columns idle (1000 columns in 8 panels of
+    128, 500 in 4 of 128, 200 in 2 of 104, 100 in 1 of 104: one block an
+    instance beat two of 52 columns on 8 x 4 tiles on an H100).  A
+    narrower output takes 8 x 4 tiles over panels of at most half the
+    width (multiples of 4), narrowed until the blocks are at least the
+    card's SMs or a panel is two thread columns wide (over 80 instances:
+    50 columns in 2 panels of 28, 20 in 2 of 12, 3 in 1 of 8)."""
+    row_blocks = -(-batch // TILE_BLOCK_ROWS)
+    panels = -(-ncol // TILE_MAX_PANEL)
+    pw = 8 * -(-ncol // (8 * panels))
+    if pw >= TILE_MAX_PANEL // 2:
+        return pw, 8
+    cols = 4
+    panels = max(panels, -(-ncol // (TILE_MAX_PANEL // 2)))
+    while True:
+        pw = max(2 * cols, 4 * -(-ncol // (4 * panels)))
+        if n_inst * row_blocks * -(-ncol // pw) >= sms or pw == 2 * cols:
+            return pw, cols
+        panels += 1
+
+
+def cls_product_plan(feats: int, h1: int, dims: Sequence[int],
+                     gates: Sequence[bool], variational: bool, n_inst: int,
+                     batch: int, sms: int = train_deep_kernels.H100_SMS
+                     ) -> List[Dict[str, object]]:
+    """Every product of one phase-2 step in ``ClsRunner::step``'s launch
+    order: name, launch type, epilogue, columns ``ncol``, depth ``K`` (+
+    ``K2`` of the second pair), whether B is read K-major (a W^T view), the
+    kernel (``batch``: gemm_batch_kernel at a batch of at most
+    ``train_deep_kernels.BATCH_ROWS``, its panel from ``panel_width``;
+    else ``tile``: gemm_tile_kernel, panel and thread tile from
+    :func:`tile_panel`), the panel width, the columns a thread owns, the
+    threads and dynamic shared memory of a block, and the grid."""
+    H2, nc = dims[0], len(dims) - 1
+    out = []
+
+    def add(name, kind, epi, ncol, K, kmajor, K2=0):
+        if batch <= train_deep_kernels.BATCH_ROWS:
+            pw, cols = train_deep_kernels.panel_width(ncol, n_inst, batch,
+                                                      sms), 4
+            ty = -(-batch // 2)
+            threads = 32 * (-(-(pw // 4) * ty // 32) + 1)
+            rows, smem, kernel = train_deep_kernels.BATCH_ROWS, 0, "batch"
+        else:
+            pw, cols = tile_panel(ncol, n_inst, batch, sms)
+            ty = tile_thread_rows(batch)
+            threads = ty * (pw // cols)
+            rows, kernel = TILE_BLOCK_ROWS, "tile"
+            smem = TILE_STAGES * 4 * (
+                TILE_K * (TILE_ROWS * ty + 4)
+                + (pw * (TILE_K + 4) if kmajor else TILE_K * pw))
+        out.append({"name": name, "type": kind, "epi": epi, "ncol": ncol,
+                    "K": K, "K2": K2, "kmajor": kmajor, "kernel": kernel,
+                    "panel": pw, "cols": cols, "threads": threads,
+                    "smem": smem,
+                    "grid": (-(-ncol // pw), -(-batch // rows), n_inst)})
+
+    fwd, bwd = "forward_products", "backward_products"
+    add("encode 1", fwd, "act_drop", h1, feats, False)
+    add("encode 2", fwd, "bias", H2, h1, False)
+    if variational:
+        add("lv head", fwd, "bias", H2, h1, False)
+    for j in range(nc):
+        add(f"head {j}", fwd, "act_drop" if gates[j] else "bias",
+            dims[j + 1], dims[j], False)
+    for j in range(nc - 1, -1, -1):
+        add(f"head {j} grad", bwd,
+            "mul" if j > 0 and gates[j - 1] else "none", dims[j],
+            dims[j + 1], True)
+    add("g1", bwd, "mul", h1, H2, True, H2 if variational else 0)
+    return out
+
+
+def cls_update_tensors(feats: int, h1: int, dims: Sequence[int],
+                       variational: bool
+                       ) -> Tuple[List[Tuple[int, int, int]],
+                                  List[Tuple[int, int]], Dict[int, float]]:
+    """The grouped update's tensors by :data:`SLOTS` index: weights as
+    (slot, rows, cols), biases as (slot, cols), and each weight's L2
+    factor (0 on the encoder, 1 on the head, :1645 of the JAX package)."""
+    H2, nc = dims[0], len(dims) - 1
+    weights = [(0, feats, h1), (2, h1, H2)]
+    biases = [(1, h1), (3, H2)]
+    if variational:
+        weights.append((4, h1, H2))
+        biases.append((5, H2))
+    weights += [(6 + 2 * j, dims[j], dims[j + 1]) for j in range(nc)]
+    biases += [(7 + 2 * j, dims[j + 1]) for j in range(nc)]
+    pen = {slot: (1.0 if slot >= 6 else 0.0) for slot, _, _ in weights}
+    return weights, biases, pen
+
+
+def cls_update_work_list(feats: int, h1: int, dims: Sequence[int],
+                         variational: bool, n_inst: int
+                         ) -> Tuple[np.ndarray, int, Dict[int, int]]:
+    """update_group_kernel's work list of a phase-2 step:
+    ``train_deep_kernels.work_list`` over :func:`cls_update_tensors`
+    (items, weight items, tile threads across by slot)."""
+    weights, biases, _ = cls_update_tensors(feats, h1, dims, variational)
+    return train_deep_kernels.work_list(weights, biases, n_inst)
+
+
+@functools.lru_cache(maxsize=32)
+def _run_plan(feats: int, h1: int, dims: Tuple[int, ...],
+              gates: Tuple[bool, ...], variational: bool, n_inst: int,
+              batch: int, sms: int):
+    """A run's plan, made once a shape: each product's panel width and
+    thread columns, the update's work list (a CPU tensor), its weight
+    items and tile widths."""
+    plan = cls_product_plan(feats, h1, dims, gates, variational, n_inst,
+                            batch, sms)
+    items, n_weight, tile_tx = cls_update_work_list(feats, h1, dims,
+                                                    variational, n_inst)
+    return (tuple(p["panel"] for p in plan), tuple(p["cols"] for p in plan),
+            torch.from_numpy(items), n_weight, tuple(tile_tx.items()))
 
 
 # ----------------------------------------------------------------- state
@@ -587,12 +810,14 @@ def _check_cuda_run(run: ClsRun) -> torch.device:
 
 
 def train_cls_kernel(run: ClsRun, first_step: int, num_steps: int,
-                     profile: Optional[Dict[str, float]] = None) -> None:
+                     profile: Optional[Dict[str, float]] = None,
+                     launch_ms: Optional[List[float]] = None) -> None:
     """Steps [first_step, first_step + num_steps) by the CUDA kernels, in
     place on ``run``'s tensors, on the current stream; one ctypes call
     whose C loop enqueues every launch.  With ``profile`` (a dict) every
     launch is timed with CUDA events and each launch type's milliseconds
-    are added to it (this synchronises once a step)."""
+    are added to it, and with ``launch_ms`` too (a list) each launch's, in
+    launch order, over the steps (this synchronises once a step)."""
     dev = _check_cuda_run(run)
     if num_steps <= 0:
         return
@@ -607,6 +832,14 @@ def train_cls_kernel(run: ClsRun, first_step: int, num_steps: int,
              "h3": dims[3], "gfh3": dims[3], "gc3": dims[3]}
     ws = [torch.empty((N, B, width.get(name, H2)), dtype=torch.float32,
                       device=dev) for name in BUFFERS]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    panels, cols, items, n_weight, tile_tx = _run_plan(
+        F, H1, tuple(run.dims), tuple(run.gates), bool(run.variational), N,
+        B, sms)
+    items_dev = items.to(dev)
+    desc = torch.empty(train_deep_kernels.NSLOT
+                       * train_deep_kernels.DESC_BYTES, dtype=torch.uint8,
+                       device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -617,17 +850,24 @@ def train_cls_kernel(run: ClsRun, first_step: int, num_steps: int,
         max_rows=int(run.train.shape[1]), n_cls=run.n_cls,
         variational=int(run.variational), softmax=int(run.softmax),
         bf16_moments=int(run.bf16_moments), bf16_ops=int(run.bf16_ops),
+        n_items=len(items), n_weight_items=n_weight,
         elem_p=run.elem_p, mask_value=run.mask_value,
         adam_eps=run.adam_eps,
         seeds=ptr(run.seeds), fold=ptr(run.fold), n_valid=ptr(run.n_valid),
         lr=ptr(run.lr), keep=ptr(run.keep), wpen=ptr(run.wpen),
         eact=ptr(run.eact), cact=ptr(run.cact), train=ptr(run.train),
         labels=ptr(run.labels), type_table=ptr(run.type_table),
-        cum=ptr(run.cum))
+        cum=ptr(run.cum), items=items_dev.data_ptr(),
+        upd_desc=desc.data_ptr())
     for i, d in enumerate(dims):
         args.dims[i] = d
     for j, gate in enumerate(run.gates):
         args.gates[j] = int(gate)
+    for i, (pw, tc) in enumerate(zip(panels, cols)):
+        args.panel[i] = pw
+        args.tile_cols[i] = tc
+    for slot, tx in tile_tx:
+        args.tile_tx[slot] = tx
     for i in range(len(SLOTS)):
         args.param[i] = ptr(run.params[i])
         args.m[i] = ptr(run.m[i])
@@ -635,19 +875,29 @@ def train_cls_kernel(run: ClsRun, first_step: int, num_steps: int,
     for i, t in enumerate(ws):
         args.ws[i] = t.data_ptr()
     launches = ctypes.c_longlong(0)
-    prof = (ctypes.c_float * len(LAUNCH_TYPES))() if profile is not None \
+    timed = profile is not None or launch_ms is not None
+    prof = (ctypes.c_float * len(LAUNCH_TYPES))() if timed else None
+    each = (ctypes.c_float * train_deep_kernels.MAX_EVENTS)() if timed \
         else None
+
+    def arg(buf):
+        return None if buf is None else ctypes.cast(buf, ctypes.c_void_p)
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mmae_cls_train_run(ctypes.byref(args), int(first_step),
                                      int(num_steps), ctypes.byref(launches),
-                                     ctypes.cast(prof, ctypes.c_void_p)
-                                     if prof is not None else None, stream)
+                                     arg(prof), arg(each), stream)
     KERNELS.count(launches.value)
     KERNELS.check(err, "mmae_cls_train_run")
     if profile is not None:
         for name, ms in zip(LAUNCH_TYPES, prof):
             profile[name] = profile.get(name, 0.0) + float(ms)
+    if launch_ms is not None:
+        per_step = launches_per_step(run.n_cls, run.variational)
+        launch_ms.extend([0.0] * (per_step - len(launch_ms)))
+        for i in range(per_step):
+            launch_ms[i] += float(each[i])
 
 
 # ------------------------------------------------------------- pipeline

@@ -236,12 +236,20 @@ def update_tensors(sizes: Sequence[int], tied: bool, variational: bool
 
 def update_work_list(sizes: Sequence[int], tied: bool, variational: bool,
                      n_inst: int) -> Tuple[np.ndarray, int, Dict[int, int]]:
-    """update_group_kernel's work list: (items, weight items, tile threads
-    across by slot).  Items are (slot, instance, row 0, column 0) int32
-    rows: every weight tile of every instance, the largest tensors first
+    """update_group_kernel's work list of a deep step:
+    :func:`work_list` over :func:`update_tensors`."""
+    return work_list(*update_tensors(sizes, tied, variational), n_inst)
+
+
+def work_list(weights: Sequence[Tuple[int, int, int]],
+              biases: Sequence[Tuple[int, int]], n_inst: int
+              ) -> Tuple[np.ndarray, int, Dict[int, int]]:
+    """update_group_kernel's work list over ``weights`` (slot, rows, cols)
+    and ``biases`` (slot, cols): (items, weight items, tile threads across
+    by slot).  Items are (slot, instance, row 0, column 0) int32 rows:
+    every weight tile of every instance, the largest tensors first
     (instance by instance, tiles row by row), then every bias's
     :data:`BIAS_COLS`-column chunks, the widest first."""
-    weights, biases = update_tensors(sizes, tied, variational)
     tile_tx = {slot: update_tile_threads(C) for slot, _, C in weights}
 
     def block(slot, r0, c0):

@@ -353,8 +353,8 @@ def test_cls_gates_match_jax():
                             classification_layer_sizes=layers,
                             faithful_classify_gate=faithful)
             assert pck.cls_gates(ct) == tk._cls_gates(cj)[:len(layers) + 1]
-    assert pck.launches_per_step(3, False) == 21
-    assert pck.launches_per_step(1, True) == 18
+    assert pck.launches_per_step(3, False) == 12
+    assert pck.launches_per_step(1, True) == 11
 
 
 def test_twin_rows_and_labels_from_one_row():
@@ -442,3 +442,55 @@ def test_cuda_kernels_match_twin(cls_layers, loss, family, ops):
         for a, b in zip(run.params, twin.params):
             if a is not None:
                 assert float((a - b).abs().max()) <= 1e-6, step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [100, 37])
+@pytest.mark.parametrize("cls_layers", [(), (50, 20)])
+def test_cuda_kernels_match_twin_at_the_real_batch(cls_layers, batch):
+    """As :func:`test_cuda_kernels_match_twin`, at the validation bucket's
+    widths (1000 -> 1000 -> 100, 3 labels) and phase 2's batch of 100 and
+    a ragged 37, where the products run on 8 x 8 and 8 x 4 register tiles
+    over the planned panels and the update is one grouped launch: two
+    instances, a head of 1 and 3 layers, 10 steps each from the twin's
+    state, held to 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = MMAEConfig(num_feats=1000, layer_sizes=(1000, 100),
+                     tie_weights=True, classification_layer_sizes=cls_layers,
+                     num_labels=3).validate()
+    tcfg = TrainConfig(learning_rate=1e-2, batch_size=batch,
+                       clip_gradients=False, optimizer_state_dtype="bfloat16")
+    spec = NoiseSpec.build(cfg, ModalityTable.uniform(5, 200, NAMES))
+    hyper = pgt.HyperStack.from_settings(
+        [{"dropout_prob": 1.0, "activation_function": "softsign"},
+         {"dropout_prob": 0.5, "activation_function": "relu"}], cfg, tcfg)
+    chyper = pgt.ClassifierHyperStack.from_settings(
+        [{"dropout_prob": 0.5, "weight_penalty": 0.01,
+          "activation_func": "relu"},
+         {"dropout_prob": 1.0, "weight_penalty": 0.0,
+          "activation_func": "softsign"}], cfg)
+    rng = np.random.default_rng(2)
+    y = rng.integers(0, 2, (150, 3)).astype(np.float32)
+    folded = pgt.FoldedData.from_ragged(
+        [rng.random((150, 1000))], [rng.random((20, 1000))], device="cuda",
+        train_y_list=[y], val_y_list=[y[:20]])
+    g = torch.Generator().manual_seed(0)
+    twin = pck.prepare_cls_run(
+        g, cfg, tcfg, spec, hyper, chyper, folded,
+        ptk.init_grid_params(g, pck.phase1_cfg(cfg), 2, 1),
+        pck.init_heads(g, cfg, 2, 1), adam_eps=0.1)
+    assert twin.n_inst == 2 and twin.batch == batch
+    for step in range(10):
+        run = twin.clone()
+        before = pck.KERNELS.launches
+        pck.train_cls_kernel(run, step, 1)
+        assert pck.KERNELS.launches - before == pck.launches_per_step(
+            len(cls_layers) + 1, False)
+        pck.train_cls_kernel_reference(twin, step, 1)
+        torch.cuda.synchronize()
+        for name, a, b in zip(pck.SLOTS, run.params, twin.params):
+            if a is not None:
+                gap = float((a - b).abs().max())
+                assert gap <= 1e-6, (step, name, gap)
