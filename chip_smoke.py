@@ -21,7 +21,7 @@ features):
   those buckets through
   ``train_grid_sharded(backend="pallas")`` for 2,000 steps with the
   sweep's recipe, the best instance saved and served by ``cli fill``, and
-  the step timed by launch type (phases [7]-[10]);
+  the step timed by launch type and launch by launch (phases [7]-[10]);
 - the two-phase classification sweep: the phase-2 kernels against their
   twin at small widths (the demo's among them) and on the validation
   bucket's 80 instances, the validation bucket (tied 1000 -> 100, head
@@ -91,14 +91,6 @@ power limit (as ``nvidia-smi --query-gpu=name,power.limit
 kernel, and the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-``python3 chip_smoke.py --tensor-core-products 1`` (or ``2``) measures a
-variant instead: the training libraries built with their products on the
-tensor cores (csrc/train_common.cuh, TRAIN_TENSOR_CORE_PRODUCTS), then the
-training gates and step timings ([8]-[11], [14], [15]), every gate
-reported rather than only the first that fails.  The variant reaches
-kernel 2 alone: kernels 3 and 4 run their products on gemm_batch_kernel
-and gemm_tile_kernel, which have no tensor-core form, so [11] and [15]
-hold them as the plain build has them.
 ``python3 chip_smoke.py --deep`` runs [15] and [18] alone, every gate
 reported.  ``python3 chip_smoke.py --deep-ab <checkout>`` runs kernel 3 of
 another checkout (the parent's) and of this one, each in processes of its
@@ -108,9 +100,14 @@ chip_smoke.py --cls-ab <checkout>`` does the same for kernel 4 over the
 validation bucket and its variants (f32 moments, bf16 operands, VAE,
 untied, a one-layer head, batches 37 and 20) and the F = 30 cases, and
 times the validation bucket's step launch by launch beside each launch's
-bound and ``torch.bmm`` of its products.  ``python3 chip_smoke.py
---single-run`` runs [20] and [21] alone, [21] with a control route (the
-kernel route with bf16 operands), every gate reported; ``python3
+bound and ``torch.bmm`` of its products; ``python3 chip_smoke.py
+--train-ab <checkout>`` does the same for kernel 2 over the three
+1000-wide ACII buckets with bf16 and f32 moments, a 500- and a 300-wide
+bucket, phase 1 of the validation bucket (N = 20) and F = 30 cases over
+every activation, and times the tied 1000-wide step and phase 1's launch
+by launch.  ``python3 chip_smoke.py --single-run`` runs [20] and [21]
+alone, [21] with a control route (the kernel route with bf16 operands),
+every gate reported; ``python3
 chip_smoke.py --baselines`` runs [23]-[26] alone, every gate reported.
 ``python3 chip_smoke.py --split-cards`` runs [27] over every visible card
 at [9]'s 2,000 steps; ``python3 chip_smoke.py --pipeline`` runs [8]'s
@@ -175,8 +172,8 @@ class SmokeFailure(RuntimeError):
     pass
 
 
-# Failed checks of a --tensor-core-products run, which reports every gate
-# instead of stopping at the first (None: a failed check raises).
+# Failed checks of a run that reports every gate instead of stopping at
+# the first (None: a failed check raises).
 FAILED = None
 
 
@@ -814,9 +811,9 @@ def phase_kernel_vs_twin(ptk, buckets, folded_full, spec_full) -> float:
     return worst
 
 
-def sweep_buckets(dl):
-    """The ACII grid as MMAESweep builds it, and its three 1000-wide
-    buckets as (name, cfg, settings)."""
+def sweep_buckets(dl, layers=LAYERS):
+    """The ACII grid as MMAESweep builds it, and its three buckets of
+    ``layers`` (1000 -> 100 unless named) as (name, cfg, settings)."""
     from multimodalautoencoder_tpu_torch.config import MMAEConfig
     from multimodalautoencoder_tpu_torch.sweep import grid
 
@@ -832,7 +829,7 @@ def sweep_buckets(dl):
     out = []
     for key, members in buckets:
         s = members[0]
-        if tuple(s["architecture"]) != LAYERS:
+        if tuple(s["architecture"]) != tuple(layers):
             continue
         cfg = base.replace(
             layer_sizes=tuple(s["architecture"]),
@@ -843,7 +840,7 @@ def sweep_buckets(dl):
             "tied" if cfg.tie_weights else "untied")
         out.append((name, cfg, members))
     check(sorted(n for n, _, _ in out) == ["tied", "untied", "vae"],
-          "the grid lacks a 1000-wide bucket")
+          f"the grid lacks a {layers} bucket")
     return base, out
 
 
@@ -999,18 +996,23 @@ def phase_step_timing(ptk, tied, folded, spec, card: str) -> dict:
     """One step of the tied 1000-wide bucket (60 instances): the kernels
     by CUDA events from freshly initialised parameters (the first 300
     steps in one call, then windows of 50) and from the bucket's trained
-    ones, each launch type against its bound, the twin on the card, and
-    the step's products as torch.bmm calls (the library yardstick; the
-    port never calls it)."""
-    from multimodalautoencoder_tpu_torch.ops import train_kernels
-
+    ones, each launch type against its bound, then each launch against
+    its own bound (``ptk.launch_bounds``) with its grid, panel, ``ncol``
+    and ``K``, the twin on the card, and the step's products as torch.bmm
+    calls (the library yardstick; the port never calls it), in turns with
+    the kernels.  The grouped update's type bound is the weight and bias
+    updates' together."""
     cfg, tcfg, hyper, params = tied[1], tied[2], tied[3], tied[8]
     C, K = hyper.num_configs, folded.num_folds
+    N = C * K
     F, (H1, H2) = cfg.num_feats, cfg.layer_sizes
     inner = 50
-    bounds = train_kernels.launch_type_bounds(cfg, C * K, BATCH, True)
-    step = train_kernels.step_bound(cfg, C * K, BATCH, True)
-    print(f"  tied {F} -> {H1} -> {H2}, N={C * K}, B={BATCH}, bf16 moments;"
+    bounds = ptk.launch_type_bounds(cfg, N, BATCH, True)
+    w, b = bounds.pop("weight_grad_adam"), bounds.pop("bias_grad_adam")
+    bounds["weight_grad_adam"] = ptk._bound(w["bytes"] + b["bytes"],
+                                            w["flop"] + b["flop"])
+    step = ptk.step_bound(cfg, N, BATCH, True)
+    print(f"  tied {F} -> {H1} -> {H2}, N={N}, B={BATCH}, bf16 moments;"
           f" bound {step['bound_ms']:.4f} ms/step ({step['bound_by']}: "
           f"{step['bytes'] / 1e9:.3f} GB, {step['flop'] / 1e9:.2f} GFLOP)")
     out = {}
@@ -1028,8 +1030,8 @@ def phase_step_timing(ptk, tied, folded, spec, card: str) -> dict:
                   f"ms/step  [{card}]")
         ms = cuda_ms(lambda: ptk.train_grid_kernel(run, first, inner),
                      reps=5, inner=1) / inner
-        print(f"  {label:7s} parameters: {ms:.4f} ms/step by the kernels  "
-              f"[{card}]")
+        print(f"  {label:7s} parameters: {ms:.4f} ms/step by the kernels, "
+              f"{ms / step['bound_ms']:.1f}x the bound  [{card}]")
         out[label] = (ms, run)
     run = out["fresh"][1]
 
@@ -1047,7 +1049,22 @@ def phase_step_timing(ptk, tied, folded, spec, card: str) -> dict:
                                    (H1, BATCH, H2), (H1, BATCH, H2)]}
     print("  fresh parameters by launch type (events, serialised), in "
           "turns with torch.bmm of its products on the device")
-    types = types_vs_bmm(profile, groups, bounds, C * K, card)
+    types = types_vs_bmm(profile, groups, bounds, N, card)
+
+    def per_launch():
+        ms: list = []
+        ptk.train_grid_kernel(run, 1000, inner, launch_ms=ms)
+        return [v / inner for v in ms]
+
+    each = ptk.launch_bounds(cfg, N, BATCH, True)
+    products = {i: [(BATCH, r["K"] + r["K2"], r["ncol"])]
+                for i, r in enumerate(each) if "K" in r}
+    products[len(each) - 1] = groups["weight_grad_adam"]
+    print(f"  fresh parameters launch by launch (events, serialised), in "
+          f"turns with torch.bmm of its products; {len(each)} launches, "
+          f"ptk.launches_per_step "
+          f"{ptk.launches_per_step(cfg.tie_weights, cfg.variational)}")
+    launches = launches_vs_bmm(per_launch, each, products, N, card)
     twin = run.clone()
     plain_ms = cuda_ms(lambda: ptk.train_grid_kernel_reference(twin, 0, 1),
                        reps=3, inner=3)
@@ -1057,7 +1074,7 @@ def phase_step_timing(ptk, tied, folded, spec, card: str) -> dict:
           f"products by torch.bmm {bmm_ms:.4f} ms  [{card}]")
     return {"ms": out["fresh"][0], "plain_ms": plain_ms, "bmm_ms": bmm_ms,
             "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
-            "launch_types": types}
+            "launch_types": types, "launches": launches}
 
 
 # ------------------------------------------------ the classification sweep
@@ -1842,12 +1859,13 @@ def deep_products(cfg, batch: int) -> dict:
 
 def launches_vs_bmm(per_launch, bounds, products, n_inst: int,
                     card: str) -> list:
-    """Each launch of a training step (kernel 3's or 4's) on the device
-    beside ``torch.bmm`` of its products (the update's: its weight-gradient
-    products, without Adam), in turns: the kernels' per-launch CUDA events
-    over a window (``per_launch()`` -> ms by launch), bmm launch by launch
-    (device alone), bmm again, the kernels again.  ``bounds`` is
-    ``deep_launch_bounds`` or ``cls_launch_bounds`` (launch order);
+    """Each launch of a training step (kernel 2's, 3's or 4's) on the
+    device beside ``torch.bmm`` of its products (the update's: its
+    weight-gradient products, without Adam), in turns: the kernels'
+    per-launch CUDA events over a window (``per_launch()`` -> ms by
+    launch), bmm launch by launch (device alone), bmm again, the kernels
+    again.  ``bounds`` is ``launch_bounds``, ``deep_launch_bounds`` or
+    ``cls_launch_bounds`` (launch order);
     ``products`` maps a launch's index to its (m, k, n) products."""
     ops = {i: [(torch.rand((n_inst, m, k), device=DEVICE),
                 torch.rand((n_inst, k, n), device=DEVICE))
@@ -1862,9 +1880,9 @@ def launches_vs_bmm(per_launch, bounds, products, n_inst: int,
     k2 = per_launch()
     check(len(k1) == len(bounds) == len(k2),
           f"{len(k1)} launches timed, {len(bounds)} planned")
-    print(f"    {'#':>2s} {'launch':16s} {'grid':>13s} {'ncol':>5s} "
-          f"{'K':>5s} {'ms (turn 1 / 2)':>17s} {'torch.bmm':>17s} "
-          f"{'bound':>7s} {'by':5s} share")
+    print(f"    {'#':>2s} {'launch':16s} {'grid':>13s} {'panel':>5s} "
+          f"{'ncol':>5s} {'K':>5s} {'ms (turn 1 / 2)':>17s} "
+          f"{'torch.bmm':>17s} {'bound':>7s} {'by':5s} share")
     rows = []
     for i, b in enumerate(bounds):
         ms = (k1[i] + k2[i]) / 2
@@ -1873,11 +1891,13 @@ def launches_vs_bmm(per_launch, bounds, products, n_inst: int,
         kk = f"{b['K']}+{b['K2']}" if b.get("K2") else str(b.get("K", "-"))
         vs = f"{b1[i]:.4f} / {b2[i]:.4f}" if i in ops else "-"
         print(f"    {i:2d} {b['name']:16s} {grid:>13s} "
+              f"{str(b.get('panel', '-')):>5s} "
               f"{str(b.get('ncol', '-')):>5s} {kk:>5s} "
               f"{k1[i]:.4f} / {k2[i]:.4f} {vs:>17s} {b['bound_ms']:.4f} "
               f"{b['bound_by'][:5]:5s} {100 * b['bound_ms'] / ms:.1f} %")
         rows.append({"name": b["name"], "grid": b.get("grid"),
-                     "ncol": b.get("ncol"), "K": b.get("K"), "ms": ms,
+                     "panel": b.get("panel"), "ncol": b.get("ncol"),
+                     "K": b.get("K"), "ms": ms,
                      "library_ms": lib, "bound_ms": b["bound_ms"],
                      "bound_by": b["bound_by"]})
     print(f"    sum {sum(r['ms'] for r in rows):.4f} ms; bounds sum "
@@ -3705,77 +3725,6 @@ def supervised_study(study):
     return sup, sup_folded, cfg_v, settings_v
 
 
-def main_tensor_core_products(promote: int) -> int:
-    """The training gates and step times with the products on the tensor
-    cores: the three training libraries built with
-    TRAIN_TENSOR_CORE_PRODUCTS=<promote> (csrc/train_common.cuh), then
-    [8], [9]-[10], [11] and [14], and [15].  Every gate is reported, not
-    only the first that fails; the last line lists the failed checks, and
-    the exit code is 1 if there are any."""
-    global FAILED
-    from multimodalautoencoder_tpu_torch.ops import cls_train_kernels as pck
-    from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
-    from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
-    from multimodalautoencoder_tpu_torch.ops import train_kernels as ptk
-
-    FAILED = []
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-    print(f"[1] card: {card}; torch {torch.__version__}; products on the "
-          f"tensor cores, sums promoted every "
-          f"{'32-deep slice' if promote == 1 else 'k step'}")
-    train_libs = (ptk.KERNELS, pck.KERNELS, pdk.KERNELS)
-    for lib in train_libs:
-        lib.defines += (f"TRAIN_TENSOR_CORE_PRODUCTS={promote}",)
-        root, ext = os.path.splitext(lib.library)
-        lib.library = f"{root}_tc{promote}{ext}"
-    build_kernels([dk.KERNELS, *train_libs])
-    print("[2] ptxas:")
-    for lib in train_libs:
-        print(f"  {os.path.basename(lib.library)} in "
-              f"{lib.build_seconds:.1f} s")
-        for name, res in sorted(lib.resources().items()):
-            if "gemm_panel" in name:
-                print(f"    {name}: {res}")
-
-    def phase(label, fn, *args):
-        try:
-            return fn(*args)
-        except Exception as exc:   # reported; the next phase still runs
-            check(False, f"{label}: {type(exc).__name__}: {exc}")
-            return None
-
-    with tempfile.TemporaryDirectory(prefix="mmae_chip_smoke_") as workdir:
-        study, folded, base, buckets, spec = training_study(workdir)
-        print(f"[8] training kernels vs their twin on the card (TF32 off,"
-              f" 10 steps, lr {LR}, tolerance {TOL})")
-        phase("[8]", phase_kernel_vs_twin, ptk, buckets, folded, spec)
-        print(f"[9] the three 1000-wide ACII buckets, {STEPS} steps each")
-        trained = phase("[9]", phase_train, workdir, ptk, dk, study, folded,
-                        buckets, spec, card)
-        if trained is not None:
-            print("[10] one training step, timed")
-            phase("[10]", phase_step_timing, ptk, trained[1], folded, spec,
-                  card)
-        _, sup_folded, cfg_v, settings_v = supervised_study(study)
-        print(f"[11] phase-2 kernels vs their twin on the card (TF32 off, "
-              f"10 steps, tolerance {TOL_CLS} with either operand type)")
-        phase("[11]", phase_cls_kernel_vs_twin, pck, ptk, sup_folded, spec,
-              cfg_v, settings_v)
-        print("[14] one phase-2 step of the validation bucket, timed")
-        phase("[14]", phase_cls_step_timing, pck, ptk, sup_folded, spec,
-              cfg_v, settings_v, card)
-        print(f"[15] kernel 3 vs its twin on the card (TF32 off, 10 steps, "
-              f"tolerance {TOL_CLS})")
-        phase("[15]", phase_deep_kernel_vs_twin, pdk, ptk,
-              deep_buckets(base), folded, spec)
-    print(card)
-    print(json.dumps({"tensor_core_products": promote,
-                      "failed_checks": FAILED}))
-    return 1 if FAILED else 0
-
-
 def main_single_run() -> int:
     """[20] and [21] alone, [21] with its bf16 control route, every gate
     reported rather than only the first that fails; the last line lists
@@ -4467,23 +4416,274 @@ def main_cls_ab(parent_root: str) -> int:
     return 1 if FAILED else 0
 
 
+# --train-ab: kernel 2 of this checkout against another tree's (the parent's),
+# each in a process of its own, from the same state and seeds
+TRAIN_AB_ACTS = ("linear", "relu", "tanh", "softsign", "softplus")
+
+
+def train_ab_cases(study, spec_full):
+    """(label, cfg, settings, folded, spec, moments, batch): the three
+    1000-wide ACII buckets (N = 60) with bf16 and f32 moments, the tied
+    500-wide and the VAE 300-wide bucket, phase 1 of [12]'s validation
+    bucket (N = 20), and at F = 30 the three families over all five
+    activations with L2 on and off, with both moment types at batch 20
+    and with bf16 moments at batch 13 (not a multiple of 4).  The
+    sweep's recipe throughout: lr 1e-3, smooth decay."""
+    from multimodalautoencoder_tpu_torch.config import MMAEConfig
+    from multimodalautoencoder_tpu_torch.data.modalities import \
+        ModalityTable
+    from multimodalautoencoder_tpu_torch.models.corruption import NoiseSpec
+    from multimodalautoencoder_tpu_torch.ops import cls_train_kernels as pck
+    from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
+    from multimodalautoencoder_tpu_torch.sweep.wrappers import \
+        MMAEClassificationSweep as Sweep
+
+    folded = gt.FoldedData.from_loader(study, study.num_folds, device=DEVICE)
+    cases = []
+    _, buckets = sweep_buckets(study)
+    for name, cfg, members in buckets:
+        for moments in ("bfloat16", "float32"):
+            cases.append((f"{name} {LAYERS} N=60 {moments}", cfg, members,
+                          folded, spec_full, moments, BATCH))
+    for layers, family in (((500, 100), "tied"), ((300, 100), "vae")):
+        _, more = sweep_buckets(study, layers)
+        _, cfg, members = next(b for b in more if b[0] == family)
+        cases.append((f"{family} {layers} N=60 bfloat16", cfg, members,
+                      folded, spec_full, "bfloat16", BATCH))
+    _, sup_folded, cfg_v, settings_v = supervised_study(study)
+    uniq = []
+    for s in settings_v:
+        if Sweep._mmae_subsetting(s) not in uniq:
+            uniq.append(Sweep._mmae_subsetting(s))
+    cases.append((f"validation bucket phase 1 N={len(uniq) * 5} bfloat16",
+                  pck.phase1_cfg(cfg_v), uniq, sup_folded, spec_full,
+                  "bfloat16", BATCH))
+    rng = np.random.default_rng(SEED)
+    small = gt.FoldedData.from_ragged(
+        [rng.random((40, 30)), rng.random((33, 30))],
+        [rng.random((9, 30)), rng.random((7, 30))], device=DEVICE)
+    ten = [{"activation_function": act, "dropout_prob": 0.5 if pen else 1.0,
+            "weight_penalty": pen}
+           for act in TRAIN_AB_ACTS for pen in (0.0, 0.01)]
+    base = MMAEConfig(num_feats=30, layer_sizes=(16, 6),
+                      weight_initialization="normal")
+    for family in ("tied softsign", "untied relu", "vae"):
+        cfg = family_cfg(base, family)
+        spec = NoiseSpec.build(cfg, ModalityTable.uniform(5, 6, NAMES))
+        for moments, batch in (("float32", BATCH), ("bfloat16", BATCH),
+                               ("bfloat16", 13)):
+            cases.append((f"F=30 (16, 6) {family} {moments} B={batch}", cfg,
+                          ten, small, spec, moments, batch))
+    return cases
+
+
+def train_products(cfg, batch: int) -> dict:
+    """(m, k, n) of every product launch of one depth-2 step by launch
+    name (``ptk.launch_bounds``' names), the update's being its
+    weight-gradient products: the shapes ``torch.bmm`` is timed at beside
+    each launch."""
+    F, (H1, H2) = cfg.num_feats, cfg.layer_sizes
+    B, vae = batch, cfg.variational
+    out = {"z1": [(B, F, H1)], "mu": [(B, H1, H2)], "z3": [(B, H2, H1)],
+           "z4": [(B, H1, F)], "g3": [(B, F, H1)], "gz": [(B, H1, H2)],
+           "g1": [(B, H2 * (2 if vae else 1), H1)]}
+    if vae:
+        out["lv"] = [(B, H1, H2)]
+    out["update"] = [(F, B, H1), (H1, B, H2)] * 2 \
+        + ([(H1, B, H2)] if vae else [])
+    return out
+
+
+def main_train_state(out_dir: str, dump: bool) -> int:
+    """Worker of --train-ab, on the package under MMAE_PACKAGE_ROOT: with
+    ``dump``, kernel 2 runs AB_STEPS steps of each of
+    :func:`train_ab_cases` from the seed's state and saves parameters and
+    moments (bits, or digests of them past AB_FULL_ELEMENTS); always, the
+    tied 1000-wide bucket's step (N = 60) and the validation bucket's
+    phase-1 step (N = 20) are timed: ms/step over windows of
+    AB_TIMED_STEPS, by launch type, and launch by launch by
+    torch.profiler, beside ``torch.bmm`` of each launch's products where
+    the tree plans its launches (``ptk.launch_bounds``).  The last line
+    is ``TRAIN-STATE`` and a JSON object."""
+    import multimodalautoencoder_tpu_torch as pkg
+    from multimodalautoencoder_tpu_torch.config import TrainConfig
+    from multimodalautoencoder_tpu_torch.ops import train_kernels as ptk
+    from multimodalautoencoder_tpu_torch.parallel import grid_trainer as gt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    ptk.KERNELS.load()
+    print(f"  package {os.path.dirname(pkg.__file__)}; kernel 2 built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = {"cases": []}
+    with tempfile.TemporaryDirectory(prefix="mmae_chip_smoke_") as workdir:
+        study, _, _, _, spec = training_study(workdir)
+        cases = train_ab_cases(study, spec)
+
+        def start(cfg, settings, fold, sp, moments, batch):
+            tcfg = TrainConfig(learning_rate=LR, batch_size=batch,
+                               decay=True, decay_steps=1000,
+                               decay_rate=0.95, clip_gradients=False,
+                               optimizer_state_dtype=moments)
+            hyper = gt.HyperStack.from_settings(settings, cfg, tcfg)
+            C, K = hyper.num_configs, fold.num_folds
+            g = torch.Generator().manual_seed(SEED)
+            return ptk.prepare_run(g, cfg, tcfg, sp, hyper, fold,
+                                   ptk.init_grid_params(g, cfg, C, K))
+
+        for i, case in enumerate(cases if dump else []):
+            label = case[0]
+            run = start(*case[1:])
+            twin = run.clone()
+            before = ptk.KERNELS.launches
+            ptk.train_grid_kernel(run, 0, AB_STEPS)
+            torch.cuda.synchronize()
+            state = {k: [t for t in getattr(run, k) if t is not None]
+                     for k in ("params", "m", "v")}
+            if sum(t.numel() for ts in state.values() for t in ts) \
+                    > AB_FULL_ELEMENTS:
+                state = {k: [bits_digest(t) for t in ts]
+                         for k, ts in state.items()}
+            else:
+                state = {k: [t.cpu() for t in ts] for k, ts in state.items()}
+            torch.save(state, os.path.join(out_dir, f"case{i}.pt"))
+            launches = ptk.KERNELS.launches - before
+            del run
+            kern = twin.clone()
+            ptk.train_grid_kernel(kern, 0, 1)
+            ptk.train_grid_kernel_reference(twin, 0, 1)
+            torch.cuda.synchronize()
+            gaps = [(float((a - b).abs().max()),
+                     int(((a - b).abs() > TOL).sum()))
+                    for a, b in zip(kern.params, twin.params)
+                    if a is not None]
+            out["cases"].append({"label": label, "launches": launches,
+                                 "step0_vs_twin": gaps})
+            del kern, twin
+
+        plan = getattr(ptk, "launch_bounds", None)
+        for key, prefix in (("tied", "tied (1000, 100) N=60 bfloat16"),
+                            ("phase1", "validation bucket phase 1")):
+            case = next(c for c in cases if c[0].startswith(prefix))
+            cfg = case[1]
+            run = start(*case[1:])
+            ptk.train_grid_kernel(run, 0, 20)
+            res = {"label": case[0], "ms": [cuda_ms(
+                lambda: ptk.train_grid_kernel(run, 20, AB_TIMED_STEPS),
+                reps=5, inner=1) / AB_TIMED_STEPS for _ in range(2)]}
+            prof: dict = {}
+            ptk.train_grid_kernel(run, 1000, AB_TIMED_STEPS, profile=prof)
+            res["types"] = {t: v / AB_TIMED_STEPS for t, v in prof.items()}
+            before = ptk.KERNELS.launches
+            ptk.train_grid_kernel(run, 3000, 1)
+            per_step = ptk.KERNELS.launches - before
+            steps = 5
+            res["names"], res["bmm"] = [], {}
+            if plan is not None:
+                rows = plan(cfg, run.n_inst, run.batch, True)
+                res["names"] = [r["name"] for r in rows]
+
+            def by_launch():
+                # one step more than is read: the profiler can miss the
+                # first kernel it traces
+                kernels = profiler_launches(
+                    lambda: ptk.train_grid_kernel(run, 2000, steps + 1))
+                if not steps * per_step <= len(kernels) \
+                        <= (steps + 1) * per_step:
+                    print(f"  torch.profiler saw {len(kernels)} kernels "
+                          f"for {(steps + 1) * per_step} launches")
+                    return []
+                kernels = kernels[-steps * per_step:]
+                return [(kernels[i][0], sum(kernels[s * per_step + i][1]
+                                            for s in range(steps)) / steps)
+                        for i in range(per_step)]
+
+            k1 = by_launch()
+            if plan is not None:
+                ops = {name: [(torch.rand((run.n_inst, m, k), device=DEVICE),
+                               torch.rand((run.n_inst, k, n), device=DEVICE))
+                              for m, k, n in shapes]
+                       for name, shapes in train_products(
+                           cfg, run.batch).items()}
+
+                def bmm_turn():
+                    return {name: device_ms(
+                        lambda o=o: [torch.bmm(a, b) for a, b in o],
+                        reps=5, inner=5) for name, o in ops.items()}
+
+                b1, b2 = bmm_turn(), bmm_turn()
+                res["bmm"] = {name: (b1[name] + b2[name]) / 2 for name in b1}
+            k2 = by_launch()
+            res["launches"] = per_step
+            res["profiler"] = ([(n1, (m1 + m2) / 2) for (n1, m1), (_, m2)
+                                in zip(k1, k2)] if k1 and k2 else [])
+            out[key] = res
+            del run
+    print("TRAIN-STATE " + json.dumps(out), flush=True)
+    return 0
+
+
+def main_train_ab(parent_root: str) -> int:
+    """Kernel 2 of ``parent_root`` (the parent's checkout) against this
+    checkout's, each tree in processes of its own (--train-state), in
+    turns parent, change, change, parent: parameters and moments after
+    AB_STEPS steps of :func:`train_ab_cases` compared bit for bit (the
+    first two runs), and the tied 1000-wide step (N = 60) and the
+    validation bucket's phase-1 step (N = 20) timed in all four, launch
+    by launch beside ``torch.bmm`` of each launch's products."""
+    global FAILED
+    FAILED = []
+    parent_root = os.path.abspath(parent_root)
+    card = card_line()
+    with tempfile.TemporaryDirectory(prefix="mmae_chip_smoke_ab_") as tmp:
+        results = run_ab_workers("--train-state", "TRAIN-STATE", parent_root,
+                                 tmp)
+        compare_ab_states(results, tmp, "kernel 2")
+    timed = [r for r in results if r]
+    if len(timed) == 4:
+        for key in ("tied", "phase1"):
+            runs = [r[key] for r in timed]
+            print(f"  {runs[0]['label']}, B={BATCH}, ms/step (two windows "
+                  f"of {AB_TIMED_STEPS} each): " + "; ".join(
+                      f"{AB_RUNS[i]} {r['ms'][0]:.4f} / {r['ms'][1]:.4f}"
+                      for i, r in enumerate(runs)) + f"  [{card}]")
+            for i, r in enumerate(runs):
+                print(f"    {AB_RUNS[i]} by launch type: " + ", ".join(
+                    f"{t} {v:.4f}" for t, v in r["types"].items() if v > 0))
+            for tree, (a, b) in (("parent", (runs[0], runs[3])),
+                                 ("change", (runs[1], runs[2]))):
+                if not (a["profiler"] and b["profiler"]):
+                    continue
+                names = b["names"] or [""] * len(b["profiler"])
+                print(f"    {tree}, launch by launch (torch.profiler, 5 "
+                      f"steps, mean of its two runs; {a['launches']} "
+                      f"launches a step): ms, torch.bmm of the launch's "
+                      f"products  [{card}]")
+                for j, ((kn, m1), (_, m2)) in enumerate(zip(a["profiler"],
+                                                            b["profiler"])):
+                    bmm = b["bmm"].get(names[j])
+                    print(f"      {j:2d} {names[j]:7s} {kn[:26]:26s} "
+                          f"{(m1 + m2) / 2:.4f}"
+                          + (f"  bmm {bmm:.4f}" if bmm is not None else ""))
+    print(card)
+    print(json.dumps({"train_ab": True, "failed_checks": FAILED}))
+    return 1 if FAILED else 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--count-launches"]:
         return main_count_launches(sys.argv[2:])
-    if sys.argv[1:2] in (["--deep-state"], ["--cls-state"]) \
-            and len(sys.argv) == 4:
+    workers = {"--deep-state": main_deep_state,
+               "--cls-state": main_cls_state,
+               "--train-state": main_train_state}
+    if sys.argv[1:2] and sys.argv[1] in workers and len(sys.argv) == 4:
         # the package under MMAE_PACKAGE_ROOT, not this file's
         sys.path.insert(0, os.environ["MMAE_PACKAGE_ROOT"])
-        worker = main_deep_state if sys.argv[1] == "--deep-state" \
-            else main_cls_state
-        return worker(sys.argv[2], sys.argv[3] == "dump")
+        return workers[sys.argv[1]](sys.argv[2], sys.argv[3] == "dump")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    if len(sys.argv) == 3 and sys.argv[1] == "--tensor-core-products" \
-            and sys.argv[2] in ("1", "2"):
-        return main_tensor_core_products(int(sys.argv[2]))
     if sys.argv[1:] == ["--single-run"]:
         return main_single_run()
     if sys.argv[1:] == ["--baselines"]:
@@ -4496,12 +4696,15 @@ def main() -> int:
         return main_deep_ab(sys.argv[2])
     if sys.argv[1:2] == ["--cls-ab"] and len(sys.argv) == 3:
         return main_cls_ab(sys.argv[2])
+    if sys.argv[1:2] == ["--train-ab"] and len(sys.argv) == 3:
+        return main_train_ab(sys.argv[2])
     if sys.argv[1:] == ["--deep"]:
         return main_deep()
     check(len(sys.argv) == 1, "usage: chip_smoke.py "
-          "[--tensor-core-products 1|2 | --single-run | --baselines | "
+          "[--single-run | --baselines | "
           "--split-cards | --pipeline | --deep | --deep-ab <checkout> | "
-          "--cls-ab <checkout> | --count-launches <cli arguments>]")
+          "--cls-ab <checkout> | --train-ab <checkout> | --count-launches "
+          "<cli arguments>]")
     from multimodalautoencoder_tpu_torch.ops import cls_train_kernels as pck
     from multimodalautoencoder_tpu_torch.ops import dense_kernels as dk
     from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
@@ -4740,7 +4943,8 @@ def main() -> int:
          "ms": step["ms"], "plain_ms": step["plain_ms"],
          "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
          "library_ms": None,
-         "bmm_ms": step["bmm_ms"], "launch_types": step["launch_types"]},
+         "bmm_ms": step["bmm_ms"], "launch_types": step["launch_types"],
+         "per_launch": step["launches"]},
         {"name": "cls_train_step", "route": "cuda",
          "source": src + "cls_train_kernel.cu",
          "replaces": "multimodalautoencoder_tpu/ops/train_kernel.py:1439",

@@ -34,10 +34,9 @@
 // The blocks, Adam and launcher are shared with the other training
 // kernels (train_common.cuh): at phase 2's batch of 100 the products run
 // on gemm_tile_kernel (8 x 8 register tiles), at a batch of at most 24 on
-// gemm_batch_kernel.  Every sum keeps the order of the earlier
-// gemm_panel_kernel / wgrad_adam_kernel / bias_adam_kernel launches, so
-// every parameter and moment is bit for bit theirs (chip_smoke.py
-// --cls-ab).  With bf16 operands every product operand, the
+// gemm_batch_kernel.  Every sum keeps the order of the first CUDA-core
+// product and update kernels, so every parameter and moment is bit for
+// bit theirs (chip_smoke.py --cls-ab).  With bf16 operands every product operand, the
 // backward cotangents of the weight-gradient products included, is
 // rounded to bf16 and sums stay f32 (:1470-1477).  Random numbers come
 // from Philox4x32-10 with phase 2's own purposes; the plain PyTorch twin

@@ -2,22 +2,18 @@
 // phase-1 DAE/VAE run), csrc/train_deep_kernel.cu (depth >= 3) and
 // csrc/cls_train_kernel.cu (the phase-2 classification run): activations,
 // rsqrt Adam, the instance-batched small-M products with their epilogues
-// (gemm_panel_kernel for kernel 2; gemm_batch_kernel for kernel 3 and
-// for kernel 4 at a batch of at most 24; gemm_tile_kernel for kernel 4
-// above it), the
-// weight-gradient + L2 + Adam and bias-gradient + Adam kernels of kernel 2
-// and the grouped update of kernels 3 and 4 (update_group_kernel), and a
+// (gemm_batch_kernel at a batch of at most 24, gemm_tile_kernel above
+// it), the grouped weight and bias update (update_group_kernel), and a
 // launcher that enqueues them on one stream, counts every launch and can
 // time each with CUDA events.
 //
-// The products run in exact f32 FMAs from a ring of slices that one copy
-// warp fills with cp.async on mbarriers.  The BF16 instantiations round
-// each product operand to bfloat16 (nearest even) and sum in f32: the
-// operand policy of the JAX package's mmae.mxu_dot.  The weight gradient
-// is summed in exact f32 FMAs while the tile's W and moments are copied
-// in.  Operand type is a template parameter, so the f32
-// kernels carry no test for it; the bf16 ones are built only where the
-// including file defines TRAIN_BF16_OPERANDS.
+// The products run in exact f32 FMAs from rings of cp.async copies.  The
+// BF16 instantiations round each product operand to bfloat16 (nearest
+// even) and sum in f32: the operand policy of the JAX package's
+// mmae.mxu_dot.  The weight gradient is summed in exact f32 FMAs while the
+// tile's W and moments are copied in.  Operand type is a template
+// parameter, so the f32 kernels carry no test for it; the bf16 ones are
+// built only where the including file defines TRAIN_BF16_OPERANDS.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,10 +26,6 @@
 #ifndef TRAIN_BF16_OPERANDS
 #define TRAIN_BF16_OPERANDS 0
 #endif
-#ifndef TRAIN_TENSOR_CORE_PRODUCTS
-#define TRAIN_TENSOR_CORE_PRODUCTS 0
-#endif
-
 namespace train {
 
 constexpr float ADAM_B1 = 0.9f, ADAM_1MB1 = 0.1f;
@@ -188,53 +180,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // ------------------------------------------------------------ products
 // C[n] (M x ncol) = A[n] (M x K) . B[n] (K x ncol) [+ A2[n] . B2[n]], with
-// small M (the batch), then an epilogue (Epi).  A block owns one
-// instance's PN-column panel for up to TY RPT rows (RPT = 3 for M <= 24,
-// else 13), so each element of B is read from device memory once per
-// product.  K walks in GK-deep slices through a ring of STAGES slices in
-// shared memory, filled by one copy warp and drained by CONSUMERS math
-// warps on mbarriers:
-//
-// - copies: cp.async from the copy warp, 16 bytes a copy where every
-//   staged row is 16-byte aligned (every full-width shape), else 4 (F =
-//   30, the head's widths 50 and 3); each lane's copies arrive on the
-//   slice's full barrier as they land (cp.async.mbarrier.arrive), and the
-//   math warps free a slot on its empty barrier.  B is staged as it lies,
-//   N-major ([k][n]) for W and K-major ([n][k]) for the W^T views, so a
-//   transpose is never copied;
-// - math: exact f32 FMAs on the CUDA cores, each thread RPT rows x 4
-//   columns (columns tx + 16 c, so both layouts of B are read on distinct
-//   banks), A and K-major B read 16 bytes at a time.  Every sum runs in k
-//   order, pair 0 before pair 1, so a product is bit for bit the one of
-//   the earlier CUDA-core kernel; bf16 operands (BF16) are rounded as they
-//   are read and their exact products summed the same way.  Against the
-//   twin (torch.matmul on the card) the kernels stay within 3e-8 over
-//   [11]'s 10 steps, and the training gates hold every step to the twin
-//   within rounding: the tensor-core variant below (chip_smoke.py
-//   --tensor-core-products) fails [8], [11] and [15] with either
-//   promotion, since a relu kink or an Adam sign flip turns a changed
-//   rounding into a changed update.  At phase 2's batch of 100 the FMAs
-//   are what bounds the products (PERF.md, Findings).
-constexpr int PN = 64, GK = 32, STAGES = 4, CONSUMERS = 4;
-constexpr int PT = (CONSUMERS + 1) * 32;   // + the copy warp
-constexpr int TY = CONSUMERS * 32 / 16;   // thread rows: 16 threads a row
-constexpr int A_LD = GK + 4;    // K-major rows, 16-byte aligned
-constexpr int BN_LD = PN + 8;   // N-major rows, 16-byte aligned
-constexpr int B_FLOATS = GK * BN_LD;
-static_assert(PN * A_LD <= B_FLOATS, "both B layouts fit a stage");
-static_assert(PN == 64, "a thread's columns are tx + 16 c, c < 4");
-
-template <int RPT>
-struct Panel {
-  static constexpr int PER_SM = RPT > 4 ? 2 : 4;   // blocks resident
-  static constexpr int ROWS = TY * RPT;
-  static constexpr int A_FLOATS = ROWS * A_LD;
-  static constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
-  static constexpr int RING_BYTES = STAGES * STAGE_FLOATS * 4;
-  static constexpr int SMEM = RING_BYTES + 2 * STAGES * 8;
-  static_assert(A_FLOATS % 4 == 0 && STAGE_FLOATS % 4 == 0, "16 B");
-};
-
+// small M (the batch), then an epilogue (Epi).  B is staged as it lies,
+// N-major ([k][n]) for W and K-major ([n][k]) for the W^T views, so a
+// transpose is never copied.  Every output element is one f32 sum of
+// exact FMAs from zero, k in order, pair 0 before pair 1 (the zero-filled
+// k tail of a slice adds +0 to a sum that is never -0), so a product is
+// bit for bit the one of the first CUDA-core kernels, whatever its
+// block's shape; bf16 operands (BF16) are rounded as they are read and
+// their exact products summed the same way.  The training gates hold
+// every step to the twin within rounding: tensor-core products failed
+// [8], [11] and [15] with either promotion of their sums (PERF.md), since
+// a relu kink or an Adam sign flip turns a changed rounding into a
+// changed update.
 struct Mat { const float* p; int64_t bs, rs, cs; };   // batch/row/col strides
 
 enum Epi { E_ACT_DROP = 0, E_BIAS, E_LOGIT_GRAD, E_MUL, E_NONE };
@@ -361,335 +318,9 @@ struct Epilogue {
   }
 };
 
-// The copy warp: the product's nk slices (A's and B's, then A2's and
-// B2's) into the ring, 16 bytes a copy where every
-// staged row starts 16-byte aligned (``vec``), else 4; a copy past the end
-// of K is zero-filled, rows and columns past M and ncol are left out (they
-// feed only outputs that are not stored).  Each lane's copies arrive on
-// the slice's full barrier as they land.
-template <int RPT>
-__device__ __forceinline__ void copy_slices(const GemmArgs& g, float* ring,
-                                            uint64_t* full, uint64_t* empty,
-                                            int n, int m0, int c0, int nk,
-                                            int lane) {
-  using P = Panel<RPT>;
-  const int nk0 = (g.K + GK - 1) / GK;
-  const int rows = min(P::ROWS, g.M - m0), cols = min(PN, g.ncol - c0);
-  for (int i = 0; i < nk; ++i) {
-    const int s = i % STAGES, use = i / STAGES;
-    if (use > 0) mbar_wait(&empty[s], (use - 1) & 1);
-    const int pair = i >= nk0;
-    const int k0 = (pair ? i - nk0 : i) * GK;
-    const int kv = min(GK, (pair ? g.K2 : g.K) - k0);
-    const Mat a = pair ? g.A2 : g.A, b = pair ? g.B2 : g.B;
-    const float* ap = a.p + n * a.bs + (int64_t)m0 * a.rs + k0;
-    const float* bp = b.p + n * b.bs + (int64_t)k0 * b.rs
-                      + (int64_t)c0 * b.cs;
-    float* As = ring + s * P::STAGE_FLOATS;
-    float* Bs = As + P::A_FLOATS;
-    if (g.vec) {
-      // A: rows x GK / 4 chunks along k; B: along its contiguous axis
-      for (int e = lane; e < rows * (GK / 4); e += 32) {
-        const int r = e / (GK / 4), k = (e % (GK / 4)) * 4;
-        const int nb = k < kv ? 16 : 0;
-        cp_async16(As + r * A_LD + k, nb ? ap + r * a.rs + k : a.p, nb);
-      }
-      if (g.b_kmajor) {
-        for (int e = lane; e < cols * (GK / 4); e += 32) {
-          const int c = e / (GK / 4), k = (e % (GK / 4)) * 4;
-          const int nb = k < kv ? 16 : 0;
-          cp_async16(Bs + c * A_LD + k, nb ? bp + c * b.cs + k : b.p, nb);
-        }
-      } else {
-        const int cq = (cols + 3) / 4;
-        for (int e = lane; e < GK * cq; e += 32) {
-          const int k = e / cq, c = (e % cq) * 4;
-          const int nb = k < kv ? 16 : 0;
-          cp_async16(Bs + k * BN_LD + c, nb ? bp + k * b.rs + c : b.p, nb);
-        }
-      }
-    } else {
-      for (int e = lane; e < rows * GK; e += 32) {
-        const int r = e / GK, k = e % GK;
-        cp_async4(As + r * A_LD + k, k < kv ? ap + r * a.rs + k : a.p,
-                  k < kv ? 4 : 0);
-      }
-      for (int e = lane; e < GK * cols; e += 32) {
-        const int k = g.b_kmajor ? e % GK : e / cols;
-        const int c = g.b_kmajor ? e / GK : e % cols;
-        cp_async4(Bs + (g.b_kmajor ? c * A_LD + k : k * BN_LD + c),
-                  k < kv ? bp + k * b.rs + c * b.cs : b.p, k < kv ? 4 : 0);
-      }
-    }
-    cp_async_arrive(&full[s]);
-  }
-}
-
-// One slice into a thread's RPT x 4 sums (rows ty + TY r, columns
-// tx + 16 c), k in order.
-template <bool BF16, bool KMAJOR, int RPT>
-__device__ __forceinline__ void slice_fma(const float* As, const float* Bs,
-                                          int tx, int ty,
-                                          float (&acc)[RPT][4]) {
-#pragma unroll 2
-  for (int k0 = 0; k0 < GK; k0 += 4) {
-    float4 a[RPT];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r)
-      a[r] = *reinterpret_cast<const float4*>(As + (ty + TY * r) * A_LD
-                                              + k0);
-    float b[4][4];   // [k][column]
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (KMAJOR) {
-        const float4 q = *reinterpret_cast<const float4*>(
-            Bs + (tx + 16 * c) * A_LD + k0);
-        b[0][c] = q.x; b[1][c] = q.y; b[2][c] = q.z; b[3][c] = q.w;
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          b[kk][c] = Bs[(k0 + kk) * BN_LD + tx + 16 * c];
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float av = operand<BF16>((&a[r].x)[kk]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          acc[r][c] = fmaf(av, operand<BF16>(b[kk][c]), acc[r][c]);
-      }
-  }
-}
-
-// The math warps: every slice of the block's K range as it lands.
-template <bool BF16, bool KMAJOR, int RPT>
-__device__ __forceinline__ void consume(float* ring, uint64_t* full,
-                                        uint64_t* empty, int nk, int tx,
-                                        int ty, int lane,
-                                        float (&acc)[RPT][4]) {
-  using P = Panel<RPT>;
-  for (int i = 0; i < nk; ++i) {
-    const int s = i % STAGES;
-    mbar_wait(&full[s], (i / STAGES) & 1);
-    const float* As = ring + s * P::STAGE_FLOATS;
-    slice_fma<BF16, KMAJOR, RPT>(As, As + P::A_FLOATS, tx, ty, acc);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
-  }
-}
-
-// ------------------------------------ tensor-core products (a variant)
-// Built only with -DTRAIN_TENSOR_CORE_PRODUCTS=1 or 2 (chip_smoke.py
-// --tensor-core-products), which measures the training gates and step
-// times with the products on mma.sync: bf16 operands as m16n8k16, f32
-// operands as 3xTF32 (each operand split into TF32 hi + lo; lo*hi + hi*lo
-// + hi*hi on m16n8k8).  The tensor cores cut each instruction's sum toward
-// zero, so sums are promoted into f32 registers every 32-deep slice (1,
-// csrc/fused_dense.cu's scheme) or every k step (2).  Math warp w owns
-// columns 16 w .. 16 w + 15 of the panel for all its rows, padded to 16.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One slice into a math warp's MTILES x 2 tiles of 16 x 8 (``total``);
-// B's element (k, n) at Bs[k * sk + n * sn].
-template <bool BF16, int MTILES, int PROMOTE>
-__device__ __forceinline__ void slice_mma(const float* As, const float* Bs,
-                                          int sk, int sn, int cb, int g,
-                                          int t,
-                                          float (&total)[MTILES][2][4]) {
-  float part[MTILES][2][4];
-  auto clear = [&] {
-#pragma unroll
-    for (int i = 0; i < MTILES; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
-  };
-  auto promote = [&] {
-#pragma unroll
-    for (int i = 0; i < MTILES; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) total[i][j][q] += part[i][j][q];
-  };
-  auto bv = [&](int k, int j) { return Bs[k * sk + (cb + 8 * j + g) * sn]; };
-  clear();
-  constexpr int KSTEP = BF16 ? 16 : 8;
-#pragma unroll
-  for (int kk = 0; kk < GK; kk += KSTEP) {
-    if (BF16) {
-      uint32_t b[2][2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        b[j][0] = pack_bf16(bv(kk + 2 * t, j), bv(kk + 2 * t + 1, j));
-        b[j][1] = pack_bf16(bv(kk + 2 * t + 8, j), bv(kk + 2 * t + 9, j));
-      }
-#pragma unroll
-      for (int i = 0; i < MTILES; ++i) {
-        const float* r0 = As + (16 * i + g) * A_LD + kk + 2 * t;
-        const float* r8 = r0 + 8 * A_LD;
-        const uint32_t a[4] = {pack_bf16(r0[0], r0[1]),
-                               pack_bf16(r8[0], r8[1]),
-                               pack_bf16(r0[8], r0[9]),
-                               pack_bf16(r8[8], r8[9])};
-#pragma unroll
-        for (int j = 0; j < 2; ++j) mma_bf16(part[i][j], a, b[j]);
-      }
-    } else {
-      uint32_t bh[2][2], bl[2][2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        split_tf32(bv(kk + t, j), bh[j][0], bl[j][0]);
-        split_tf32(bv(kk + t + 4, j), bh[j][1], bl[j][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < MTILES; ++i) {
-        const float* r0 = As + (16 * i + g) * A_LD + kk + t;
-        const float* r8 = r0 + 8 * A_LD;
-        uint32_t ah[4], al[4];
-        split_tf32(r0[0], ah[0], al[0]);
-        split_tf32(r8[0], ah[1], al[1]);
-        split_tf32(r0[4], ah[2], al[2]);
-        split_tf32(r8[4], ah[3], al[3]);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {   // the small terms first
-          mma_tf32(part[i][j], al, bh[j]);
-          mma_tf32(part[i][j], ah, bl[j]);
-          mma_tf32(part[i][j], ah, bh[j]);
-        }
-      }
-    }
-    if (PROMOTE == 2) {
-      promote();
-      clear();
-    }
-  }
-  if (PROMOTE == 1) promote();
-}
-
-// grid (panels, row blocks, N), PT threads.
-template <int EPI, bool BF16, int RPT>
-__global__ void __launch_bounds__(PT, Panel<RPT>::PER_SM)
-gemm_panel_kernel(const GemmArgs g, const EpiArgs e) {
-  using P = Panel<RPT>;
-  extern __shared__ __align__(128) float ring[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + P::RING_BYTES / 4);
-  uint64_t* empty = full + STAGES;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = tid % 16, ty = tid / 16;
-  const int n = blockIdx.z, m0 = blockIdx.y * P::ROWS, c0 = blockIdx.x * PN;
-  const int nk = (g.K + GK - 1) / GK + (g.K2 + GK - 1) / GK;
-
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 32);   // one arrival per copy lane
-      mbar_init(&empty[s], CONSUMERS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (warp == CONSUMERS) {
-    copy_slices<RPT>(g, ring, full, empty, n, m0, c0, nk, lane);
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    return;
-  }
-  if constexpr (TRAIN_TENSOR_CORE_PRODUCTS != 0) {
-    constexpr int MTILES = (P::ROWS + 15) / 16;
-    const int sk = g.b_kmajor ? 1 : BN_LD, sn = g.b_kmajor ? A_LD : 1;
-    const int cb = 16 * warp, gq = lane >> 2, t = lane & 3;
-    float total[MTILES][2][4];
-#pragma unroll
-    for (int i = 0; i < MTILES; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) total[i][j][q] = 0.f;
-    for (int i = 0; i < nk; ++i) {
-      const int s = i % STAGES;
-      mbar_wait(&full[s], (i / STAGES) & 1);
-      const float* As = ring + s * P::STAGE_FLOATS;
-      slice_mma<BF16, MTILES, TRAIN_TENSOR_CORE_PRODUCTS>(
-          As, As + P::A_FLOATS, sk, sn, cb, gq, t, total);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);
-    }
-    const Epilogue<EPI> epi(e, n, g.M, g.ncol);
-#pragma unroll
-    for (int i = 0; i < MTILES; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int r = 16 * i + gq + 8 * (q >> 1);   // rows past the
-          if (r < P::ROWS)                            // block's are padding
-            epi(m0 + r, c0 + cb + 8 * j + 2 * t + (q & 1), total[i][j][q]);
-        }
-    return;
-  }
-  float acc[RPT][4];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-  if (g.b_kmajor)
-    consume<BF16, true, RPT>(ring, full, empty, nk, tx, ty, lane, acc);
-  else
-    consume<BF16, false, RPT>(ring, full, empty, nk, tx, ty, lane, acc);
-  const Epilogue<EPI> epi(e, n, g.M, g.ncol);
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      epi(m0 + ty + TY * r, c0 + tx + 16 * c, acc[r][c]);
-}
-
-// ------------------------------------------------- weight grad + Adam
-// W[n] (R x C) -= Adam(L[n]^T R[n] [+ L2[n]^T R2[n]] + pen * wpen[n] * W),
-// L (B x R), R (B x C) contiguous.  Bound by bytes: W, m and v stream in
-// and out once (16 B a parameter with bf16 moments).  Persistent blocks
-// walk (instance, 64 x 64 tile) items; for each, a thread first starts the
-// loads of its 4 x 4 elements of W, m and v (16-byte rows where C allows),
-// then sums their gradient over the batch in exact f32 FMAs (the batch
-// staged 32 rows at a time through two cp.async buffers, the next batch
-// chunk in flight during this one's sums), then applies L2 + Adam and
-// stores W, m and v back.  Several blocks per SM keep one item's loads in
-// flight beside another's epilogue.
-constexpr int WT = 64, WBK = 32, WTHREADS = 256;
-
-struct WgradArgs {
-  int n_inst, R, C, B;
-  const float* L; const float* Rm;     // the product pair(s), contiguous
-  const float* L2; const float* R2;
-  float* W; void* m; void* v;
-  const float* lr; const float* wpen;
-  float pen;
-  AdamStep st;
-};
+// --------------------------------------------------------- moment tiles
+// A thread's four moments of one row, f32 or bf16, loaded and stored 16
+// (or 8) bytes at a time where the row holds all four.
 
 template <typename MT> struct Moments4;
 template <> struct Moments4<float> {
@@ -750,177 +381,24 @@ template <> struct Moments4<__nv_bfloat16> {
   }
 };
 
-template <typename MT, bool BF16>
-__global__ void __launch_bounds__(WTHREADS, 2)
-wgrad_adam_kernel(const WgradArgs w) {
-  __shared__ __align__(16) float ls[2][WBK][WT];
-  __shared__ __align__(16) float rs[2][WBK][WT];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int R = w.R, C = w.C, B = w.B;
-  const int tiles_c = (C + WT - 1) / WT, tiles_r = (R + WT - 1) / WT;
-  const int64_t items = (int64_t)w.n_inst * tiles_r * tiles_c;
-  const int chunks = (B + WBK - 1) / WBK, pairs = w.L2 ? 2 : 1;
-  // 16-byte staging needs 16-byte rows of L and R, and 16-byte W rows
-  const bool vec_l = R % 4 == 0 && C % 4 == 0 && aligned16(w.L)
-                     && aligned16(w.Rm)
-                     && (!w.L2 || (aligned16(w.L2) && aligned16(w.R2)));
-  const bool vec_w = C % 4 == 0 && aligned16(w.W) && aligned16(w.m)
-                     && aligned16(w.v);
-  MT* mp = static_cast<MT*>(w.m);
-  MT* vp = static_cast<MT*>(w.v);
-
-  for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
-    const int n = (int)(item / ((int64_t)tiles_r * tiles_c));
-    const int tile = (int)(item % ((int64_t)tiles_r * tiles_c));
-    const int r0 = (tile / tiles_c) * WT, c0 = (tile % tiles_c) * WT;
-    const int row0 = r0 + 4 * ty, col0 = c0 + 4 * tx;
-    const int nc = max(0, min(4, C - col0));
-    // 1. this thread's W, m and v, in flight during the sums
-    float4 wq[4];
-    Moments4<MT> mq, vq;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t o = ((int64_t)n * R + row0 + i) * C + col0;
-      if (row0 + i < R && nc > 0) {
-        if (vec_w && nc == 4) {
-          wq[i] = *reinterpret_cast<const float4*>(w.W + o);
-        } else {
-          float* f = &wq[i].x;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) f[c] = c < nc ? w.W[o + c] : 0.f;
-        }
-        mq.load(mp + o, i, nc, vec_w);
-        vq.load(vp + o, i, nc, vec_w);
-      }
-    }
-    // 2. the gradient, batch chunk by batch chunk
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-    const int steps = pairs * chunks;
-    auto stage = [&](int q) {
-      const int pair = q / chunks, b0 = (q % chunks) * WBK;
-      const float* lp = (pair ? w.L2 : w.L) + (int64_t)n * B * R;
-      const float* rp = (pair ? w.R2 : w.Rm) + (int64_t)n * B * C;
-      float (*lsq)[WT] = ls[q & 1];
-      float (*rsq)[WT] = rs[q & 1];
-      if (vec_l) {
-        for (int e = tid; e < WBK * WT / 4; e += WTHREADS) {
-          const int b = e / (WT / 4), j = (e % (WT / 4)) * 4;
-          const int gb = b0 + b;
-          const bool lin = gb < B && r0 + j < R, rin = gb < B && c0 + j < C;
-          cp_async16(&lsq[b][j], lin ? lp + (int64_t)gb * R + r0 + j : lp,
-                     lin ? 16 : 0);
-          cp_async16(&rsq[b][j], rin ? rp + (int64_t)gb * C + c0 + j : rp,
-                     rin ? 16 : 0);
-        }
-      } else {
-        for (int e = tid; e < WBK * WT; e += WTHREADS) {
-          const int b = e / WT, j = e % WT;
-          const int gb = b0 + b;
-          const bool lin = gb < B && r0 + j < R, rin = gb < B && c0 + j < C;
-          cp_async4(&lsq[b][j], lin ? lp + (int64_t)gb * R + r0 + j : lp,
-                    lin ? 4 : 0);
-          cp_async4(&rsq[b][j], rin ? rp + (int64_t)gb * C + c0 + j : rp,
-                    rin ? 4 : 0);
-        }
-      }
-      cp_async_commit();
-    };
-    stage(0);
-    for (int q = 0; q < steps; ++q) {
-      if (q + 1 < steps) {
-        stage(q + 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const int nb = min(WBK, B - (q % chunks) * WBK);
-      const float (*lsq)[WT] = ls[q & 1];
-      const float (*rsq)[WT] = rs[q & 1];
-#pragma unroll 4
-      for (int b = 0; b < nb; ++b) {
-        const float4 l4 = *reinterpret_cast<const float4*>(&lsq[b][4 * ty]);
-        const float4 r4 = *reinterpret_cast<const float4*>(&rsq[b][4 * tx]);
-        const float lv[4] = {operand<BF16>(l4.x), operand<BF16>(l4.y),
-                             operand<BF16>(l4.z), operand<BF16>(l4.w)};
-        const float rv[4] = {operand<BF16>(r4.x), operand<BF16>(r4.y),
-                             operand<BF16>(r4.z), operand<BF16>(r4.w)};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[i][c] = fmaf(lv[i], rv[c], acc[i][c]);
-      }
-      __syncthreads();  // the buffer is free for chunk q + 2
-    }
-    // 3. L2 + Adam, and W, m, v back
-    float alpha, es2;
-    adam_scalars(w.st, w.lr[n], &alpha, &es2);
-    const float l2 = w.pen * w.wpen[n];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (row0 + i >= R || nc == 0) continue;
-      const int64_t o = ((int64_t)n * R + row0 + i) * C + col0;
-      float wn[4], mn[4], vn[4];
-      const float* wf = &wq[i].x;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        mn[c] = mq.get(i, c);
-        vn[c] = vq.get(i, c);
-        wn[c] = adam_step(wf[c], acc[i][c] + l2 * wf[c], mn[c], vn[c],
-                          alpha, es2);
-      }
-      if (vec_w && nc == 4) {
-        *reinterpret_cast<float4*>(w.W + o) =
-            make_float4(wn[0], wn[1], wn[2], wn[3]);
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (c < nc) w.W[o + c] = wn[c];
-      }
-      mq.store(mp + o, i, mn, nc, vec_w);
-      vq.store(vp + o, i, vn, nc, vec_w);
-    }
-  }
-}
-
-// --------------------------------------------------- bias grad + Adam
-// b[n] (C) -= Adam(sum over the batch of G[n] (B x C)); no L2 on biases.
-template <typename MT>
-__global__ void bias_adam_kernel(int C, int Bsz, const float* G, float* bias,
-                                 MT* m, MT* v, const float* lr, AdamStep st) {
-  const int n = blockIdx.y, col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= C) return;
-  const float* g = G + (int64_t)n * Bsz * C + col;
-  float s = 0.f;
-  for (int b = 0; b < Bsz; ++b) s += g[(int64_t)b * C];
-  float alpha, es2;
-  adam_scalars(st, lr[n], &alpha, &es2);
-  const int64_t o = (int64_t)n * C + col;
-  bias[o] = adam_apply(bias[o], s, m + o, v + o, alpha, es2);
-}
-
 // --------------------------------------- products at a batch of <= 24
-// gemm_panel_kernel's product and epilogues, shaped for a batch of at most
-// BR rows: a thread owns B_RPT = 2 rows x 4 columns, TY = ceil(M / 2)
-// thread rows cover the batch (20 rows in 10 at M = 20, none padded), and
-// its 4 columns are contiguous for N-major B and strided for K-major B,
-// so both orientations are read 16 bytes at a time (gemm_panel_kernel
-// reads N-major B 4 bytes at a time).  A block is ceil(CT TY / 32) math
-// warps (CT = pw / 4 column threads) and one copy warp over one
+// A thread owns B_RPT = 2 rows x 4 columns, TY = ceil(M / 2) thread rows
+// cover the batch (20 rows in 10 at M = 20, none padded), and its 4
+// columns are contiguous for N-major B and strided for K-major B, so both
+// orientations are read 16 bytes at a time.  A block is ceil(CT TY / 32)
+// math warps (CT = pw / 4 column threads) and one copy warp over one
 // instance's panel of pw = 64, 32 or 16 columns, picked per launch on
 // the host (ops/train_deep_kernels.panel_width); its ring of BSTAGES
 // slices of BK is sized to its panel, so a narrow panel holds less shared
 // memory and more blocks fit an SM.  Rows past BR go to the next row
-// block (grid.y).  The copy warp fills the ring as in gemm_panel_kernel
-// (16-byte copies where every staged row is 16-byte aligned, else 4).
-// Every output element is summed in k order, pair 0 before pair 1, from
-// zero, so each is bit for bit gemm_panel_kernel's (its zero-filled k tail
-// adds +0 to a sum that is never -0).
+// block (grid.y).  The copy warp fills the ring with cp.async, 16 bytes a
+// copy where every staged row is 16-byte aligned (every full-width
+// shape), else 4 (F = 30, the head's widths 50 and 3); each lane's copies
+// arrive on the slice's full barrier as they land
+// (cp.async.mbarrier.arrive), and the math warps free a slot on its
+// empty barrier.  A copy past the end of K is zero-filled, rows and
+// columns past M and ncol are left out (they feed only outputs that are
+// not stored).
 constexpr int BR = 24, BK = 32, BSTAGES = 3, BPW = 64;
 constexpr int B_RPT = 2;
 constexpr int B_TY = BR / B_RPT;                // thread rows at most
@@ -1109,12 +587,11 @@ gemm_batch_kernel(const GemmArgs g, const EpiArgs e, int pw, int ty_rows) {
 }
 
 // --------------------------------------- products at a batch above 24
-// gemm_panel_kernel's product and epilogues, shaped for phase 2's batch
-// of 100, where f32 FMAs and the shared loads that feed them bound the
-// 1000-wide products.  A block holds one instance's whole batch (up to
-// TM_MAX = 104 rows; more go to the next row block, grid.y) against a
-// panel of pw columns, so each weight element is read from device memory
-// once a product.  A thread owns a register tile of TR = 8 rows x TC = 8
+// The products and epilogues shaped for phase 2's batch of 100, where f32
+// FMAs and the shared loads that feed them bound the 1000-wide products.
+// A block holds one instance's whole batch (up to TM_MAX = 104 rows; more
+// go to the next row block, grid.y) against a panel of pw columns, so
+// each weight element is read from device memory once a product.  A thread owns a register tile of TR = 8 rows x TC = 8
 // (or 4) columns: ty_rows = ceil(M / 8) thread rows (13 at M = 100, its
 // last 4 rows idle) by ct = pw / TC thread columns, panel and tile chosen
 // per launch on the host (ops/cls_train_kernels.tile_panel).
@@ -1140,10 +617,8 @@ gemm_batch_kernel(const GemmArgs g, const EpiArgs e, int pw, int ty_rows) {
 //   kept, as the draw would decide).
 //
 // Past K, the copies zero-fill, and rows and columns past M and ncol feed
-// only outputs that are not stored.  Every output element is one f32 sum
-// from zero, k in order, pair 0 before pair 1, so each is bit for bit
-// gemm_panel_kernel's (the zero-filled k tail adds +0 to a sum that is
-// never -0); bf16 operands (BF16) are rounded as they are read.  A block
+// only outputs that are not stored; every sum is as the section above
+// says.  A block
 // is at most TT_MAX threads: 7 warps take 8 warps' registers, so two
 // blocks an SM leave a thread 128.
 constexpr int TR = 8, TK = 16, TSTAGES = 4;
@@ -1398,10 +873,11 @@ gemm_tile_kernel(const GemmArgs g, const EpiArgs e, int pw, int ty_rows) {
 // start, in flight during its sums, and no second set is held.  Every
 // gradient element is summed over b in order, the tied weight's encode
 // pair before its decode pair, then rsqrt Adam on acc + l2 * w
-// (adam_step), and every bias element in bias_adam_kernel's order: each
-// bit for bit wgrad_adam_kernel's and bias_adam_kernel's.  With bf16
-// operands (BF16, phase 2's compute_dtype) the layer inputs and gradients
-// are rounded as they are read, as wgrad_adam_kernel rounds them.
+// (adam_step), and every bias element over b in order from zero: each
+// bit for bit the first, separate weight- and bias-update kernels'.  With
+// bf16 operands (BF16, phase 2's compute_dtype) the layer inputs and
+// gradients are rounded as they are read.
+constexpr int WBK = 32, WTHREADS = 256;   // chunk rows, block threads
 constexpr int UPD_LD = 160;   // a staged batch row: TR + TC floats at most
 constexpr int UPD_DEEP_ROWS = 64;   // a DEEP chunk's batch rows at most
 
@@ -1686,43 +1162,6 @@ static int device_sms() {
   return sms[device];
 }
 
-// One product launch: grid (panels, row blocks, N).  The dynamic
-// shared-memory limit is raised once per device and instantiation (of
-// this library).
-template <int EPI, bool BF16, int RPT>
-static cudaError_t launch_gemm(const GemmArgs& g, const EpiArgs& e,
-                               int n_inst, cudaStream_t stream) {
-  using P = Panel<RPT>;
-  static bool raised[MAX_DEVICES] = {};
-  int device = 0;
-  if (cudaGetDevice(&device) != cudaSuccess || device < 0
-      || device >= MAX_DEVICES)
-    return cudaErrorInvalidDevice;
-  if (!raised[device]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gemm_panel_kernel<EPI, BF16, RPT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
-    if (err != cudaSuccess) return err;
-    raised[device] = true;
-  }
-  const dim3 grid((g.ncol + PN - 1) / PN, (g.M + P::ROWS - 1) / P::ROWS,
-                  n_inst);
-  gemm_panel_kernel<EPI, BF16, RPT><<<grid, PT, P::SMEM, stream>>>(g, e);
-  return cudaGetLastError();
-}
-
-// One weight-gradient launch: two persistent blocks an SM (or one a
-// tile).
-template <typename MT, bool BF16>
-static cudaError_t launch_wgrad(const WgradArgs& a, cudaStream_t stream) {
-  const long long items = (long long)a.n_inst * ((a.R + WT - 1) / WT)
-                          * ((a.C + WT - 1) / WT);
-  const long long cap = 2LL * device_sms();
-  wgrad_adam_kernel<MT, BF16>
-      <<<(unsigned)(items < cap ? items : cap), WTHREADS, 0, stream>>>(a);
-  return cudaGetLastError();
-}
-
 // One batch-product launch: grid (panels of pw columns, row blocks, N),
 // ceil(M / B_RPT) thread rows (at most B_TY) of pw / 4 threads, the ring
 // sized to the panel.
@@ -1901,51 +1340,8 @@ struct Launcher {
     return true;
   }
 
-  template <int EPI>
-  cudaError_t gemm(int type, int ncol, int K, Mat A, Mat B, int K2, Mat A2,
-                   Mat B2, const EpiArgs& e) {
-    GemmArgs g;
-    if (!gemm_args(ncol, K, A, B, K2, A2, B2, &g))
-      return cudaErrorInvalidValue;
-    cudaError_t err;
-    if (batch <= Panel<3>::ROWS)
-      err = gemm_rows<EPI, 3>(g, e);
-    else
-      err = gemm_rows<EPI, 13>(g, e);
-    if (err != cudaSuccess) return err;
-    return mark(type);
-  }
-
-  template <int EPI, int RPT>
-  cudaError_t gemm_rows(const GemmArgs& g, const EpiArgs& e) {
-    if constexpr (TRAIN_BF16_OPERANDS) {
-      if (e.bf16) return launch_gemm<EPI, true, RPT>(g, e, n_inst, s);
-    } else {
-      if (e.bf16) return cudaErrorInvalidValue;
-    }
-    return launch_gemm<EPI, false, RPT>(g, e, n_inst, s);
-  }
-
-  template <typename MT>
-  cudaError_t wadam(int type, int R, int C, const float* l, const float* r,
-                    const float* l2, const float* r2, float* w, void* m,
-                    void* v, const float* lr, const float* wpen, float pen,
-                    const AdamStep& st, int bf16) {
-    const WgradArgs a{n_inst, R, C, batch, l, r, l2, r2, w, m, v, lr, wpen,
-                      pen, st};
-    cudaError_t err;
-    if constexpr (TRAIN_BF16_OPERANDS) {
-      err = bf16 ? launch_wgrad<MT, true>(a, s)
-                 : launch_wgrad<MT, false>(a, s);
-    } else {
-      err = bf16 ? cudaErrorInvalidValue : launch_wgrad<MT, false>(a, s);
-    }
-    if (err != cudaSuccess) return err;
-    return mark(type);
-  }
-
-  // gemm() on gemm_batch_kernel, in panels of ``pw`` columns (64, 32 or
-  // 16).
+  // A product on gemm_batch_kernel, in panels of ``pw`` columns (64, 32
+  // or 16).
   template <int EPI>
   cudaError_t gemm_batch(int type, int pw, int ncol, int K, Mat A, Mat B,
                          int K2, Mat A2, Mat B2, const EpiArgs& e) {
@@ -1965,7 +1361,7 @@ struct Launcher {
     return mark(type);
   }
 
-  // gemm() on gemm_tile_kernel, in panels of ``pw`` columns and thread
+  // A product on gemm_tile_kernel, in panels of ``pw`` columns and thread
   // tiles of TR x ``tc`` (8 or 4).
   template <int EPI>
   cudaError_t gemm_tile(int type, int pw, int tc, int ncol, int K, Mat A,
@@ -2009,14 +1405,6 @@ struct Launcher {
     return mark(type);
   }
 
-  template <typename MT>
-  cudaError_t badam(int type, int C, const float* g, float* b, void* m,
-                    void* v, const float* lr, const AdamStep& st) {
-    const dim3 grid((C + 255) / 256, n_inst);
-    bias_adam_kernel<MT><<<grid, 256, 0, s>>>(C, batch, g, b, (MT*)m,
-                                              (MT*)v, lr, st);
-    return mark(type);
-  }
 };
 
 #define TRAIN_TRY(call) do { cudaError_t e_ = (call); \

@@ -10,24 +10,33 @@
 // - every instance's parameters and Adam moments live in device memory,
 //   stacked (N, rows, cols), and are updated in place;
 // - each step is a fixed sequence of launches over all N instances, the
-//   instance being a grid dimension (blockIdx.z or .y):
+//   instance being a grid dimension:
 //     1. sample + corrupt             -> x, xn            (N, B, F)
-//     2. forward products, bias, activation and dropout in the epilogue,
-//        keeping the dropped activation and d * act'(z) for backward;
+//     2. forward products (gemm_batch_kernel), bias, activation and
+//        dropout in the epilogue, keeping the dropped activation and
+//        d * act'(z) for backward; the logit gradient sigmoid(z4) - x is
+//        the epilogue of the z4 product, so z4 is never stored;
 //     3. backward data products against W^T, with that factor in the
-//        epilogue; the logit gradient sigmoid(z4) - x is the epilogue of
-//        the z4 product, so z4 is never stored;
-//     4. weight gradient + L2 + rsqrt Adam in one kernel: persistent
-//        blocks over 64 x 64 tiles of W with depth B, summing both
-//        products of a tied weight while the tile's W, m and v are copied
-//        in; it reads W, m, v once and writes them once, and the gradient
-//        never goes to device memory;
-//     5. bias gradient (column sums over B) + Adam;
+//        epilogue;
+//     4. one grouped update (update_group_kernel) over a work list:
+//        weight gradient + L2 + rsqrt Adam per weight, a tied weight
+//        summing its encode product and its decode product transposed
+//        with the L2 doubled, then bias gradient + Adam;
+//   9 launches a tied or untied step, 12 for a VAE;
 // - the S-step loop runs in C (mmae_train_run), one call per run, the way
 //   the Pallas kernel is one invocation per run.  It counts its launches.
+//   Each product's panel width and the update's work list come from the
+//   host (ops/train_kernels.run_plan), once a run.
+//
+// Running the step group by group over instances, each group small
+// enough to keep its f32 weights in the H100's 50 MB L2 from z1 to the
+// update, was measured and lost to one launch over all N (PERF.md): the
+// extra launches cost more than the repeated weight reads.
 //
 // Every product is computed here (train_common.cuh), in exact f32 FMAs
-// from a ring of bulk copies: no cuBLAS.  Random numbers come from
+// in k order from a ring of cp.async copies: no cuBLAS.  Every sum keeps
+// the order of the first CUDA-core kernels, so every parameter and moment
+// is bit for bit theirs (chip_smoke.py --train-ab).  Random numbers come from
 // Philox4x32-10 (philox.cuh), keyed by (instance seed, purpose) with
 // counter (step, row, column, draw); the plain PyTorch twin draws the same
 // bits (ops/train_kernels.train_grid_kernel_reference).
@@ -39,7 +48,8 @@
 // do 2.2e8 FLOP per instance (1.35e10 a step, 0.20 ms at 67 TFLOP/s f32).
 // The products have M = B = 20 rows, 40 FLOP per weight element read:
 // above the f32 ridge of ~20 FLOP/B only if the CUDA cores run near peak.
-// ops/train_kernels.step_bound() computes the bound from the shapes.
+// ops/train_kernels.step_bound() computes the bound from the shapes, and
+// launch_bounds() each launch's own.
 //
 // Semantics are the Pallas kernel's, not XLA's (ROADMAP Queue 3):
 // - element corruption is Bernoulli at the marginal rate
@@ -55,11 +65,15 @@ namespace {
 
 // Parameter slots, in the Pallas kernel's argument order.
 enum Slot { W1 = 0, B1, W2, B2, W3, B3, W4, B4, WV, BV, NSLOT };
+static_assert(NSLOT <= train::UPD_SLOTS, "the update's descriptor table");
 // Workspace buffers (N, B, width).
 enum Buf { X = 0, XN, A1D, GF1, MU, LV, EPS, Z2, A3D, GF3, G4, G3, GZ, GLV,
            G1, NBUF };
-// Launch types, for the profile of one step.
+// Launch types, for the profile of one step (the grouped update is
+// P_WADAM).
 enum Prof { P_SAMPLE = 0, P_FWD, P_VAE, P_BWD, P_WADAM, P_BADAM, NPROF };
+// A step's products: z1, lv (VAE), mu, z3, z4, g3, gz, g1.
+constexpr int MAX_PRODUCTS = 8;
 
 }  // namespace
 
@@ -68,6 +82,9 @@ extern "C" {
 struct TrainArgs {
   int n_inst, batch, feats, h1, h2, n_types, max_rows;
   int tied, variational, bf16_moments, decay;
+  int panel[MAX_PRODUCTS]; // each product's panel width, in launch order
+  int tile_tx[NSLOT];      // each weight slot's update tile threads across
+  int n_items, n_weight_items;   // the update's work list
   float elem_p, mask_value, decay_steps, decay_rate;
   const int* seeds;        // (N,) instance seeds, >= 0
   const int* fold;         // (N,)
@@ -79,10 +96,12 @@ struct TrainArgs {
   const float* train;      // (K, max_rows, F) fold train rows
   const float* type_table; // (T, F) 1 where a modality set masks a feature
   const float* cum;        // (T,) cumulative modality-set probabilities
-  float* param[10];        // slot -> (N, rows, cols) or (N, cols); null if absent
-  void* m[10];             // Adam first moments, f32 or bf16, like param
-  void* v[10];             // Adam second moments
-  float* ws[15];           // workspace, Buf order
+  const int* items;        // (n_items, 4) slot, instance, row 0, column 0
+  void* upd_desc;          // UPD_SLOTS x 128 bytes of device scratch
+  float* param[NSLOT];     // slot -> (N, rows, cols) or (N, cols), or null
+  void* m[NSLOT];          // Adam first moments, f32 or bf16, like param
+  void* v[NSLOT];          // Adam second moments
+  float* ws[NBUF];         // workspace, Buf order
 };
 }
 
@@ -179,24 +198,39 @@ struct Runner {
   const TrainArgs& a;
   Launcher L;
 
-  Mat act_mat(int buf, int width) const { return L.act(a.ws[buf], width); }
-  Mat w_mat(int slot, int rows, int cols, bool transposed) const {
-    return Launcher::w_mat(a.param[slot], rows, cols, transposed);
-  }
-
-  template <typename MT>
-  cudaError_t wadam(int slot, int R, int C, int l, int r, int l2, int r2,
-                    float pen, const AdamStep& st) {
-    return L.wadam<MT>(P_WADAM, R, C, a.ws[l], a.ws[r],
-                       l2 < 0 ? nullptr : a.ws[l2],
-                       r2 < 0 ? nullptr : a.ws[r2], a.param[slot], a.m[slot],
-                       a.v[slot], a.lr, a.wpen, pen, st, 0);
-  }
-
-  template <typename MT>
-  cudaError_t badam(int slot, int C, int g, const AdamStep& st) {
-    return L.badam<MT>(P_BADAM, C, a.ws[g], a.param[slot], a.m[slot],
-                       a.v[slot], a.lr, st);
+  // The update's tensors by slot: each weight with its product pair(s)
+  // (layer input, gradient at the output) and L2 factor, each bias with
+  // its gradient.
+  void update_tensors(UpdTensor* T) const {
+    const int F = a.feats, H1 = a.h1, H2 = a.h2;
+    const int z2 = a.variational ? Z2 : MU;
+    auto weight = [&](int slot, int R, int C, int l, int r, int l2, int r2,
+                      float pen) {
+      T[slot] = UpdTensor{R, C, a.tile_tx[slot], pen, a.ws[l], a.ws[r],
+                          l2 < 0 ? nullptr : a.ws[l2],
+                          r2 < 0 ? nullptr : a.ws[r2], a.param[slot],
+                          a.m[slot], a.v[slot]};
+    };
+    auto bias = [&](int slot, int C, int g) {
+      T[slot] = UpdTensor{0, C, 0, 0.f, nullptr, a.ws[g], nullptr, nullptr,
+                          a.param[slot], a.m[slot], a.v[slot]};
+    };
+    // a tied weight also takes its decode product, transposed
+    if (a.tied) {
+      weight(W1, F, H1, XN, G1, G4, A3D, 2.f);
+      weight(W2, H1, H2, A1D, GZ, G3, z2, 2.f);
+    } else {
+      weight(W1, F, H1, XN, G1, -1, -1, 1.f);
+      weight(W2, H1, H2, A1D, GZ, -1, -1, 1.f);
+      weight(W3, H2, H1, z2, G3, -1, -1, 1.f);
+      weight(W4, H1, F, A3D, G4, -1, -1, 1.f);
+    }
+    if (a.variational) weight(WV, H1, H2, A1D, GLV, -1, -1, 1.f);
+    bias(B1, H1, G1);
+    bias(B2, H2, GZ);
+    bias(B3, H1, G3);
+    bias(B4, F, G4);
+    if (a.variational) bias(BV, H2, GLV);
   }
 
   template <typename MT>
@@ -206,6 +240,11 @@ struct Runner {
     const Mat none{nullptr, 0, 0, 0};
     const AdamStep st{t, a.decay, a.decay_steps, a.decay_rate, 1e-16f};
     cudaStream_t s = L.s;
+    int product = 0;   // the step's next product, into a.panel
+    auto act = [&](int buf, int width) { return L.act(a.ws[buf], width); };
+    auto w = [&](int slot, int rows, int cols, bool transposed) {
+      return Launcher::w_mat(a.param[slot], rows, cols, transposed);
+    };
     EpiArgs e{};
     e.seeds = a.seeds; e.act = a.act; e.keep = a.keep; e.step = t;
 
@@ -215,70 +254,65 @@ struct Runner {
     // forward: z1 = xn W1 + b1 -> a1d, gf1
     e.bias = a.param[B1]; e.out0 = a.ws[A1D]; e.out1 = a.ws[GF1];
     e.purpose = philox::DROP1;
-    TRAIN_TRY(L.gemm<E_ACT_DROP>(P_FWD, H1, F, act_mat(XN, F),
-                                 w_mat(W1, F, H1, false), 0, none, none, e));
+    TRAIN_TRY(L.gemm_batch<E_ACT_DROP>(P_FWD, a.panel[product++], H1, F,
+                                       act(XN, F), w(W1, F, H1, false), 0,
+                                       none, none, e));
+    if (vae) {   // lv = a1d Wv + bv
+      e.bias = a.param[BV]; e.out0 = a.ws[LV];
+      TRAIN_TRY(L.gemm_batch<E_BIAS>(P_FWD, a.panel[product++], H2, H1,
+                                     act(A1D, H1), w(WV, H1, H2, false), 0,
+                                     none, none, e));
+    }
     // mu = a1d W2 + b2
     e.bias = a.param[B2]; e.out0 = a.ws[MU];
-    TRAIN_TRY(L.gemm<E_BIAS>(P_FWD, H2, H1, act_mat(A1D, H1),
-                             w_mat(W2, H1, H2, false), 0, none, none, e));
+    TRAIN_TRY(L.gemm_batch<E_BIAS>(P_FWD, a.panel[product++], H2, H1,
+                                   act(A1D, H1), w(W2, H1, H2, false), 0,
+                                   none, none, e));
     if (vae) {
-      e.bias = a.param[BV]; e.out0 = a.ws[LV];
-      TRAIN_TRY(L.gemm<E_BIAS>(P_FWD, H2, H1, act_mat(A1D, H1),
-                               w_mat(WV, H1, H2, false), 0, none, none, e));
       vae_sample_kernel<<<264, 256, 0, s>>>(a, t);
       TRAIN_TRY(L.mark(P_VAE));
     }
     const int z2 = vae ? Z2 : MU;
     // z3 = z2 W3 + b3 -> a3d, gf3 (W3 = W2^T when tied)
-    const Mat w3 = tied ? w_mat(W2, H1, H2, true) : w_mat(W3, H2, H1, false);
     e.bias = a.param[B3]; e.out0 = a.ws[A3D]; e.out1 = a.ws[GF3];
     e.purpose = philox::DROP3;
-    TRAIN_TRY(L.gemm<E_ACT_DROP>(P_FWD, H1, H2, act_mat(z2, H2), w3, 0, none,
-                                 none, e));
+    TRAIN_TRY(L.gemm_batch<E_ACT_DROP>(
+        P_FWD, a.panel[product++], H1, H2, act(z2, H2),
+        tied ? w(W2, H1, H2, true) : w(W3, H2, H1, false), 0, none, none,
+        e));
     // g4 = sigmoid(a3d W4 + b4) - x (W4 = W1^T when tied)
-    const Mat w4 = tied ? w_mat(W1, F, H1, true) : w_mat(W4, H1, F, false);
     e.bias = a.param[B4]; e.aux = a.ws[X]; e.out0 = a.ws[G4];
-    TRAIN_TRY(L.gemm<E_LOGIT_GRAD>(P_FWD, F, H1, act_mat(A3D, H1), w4, 0,
-                                   none, none, e));
+    TRAIN_TRY(L.gemm_batch<E_LOGIT_GRAD>(
+        P_FWD, a.panel[product++], F, H1, act(A3D, H1),
+        tied ? w(W1, F, H1, true) : w(W4, H1, F, false), 0, none, none, e));
 
     // backward: g3 = (g4 W4^T) * gf3
-    const Mat w4t = tied ? w_mat(W1, F, H1, false) : w_mat(W4, H1, F, true);
     e.aux = a.ws[GF3]; e.out0 = a.ws[G3];
-    TRAIN_TRY(L.gemm<E_MUL>(P_BWD, H1, F, act_mat(G4, F), w4t, 0, none, none,
-                            e));
+    TRAIN_TRY(L.gemm_batch<E_MUL>(
+        P_BWD, a.panel[product++], H1, F, act(G4, F),
+        tied ? w(W1, F, H1, false) : w(W4, H1, F, true), 0, none, none, e));
     // gz = g3 W3^T
-    const Mat w3t = tied ? w_mat(W2, H1, H2, false) : w_mat(W3, H2, H1, true);
     e.out0 = a.ws[GZ];
-    TRAIN_TRY(L.gemm<E_NONE>(P_BWD, H2, H1, act_mat(G3, H1), w3t, 0, none,
-                             none, e));
+    TRAIN_TRY(L.gemm_batch<E_NONE>(
+        P_BWD, a.panel[product++], H2, H1, act(G3, H1),
+        tied ? w(W2, H1, H2, false) : w(W3, H2, H1, true), 0, none, none,
+        e));
     if (vae) {
       vae_grad_kernel<<<264, 256, 0, s>>>(a);
       TRAIN_TRY(L.mark(P_VAE));
     }
     // g1 = (gz W2^T [+ glv Wv^T]) * gf1
     e.aux = a.ws[GF1]; e.out0 = a.ws[G1];
-    TRAIN_TRY(L.gemm<E_MUL>(P_BWD, H1, H2, act_mat(GZ, H2),
-                            w_mat(W2, H1, H2, true), vae ? H2 : 0,
-                            vae ? act_mat(GLV, H2) : none,
-                            vae ? w_mat(WV, H1, H2, true) : none, e));
+    TRAIN_TRY(L.gemm_batch<E_MUL>(P_BWD, a.panel[product++], H1, H2,
+                                  act(GZ, H2), w(W2, H1, H2, true),
+                                  vae ? H2 : 0, vae ? act(GLV, H2) : none,
+                                  vae ? w(WV, H1, H2, true) : none, e));
 
-    // weight gradients + L2 (doubled when tied) + Adam
-    if (tied) {
-      TRAIN_TRY(wadam<MT>(W1, F, H1, XN, G1, G4, A3D, 2.f, st));
-      TRAIN_TRY(wadam<MT>(W2, H1, H2, A1D, GZ, G3, z2, 2.f, st));
-    } else {
-      TRAIN_TRY(wadam<MT>(W1, F, H1, XN, G1, -1, -1, 1.f, st));
-      TRAIN_TRY(wadam<MT>(W2, H1, H2, A1D, GZ, -1, -1, 1.f, st));
-      TRAIN_TRY(wadam<MT>(W3, H2, H1, z2, G3, -1, -1, 1.f, st));
-      TRAIN_TRY(wadam<MT>(W4, H1, F, A3D, G4, -1, -1, 1.f, st));
-    }
-    if (vae) TRAIN_TRY(wadam<MT>(WV, H1, H2, A1D, GLV, -1, -1, 1.f, st));
-    TRAIN_TRY(badam<MT>(B1, H1, G1, st));
-    TRAIN_TRY(badam<MT>(B2, H2, GZ, st));
-    TRAIN_TRY(badam<MT>(B3, H1, G3, st));
-    TRAIN_TRY(badam<MT>(B4, F, G4, st));
-    if (vae) TRAIN_TRY(badam<MT>(BV, H2, GLV, st));
-    return cudaSuccess;
+    // every weight and bias update, in one launch over the work list
+    const UpdArgs u{static_cast<const UpdTensor*>(a.upd_desc),
+                    reinterpret_cast<const int4*>(a.items), a.n_items,
+                    a.n_weight_items, a.batch, a.lr, a.wpen, st};
+    return L.update_group<MT>(P_WADAM, u);
   }
 };
 
@@ -289,10 +323,12 @@ extern "C" {
 // Steps [first_step, first_step + num_steps) of the bucket described by
 // ``a``, on ``stream``.  Adds the launches it made to ``*launches``.  With
 // ``prof_ms`` (NPROF floats) it also times every launch with CUDA events,
-// synchronising once a step, and adds each launch type's milliseconds.
+// synchronising once a step, and adds each launch type's milliseconds,
+// and with ``launch_ms`` too (MAX_EVENTS floats) each launch's, in order.
 // Returns the first CUDA error (0 on success).
 int mmae_train_run(const TrainArgs* a, int first_step, int num_steps,
-                   long long* launches, float* prof_ms, void* stream) {
+                   long long* launches, float* prof_ms, float* launch_ms,
+                   void* stream) {
   if (a->n_inst <= 0 || num_steps <= 0) return 0;
   if (a->n_inst > 65535 || a->batch <= 0 || a->batch > 65535)
     return (int)cudaErrorInvalidConfiguration;
@@ -300,10 +336,20 @@ int mmae_train_run(const TrainArgs* a, int first_step, int num_steps,
     return (int)cudaErrorInvalidValue;
   if (a->variational && (!a->param[WV] || !a->param[BV]))
     return (int)cudaErrorInvalidValue;
+  if (!a->items || !a->upd_desc || a->n_weight_items <= 0
+      || a->n_weight_items > a->n_items)
+    return (int)cudaErrorInvalidValue;
+  for (int b = 0; b < NBUF; ++b)
+    if (!a->ws[b]) return (int)cudaErrorInvalidValue;
   Runner r{*a, Launcher{a->n_inst, a->batch,
                         static_cast<cudaStream_t>(stream), launches,
                         prof_ms}};
-  cudaError_t err = r.L.create_events();
+  r.L.per_launch = launch_ms;
+  UpdTensor desc[UPD_SLOTS] = {};
+  r.update_tensors(desc);
+  cudaError_t err = cudaMemcpyAsync(a->upd_desc, desc, sizeof(desc),
+                                    cudaMemcpyHostToDevice, r.L.s);
+  if (err == cudaSuccess) err = r.L.create_events();
   for (int t = first_step; err == cudaSuccess && t < first_step + num_steps;
        ++t) {
     r.L.begin_step();

@@ -122,11 +122,10 @@ class NvccLibrary:
     instances: "weakref.WeakSet[NvccLibrary]" = weakref.WeakSet()
 
     def __init__(self, source: str, library: str,
-                 headers: Sequence[str] = (), defines: Sequence[str] = ()):
+                 headers: Sequence[str] = ()):
         self.source = source
         self.library = library
         self.headers = tuple(headers)
-        self.defines = tuple(defines)
         self.launches = 0
         self.captured = 0
         self.build_seconds: Optional[float] = None
@@ -167,8 +166,7 @@ class NvccLibrary:
 
     def command(self, out: str) -> list:
         """The compiler's command line that builds the library as ``out``."""
-        return [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in self.defines),
-                "-o", out, self.source]
+        return [nvcc(), *NVCC_FLAGS, "-o", out, self.source]
 
     def build(self) -> None:
         """Compile the source (:meth:`command`) into ``library``; raises

@@ -376,20 +376,31 @@ def deep_launch_type_bounds(cfg: MMAEConfig, n_inst: int, batch: int,
 def deep_launch_bounds(cfg: MMAEConfig, n_inst: int, batch: int,
                        bf16_moments: bool, sms: int = H100_SMS
                        ) -> List[Dict[str, object]]:
-    """Each launch of one step in launch order, with its own bound: a
-    product reads its weight(s), bias and input once and writes its
-    outputs once (so a tied weight counts in both of its products, and the
-    products' sum exceeds :func:`deep_launch_type_bounds`' forward and
-    backward rows, which count each weight once); the sample and the VAE
-    passes split their types' rows; the grouped update is the weight- and
-    bias-update rows together.  Products carry :func:`product_plan`'s
-    fields."""
+    """Each launch of one step in launch order, with its own bound:
+    :func:`launch_rows` over :func:`product_plan` and
+    :func:`deep_launch_type_bounds`."""
     cfg = cfg.validate()
     d = _widths(cfg)
-    L = len(d) - 1
-    N, B = n_inst, batch
-    vae = cfg.variational
-    types = deep_launch_type_bounds(cfg, n_inst, batch, bf16_moments)
+    plan = product_plan(d, cfg.tie_weights, cfg.variational, n_inst, batch,
+                        sms)
+    return launch_rows(plan, deep_launch_type_bounds(cfg, n_inst, batch,
+                                                     bf16_moments),
+                       len(d) - 1, cfg.variational, n_inst, batch)
+
+
+def launch_rows(plan: List[Dict[str, object]],
+                types: Dict[str, Dict[str, float]], depth: int,
+                variational: bool, n_inst: int, batch: int
+                ) -> List[Dict[str, object]]:
+    """Each launch of a step of ``depth`` layers in launch order, with its
+    own bound, from the step's product plan and its launch types' bounds:
+    a product reads its weight(s), bias and input once and writes its
+    outputs once (so a tied weight counts in both of its products, and the
+    products' sum exceeds the forward and backward type rows, which count
+    each weight once); the sample and the VAE passes split their types'
+    rows; the grouped update is the weight- and bias-update rows
+    together.  Products carry the plan's fields."""
+    L, N, B, vae = depth, n_inst, batch, variational
     philox_ops = 10 * 12
     bound = train_kernels._bound
 
@@ -411,7 +422,6 @@ def deep_launch_bounds(cfg: MMAEConfig, n_inst: int, batch: int,
         return dict({"name": name, "type": kind},
                     **bound(t["bytes"] * frac_bytes, t["flop"] * frac_flop))
 
-    plan = product_plan(d, cfg.tie_weights, vae, n_inst, batch, sms)
     n_fwd = L + (1 if vae else 0)
     out = [share("sample", "sample_corrupt", 1.0, 1.0)]
     out += [product(p) for p in plan[:n_fwd]]

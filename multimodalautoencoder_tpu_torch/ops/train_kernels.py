@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
@@ -62,9 +63,16 @@ SLOTS = ("w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4", "wv", "bv")
 # Workspace buffers (``Buf``), each (N, B, width); width by name.
 BUFFERS = ("x", "xn", "a1d", "gf1", "mu", "lv", "eps", "z2", "a3d", "gf3",
            "g4", "g3", "gz", "glv", "g1")
-# Launch types of one step (``Prof``), for per-type CUDA-event timing.
+# Launch types of one step (``Prof``), for per-type CUDA-event timing; the
+# grouped update is "weight_grad_adam".
 LAUNCH_TYPES = ("sample_corrupt", "forward_products", "vae_elementwise",
                 "backward_products", "weight_grad_adam", "bias_grad_adam")
+# A step's products in launch order (csrc/train_kernel.cu ``Runner::step``;
+# "lv" only for a VAE) and their most (``MAX_PRODUCTS``).
+PRODUCT_NAMES = ("z1", "lv", "mu", "z3", "z4", "g3", "gz", "g1")
+MAX_PRODUCTS = len(PRODUCT_NAMES)
+# update_group_kernel's descriptor table (train_common.cuh ``UPD_SLOTS``)
+UPD_SLOTS = 66
 
 # H100 SXM published peaks (NVIDIA's H100 datasheet): HBM bytes/s and
 # f32 CUDA-core FLOP/s, the denominators of :func:`step_bound`.
@@ -84,11 +92,14 @@ class TrainArgs(ctypes.Structure):
         [(n, ctypes.c_int) for n in (
             "n_inst", "batch", "feats", "h1", "h2", "n_types", "max_rows",
             "tied", "variational", "bf16_moments", "decay")]
+        + [("panel", ctypes.c_int * MAX_PRODUCTS),
+           ("tile_tx", ctypes.c_int * len(SLOTS)),
+           ("n_items", ctypes.c_int), ("n_weight_items", ctypes.c_int)]
         + [(n, ctypes.c_float) for n in (
             "elem_p", "mask_value", "decay_steps", "decay_rate")]
         + [(n, ctypes.c_void_p) for n in (
             "seeds", "fold", "n_valid", "lr", "keep", "wpen", "act",
-            "train", "type_table", "cum")]
+            "train", "type_table", "cum", "items", "upd_desc")]
         + [("param", ctypes.c_void_p * len(SLOTS)),
            ("m", ctypes.c_void_p * len(SLOTS)),
            ("v", ctypes.c_void_p * len(SLOTS)),
@@ -108,7 +119,7 @@ class TrainLibrary(NvccLibrary):
         lib.mmae_train_run.argtypes = [
             ctypes.POINTER(TrainArgs), ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p]
         lib.philox_probe_launch.restype = ctypes.c_int
         lib.philox_probe_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
@@ -128,12 +139,69 @@ KERNELS = TrainLibrary()
 
 
 def launches_per_step(tied: bool, variational: bool) -> int:
-    """Kernel launches of one training step of ``mmae_train_run``:
-    sample+corrupt, 4 forward and 3 backward products, 2 (tied) or 4
-    weight-gradient+Adam kernels, 4 bias+Adam kernels; a VAE adds the
-    log-sigma product, two elementwise passes and Wv's, bv's Adam."""
-    return (1 + 4 + 3 + (2 if tied else 4) + 4
-            + (5 if variational else 0))
+    """Kernel launches of one training step of ``mmae_train_run``, kernel
+    3's at depth 2 (``train_deep_kernels.launches_per_step``): sample +
+    corrupt, 4 forward and 3 backward products and one grouped update, 9
+    in all; a VAE adds the log-sigma product and two elementwise passes,
+    12."""
+    from multimodalautoencoder_tpu_torch.ops import train_deep_kernels
+
+    return train_deep_kernels.launches_per_step(2, tied, variational)
+
+
+# ----------------------------------------------------------- the plan
+
+def product_plan(dims, tied: bool, variational: bool, n_inst: int,
+                 batch: int, sms: Optional[int] = None
+                 ) -> List[Dict[str, object]]:
+    """Every product of one step of ``n_inst`` instances in
+    ``Runner::step``'s launch order (:data:`PRODUCT_NAMES`): kernel 3's
+    plan at depth 2 (``train_deep_kernels.product_plan``: launch type,
+    epilogue, ``ncol``, ``K`` (+ ``K2``), K-major B, the panel width of
+    ``panel_width`` and the grid), named as kernel 2 names them.  ``dims``
+    is (F, H1, H2)."""
+    from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
+
+    plan = pdk.product_plan(tuple(dims), tied, variational, n_inst, batch,
+                            pdk.H100_SMS if sms is None else sms)
+    names = [n for n in PRODUCT_NAMES if variational or n != "lv"]
+    for p, name in zip(plan, names):
+        p["name"] = name
+    return plan
+
+
+def update_tensors(dims, tied: bool, variational: bool):
+    """The grouped update's tensors by kernel 2's slots (:data:`SLOTS`):
+    weights as (slot, rows, cols), biases as (slot, cols)."""
+    F, H1, H2 = dims
+    weights = [(0, F, H1), (2, H1, H2)]
+    if not tied:
+        weights += [(4, H2, H1), (6, H1, F)]
+    if variational:
+        weights.append((8, H1, H2))
+    biases = [(1, H1), (3, H2), (5, H1), (7, F)] \
+        + ([(9, H2)] if variational else [])
+    return weights, biases
+
+
+@functools.lru_cache(maxsize=32)
+def run_plan(dims, tied: bool, variational: bool, n_inst: int, batch: int,
+             sms: int):
+    """A run's plan, made once a shape: each product's panel width
+    (:func:`product_plan`, ``MAX_PRODUCTS`` ints), the update's work list
+    over kernel 2's slots (``train_deep_kernels.work_list``, a CPU
+    tensor), its weight items and each weight slot's tile threads
+    across."""
+    from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
+
+    panels = [0] * MAX_PRODUCTS
+    for i, p in enumerate(product_plan(dims, tied, variational, n_inst,
+                                       batch, sms)):
+        panels[i] = p["panel"]
+    items, n_weight, tile_tx = pdk.work_list(
+        *update_tensors(dims, tied, variational), n_inst)
+    return (tuple(panels), torch.from_numpy(items), n_weight,
+            tuple(tile_tx.items()))
 
 
 # --------------------------------------------------------------- family
@@ -250,6 +318,26 @@ def launch_type_bounds(cfg: MMAEConfig, n_inst: int, batch: int,
                                  + act * (F + 2 * H1 + 2 * H2),
                                  N * (B + 10.0) * biases),
     }
+
+
+def launch_bounds(cfg: MMAEConfig, n_inst: int, batch: int,
+                  bf16_moments: bool, sms: Optional[int] = None
+                  ) -> List[Dict[str, object]]:
+    """Each launch of one step over ``n_inst`` instances in launch order,
+    with its own bound (``train_deep_kernels.launch_rows`` over
+    :func:`product_plan` and :func:`launch_type_bounds`): the sample and
+    the VAE passes split their types' rows, the grouped update is the
+    weight- and bias-update rows together, and each product reads its
+    own weight, bias and input and writes its outputs once."""
+    from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
+
+    cfg = cfg.validate()
+    dims = (cfg.num_feats,) + tuple(cfg.layer_sizes)
+    plan = product_plan(dims, cfg.tie_weights, cfg.variational, n_inst,
+                        batch, sms)
+    return pdk.launch_rows(plan, launch_type_bounds(cfg, n_inst, batch,
+                                                    bf16_moments),
+                           2, cfg.variational, n_inst, batch)
 
 
 # ----------------------------------------------------------------- state
@@ -618,18 +706,29 @@ def _check_cuda_run(run: GridRun) -> torch.device:
 
 
 def train_grid_kernel(run: GridRun, first_step: int, num_steps: int,
-                      profile: Optional[Dict[str, float]] = None) -> None:
+                      profile: Optional[Dict[str, float]] = None,
+                      launch_ms: Optional[List[float]] = None) -> None:
     """Steps [first_step, first_step + num_steps) by the CUDA kernels, in
     place on ``run``'s tensors, on the current stream; one ctypes call
     whose C loop enqueues every launch.  With ``profile`` (a dict) every
     launch is timed with CUDA events and each launch type's milliseconds
-    are added to it (this synchronises once a step)."""
+    are added to it, and with ``launch_ms`` too (a list) each launch's, in
+    launch order, over the steps (this synchronises once a step)."""
     dev = _check_cuda_run(run)
     if num_steps <= 0:
         return
+    from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
+
     lib = KERNELS.load()
     N, B = run.n_inst, run.batch
     F, H1, H2 = run.dims
+    tied, vae = bool(run.tied), bool(run.variational)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    panels, items, n_weight, tile_tx = run_plan((F, H1, H2), tied, vae, N,
+                                                B, sms)
+    items_dev = items.to(dev)
+    desc = torch.empty(UPD_SLOTS * pdk.DESC_BYTES, dtype=torch.uint8,
+                       device=dev)
     width = {"x": F, "xn": F, "g4": F, "mu": H2, "lv": H2, "eps": H2,
              "z2": H2, "gz": H2, "glv": H2}
     ws = [torch.empty((N, B, width.get(name, H1)), dtype=torch.float32,
@@ -641,15 +740,21 @@ def train_grid_kernel(run: GridRun, first_step: int, num_steps: int,
     args = TrainArgs(
         n_inst=N, batch=B, feats=F, h1=H1, h2=H2,
         n_types=int(run.type_table.shape[0]),
-        max_rows=int(run.train.shape[1]), tied=int(run.tied),
-        variational=int(run.variational),
-        bf16_moments=int(run.bf16_moments), decay=int(run.decay),
-        elem_p=run.elem_p, mask_value=run.mask_value,
-        decay_steps=run.decay_steps, decay_rate=run.decay_rate,
-        seeds=ptr(run.seeds), fold=ptr(run.fold), n_valid=ptr(run.n_valid),
-        lr=ptr(run.lr), keep=ptr(run.keep), wpen=ptr(run.wpen),
-        act=ptr(run.act), train=ptr(run.train),
-        type_table=ptr(run.type_table), cum=ptr(run.cum))
+        max_rows=int(run.train.shape[1]), tied=int(tied),
+        variational=int(vae), bf16_moments=int(run.bf16_moments),
+        decay=int(run.decay), n_items=len(items), n_weight_items=n_weight,
+        elem_p=run.elem_p,
+        mask_value=run.mask_value, decay_steps=run.decay_steps,
+        decay_rate=run.decay_rate, seeds=ptr(run.seeds),
+        fold=ptr(run.fold), n_valid=ptr(run.n_valid), lr=ptr(run.lr),
+        keep=ptr(run.keep), wpen=ptr(run.wpen), act=ptr(run.act),
+        train=ptr(run.train), type_table=ptr(run.type_table),
+        cum=ptr(run.cum), items=items_dev.data_ptr(),
+        upd_desc=desc.data_ptr())
+    for i, pw in enumerate(panels):
+        args.panel[i] = pw
+    for slot, tx in tile_tx:
+        args.tile_tx[slot] = tx
     for i in range(len(SLOTS)):
         args.param[i] = ptr(run.params[i])
         args.m[i] = ptr(run.m[i])
@@ -657,19 +762,28 @@ def train_grid_kernel(run: GridRun, first_step: int, num_steps: int,
     for i, t in enumerate(ws):
         args.ws[i] = t.data_ptr()
     launches = ctypes.c_longlong(0)
-    prof = (ctypes.c_float * len(LAUNCH_TYPES))() if profile is not None \
-        else None
+    timed = profile is not None or launch_ms is not None
+    prof = (ctypes.c_float * len(LAUNCH_TYPES))() if timed else None
+    each = (ctypes.c_float * pdk.MAX_EVENTS)() if timed else None
+
+    def arg(buf):
+        return None if buf is None else ctypes.cast(buf, ctypes.c_void_p)
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mmae_train_run(ctypes.byref(args), int(first_step),
                                  int(num_steps), ctypes.byref(launches),
-                                 ctypes.cast(prof, ctypes.c_void_p)
-                                 if prof is not None else None, stream)
+                                 arg(prof), arg(each), stream)
     KERNELS.count(launches.value)
     KERNELS.check(err, "mmae_train_run")
     if profile is not None:
         for name, ms in zip(LAUNCH_TYPES, prof):
             profile[name] = profile.get(name, 0.0) + float(ms)
+    if launch_ms is not None:
+        per_step = launches_per_step(tied, vae)
+        launch_ms.extend([0.0] * (per_step - len(launch_ms)))
+        for i in range(per_step):
+            launch_ms[i] += float(each[i])
 
 
 def empty_launch(device="cuda") -> None:

@@ -217,9 +217,8 @@ def test_deep_args_mirror_the_c_struct():
 
 def test_depth2_bucket_plan_is_the_deep_family_at_l2():
     """The plan at L = 2 (kernel 3 runs it where a caller asks, though the
-    sweep sends depth 2 to kernel 2): one update replaces kernel 2's
-    weight and bias launches."""
+    sweep sends depth 2 to kernel 2): kernel 2's launches a step, one
+    update of every weight and bias as kernel 2 makes it."""
     for tied, vae in FAMILIES:
-        separate = (2 if tied else 4) + 4 + (2 if vae else 0)
         assert pdk.launches_per_step(2, tied, vae) == \
-            ptk.launches_per_step(tied, vae) - separate + 1
+            ptk.launches_per_step(tied, vae)

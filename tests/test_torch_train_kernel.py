@@ -314,3 +314,53 @@ def test_cuda_kernels_match_twin(family, state_dtype):
     for a, b in zip(run.params, twin.params):
         if a is not None:
             assert float((a - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["tied_softsign", "untied_relu", "vae"])
+def test_cuda_kernels_match_twin_at_the_real_width(family):
+    """The CUDA kernels against their twin at the ACII width (F = H1 =
+    1000, H2 = 100), N = 2, bf16 moments, 10 steps with corruption,
+    dropout, L2 and decay on, each step from the twin's state (chip_smoke
+    [8]'s gate): random decisions are bit-identical and sums differ in
+    order, so an instance may have at most max(8, 1e-5 of its
+    parameters) over 1e-4 in a step (an Adam update whose gradient sits
+    at rounding level can flip sign) and none more than 2 lr."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tied = family == "tied_softsign"
+    cfg = MMAEConfig(num_feats=1000, layer_sizes=(1000, 100),
+                     tie_weights=tied, variational=family == "vae",
+                     activation="softsign" if tied else "relu").validate()
+    lr = 1e-3
+    tcfg = TrainConfig(learning_rate=lr, batch_size=20, decay=True,
+                       decay_steps=1000, decay_rate=0.95,
+                       clip_gradients=False,
+                       optimizer_state_dtype="bfloat16")
+    spec = NoiseSpec.build(cfg, ModalityTable.uniform(5, 200, NAMES))
+    hyper = pgt.HyperStack.from_settings(
+        [{"dropout_prob": 0.5, "weight_penalty": 0.01}], cfg, tcfg)
+    rng = np.random.default_rng(1)
+    folded = pgt.FoldedData.from_ragged(
+        [rng.random((40, 1000)), rng.random((33, 1000))],
+        [rng.random((9, 1000)), rng.random((7, 1000))], device="cuda")
+    g = torch.Generator().manual_seed(0)
+    twin = ptk.prepare_run(g, cfg, tcfg, spec, hyper, folded,
+                           ptk.init_grid_params(g, cfg, 1, 2))
+    per_inst = sum(t[0].numel() for t in twin.params if t is not None)
+    for step in range(10):
+        run = twin.clone()
+        before = ptk.KERNELS.launches
+        ptk.train_grid_kernel(run, step, 1)
+        ptk.train_grid_kernel_reference(twin, step, 1)
+        torch.cuda.synchronize()
+        assert ptk.KERNELS.launches - before == ptk.launches_per_step(
+            cfg.tie_weights, cfg.variational)
+        over = sum(((a - b).abs() > 1e-4).reshape(2, -1).sum(1)
+                   for a, b in zip(run.params, twin.params)
+                   if a is not None)
+        assert int(over.max()) <= max(8, 1e-5 * per_inst), step
+        for a, b in zip(run.params, twin.params):
+            if a is not None:
+                assert float((a - b).abs().max()) <= 2 * lr
