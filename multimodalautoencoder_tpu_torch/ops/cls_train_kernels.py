@@ -60,6 +60,7 @@ from multimodalautoencoder_tpu_torch.ops import dense_kernels, optim, \
     philox, train_deep_kernels, train_kernels
 from multimodalautoencoder_tpu_torch.ops.cuda_library import (CSRC_DIR,
                                                               NvccLibrary)
+from multimodalautoencoder_tpu_torch.utils import profiling
 
 SOURCE = os.path.join(CSRC_DIR, "cls_train_kernel.cu")
 HEADERS = (os.path.join(CSRC_DIR, "philox.cuh"),
@@ -548,10 +549,12 @@ def init_heads(generator: torch.Generator, cfg: MMAEConfig, C: int,
     """Fresh heads of every (config, fold) instance, each from
     ``mmae.init_head`` on the CPU generator, as (cls_w, cls_b) with leading
     (C, K) axes."""
-    insts = [mmae.init_head(cfg, generator, "cpu") for _ in range(C * K)]
-    return tuple(tuple(torch.stack([h[part][j] for h in insts]).reshape(
-        (C, K) + tuple(insts[0][part][j].shape))
-        for j in range(len(insts[0][part]))) for part in (0, 1))
+    with profiling.span("mmae.init_params"):
+        insts = [mmae.init_head(cfg, generator, "cpu")
+                 for _ in range(C * K)]
+        return tuple(tuple(torch.stack([h[part][j] for h in insts]).reshape(
+            (C, K) + tuple(insts[0][part][j].shape))
+            for j in range(len(insts[0][part]))) for part in (0, 1))
 
 
 def label_table(train_y: torch.Tensor, num_labels: int) -> torch.Tensor:
@@ -821,73 +824,75 @@ def train_cls_kernel(run: ClsRun, first_step: int, num_steps: int,
     dev = _check_cuda_run(run)
     if num_steps <= 0:
         return
-    lib = KERNELS.load()
-    N, B = run.n_inst, run.batch
-    F, H1 = (int(s) for s in run.params[0].shape[1:])
-    H2, L = run.dims[0], run.dims[-1]
-    dims = list(run.dims) + [1] * (4 - len(run.dims))
-    width = {"xn": F, "y": L, "a1d": H1, "gf1": H1, "g1": H1,
-             "h1": dims[1], "gfh1": dims[1], "gc1": dims[1],
-             "h2": dims[2], "gfh2": dims[2], "gc2": dims[2],
-             "h3": dims[3], "gfh3": dims[3], "gc3": dims[3]}
-    ws = [torch.empty((N, B, width.get(name, H2)), dtype=torch.float32,
-                      device=dev) for name in BUFFERS]
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    panels, cols, items, n_weight, tile_tx = _run_plan(
-        F, H1, tuple(run.dims), tuple(run.gates), bool(run.variational), N,
-        B, sms)
-    items_dev = items.to(dev)
-    desc = torch.empty(train_deep_kernels.NSLOT
-                       * train_deep_kernels.DESC_BYTES, dtype=torch.uint8,
-                       device=dev)
+    with profiling.span("mmae.plan"):
+        lib = KERNELS.load()
+        N, B = run.n_inst, run.batch
+        F, H1 = (int(s) for s in run.params[0].shape[1:])
+        H2, L = run.dims[0], run.dims[-1]
+        dims = list(run.dims) + [1] * (4 - len(run.dims))
+        width = {"xn": F, "y": L, "a1d": H1, "gf1": H1, "g1": H1,
+                 "h1": dims[1], "gfh1": dims[1], "gc1": dims[1],
+                 "h2": dims[2], "gfh2": dims[2], "gc2": dims[2],
+                 "h3": dims[3], "gfh3": dims[3], "gc3": dims[3]}
+        ws = [torch.empty((N, B, width.get(name, H2)), dtype=torch.float32,
+                          device=dev) for name in BUFFERS]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        panels, cols, items, n_weight, tile_tx = _run_plan(
+            F, H1, tuple(run.dims), tuple(run.gates), bool(run.variational), N,
+            B, sms)
+        items_dev = items.to(dev)
+        desc = torch.empty(train_deep_kernels.NSLOT
+                           * train_deep_kernels.DESC_BYTES, dtype=torch.uint8,
+                           device=dev)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+        def ptr(t):
+            return None if t is None else t.data_ptr()
 
-    args = ClsArgs(
-        n_inst=N, batch=B, feats=F, h1=H1, h2=H2, n_labels=L,
-        n_types=int(run.type_table.shape[0]),
-        max_rows=int(run.train.shape[1]), n_cls=run.n_cls,
-        variational=int(run.variational), softmax=int(run.softmax),
-        bf16_moments=int(run.bf16_moments), bf16_ops=int(run.bf16_ops),
-        n_items=len(items), n_weight_items=n_weight,
-        elem_p=run.elem_p, mask_value=run.mask_value,
-        adam_eps=run.adam_eps,
-        seeds=ptr(run.seeds), fold=ptr(run.fold), n_valid=ptr(run.n_valid),
-        lr=ptr(run.lr), keep=ptr(run.keep), wpen=ptr(run.wpen),
-        eact=ptr(run.eact), cact=ptr(run.cact), train=ptr(run.train),
-        labels=ptr(run.labels), type_table=ptr(run.type_table),
-        cum=ptr(run.cum), items=items_dev.data_ptr(),
-        upd_desc=desc.data_ptr())
-    for i, d in enumerate(dims):
-        args.dims[i] = d
-    for j, gate in enumerate(run.gates):
-        args.gates[j] = int(gate)
-    for i, (pw, tc) in enumerate(zip(panels, cols)):
-        args.panel[i] = pw
-        args.tile_cols[i] = tc
-    for slot, tx in tile_tx:
-        args.tile_tx[slot] = tx
-    for i in range(len(SLOTS)):
-        args.param[i] = ptr(run.params[i])
-        args.m[i] = ptr(run.m[i])
-        args.v[i] = ptr(run.v[i])
-    for i, t in enumerate(ws):
-        args.ws[i] = t.data_ptr()
-    launches = ctypes.c_longlong(0)
-    timed = profile is not None or launch_ms is not None
-    prof = (ctypes.c_float * len(LAUNCH_TYPES))() if timed else None
-    each = (ctypes.c_float * train_deep_kernels.MAX_EVENTS)() if timed \
-        else None
+        args = ClsArgs(
+            n_inst=N, batch=B, feats=F, h1=H1, h2=H2, n_labels=L,
+            n_types=int(run.type_table.shape[0]),
+            max_rows=int(run.train.shape[1]), n_cls=run.n_cls,
+            variational=int(run.variational), softmax=int(run.softmax),
+            bf16_moments=int(run.bf16_moments), bf16_ops=int(run.bf16_ops),
+            n_items=len(items), n_weight_items=n_weight,
+            elem_p=run.elem_p, mask_value=run.mask_value,
+            adam_eps=run.adam_eps,
+            seeds=ptr(run.seeds), fold=ptr(run.fold), n_valid=ptr(run.n_valid),
+            lr=ptr(run.lr), keep=ptr(run.keep), wpen=ptr(run.wpen),
+            eact=ptr(run.eact), cact=ptr(run.cact), train=ptr(run.train),
+            labels=ptr(run.labels), type_table=ptr(run.type_table),
+            cum=ptr(run.cum), items=items_dev.data_ptr(),
+            upd_desc=desc.data_ptr())
+        for i, d in enumerate(dims):
+            args.dims[i] = d
+        for j, gate in enumerate(run.gates):
+            args.gates[j] = int(gate)
+        for i, (pw, tc) in enumerate(zip(panels, cols)):
+            args.panel[i] = pw
+            args.tile_cols[i] = tc
+        for slot, tx in tile_tx:
+            args.tile_tx[slot] = tx
+        for i in range(len(SLOTS)):
+            args.param[i] = ptr(run.params[i])
+            args.m[i] = ptr(run.m[i])
+            args.v[i] = ptr(run.v[i])
+        for i, t in enumerate(ws):
+            args.ws[i] = t.data_ptr()
+        launches = ctypes.c_longlong(0)
+        timed = profile is not None or launch_ms is not None
+        prof = (ctypes.c_float * len(LAUNCH_TYPES))() if timed else None
+        each = (ctypes.c_float * train_deep_kernels.MAX_EVENTS)() if timed \
+            else None
 
-    def arg(buf):
-        return None if buf is None else ctypes.cast(buf, ctypes.c_void_p)
+        def arg(buf):
+            return None if buf is None else ctypes.cast(buf, ctypes.c_void_p)
 
-    with torch.cuda.device(dev):
+    with profiling.span("mmae.enqueue") as sp, torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mmae_cls_train_run(ctypes.byref(args), int(first_step),
                                      int(num_steps), ctypes.byref(launches),
                                      arg(prof), arg(each), stream)
+        sp.count(launches=launches.value)
     KERNELS.count(launches.value)
     KERNELS.check(err, "mmae_cls_train_run")
     if profile is not None:
@@ -947,16 +952,19 @@ def phase2_pallas(seed: int, cfg: MMAEConfig, cls_tcfg: TrainConfig,
     cfg = cfg.validate()
     steps = cls_tcfg.num_steps if cls_num_steps is None \
         else int(cls_num_steps)
-    g = torch.Generator().manual_seed(int(seed))
     C, K = hyper.num_configs, folded.num_folds
-    if head0 is None:
-        head0 = init_heads(g, cfg, C, K)
-    run = prepare_cls_run(g, cfg, cls_tcfg, spec, hyper, chyper, folded,
-                          params1, head0, adam_eps)
+    with profiling.span("mmae.prepare"):
+        g = torch.Generator().manual_seed(int(seed))
+        if head0 is None:
+            head0 = init_heads(g, cfg, C, K)
+        run = prepare_cls_run(g, cfg, cls_tcfg, spec, hyper, chyper, folded,
+                              params1, head0, adam_eps)
     train_kernels.run_steps(run, steps, train_cls_kernel_reference,
                             train_cls_kernel, devices)
-    params = run.grid_params(C, K, params1)
-    return params, val_predictions(params, cfg, hyper, chyper, folded, g)
+    with profiling.span("mmae.evaluate"):
+        params = run.grid_params(C, K, params1)
+        return params, val_predictions(params, cfg, hyper, chyper, folded,
+                                       g)
 
 
 def train_two_phase_pallas(seed: int, cfg: MMAEConfig, tcfg: TrainConfig,

@@ -53,6 +53,7 @@ from multimodalautoencoder_tpu_torch.ops.cuda_library import (CSRC_DIR,
                                                               NvccLibrary)
 from multimodalautoencoder_tpu_torch.ops.train_kernels import (
     LAUNCH_TYPES, MAX_DEPTH, GridRun)
+from multimodalautoencoder_tpu_torch.utils import profiling
 
 SOURCE = os.path.join(CSRC_DIR, "train_deep_kernel.cu")
 HEADERS = train_kernels.HEADERS
@@ -700,58 +701,60 @@ def train_deep_kernel(run: DeepGridRun, first_step: int, num_steps: int,
     if (profile is not None or launch_ms is not None) \
             and per_step > MAX_PROFILED_LAUNCHES:
         raise ValueError("too many launches a step to profile")
-    lib = KERNELS.load()
-    ws = _workspace(run, dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    panels, items, n_weight, tile_tx = _run_plan(
-        tuple(run.sizes), bool(run.tied), bool(run.variational),
-        run.n_inst, run.batch, sms)
-    items_dev = items.to(dev)
-    desc = torch.empty(NSLOT * DESC_BYTES, dtype=torch.uint8, device=dev)
+    with profiling.span("mmae.plan"):
+        lib = KERNELS.load()
+        ws = _workspace(run, dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        panels, items, n_weight, tile_tx = _run_plan(
+            tuple(run.sizes), bool(run.tied), bool(run.variational),
+            run.n_inst, run.batch, sms)
+        items_dev = items.to(dev)
+        desc = torch.empty(NSLOT * DESC_BYTES, dtype=torch.uint8, device=dev)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+        def ptr(t):
+            return None if t is None else t.data_ptr()
 
-    args = DeepArgs(
-        n_inst=run.n_inst, batch=run.batch, depth=run.depth,
-        n_types=int(run.type_table.shape[0]),
-        max_rows=int(run.train.shape[1]), tied=int(run.tied),
-        variational=int(run.variational),
-        bf16_moments=int(run.bf16_moments), decay=int(run.decay),
-        elem_p=run.elem_p, mask_value=run.mask_value,
-        decay_steps=run.decay_steps, decay_rate=run.decay_rate,
-        adam_eps2=run.adam_eps * run.adam_eps, seeds=ptr(run.seeds),
-        fold=ptr(run.fold), n_valid=ptr(run.n_valid),
-        lr=ptr(run.lr), keep=ptr(run.keep), wpen=ptr(run.wpen),
-        act=ptr(run.act), train=ptr(run.train),
-        type_table=ptr(run.type_table), cum=ptr(run.cum),
-        n_items=len(items), n_weight_items=n_weight,
-        items=items_dev.data_ptr(), upd_desc=desc.data_ptr())
-    for i, w in enumerate(run.sizes):
-        args.dims[i] = w
-    for i, pw in enumerate(panels):
-        args.panel[i] = pw
-    for slot, tx in tile_tx:
-        args.tile_tx[slot] = tx
-    for i, slot in enumerate(run.c_slots()):
-        args.param[slot] = ptr(run.params[i])
-        args.m[slot] = ptr(run.m[i])
-        args.v[slot] = ptr(run.v[i])
-    for (name, layer), t in ws.items():
-        args.ws[_buffer_index(name, layer)] = t.data_ptr()
-    launches = ctypes.c_longlong(0)
-    timed = profile is not None or launch_ms is not None
-    prof = (ctypes.c_float * len(LAUNCH_TYPES))() if timed else None
-    each = (ctypes.c_float * MAX_EVENTS)() if timed else None
+        args = DeepArgs(
+            n_inst=run.n_inst, batch=run.batch, depth=run.depth,
+            n_types=int(run.type_table.shape[0]),
+            max_rows=int(run.train.shape[1]), tied=int(run.tied),
+            variational=int(run.variational),
+            bf16_moments=int(run.bf16_moments), decay=int(run.decay),
+            elem_p=run.elem_p, mask_value=run.mask_value,
+            decay_steps=run.decay_steps, decay_rate=run.decay_rate,
+            adam_eps2=run.adam_eps * run.adam_eps, seeds=ptr(run.seeds),
+            fold=ptr(run.fold), n_valid=ptr(run.n_valid),
+            lr=ptr(run.lr), keep=ptr(run.keep), wpen=ptr(run.wpen),
+            act=ptr(run.act), train=ptr(run.train),
+            type_table=ptr(run.type_table), cum=ptr(run.cum),
+            n_items=len(items), n_weight_items=n_weight,
+            items=items_dev.data_ptr(), upd_desc=desc.data_ptr())
+        for i, w in enumerate(run.sizes):
+            args.dims[i] = w
+        for i, pw in enumerate(panels):
+            args.panel[i] = pw
+        for slot, tx in tile_tx:
+            args.tile_tx[slot] = tx
+        for i, slot in enumerate(run.c_slots()):
+            args.param[slot] = ptr(run.params[i])
+            args.m[slot] = ptr(run.m[i])
+            args.v[slot] = ptr(run.v[i])
+        for (name, layer), t in ws.items():
+            args.ws[_buffer_index(name, layer)] = t.data_ptr()
+        launches = ctypes.c_longlong(0)
+        timed = profile is not None or launch_ms is not None
+        prof = (ctypes.c_float * len(LAUNCH_TYPES))() if timed else None
+        each = (ctypes.c_float * MAX_EVENTS)() if timed else None
 
-    def arg(buf):
-        return None if buf is None else ctypes.cast(buf, ctypes.c_void_p)
+        def arg(buf):
+            return None if buf is None else ctypes.cast(buf, ctypes.c_void_p)
 
-    with torch.cuda.device(dev):
+    with profiling.span("mmae.enqueue") as sp, torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mmae_deep_train_run(ctypes.byref(args), int(first_step),
                                       int(num_steps), ctypes.byref(launches),
                                       arg(prof), arg(each), stream)
+        sp.count(launches=launches.value)
     KERNELS.count(launches.value)
     KERNELS.check(err, "mmae_deep_train_run")
     if profile is not None:
@@ -783,14 +786,16 @@ def train_deep_pallas(seed: int, cfg: MMAEConfig, tcfg: TrainConfig,
         raise ValueError("configuration outside the deep training kernels'"
                          " family; use the plain grid trainer")
     num_steps = tcfg.num_steps if num_steps is None else int(num_steps)
-    generator = torch.Generator().manual_seed(int(seed))
     C, K = hyper.num_configs, folded.num_folds
-    if params0 is None:
-        params0 = train_kernels.init_grid_params(generator, cfg, C, K)
-    run = prepare_deep_run(generator, cfg, tcfg, spec, hyper, folded,
-                           params0)
+    with profiling.span("mmae.prepare"):
+        generator = torch.Generator().manual_seed(int(seed))
+        if params0 is None:
+            params0 = train_kernels.init_grid_params(generator, cfg, C, K)
+        run = prepare_deep_run(generator, cfg, tcfg, spec, hyper, folded,
+                               params0)
     train_kernels.run_steps(run, num_steps, train_deep_kernel_reference,
                             train_deep_kernel, devices)
-    params = run.grid_params(C, K)
-    return params, train_kernels.noisy_val_losses(params, cfg, spec, hyper,
-                                                  folded, generator)
+    with profiling.span("mmae.evaluate"):
+        params = run.grid_params(C, K)
+        return params, train_kernels.noisy_val_losses(
+            params, cfg, spec, hyper, folded, generator)

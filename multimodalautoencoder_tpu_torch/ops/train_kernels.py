@@ -51,6 +51,7 @@ from multimodalautoencoder_tpu_torch.ops import dense_kernels, masking, \
     optim, philox
 from multimodalautoencoder_tpu_torch.ops.cuda_library import (CSRC_DIR,
                                                               NvccLibrary)
+from multimodalautoencoder_tpu_torch.utils import profiling
 
 SOURCE = os.path.join(CSRC_DIR, "train_kernel.cu")
 HEADERS = (os.path.join(CSRC_DIR, "philox.cuh"),
@@ -409,11 +410,12 @@ def init_grid_params(generator: torch.Generator, cfg: MMAEConfig, C: int,
                      K: int) -> mmae.MMAEParams:
     """Initial parameters of every (config, fold) instance, each from
     ``mmae.init`` on the CPU generator, stacked to leading (C, K) axes."""
-    insts = [mmae.init(cfg, generator=generator, device="cpu")
-             for _ in range(C * K)]
-    return optim.tree_map(
-        lambda *leaves: torch.stack(leaves).reshape(
-            (C, K) + leaves[0].shape), *insts)
+    with profiling.span("mmae.init_params"):
+        insts = [mmae.init(cfg, generator=generator, device="cpu")
+                 for _ in range(C * K)]
+        return optim.tree_map(
+            lambda *leaves: torch.stack(leaves).reshape(
+                (C, K) + leaves[0].shape), *insts)
 
 
 def prepare_run(generator: torch.Generator, cfg: MMAEConfig,
@@ -719,61 +721,63 @@ def train_grid_kernel(run: GridRun, first_step: int, num_steps: int,
         return
     from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
 
-    lib = KERNELS.load()
-    N, B = run.n_inst, run.batch
-    F, H1, H2 = run.dims
-    tied, vae = bool(run.tied), bool(run.variational)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    panels, items, n_weight, tile_tx = run_plan((F, H1, H2), tied, vae, N,
-                                                B, sms)
-    items_dev = items.to(dev)
-    desc = torch.empty(UPD_SLOTS * pdk.DESC_BYTES, dtype=torch.uint8,
-                       device=dev)
-    width = {"x": F, "xn": F, "g4": F, "mu": H2, "lv": H2, "eps": H2,
-             "z2": H2, "gz": H2, "glv": H2}
-    ws = [torch.empty((N, B, width.get(name, H1)), dtype=torch.float32,
-                      device=dev) for name in BUFFERS]
+    with profiling.span("mmae.plan"):
+        lib = KERNELS.load()
+        N, B = run.n_inst, run.batch
+        F, H1, H2 = run.dims
+        tied, vae = bool(run.tied), bool(run.variational)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        panels, items, n_weight, tile_tx = run_plan((F, H1, H2), tied, vae, N,
+                                                    B, sms)
+        items_dev = items.to(dev)
+        desc = torch.empty(UPD_SLOTS * pdk.DESC_BYTES, dtype=torch.uint8,
+                           device=dev)
+        width = {"x": F, "xn": F, "g4": F, "mu": H2, "lv": H2, "eps": H2,
+                 "z2": H2, "gz": H2, "glv": H2}
+        ws = [torch.empty((N, B, width.get(name, H1)), dtype=torch.float32,
+                          device=dev) for name in BUFFERS]
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+        def ptr(t):
+            return None if t is None else t.data_ptr()
 
-    args = TrainArgs(
-        n_inst=N, batch=B, feats=F, h1=H1, h2=H2,
-        n_types=int(run.type_table.shape[0]),
-        max_rows=int(run.train.shape[1]), tied=int(tied),
-        variational=int(vae), bf16_moments=int(run.bf16_moments),
-        decay=int(run.decay), n_items=len(items), n_weight_items=n_weight,
-        elem_p=run.elem_p,
-        mask_value=run.mask_value, decay_steps=run.decay_steps,
-        decay_rate=run.decay_rate, seeds=ptr(run.seeds),
-        fold=ptr(run.fold), n_valid=ptr(run.n_valid), lr=ptr(run.lr),
-        keep=ptr(run.keep), wpen=ptr(run.wpen), act=ptr(run.act),
-        train=ptr(run.train), type_table=ptr(run.type_table),
-        cum=ptr(run.cum), items=items_dev.data_ptr(),
-        upd_desc=desc.data_ptr())
-    for i, pw in enumerate(panels):
-        args.panel[i] = pw
-    for slot, tx in tile_tx:
-        args.tile_tx[slot] = tx
-    for i in range(len(SLOTS)):
-        args.param[i] = ptr(run.params[i])
-        args.m[i] = ptr(run.m[i])
-        args.v[i] = ptr(run.v[i])
-    for i, t in enumerate(ws):
-        args.ws[i] = t.data_ptr()
-    launches = ctypes.c_longlong(0)
-    timed = profile is not None or launch_ms is not None
-    prof = (ctypes.c_float * len(LAUNCH_TYPES))() if timed else None
-    each = (ctypes.c_float * pdk.MAX_EVENTS)() if timed else None
+        args = TrainArgs(
+            n_inst=N, batch=B, feats=F, h1=H1, h2=H2,
+            n_types=int(run.type_table.shape[0]),
+            max_rows=int(run.train.shape[1]), tied=int(tied),
+            variational=int(vae), bf16_moments=int(run.bf16_moments),
+            decay=int(run.decay), n_items=len(items), n_weight_items=n_weight,
+            elem_p=run.elem_p,
+            mask_value=run.mask_value, decay_steps=run.decay_steps,
+            decay_rate=run.decay_rate, seeds=ptr(run.seeds),
+            fold=ptr(run.fold), n_valid=ptr(run.n_valid), lr=ptr(run.lr),
+            keep=ptr(run.keep), wpen=ptr(run.wpen), act=ptr(run.act),
+            train=ptr(run.train), type_table=ptr(run.type_table),
+            cum=ptr(run.cum), items=items_dev.data_ptr(),
+            upd_desc=desc.data_ptr())
+        for i, pw in enumerate(panels):
+            args.panel[i] = pw
+        for slot, tx in tile_tx:
+            args.tile_tx[slot] = tx
+        for i in range(len(SLOTS)):
+            args.param[i] = ptr(run.params[i])
+            args.m[i] = ptr(run.m[i])
+            args.v[i] = ptr(run.v[i])
+        for i, t in enumerate(ws):
+            args.ws[i] = t.data_ptr()
+        launches = ctypes.c_longlong(0)
+        timed = profile is not None or launch_ms is not None
+        prof = (ctypes.c_float * len(LAUNCH_TYPES))() if timed else None
+        each = (ctypes.c_float * pdk.MAX_EVENTS)() if timed else None
 
-    def arg(buf):
-        return None if buf is None else ctypes.cast(buf, ctypes.c_void_p)
+        def arg(buf):
+            return None if buf is None else ctypes.cast(buf, ctypes.c_void_p)
 
-    with torch.cuda.device(dev):
+    with profiling.span("mmae.enqueue") as sp, torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mmae_train_run(ctypes.byref(args), int(first_step),
                                  int(num_steps), ctypes.byref(launches),
                                  arg(prof), arg(each), stream)
+        sp.count(launches=launches.value)
     KERNELS.count(launches.value)
     KERNELS.check(err, "mmae_train_run")
     if profile is not None:
@@ -941,13 +945,15 @@ def train_grid_pallas(seed: int, cfg: MMAEConfig, tcfg: TrainConfig,
             seed, cfg, tcfg, spec, hyper, folded, num_steps, params0,
             devices)
     num_steps = tcfg.num_steps if num_steps is None else int(num_steps)
-    generator = torch.Generator().manual_seed(int(seed))
     C, K = hyper.num_configs, folded.num_folds
-    if params0 is None:
-        params0 = init_grid_params(generator, cfg, C, K)
-    run = prepare_run(generator, cfg, tcfg, spec, hyper, folded, params0)
+    with profiling.span("mmae.prepare"):
+        generator = torch.Generator().manual_seed(int(seed))
+        if params0 is None:
+            params0 = init_grid_params(generator, cfg, C, K)
+        run = prepare_run(generator, cfg, tcfg, spec, hyper, folded, params0)
     run_steps(run, num_steps, train_grid_kernel_reference, train_grid_kernel,
               devices)
-    params = run.grid_params(C, K)
-    return params, noisy_val_losses(params, cfg, spec, hyper, folded,
-                                    generator)
+    with profiling.span("mmae.evaluate"):
+        params = run.grid_params(C, K)
+        return params, noisy_val_losses(params, cfg, spec, hyper, folded,
+                                        generator)

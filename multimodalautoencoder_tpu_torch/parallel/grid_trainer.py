@@ -52,6 +52,7 @@ from multimodalautoencoder_tpu_torch.models.corruption import (
 from multimodalautoencoder_tpu_torch.ops import cls_train_kernels, \
     optim, train_kernels
 from multimodalautoencoder_tpu_torch.parallel import mesh
+from multimodalautoencoder_tpu_torch.utils import profiling
 
 # activation-key aliases (sweep ledgers use activation_function, the
 # reference ctor uses activation_func)
@@ -315,20 +316,23 @@ def train_grid_sharded(device, seed: int, cfg: MMAEConfig,
     kernels, split over the devices; raises ``ValueError`` outside their
     family), ``"xla"`` (:func:`train_grid` on the first device), or
     ``"auto"`` (:func:`resolve_backend` for those devices).  Returns
-    ``(params, losses)`` with leading (C, K) axes on the first device."""
+    ``(params, losses)`` with leading (C, K) axes on the first device.
+    The call is one ``mmae.entry`` span (``utils/profiling.span``)."""
     devices = mesh.as_devices(device)
-    folded = folded.to(devices[0])
     backend = resolve_backend(backend, cfg, tcfg, spec,
                               on_gpu=devices[0].type == "cuda")
-    if backend == "pallas":
-        return train_kernels.train_grid_pallas(seed, cfg, tcfg, spec, hyper,
-                                               folded, num_steps, params0,
-                                               devices)
-    if backend != "xla":
-        raise ValueError(f"unknown backend {backend!r} "
-                         "('auto', 'pallas' or 'xla')")
-    return train_grid(seed, cfg, tcfg, spec, hyper, folded, num_steps,
-                      params0)
+    with profiling.span("mmae.entry"):
+        with profiling.span("mmae.prepare"):
+            folded = folded.to(devices[0])
+        if backend == "pallas":
+            return train_kernels.train_grid_pallas(
+                seed, cfg, tcfg, spec, hyper, folded, num_steps, params0,
+                devices)
+        if backend != "xla":
+            raise ValueError(f"unknown backend {backend!r} "
+                             "('auto', 'pallas' or 'xla')")
+        return train_grid(seed, cfg, tcfg, spec, hyper, folded, num_steps,
+                          params0)
 
 
 # ------------------------------------------------------------- phase 2
@@ -475,26 +479,31 @@ def train_phase2_shared_sharded(device, seed: int, cfg: MMAEConfig,
     gathers and runs ``cls_train_kernels.phase2_pallas`` (seed ``seed``),
     split over ``device`` when it is a list; ``"xla"``
     :func:`train_classification_dedup_grid` on the first device.  Returns
-    ``(params, preds)`` with leading (C, K) axes."""
+    ``(params, preds)`` with leading (C, K) axes.  The call is one
+    ``mmae.entry`` span."""
     devices = mesh.as_devices(device)
-    sup_folded = sup_folded.to(devices[0])
     backend = resolve_backend_two_phase(backend, cfg, tcfg, cls_tcfg, spec,
                                         on_gpu=devices[0].type == "cuda")
-    params_u = optim.tree_map(lambda t: t.to(devices[0]), params_u)
-    if backend == "pallas":
-        if not cls_train_kernels.supported_two_phase(cfg, tcfg, cls_tcfg,
-                                                     spec):
-            raise ValueError("configuration outside the two-phase kernels'"
-                             " family; use the plain grid trainer")
-        return cls_train_kernels.phase2_pallas(
-            seed, cfg, cls_tcfg, spec, _gather_configs(params_u, p1_map),
-            hyper, chyper, sup_folded, cls_num_steps, devices=devices)
-    if backend != "xla":
+    if backend == "pallas" and not cls_train_kernels.supported_two_phase(
+            cfg, tcfg, cls_tcfg, spec):
+        raise ValueError("configuration outside the two-phase kernels'"
+                         " family; use the plain grid trainer")
+    if backend not in ("pallas", "xla"):
         raise ValueError(f"unknown backend {backend!r} "
                          "('auto', 'pallas' or 'xla')")
-    return train_classification_dedup_grid(seed, cfg, cls_tcfg, spec,
-                                           params_u, p1_map, hyper, chyper,
-                                           sup_folded, cls_num_steps)
+    with profiling.span("mmae.entry"):
+        with profiling.span("mmae.prepare"):
+            sup_folded = sup_folded.to(devices[0])
+            params_u = optim.tree_map(lambda t: t.to(devices[0]), params_u)
+            if backend == "pallas":
+                params1 = _gather_configs(params_u, p1_map)
+        if backend == "pallas":
+            return cls_train_kernels.phase2_pallas(
+                seed, cfg, cls_tcfg, spec, params1, hyper, chyper,
+                sup_folded, cls_num_steps, devices=devices)
+        return train_classification_dedup_grid(
+            seed, cfg, cls_tcfg, spec, params_u, p1_map, hyper, chyper,
+            sup_folded, cls_num_steps)
 
 
 @torch.no_grad()
@@ -539,24 +548,27 @@ def train_two_phase_sharded(device, seed: int, cfg: MMAEConfig,
     and :func:`train_classification_grid`.  Returns ``(params, losses,
     preds)`` with leading (C, K) axes: phase-1 noisy-val objectives and
     phase-2 val predictions (autoencoder_classification_wrapper.py
-    :195-237)."""
+    :195-237).  The call is one ``mmae.entry`` span."""
     devices = mesh.as_devices(device)
-    unsup_folded = unsup_folded.to(devices[0])
-    sup_folded = sup_folded.to(devices[0])
     backend = resolve_backend_two_phase(backend, cfg, tcfg, cls_tcfg, spec,
                                         on_gpu=devices[0].type == "cuda")
-    if backend == "pallas":
-        return cls_train_kernels.train_two_phase_pallas(
-            seed, cfg, tcfg, cls_tcfg, spec, hyper, chyper, unsup_folded,
-            sup_folded, num_steps, cls_num_steps, devices=devices)
-    if backend != "xla":
-        raise ValueError(f"unknown backend {backend!r} "
-                         "('auto', 'pallas' or 'xla')")
-    params1, losses = train_grid(cls_train_kernels.derive_seed(seed, 1),
-                                 cls_train_kernels.phase1_cfg(cfg), tcfg,
-                                 spec, hyper, unsup_folded, num_steps)
     C = hyper.num_configs
-    params, preds = train_classification_dedup_grid(
-        cls_train_kernels.derive_seed(seed, 2), cfg, cls_tcfg, spec,
-        params1, np.arange(C), hyper, chyper, sup_folded, cls_num_steps)
-    return params, losses, preds
+    with profiling.span("mmae.entry"):
+        with profiling.span("mmae.prepare"):
+            unsup_folded = unsup_folded.to(devices[0])
+            sup_folded = sup_folded.to(devices[0])
+        if backend == "pallas":
+            return cls_train_kernels.train_two_phase_pallas(
+                seed, cfg, tcfg, cls_tcfg, spec, hyper, chyper,
+                unsup_folded, sup_folded, num_steps, cls_num_steps,
+                devices=devices)
+        if backend != "xla":
+            raise ValueError(f"unknown backend {backend!r} "
+                             "('auto', 'pallas' or 'xla')")
+        params1, losses = train_grid(cls_train_kernels.derive_seed(seed, 1),
+                                     cls_train_kernels.phase1_cfg(cfg), tcfg,
+                                     spec, hyper, unsup_folded, num_steps)
+        params, preds = train_classification_dedup_grid(
+            cls_train_kernels.derive_seed(seed, 2), cfg, cls_tcfg, spec,
+            params1, np.arange(C), hyper, chyper, sup_folded, cls_num_steps)
+        return params, losses, preds

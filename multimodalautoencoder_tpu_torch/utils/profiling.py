@@ -8,22 +8,22 @@ timing feeding an ETA printout (generic_wrapper.py:270-315), kept in
 - :func:`trace`: a ``torch.profiler`` trace of the host and, where there
   is one, the CUDA device, written as a Chrome trace (chrome://tracing,
   Perfetto);
-- :func:`annotate`: a named region on the trace's host timeline
-  (``record_function``);
+- :func:`span`: a named region of the program on the trace's host
+  timeline (a ``record_function`` range), with counts, logged for
+  :func:`take_spans`; without a running profiler it costs one flag read;
 - :func:`materialize` / :func:`blocking_time`: wall-clock time that
-  includes the devices finishing the work;
-- :class:`PhaseTimer`: named wall-clock phase records a sweep can attach
-  to its ledger rows.
+  includes the devices finishing the work.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
+import itertools
 import os
 import time
-from typing import Callable, Dict, List
+from typing import Callable, List
 
-import numpy as np
 import torch
 
 
@@ -42,9 +42,90 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def annotate(name: str):
-    """A named region on the host timeline of a trace."""
-    return torch.profiler.record_function(name)
+_profiling = torch._C._autograd._profiler_enabled
+# A span's region on the trace: a record_function range at operator scope
+# (not a user annotation), so the profiler does not mirror it on the
+# device's timeline and the device rows of a trace hold device operations
+# only.
+_region = torch._C._profiler._RecordFunctionFast
+
+# records of the spans opened while a profiler ran, in the order they
+# opened; drained by take_spans()
+_LOG: List[dict] = []
+_CALL_IDS = itertools.count(1)
+# the innermost open span's record, per thread
+_OPEN: contextvars.ContextVar = contextvars.ContextVar("span", default=None)
+
+
+class _Off:
+    """What :func:`span` gives with no profiler running: it records
+    nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def count(self, **counts) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("record", "_region", "_token")
+
+    def __init__(self, name: str, counts: dict):
+        parent = _OPEN.get()
+        self.record = {
+            "name": name, "parent": parent and parent["name"],
+            "call": next(_CALL_IDS) if parent is None else parent["call"],
+            "counts": counts}
+        self._region = _region(name)
+
+    def __enter__(self):
+        _LOG.append(self.record)
+        self._token = _OPEN.set(self.record)
+        self._region.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        _OPEN.reset(self._token)
+        return self._region.__exit__(*exc)
+
+    def count(self, **counts) -> None:
+        """Adds ``counts`` to the span's record."""
+        self.record["counts"].update(counts)
+
+
+def span(name: str, **counts):
+    """A named region of the program on the host timeline of a running
+    ``torch.profiler`` (a ``record_function`` range, so its start and end
+    share the clock of the device's operations), with integer ``counts``; the
+    context manager's ``count(**counts)`` adds more inside it.  Each span
+    is logged for :func:`take_spans` as its name, its parent span's name,
+    its call id and its counts.  A span opened outside any other starts a
+    new call id, which every span inside it shares: one id per trainer
+    entry call.  With no profiler running on this thread (a profiler
+    records the thread that started it) it reads one flag and records
+    nothing."""
+    if not _profiling():
+        return _OFF
+    return _Span(name, counts)
+
+
+def take_spans() -> List[dict]:
+    """The records of the spans opened since the last call, in the order
+    they opened (so, name by name, in the order of the profiler's events
+    of that name), and empties the log: each ``{"name", "parent", "call",
+    "counts"}``."""
+    out = _LOG[:]
+    del _LOG[:len(out)]
+    return out
 
 
 def materialize(tree) -> None:
@@ -76,28 +157,3 @@ def blocking_time(fn: Callable[[], object]) -> float:
     out = fn()
     materialize(out)
     return time.perf_counter() - t0
-
-
-class PhaseTimer:
-    """Accumulates named phase durations; ``summary()`` yields a flat dict
-    suitable for a results-ledger row or log line."""
-
-    def __init__(self) -> None:
-        self.records: Dict[str, List[float]] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.records.setdefault(name, []).append(
-                time.perf_counter() - t0)
-
-    def summary(self) -> Dict[str, float]:
-        out: Dict[str, float] = {}
-        for name, vals in self.records.items():
-            out[f"time_{name}_total_s"] = float(np.sum(vals))
-            out[f"time_{name}_mean_s"] = float(np.mean(vals))
-            out[f"time_{name}_count"] = len(vals)
-        return out

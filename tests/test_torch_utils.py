@@ -147,16 +147,6 @@ def test_cli_jobs(tmp_path, capsys):
 
 # ------------------------------------------------------------- profiling
 
-def test_phase_timer():
-    t = profiling.PhaseTimer()
-    for name in ("a", "a", "b"):
-        with t.phase(name):
-            pass
-    s = t.summary()
-    assert s["time_a_count"] == 2 and s["time_b_count"] == 1
-    assert s["time_a_total_s"] >= s["time_a_mean_s"]
-
-
 def test_blocking_time():
     x = torch.ones((64, 64))
     dt = profiling.blocking_time(lambda: [x * 2, {"y": (x + 1,)}])
@@ -166,17 +156,22 @@ def test_blocking_time():
 def test_trace_writes_profile(tmp_path):
     d = str(tmp_path / "prof")
     with profiling.trace(d):
-        with profiling.annotate("region"):
+        with profiling.span("region", rows=8):
             (torch.ones((8, 8)) + 1).sum()
     path = os.path.join(d, "trace.json")
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "region" for e in events)
+    (rec,) = profiling.take_spans()
+    assert (rec["name"], rec["parent"], rec["counts"]) == (
+        "region", None, {"rows": 8})
 
 
 def test_annotate_noop_safe():
-    with profiling.annotate("region"):
-        pass
+    """``span`` (the annotation of a trace) outside any profiler."""
+    with profiling.span("region") as sp:
+        sp.count(rows=8)
+    assert profiling.take_spans() == []
 
 
 # ---------------------------------------------------------------- parity
