@@ -3784,6 +3784,39 @@ AB_STEPS = 10
 AB_TIMED_STEPS = 50
 
 
+def update_reading(profiler: list, types: dict, bounds: dict) -> dict:
+    """The grouped update's device ms a step (its launch in ``profiler``,
+    torch.profiler's (name, ms) a launch; else the launch type's CUDA-event
+    ms in ``types``) and its own bound: the weight- and bias-update rows
+    of the launch-type bounds ``bounds`` together."""
+    from multimodalautoencoder_tpu_torch.ops import train_kernels as ptk
+
+    seen = [ms for name, ms in profiler if "update_group" in name]
+    w, b = bounds["weight_grad_adam"], bounds["bias_grad_adam"]
+    return {"update_ms": seen[-1] if seen else types["weight_grad_adam"],
+            "update_bound_ms": ptk._bound(w["bytes"] + b["bytes"],
+                                          w["flop"] + b["flop"])["bound_ms"]}
+
+
+def print_update_share(runs: list, card: str) -> None:
+    """Each tree's grouped-update launch (its launch type's CUDA-event ms a
+    step, which both trees report, the mean of its two runs in the turns
+    of :data:`AB_RUNS`) against its own bound (from the runs that carry
+    it)."""
+    bound = next((r["update_bound_ms"] for r in runs
+                  if "update_bound_ms" in r), None)
+    if bound is None:
+        return
+    for tree, (a, b) in (("parent", (runs[0], runs[3])),
+                         ("change", (runs[1], runs[2]))):
+        ms_a = a["types"]["weight_grad_adam"]
+        ms_b = b["types"]["weight_grad_adam"]
+        ms = (ms_a + ms_b) / 2
+        print(f"    {tree} update_group_kernel: {ms:.4f} ms a step "
+              f"(runs {ms_a:.4f} / {ms_b:.4f}), {100 * bound / ms:.1f} % of "
+              f"its {bound:.4f} ms bound  [{card}]")
+
+
 def ab_cases(pdk, base_full, folded_full, spec_full):
     """(label, cfg, settings, folded, spec, moments, lr, Adam eps): [15]'s
     F = 30 families at depths 3 and 4 with f32 and bf16 moments, [16]'s
@@ -3940,6 +3973,9 @@ def main_deep_state(out_dir: str, dump: bool) -> int:
             out["profiler"] = []
             print(f"  torch.profiler saw {len(kernels)} kernels for "
                   f"{steps * per_step} launches")
+        out.update(update_reading(out["profiler"], out["types"],
+                                  pdk.deep_launch_type_bounds(
+                                      cfg, run.n_inst, run.batch, True)))
     print("DEEP-STATE " + json.dumps(out), flush=True)
     return 0
 
@@ -3970,6 +4006,7 @@ def main_deep_ab(parent_root: str) -> int:
             print(f"  {AB_RUNS[i]} launch by launch (torch.profiler, "
                   f"{r['launches']} a step): " + ", ".join(
                       f"{n} {ms:.4f}" for n, ms in r["profiler"]))
+        print_update_share(timed, card)
     print(card)
     print(json.dumps({"deep_ab": True, "failed_checks": FAILED}))
     return 1 if FAILED else 0
@@ -4271,6 +4308,10 @@ def main_cls_state(out_dir: str, dump: bool) -> int:
         out["profiler"] = ([(n1, (m1 + m2) / 2) for (n1, m1), (_, m2)
                             in zip(k1, k2)] if k1 and k2 else [])
         out["bmm"] = {name: (b1[name] + b2[name]) / 2 for name in b1}
+        out.update(update_reading(out["profiler"], out["types"],
+                                  pck.cls_launch_type_bounds(
+                                      cfg, run.n_inst, B,
+                                      bool(run.bf16_moments))))
     print("CLS-STATE " + json.dumps(out), flush=True)
     return 0
 
@@ -4411,6 +4452,7 @@ def main_cls_ab(parent_root: str) -> int:
                                           f"{b['panel']}x{b['cols']}"
                                           if b and "grid" in b else ""))
             print(f"    parent's update launches: {both[0][-1][0]}")
+        print_update_share(timed, card)
     print(card)
     print(json.dumps({"cls_ab": True, "failed_checks": FAILED}))
     return 1 if FAILED else 0
@@ -4617,6 +4659,10 @@ def main_train_state(out_dir: str, dump: bool) -> int:
             res["launches"] = per_step
             res["profiler"] = ([(n1, (m1 + m2) / 2) for (n1, m1), (_, m2)
                                 in zip(k1, k2)] if k1 and k2 else [])
+            res.update(update_reading(res["profiler"], res["types"],
+                                      ptk.launch_type_bounds(
+                                          cfg, run.n_inst, run.batch,
+                                          bool(run.bf16_moments))))
             out[key] = res
             del run
     print("TRAIN-STATE " + json.dumps(out), flush=True)
@@ -4650,6 +4696,7 @@ def main_train_ab(parent_root: str) -> int:
             for i, r in enumerate(runs):
                 print(f"    {AB_RUNS[i]} by launch type: " + ", ".join(
                     f"{t} {v:.4f}" for t, v in r["types"].items() if v > 0))
+            print_update_share(runs, card)
             for tree, (a, b) in (("parent", (runs[0], runs[3])),
                                  ("change", (runs[1], runs[2]))):
                 if not (a["profiler"] and b["profiler"]):

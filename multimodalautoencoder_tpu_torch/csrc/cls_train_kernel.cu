@@ -48,7 +48,12 @@
 // against about 16 B of parameter and moment traffic per parameter (1.1 M
 // parameters) with bf16 moments: f32 CUDA-core operations bound it
 // (ops/cls_train_kernels.cls_step_bound computes both from the shapes;
-// each launch's own bound: cls_launch_bounds).
+// each launch's own bound: cls_launch_bounds).  The grouped update alone
+// is near the ridge at B = 100 (16 B against 2 B = 200 FLOP an element):
+// it takes the update's in-place path, each item's W, m and v read into
+// registers at its start and in flight under its 100-row sums; at a batch
+// of at most 32 it streams them through the update's shared-memory ring
+// by bulk copies (train_common.cuh).
 
 // bf16 operands (bf16_ops) take their own instantiations of the shared
 // blocks
@@ -83,6 +88,8 @@ struct ClsArgs {
   int tile_cols[MAX_PRODUCTS]; // each product's thread columns (tile kernel)
   int tile_tx[NSLOT];      // each weight slot's update tile threads across
   int n_items, n_weight_items;   // the update's work list
+  int upd_ring[NSLOT];     // each weight slot's W, m, v through the ring
+  int upd_depth, upd_lfloats, upd_rfloats, upd_rbufs, upd_stage;  // UpdArgs
   float elem_p, mask_value, adam_eps;
   const int* seeds;        // (N,) instance seeds, >= 0
   const int* fold;         // (N,)
@@ -235,13 +242,13 @@ struct ClsRunner {
   void update_tensors(UpdTensor* T) const {
     const int nc = a.n_cls;
     auto weight = [&](int slot, int R, int C, int l, int r, float pen) {
-      T[slot] = UpdTensor{R, C, a.tile_tx[slot], pen, a.ws[l], a.ws[r],
-                          nullptr, nullptr, a.param[slot], a.m[slot],
-                          a.v[slot]};
+      T[slot] = UpdTensor{R, C, a.tile_tx[slot], a.upd_ring[slot], pen,
+                          a.ws[l], a.ws[r], nullptr, nullptr, a.param[slot],
+                          a.m[slot], a.v[slot]};
     };
     auto bias = [&](int slot, int C, int g) {
-      T[slot] = UpdTensor{0, C, 0, 0.f, nullptr, a.ws[g], nullptr, nullptr,
-                          a.param[slot], a.m[slot], a.v[slot]};
+      T[slot] = UpdTensor{0, C, 0, 0, 0.f, nullptr, a.ws[g], nullptr,
+                          nullptr, a.param[slot], a.m[slot], a.v[slot]};
     };
     const int emb = a.variational ? EMB : MU;
     const int hb[4] = {emb, H1B, H2B, H3B};
@@ -352,7 +359,9 @@ struct ClsRunner {
     // one launch over the work list
     const UpdArgs u{static_cast<const UpdTensor*>(a.upd_desc),
                     reinterpret_cast<const int4*>(a.items), a.n_items,
-                    a.n_weight_items, a.batch, a.lr, a.wpen, st};
+                    a.n_weight_items, a.batch, a.upd_depth, a.upd_lfloats,
+                    a.upd_rfloats, a.upd_rbufs, a.upd_stage, a.lr, a.wpen,
+                    st};
     TRAIN_TRY(L.update_group<MT>(P_WADAM, u, a.bf16_ops));
     return cudaSuccess;
   }
@@ -391,6 +400,11 @@ int mmae_cls_train_run(const ClsArgs* a, int first_step, int num_steps,
   r.L.per_launch = launch_ms;
   UpdTensor desc[UPD_SLOTS] = {};
   r.update_tensors(desc);
+  if (!upd_ring_fits(desc, UPD_SLOTS, a->batch, a->upd_depth,
+                     a->upd_lfloats, a->upd_rfloats, a->upd_rbufs,
+                     a->upd_stage,
+                     a->bf16_moments ? 2 : 4))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemcpyAsync(a->upd_desc, desc, sizeof(desc),
                                     cudaMemcpyHostToDevice, r.L.s);
   if (err == cudaSuccess) err = r.L.create_events();

@@ -70,16 +70,27 @@ __device__ __forceinline__ void store_m(__nv_bfloat16* p, float x) {
 // count s + 1, lr_s = lr0 * rate^(s / decay_steps) with smooth decay.
 struct AdamStep { int step, decay; float decay_steps, decay_rate, eps2; };
 
-__device__ __forceinline__ void adam_scalars(const AdamStep& st, float lr0,
-                                             float* alpha, float* es2) {
-  const float cf = (float)(st.step + 1);
-  const float bc1 = 1.f - powf(ADAM_B1, cf);
-  const float bc2 = 1.f - powf(ADAM_B2, cf);
-  const float lr = st.decay
-      ? lr0 * powf(st.decay_rate, (float)st.step / st.decay_steps) : lr0;
-  *alpha = lr * sqrtf(bc2) / bc1;
-  *es2 = bc2 * st.eps2;
-}
+// The step's terms every instance shares, computed once a launch; alpha()
+// then takes an instance's lr0 through the same operations.
+struct AdamScalars {
+  float bc1, sq2, es2, rate;
+  int decay;
+
+  __device__ __forceinline__ explicit AdamScalars(const AdamStep& st) {
+    const float cf = (float)(st.step + 1);
+    bc1 = 1.f - powf(ADAM_B1, cf);
+    const float bc2 = 1.f - powf(ADAM_B2, cf);
+    sq2 = sqrtf(bc2);
+    es2 = bc2 * st.eps2;
+    decay = st.decay;
+    rate = decay ? powf(st.decay_rate, (float)st.step / st.decay_steps)
+                 : 1.f;
+  }
+  __device__ __forceinline__ float alpha(float lr0) const {
+    const float lr = decay ? lr0 * rate : lr0;
+    return lr * sq2 / bc1;
+  }
+};
 
 // One rsqrt Adam step in registers: the moments m and v move to this
 // step's values and the updated weight is returned.
@@ -324,7 +335,8 @@ struct Epilogue {
 
 template <typename MT> struct Moments4;
 template <> struct Moments4<float> {
-  float4 q[4];
+  using Q = float4;
+  Q q[4];
   __device__ __forceinline__ void load(const float* p, int row, int nc,
                                        bool vec) {
     if (vec && nc == 4) {
@@ -350,7 +362,8 @@ template <> struct Moments4<float> {
   }
 };
 template <> struct Moments4<__nv_bfloat16> {
-  uint2 q[4];
+  using Q = uint2;
+  Q q[4];
   __device__ __forceinline__ void load(const __nv_bfloat16* p, int row,
                                        int nc, bool vec) {
     if (vec && nc == 4) {
@@ -849,47 +862,82 @@ gemm_tile_kernel(const GemmArgs g, const EpiArgs e, int pw, int ty_rows) {
 
 // ------------------------------------------ one grouped update a step
 // Every weight gradient + L2 + Adam and every bias gradient + Adam of a
-// step in one persistent launch.  The blocks walk a work list of items
-// (slot, instance, row 0, column 0), built once a run on the host
-// (ops/train_deep_kernels.update_work_list): the weight tiles of the
-// largest tensors first, then the bias items of 256 columns.  A weight
-// tensor's tile is TR x TC = 4 ty x 4 tx, tx threads across and ty = 256
-// / tx rounded down to even, tx per tensor from the host (16: 64 x 64; a
-// narrow tensor takes tx = ceil(C / 4), so the 500 x 100 weight runs 40 x
-// 100 tiles with 250 of 256 threads busy).  A thread owns 4 x 4 elements.
-// It sums their gradients over the batch in exact f32 FMAs from the
-// layer-input and gradient tiles, staged WBK batch rows at a time through
-// two cp.async buffers; the next item's first chunk and its W, m and v
-// loads (into registers) are issued before this item's last sums, so they
-// land during this item's sums, L2 + Adam and stores.  A warp issues in
-// order, so nothing on that path waits on device memory for an address:
-// the tensors' descriptors are copied to shared memory once, and each
-// work-list entry is read one item ahead of its use (reading them where
-// they are used cost a third of the launch's time on an H100).  Where the
-// batch exceeds WBK rows (DEEP: phase 2's 100), it is staged in two
-// chunks of half the batch (at most UPD_DEEP_ROWS rows, in dynamic shared
-// memory), since on an H100 fewer, longer chunks hid the staging better
-// than 32- or 16-row ones; an item's own W, m and v are loaded at its
-// start, in flight during its sums, and no second set is held.  Every
-// gradient element is summed over b in order, the tied weight's encode
-// pair before its decode pair, then rsqrt Adam on acc + l2 * w
-// (adam_step), and every bias element over b in order from zero: each
-// bit for bit the first, separate weight- and bias-update kernels'.  With
-// bf16 operands (BF16, phase 2's compute_dtype) the layer inputs and
+// step in one persistent launch over a work list of items (slot,
+// instance, row 0, column 0), built once a run on the host
+// (ops/train_deep_kernels.update_plan): the weight tiles of the largest
+// tensors first, then the bias items of 256 columns.  An update thread
+// owns 4 x 4 elements of a tile of TR x TC = 4 ty x 4 tx.
+//
+// The update reads and writes every weight in f32 and both moments (16 B
+// a parameter with bf16 moments) and sums 2 B FLOP an element over the
+// batch.  The plan picks one of two paths for a launch, from the batch
+// and what shared memory holds (``depth``, 0 for the in-place path):
+//
+// - The ring path (B <= WBK: phase 1's 20).  Below the card's ridge, the
+//   W, m and v bytes have to stream: a tile spans whole rows (ty =
+//   WTHREADS / tx, tx = C / 4 up to 512 columns) or, for a wider tensor,
+//   a strip of them (504 of 1000), so an item's W, m and v are one
+//   contiguous run each (or one a row).  A copy warp moves them between
+//   global and shared memory by bulk copies (cp.async.bulk, spread over
+//   its lanes) through a ring of ``depth`` stages on mbarriers, ``depth``
+//   - 1 items ahead; the update threads take L2 + Adam in the stage, and
+//   the copy warp writes it back by bulk copies while the next items are
+//   summed.  On an H100, 4-row bulk items alone streamed W, m and v at
+//   2.82 TB/s against 1.7-2.2 TB/s for 64 x 64 tiles read into registers
+//   (PERF.md, section 6).  A block takes a contiguous share of the list,
+//   walking down strips, so a strip's gradient columns (pairs x B x TC
+//   floats) are staged once a strip, by bulk copies, into one of
+//   ``r_bufs`` buffers (two where they leave three stages, so the next
+//   strip's wait only for the sums of the strip two back), and each item
+//   stages only its TR layer-input rows by the copy warp's cp.async.
+//   Three stages or more kept the ring as fast as six, two lost a third
+//   (PERF.md, section 6).  A tensor the bulk copies cannot take (columns not
+//   a multiple of 4, a row or copy off 16 bytes, a pointer misaligned:
+//   the F = 30 widths, the heads' 50 and 3 columns) reads and writes its
+//   W, m and v in place at its L2 + Adam.
+// - The in-place path (B > WBK: phase 2's 100; or where two stages do
+//   not fit beside the gradients).  Its sums are 100 FMAs
+//   an element, near the ridge: 64 x 64 tiles, an item's own W, m, v
+//   read into registers at its start, in flight during the sums, and the
+//   batch staged by every thread in two chunks of half of it (at most
+//   UPD_DEEP_ROWS rows), since fewer, longer chunks hid the staging
+//   better than 16- to 32-row ones.  The ring's hand-offs cost more than
+//   they hid there (PERF.md, section 6).
+//
+// Both read each work-list entry one item ahead of its use (an entry read
+// where it is used stalled the in-order warps) and the tensors'
+// descriptors from shared memory, and take Adam's step terms once a
+// launch.  Every gradient element is summed over b in order, the tied
+// weight's encode pair before its decode pair, then rsqrt Adam on acc +
+// l2 * w (adam_step), and every bias element over b in order from zero:
+// each bit for bit the first, separate weight- and bias-update kernels'.
+// With bf16 operands (BF16, phase 2's compute_dtype) the layer inputs and
 // gradients are rounded as they are read.
-constexpr int WBK = 32, WTHREADS = 256;   // chunk rows, block threads
-constexpr int UPD_LD = 160;   // a staged batch row: TR + TC floats at most
-constexpr int UPD_DEEP_ROWS = 64;   // a DEEP chunk's batch rows at most
+constexpr int WTHREADS = 256;              // update threads a block
+constexpr int UPD_BLOCK = WTHREADS + 32;   // and the ring path's copy warp
+constexpr int WBK = 32;            // the ring path's batch at most
+constexpr int UPD_LD = 160;        // an in-place staged row: TR + TC floats
+constexpr int UPD_DEPTH_MAX = 6;   // stages of the ring at most
+constexpr int UPD_DEEP_ROWS = 64;  // an in-place chunk's batch rows at most
+constexpr int UPD_SLOTS = 66;  // descriptors (train_deep_kernel.cu NSLOT)
 
-// A DEEP chunk's batch rows: half the batch (so B = 100 takes two chunks
-// of 50), at most UPD_DEEP_ROWS.
+// An in-place chunk's batch rows: half the batch (so B = 100 takes two
+// chunks of 50), at most UPD_DEEP_ROWS.
 __host__ __device__ constexpr int upd_deep_rows(int B) {
   return (B + 1) / 2 < UPD_DEEP_ROWS ? (B + 1) / 2 : UPD_DEEP_ROWS;
 }
-constexpr int UPD_SLOTS = 66;  // descriptors (train_deep_kernel.cu NSLOT)
+
+// Dynamic shared memory of a ring launch: ``r_bufs`` buffers of a
+// strip's gradients, then ``depth`` stages of W, m, v and layer inputs.
+__host__ __device__ constexpr int upd_smem_bytes(int depth, int l_floats,
+                                                 int r_floats, int r_bufs,
+                                                 int stage_bytes) {
+  return 4 * r_floats * r_bufs + depth * (stage_bytes + 4 * l_floats);
+}
 
 struct UpdTensor {
   int R, C, tx;        // rows (0 for a bias), columns, tile threads across
+  int ring;            // W, m and v by bulk copies, else read in place
   float pen;           // the L2 factor: 2 for a tied weight, else 1
   const float* L; const float* Rm;   // the product pair (a bias: Rm = G)
   const float* L2; const float* R2;  // the second pair, or null
@@ -901,12 +949,58 @@ struct UpdArgs {
   const UpdTensor* T;  // by parameter slot, UPD_SLOTS of them
   const int4* items;   // (slot, instance, row 0, column 0)
   int n_items, n_weight, B;
+  int depth;           // the ring's stages (0: the in-place path)
+  int l_floats;        // a stage's layer inputs: pairs x B x the tallest TR
+  int r_floats;        // a strip's gradients: pairs x B x the widest TC
+  int r_bufs;          // buffers of them: 2 stages the next strip early
+  int stage_bytes;     // a stage's W, m, v: the largest ring tile's
   const float* lr; const float* wpen;
   AdamStep st;
 };
 
+// A ring tile's row stride in a stage: the tensor's columns where one
+// tile spans its rows, else the strip's 4 tx.
+__host__ __device__ inline int upd_ring_ld(int C, int tx) {
+  return 4 * tx < C ? 4 * tx : C;
+}
+
+// Whether a ring launch's buffers hold every weight tensor's tile
+// (``batch`` rows, up to two pairs) and whether every tensor marked for
+// the bulk copies lies as they need it: columns a multiple of 4, W, m and
+// v on 16 bytes, and each copy's offset and bytes multiples of 16 (rows
+// of C x moment bytes on 16 bytes, or whole-row tiles of an even row
+// count over an even number of rows).
+static bool upd_ring_fits(const UpdTensor* T, int n, int batch, int depth,
+                          int l_floats, int r_floats, int r_bufs,
+                          int stage_bytes, int mbytes) {
+  if (depth == 0) return true;
+  if (batch > WBK || depth < 2 || depth > UPD_DEPTH_MAX || l_floats % 4
+      || r_floats % 4 || r_bufs < 1 || r_bufs > 2 || stage_bytes % 16)
+    return false;
+  for (int s = 0; s < n; ++s) {
+    const UpdTensor& t = T[s];
+    if (t.R <= 0) continue;   // a bias
+    if (t.tx < 1 || t.tx > WTHREADS) return false;
+    const int TR = 4 * (WTHREADS / t.tx), TC = 4 * t.tx;
+    const int pairs = t.L2 ? 2 : 1;
+    if (pairs * batch * TR > l_floats || pairs * batch * TC > r_floats)
+      return false;
+    if (!t.ring) continue;
+    const int ld = upd_ring_ld(t.C, t.tx);
+    if (t.C % 4 || TR * ld * (4 + 2 * mbytes) > stage_bytes
+        || (reinterpret_cast<uintptr_t>(t.W) & 15)
+        || (reinterpret_cast<uintptr_t>(t.m) & 15)
+        || (reinterpret_cast<uintptr_t>(t.v) & 15))
+      return false;
+    const bool rows16 = t.C * mbytes % 16 == 0;
+    if (TC < t.C ? !rows16 || TC * mbytes % 16 : !rows16 && t.R % 2)
+      return false;
+  }
+  return true;
+}
+
 // Where a weight item's tile lies and which of its elements this thread
-// owns.
+// owns (the in-place path's tiles: thread rows rounded down to even).
 struct UpdTile {
   int slot, n, r0, c0, TR, TC, row0, col0, nc;
   bool active;
@@ -922,7 +1016,29 @@ struct UpdTile {
   }
 };
 
-// A thread's 4 x 4 of W, m and v.
+// A ring item's tile: TR x TC (ty = WTHREADS / tx), of which the item
+// spans tr x tc (the last row band or strip may be short), ``ld``
+// elements a stage row; this thread's first row and column in it.
+struct RingTile {
+  int slot, n, r0, c0, TR, TC, tr, tc, ld, ly, rx;
+  bool active;
+
+  __device__ __forceinline__ RingTile(const UpdTensor* T, int4 it,
+                                      int tid) {
+    slot = it.x; n = it.y; r0 = it.z; c0 = it.w;
+    const UpdTensor& t = T[slot];
+    const int tx = t.tx, ty = WTHREADS / tx;
+    TR = 4 * ty; TC = 4 * tx;
+    tr = min(TR, t.R - r0);
+    tc = min(TC, t.C - c0);
+    ld = upd_ring_ld(t.C, tx);
+    ly = 4 * (tid / tx);
+    rx = 4 * (tid % tx);
+    active = tid < tx * ty;
+  }
+};
+
+// A thread's 4 x 4 of W, m and v (the in-place path).
 template <typename MT>
 struct WmvTile {
   float4 w[4];
@@ -952,30 +1068,469 @@ struct WmvTile {
   }
 };
 
-template <typename MT, bool BF16, bool DEEP>
-__global__ void __launch_bounds__(WTHREADS, 2)
-update_group_kernel(const UpdArgs u) {
-  __shared__ UpdTensor T[UPD_SLOTS];
-  // two chunk buffers of ch batch rows: WBK in static shared memory, or
-  // for DEEP half the batch (at most UPD_DEEP_ROWS) in dynamic
-  extern __shared__ __align__(16) float upd_rows[];
-  float (*buf)[UPD_LD];
-  int ch = WBK;
-  if constexpr (DEEP) {
-    buf = reinterpret_cast<float (*)[UPD_LD]>(upd_rows);
-    ch = upd_deep_rows(u.B);
-  } else {
-    __shared__ __align__(16) float rows[2 * WBK][UPD_LD];
-    buf = rows;
+// A row's four moments as floats (16 bytes f32, 8 bf16), and back.
+__device__ __forceinline__ void moments_in(const char* p, const float*,
+                                           float (&f)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  f[0] = q.x; f[1] = q.y; f[2] = q.z; f[3] = q.w;
+}
+__device__ __forceinline__ void moments_in(const char* p,
+                                           const __nv_bfloat16*,
+                                           float (&f)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&q);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) f[c] = __bfloat162float(h[c]);
+}
+__device__ __forceinline__ void moments_out(char* p, const float*,
+                                            const float (&f)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+}
+__device__ __forceinline__ void moments_out(char* p, const __nv_bfloat16*,
+                                            const float (&f)[4]) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
+}
+
+// A row's first nc <= 4 values of W or a moment in place, as floats (16
+// or 8 bytes at once where ``vec`` and the row holds four), and back.
+template <typename T>
+__device__ __forceinline__ void load_row(const T* p, float (&f)[4], int nc,
+                                         bool vec) {
+  if (vec && nc == 4) {
+    moments_in(reinterpret_cast<const char*>(p), p, f);
+    return;
   }
-  const int tid = threadIdx.x;
-  const int B = u.B, chunks = (B + ch - 1) / ch;
-  for (int i = tid; i < (int)(sizeof(T) / 4); i += WTHREADS)
-    reinterpret_cast<int*>(T)[i] = reinterpret_cast<const int*>(u.T)[i];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) f[c] = c < nc ? load_m(p + c) : 0.f;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_row(T* p, const float (&f)[4], int nc,
+                                          bool vec) {
+  if (vec && nc == 4) {
+    moments_out(reinterpret_cast<char*>(p), p, f);
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (c < nc) store_m(p + c, f[c]);
+}
+
+// One weight item's sums over ``nb`` batch rows: this thread's 4 layer
+// inputs at ``l + ly`` and 4 gradients at ``r + rx``, ``lld`` and ``rld``
+// floats a row, b in order.
+template <bool BF16>
+__device__ __forceinline__ void upd_sums(const float* l, int lld,
+                                         const float* r, int rld, int nb,
+                                         int ly, int rx,
+                                         float (&acc)[4][4]) {
+#pragma unroll 4
+  for (int b = 0; b < nb; ++b) {
+    const float4 l4 = *reinterpret_cast<const float4*>(l + b * lld + ly);
+    const float4 r4 = *reinterpret_cast<const float4*>(r + b * rld + rx);
+    const float lv[4] = {operand<BF16>(l4.x), operand<BF16>(l4.y),
+                         operand<BF16>(l4.z), operand<BF16>(l4.w)};
+    const float rv[4] = {operand<BF16>(r4.x), operand<BF16>(r4.y),
+                         operand<BF16>(r4.z), operand<BF16>(r4.w)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(lv[i], rv[c], acc[i][c]);
+  }
+}
+
+// A weight item's L2 + Adam from this thread's sums and its W, m, v in
+// registers, and W, m, v back (the in-place path).
+template <typename MT>
+__device__ __forceinline__ void upd_adam(const UpdTensor& t,
+                                         const UpdTile& tl,
+                                         WmvTile<MT>& cur,
+                                         const float (&acc)[4][4],
+                                         float alpha, float es2, float l2) {
+  const bool vw = t.C % 4 == 0 && aligned16(t.W) && aligned16(t.m)
+                  && aligned16(t.v);
+  MT* mp = static_cast<MT*>(t.m);
+  MT* vp = static_cast<MT*>(t.v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (tl.row0 + i >= t.R || tl.nc == 0) continue;
+    const int64_t o = ((int64_t)tl.n * t.R + tl.row0 + i) * t.C + tl.col0;
+    float wn[4], mn[4], vn[4];
+    const float* wf = &cur.w[i].x;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      mn[c] = cur.m.get(i, c);
+      vn[c] = cur.v.get(i, c);
+      wn[c] = adam_step(wf[c], acc[i][c] + l2 * wf[c], mn[c], vn[c], alpha,
+                        es2);
+    }
+    if (vw && tl.nc == 4) {
+      *reinterpret_cast<float4*>(t.W + o) =
+          make_float4(wn[0], wn[1], wn[2], wn[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (c < tl.nc) t.W[o + c] = wn[c];
+    }
+    cur.m.store(mp + o, i, mn, tl.nc, vw);
+    cur.v.store(vp + o, i, vn, tl.nc, vw);
+  }
+}
+
+// Bias items: 256 columns of one instance's bias, a column a thread, each
+// summed over b in order from zero.
+template <typename MT>
+__device__ __forceinline__ void upd_biases(const UpdArgs& u,
+                                           const UpdTensor* T,
+                                           const AdamScalars& adam) {
+  const int tid = threadIdx.x, B = u.B;
+  for (int it = u.n_weight + blockIdx.x; it < u.n_items; it += gridDim.x) {
+    const int4 w = u.items[it];
+    const UpdTensor& t = T[w.x];
+    const int n = w.y, col = w.w + tid;
+    if (col >= t.C) continue;
+    const float* g = t.Rm + (int64_t)n * B * t.C + col;
+    float s = 0.f;
+    for (int b = 0; b < B; ++b) s += g[(int64_t)b * t.C];
+    const int64_t o = (int64_t)n * t.C + col;
+    t.W[o] = adam_apply(t.W[o], s, static_cast<MT*>(t.m) + o,
+                        static_cast<MT*>(t.v) + o, adam.alpha(u.lr[n]),
+                        adam.es2);
+  }
+}
+
+// ------------------------------------------------ bulk copies (the ring)
+__device__ __forceinline__ void bulk_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// ``bytes`` (a multiple of 16, both ends on 16 bytes) into shared memory,
+// completing on ``bar``; or back to global memory in the open bulk group.
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(smem)),
+      "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* gmem, const void* smem,
+                                          uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          gmem),
+      "r"(smem_addr(smem)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// This thread's bulk groups but the newest have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read1() {
+  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Generic-proxy writes to shared memory made visible to bulk copies.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Item ``tl``'s W, m and v between global memory and stage ``st`` (W,
+// then m at TR ld 4 bytes, then v): one copy each for a whole-row tile,
+// else one a row, spread over the copy warp's lanes.  Loads complete on
+// ``bar``, whose expectation lane 0 has set.
+template <typename MT, bool STORE>
+__device__ __forceinline__ void ring_wmv(const UpdTensor& t,
+                                         const RingTile& tl, char* st,
+                                         uint64_t* bar, int lane) {
+  constexpr int mb = sizeof(MT);
+  const bool whole = tl.ld == t.C;   // one tile spans the rows: c0 = 0
+  const int rows = whole ? 1 : tl.tr;
+  const int64_t len = whole ? (int64_t)tl.tr * t.C : tl.tc;
+  for (int q = lane; q < 3 * rows; q += 32) {
+    const int i = q / 3, a = q - 3 * i;   // row, then W, m or v
+    const int64_t o = ((int64_t)tl.n * t.R + tl.r0 + i) * t.C + tl.c0;
+    const int eb = a ? mb : 4;
+    char* const sp = st + (a ? tl.TR * tl.ld * (4 + (a - 1) * mb) : 0)
+                     + eb * i * tl.ld;
+    char* const gp = static_cast<char*>(a == 0 ? static_cast<void*>(t.W)
+                                        : a == 1 ? t.m : t.v) + eb * o;
+    if constexpr (STORE)
+      bulk_copy(gp, sp, (uint32_t)(eb * len));
+    else
+      bulk_copy(sp, gp, (uint32_t)(eb * len), bar);
+  }
+}
+
+// The copy warp's cp.async of ``width`` columns from ``start`` (zero past
+// ``limit``) of each of the B batch rows (``ld`` floats apart) of one or
+// two pairs' instance ``n`` into ``dst``: pair, then batch row, ``width``
+// floats a row.  One arrival on ``bar`` once they land.
+__device__ __forceinline__ void ring_rows(const float* p0, const float* p1,
+                                          int64_t ld, int n, int B,
+                                          int start, int width, int limit,
+                                          bool vec, float* dst, int lane,
+                                          uint64_t* bar) {
+  const int step = vec ? 4 : 1, per = width / step;
+  const int rows = (p1 ? 2 : 1) * B;   // pair-major batch rows
+  // lane's first piece and row, then 32 pieces on: a row and a piece on
+  const int dr = 32 / per, dj = (32 - dr * per) * step;
+  int r = lane / per, j = (lane - r * per) * step;
+  for (; r < rows; r += dr, j += dj) {
+    if (j >= width) { j -= width; ++r; if (r >= rows) break; }
+    const int p = r >= B, b = r - p * B;
+    const float* base = (p ? p1 : p0) + ((int64_t)n * B + b) * ld + start;
+    const bool in = start + j < limit;
+    if (vec)
+      cp_async16(dst + r * width + j, in ? base + j : p0, in ? 16 : 0);
+    else
+      cp_async4(dst + r * width + j, in ? base + j : p0, in ? 4 : 0);
+  }
+  cp_async_arrive(bar);
+}
+
+// The copy warp's gradients of the strip of item ``tl`` (its TC columns
+// of each pair's B rows) into ``dst``, completing on ``bar``: a bulk copy
+// a batch row where the rows lie on 16 bytes (columns past C left as they
+// are: only threads that store nothing read them), else 4-byte cp.async
+// zero-filled past C.
+__device__ __forceinline__ void ring_grads(const UpdTensor& t,
+                                           const RingTile& tl, int B,
+                                           float* dst, uint64_t* bar,
+                                           int lane) {
+  if (t.C % 4 == 0 && aligned16(t.Rm) && (!t.R2 || aligned16(t.R2))) {
+    const int rows = (t.R2 ? 2 : 1) * B;
+    if (lane == 0) bulk_expect(bar, (uint32_t)(rows * tl.tc * 4));
+    __syncwarp();
+    for (int r = lane; r < rows; r += 32) {
+      const int p = r >= B;
+      bulk_copy(dst + r * tl.TC,
+                (p ? t.R2 : t.Rm) + ((int64_t)tl.n * B + r - p * B) * t.C
+                    + tl.c0,
+                (uint32_t)(tl.tc * 4), bar);
+    }
+    cp_async_arrive(bar);
+  } else {
+    if (lane == 0) mbar_arrive(bar);
+    ring_rows(t.Rm, t.R2, t.C, tl.n, B, tl.c0, tl.TC, t.C, false, dst, lane,
+              bar);
+  }
+}
+
+// The ring path (B <= WBK): WTHREADS update threads and the copy warp,
+// upd_smem_bytes(u.depth, u.l_floats, u.r_floats, u.r_bufs,
+// u.stage_bytes) bytes of dynamic shared memory.
+template <typename MT, bool BF16>
+__device__ __forceinline__ void update_ring(const UpdArgs& u,
+                                            const UpdTensor* T,
+                                            const AdamScalars& adam) {
+  __shared__ uint64_t full[UPD_DEPTH_MAX], done[UPD_DEPTH_MAX];
+  __shared__ int4 staged[UPD_DEPTH_MAX];   // the copy warp's items in stages
+  __shared__ uint64_t r_full[2], r_free[2];
+  extern __shared__ __align__(128) char upd_smem[];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int S = u.depth, B = u.B;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 33);   // the bulk expectation + a lane's cp.async
+      mbar_init(&done[s], WTHREADS / 32);   // an update warp's
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&r_full[b], 33);   // lane 0's, and a lane's cp.async
+      mbar_init(&r_free[b], WTHREADS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
+  // strip q's gradients in buffer q % r_bufs, its use q / r_bufs
+  float* const rbuf = reinterpret_cast<float*>(upd_smem);
+  const int nb = u.r_bufs;
+  char* const ring = upd_smem + 4 * u.r_floats * nb;
+  const int sbytes = u.stage_bytes + 4 * u.l_floats;
+  // this block's share of the weight items, contiguous, so that it walks
+  // down a strip; slot -1 past its last
+  const int G = gridDim.x;
+  const int lo = (int)((long long)blockIdx.x * u.n_weight / G);
+  const int cnt = (int)((long long)(blockIdx.x + 1) * u.n_weight / G) - lo;
+  auto entry = [&](int k) {
+    return k < cnt ? u.items[lo + k] : make_int4(-1, 0, 0, 0);
+  };
+  auto same_strip = [](int4 a, int4 b) {
+    return a.x == b.x && a.y == b.y && a.w == b.w;
+  };
+
+  if (tid >= WTHREADS) {   // the copy warp
+    int strips = 0;   // strips staged
+    int4 prev = make_int4(-1, 0, 0, 0), e = entry(0);
+    for (int j = 0; j < cnt + S - 1; ++j) {
+      const int4 next = entry(j + 1);   // in flight during this pass
+      // item j - S + 1's stage back, once its L2 + Adam is done
+      const int js = j - (S - 1);
+      if (js >= 0) {
+        mbar_wait(&done[js % S], (js / S) & 1);
+        const int4 es = staged[js % S];
+        if (T[es.x].ring)
+          ring_wmv<MT, true>(T[es.x], RingTile(T, es, 0),
+                             ring + (js % S) * sbytes, nullptr, lane);
+        bulk_commit();   // a group a pass, empty or not
+      }
+      if (j < cnt) {
+        // item j into stage j % S, once item j - S's stores have read it
+        const int s = j % S;
+        char* const st = ring + s * sbytes;
+        const RingTile tl(T, e, 0);
+        const UpdTensor& t = T[tl.slot];
+        if (j >= S) bulk_wait_read1();
+        __syncwarp();
+        if (lane == 0) {
+          staged[s] = e;
+          if (t.ring)
+            bulk_expect(&full[s], (uint32_t)(tl.tr * tl.tc
+                                             * (4 + 2 * (int)sizeof(MT))));
+          else
+            mbar_arrive(&full[s]);
+        }
+        __syncwarp();
+        if (t.ring) ring_wmv<MT, false>(t, tl, st, &full[s], lane);
+        const bool lvec = t.R % 4 == 0 && aligned16(t.L)
+                          && (!t.L2 || aligned16(t.L2));
+        ring_rows(t.L, t.L2, t.R, tl.n, B, tl.r0, tl.TR, t.R, lvec,
+                  reinterpret_cast<float*>(st + u.stage_bytes), lane,
+                  &full[s]);
+        if (!same_strip(e, prev)) {
+          // the strip's gradients, once the sums of the strip that last
+          // used the buffer are done
+          const int b = strips % nb, use = strips / nb;
+          if (use > 0) mbar_wait(&r_free[b], (use - 1) & 1);
+          ring_grads(t, tl, B, rbuf + b * u.r_floats, &r_full[b], lane);
+          ++strips;
+        }
+        prev = e;
+        e = next;
+      }
+    }
+    bulk_wait_all();
+    return;
+  }
+
+  int strips = 0;      // strips begun
+  bool first = true;   // item k starts a strip
+  int4 e = entry(0);
+  for (int k = 0; k < cnt; ++k) {
+    const int4 next = entry(k + 1);   // in flight during this item
+    const RingTile tl(T, e, tid);
+    const UpdTensor& t = T[tl.slot];
+    const float lr0 = u.lr[tl.n], pen0 = u.wpen[tl.n];   // read by Adam
+    const bool last = !same_strip(e, next);
+    const int s = k % S;
+    char* const st = ring + s * sbytes;
+    if (first) {
+      mbar_wait(&r_full[strips % nb], (strips / nb) & 1);
+      ++strips;
+    }
+    const int rb = (strips - 1) % nb;
+    const float* const rs = rbuf + rb * u.r_floats;
+    mbar_wait(&full[s], (k / S) & 1);
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    if (tl.active) {
+      const float* ls = reinterpret_cast<const float*>(st + u.stage_bytes);
+      for (int p = 0; p < (t.L2 ? 2 : 1); ++p)
+        upd_sums<BF16>(ls + p * B * tl.TR, tl.TR, rs + p * B * tl.TC, tl.TC,
+                       B, tl.ly, tl.rx, acc);
+    }
+    if (last) {   // the strip's gradients are free
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&r_free[rb]);
+    }
+    // L2 + Adam, W, m, v in the stage (or in place) and back
+    const float alpha = adam.alpha(lr0), es2 = adam.es2, l2 = t.pen * pen0;
+    const int mb = sizeof(MT);
+    MT* const mp = static_cast<MT*>(t.m);
+    MT* const vp = static_cast<MT*>(t.v);
+    const bool vw = t.C % 4 == 0 && aligned16(t.W) && aligned16(t.m)
+                    && aligned16(t.v);
+    const int nc = tl.active ? max(0, min(4, tl.tc - tl.rx)) : 0;
+    const int rows = nc ? min(4, tl.tr - tl.ly) : 0;
+    char* const pw = st + 4 * (tl.ly * tl.ld + tl.rx);
+    char* const pm = st + tl.TR * tl.ld * 4 + mb * (tl.ly * tl.ld + tl.rx);
+    char* const pv = pm + tl.TR * tl.ld * mb;
+    const int64_t o = ((int64_t)tl.n * t.R + tl.r0 + tl.ly) * t.C + tl.c0
+                      + tl.rx;
+    // every row's W, m and v read before any is written back
+    float w[4][4], m[4][4], v[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i >= rows) continue;
+      if (t.ring) {
+        moments_in(pw + 4 * i * tl.ld, static_cast<const float*>(nullptr),
+                   w[i]);
+        moments_in(pm + mb * i * tl.ld, mp, m[i]);
+        moments_in(pv + mb * i * tl.ld, vp, v[i]);
+      } else {
+        load_row(t.W + o + i * t.C, w[i], nc, vw);
+        load_row(mp + o + i * t.C, m[i], nc, vw);
+        load_row(vp + o + i * t.C, v[i], nc, vw);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i >= rows) continue;
+      float wn[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wn[j] = adam_step(w[i][j], acc[i][j] + l2 * w[i][j], m[i][j],
+                          v[i][j], alpha, es2);
+      if (t.ring) {
+        moments_out(pw + 4 * i * tl.ld, static_cast<const float*>(nullptr),
+                    wn);
+        moments_out(pm + mb * i * tl.ld, mp, m[i]);
+        moments_out(pv + mb * i * tl.ld, vp, v[i]);
+      } else {
+        store_row(t.W + o + i * t.C, wn, nc, vw);
+        store_row(mp + o + i * t.C, m[i], nc, vw);
+        store_row(vp + o + i * t.C, v[i], nc, vw);
+      }
+    }
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&done[s]);
+    first = last;
+    e = next;
+  }
+  upd_biases<MT>(u, T, adam);
+}
+
+// The in-place path (depth 0: phase 2's batch of 100): WTHREADS threads, two
+// buffers of upd_deep_rows(B) batch rows in dynamic shared memory, each
+// chunk staged by every thread; an item's own W, m, v are read into
+// registers at its start, in flight during its sums.
+template <typename MT, bool BF16>
+__device__ __forceinline__ void update_in_place(const UpdArgs& u,
+                                                const UpdTensor* T,
+                                                const AdamScalars& adam) {
+  extern __shared__ __align__(16) float upd_rows[];
+  float (*buf)[UPD_LD] = reinterpret_cast<float (*)[UPD_LD]>(upd_rows);
+  const int tid = threadIdx.x, B = u.B, ch = upd_deep_rows(B);
+  const int chunks = (B + ch - 1) / ch;
 
   // Stage chunk q (pair q / chunks) of item ``tl`` into ``dst``: the layer
-  // input's TR rows, then the gradient's TC columns.
+  // input's TR rows, then the gradient's TC columns.  A thread copies one
+  // column piece of every pass-th row: one division a chunk where a loop
+  // over the chunk's copies takes one a copy.
   auto stage = [&](const UpdTile& tl, int q, float (*dst)[UPD_LD]) {
     const UpdTensor& t = T[tl.slot];
     const int pair = q / chunks, b0 = (q % chunks) * ch;
@@ -986,40 +1541,22 @@ update_group_kernel(const UpdArgs u) {
                      && aligned16(t.Rm)
                      && (!t.L2 || (aligned16(t.L2) && aligned16(t.R2)));
     const int step = vec ? 4 : 1, per = W / step;
-    if constexpr (DEEP) {
-      // a thread copies one column piece of every pass-th row: one
-      // division a chunk where the loop below takes one a copy
-      const int pass = WTHREADS / per, bt = tid / per;
-      const int j = (tid - bt * per) * step;
-      const bool lft = j < TR;
-      const int jj = lft ? tl.r0 + j : tl.c0 + j - TR;
-      const bool jin = jj < (lft ? t.R : t.C);
-      const int64_t ld = lft ? t.R : t.C;
-      const float* base = (lft ? lp : rp) + jj;
-      // threads past the last whole pass copy nothing
-      for (int b = bt < pass ? bt : ch; b < ch; b += pass) {
-        const int gb = b0 + b;
-        const bool in = jin && gb < B;
-        const float* src = base + gb * ld;
-        if (vec)
-          cp_async16(&dst[b][j], in ? src : lp, in ? 16 : 0);
-        else
-          cp_async4(&dst[b][j], in ? src : lp, in ? 4 : 0);
-      }
-    } else {
-      for (int e = tid; e < WBK * per; e += WTHREADS) {
-        const int b = e / per, j = (e - b * per) * step;
-        const int gb = b0 + b;
-        const bool lft = j < TR;
-        const int jj = lft ? tl.r0 + j : tl.c0 + j - TR;
-        const bool in = gb < B && jj < (lft ? t.R : t.C);
-        const float* src = lft ? lp + (int64_t)gb * t.R + jj
-                               : rp + (int64_t)gb * t.C + jj;
-        if (vec)
-          cp_async16(&dst[b][j], in ? src : lp, in ? 16 : 0);
-        else
-          cp_async4(&dst[b][j], in ? src : lp, in ? 4 : 0);
-      }
+    const int pass = WTHREADS / per, bt = tid / per;
+    const int j = (tid - bt * per) * step;
+    const bool lft = j < TR;
+    const int jj = lft ? tl.r0 + j : tl.c0 + j - TR;
+    const bool jin = jj < (lft ? t.R : t.C);
+    const int64_t ld = lft ? t.R : t.C;
+    const float* base = (lft ? lp : rp) + jj;
+    // threads past the last whole pass copy nothing
+    for (int b = bt < pass ? bt : ch; b < ch; b += pass) {
+      const int gb = b0 + b;
+      const bool in = jin && gb < B;
+      const float* src = base + gb * ld;
+      if (vec)
+        cp_async16(&dst[b][j], in ? src : lp, in ? 16 : 0);
+      else
+        cp_async4(&dst[b][j], in ? src : lp, in ? 4 : 0);
     }
     cp_async_commit();
   };
@@ -1030,12 +1567,7 @@ update_group_kernel(const UpdArgs u) {
   const int4 none = make_int4(0, 0, 0, 0);
   int4 it_cur = item < u.n_weight ? u.items[item] : none;
   int4 it_next = item + G < u.n_weight ? u.items[item + G] : none;
-  WmvTile<MT> cur;
-  if (item < u.n_weight) {
-    const UpdTile tl(T, it_cur, tid);
-    stage(tl, 0, buf);
-    if (!DEEP) cur.load(T[tl.slot], tl);
-  }
+  if (item < u.n_weight) stage(UpdTile(T, it_cur, tid), 0, buf);
   for (; item < u.n_weight; item += G) {
     const UpdTile tl(T, it_cur, tid);
     const UpdTensor& t = T[tl.slot];
@@ -1043,9 +1575,8 @@ update_group_kernel(const UpdArgs u) {
     // the entry after next, read now and used one item later
     const int4 it_after = next + G < u.n_weight ? u.items[next + G] : none;
     const int steps = (t.L2 ? 2 : 1) * chunks;
-    // DEEP: this item's W, m, v, in flight during its sums
-    if (DEEP) cur.load(t, tl);
-    WmvTile<MT> nxt;
+    WmvTile<MT> cur;
+    cur.load(t, tl);   // in flight during the sums
     float acc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -1056,88 +1587,44 @@ update_group_kernel(const UpdArgs u) {
         stage(tl, s + 1, buf + ((q + 1) & 1) * ch);
         cp_async_wait<1>();
       } else if (next < u.n_weight) {
-        // the next item's first chunk (and, but for DEEP, its W, m, v): in
-        // flight during this item's last sums and its epilogue
-        const UpdTile tn(T, it_next, tid);
-        stage(tn, 0, buf + ((q + 1) & 1) * ch);
-        if (!DEEP) nxt.load(T[tn.slot], tn);
+        // the next item's first chunk, in flight during this item's last
+        // sums and its epilogue
+        stage(UpdTile(T, it_next, tid), 0, buf + ((q + 1) & 1) * ch);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
       __syncthreads();
-      const int nb = min(ch, B - (s % chunks) * ch);
-      const float (*bq)[UPD_LD] = buf + (q & 1) * ch;
-      const int ly = tl.row0 - tl.r0, rx = tl.TR + tl.col0 - tl.c0;
       if (tl.active) {
-#pragma unroll 4
-        for (int b = 0; b < nb; ++b) {
-          const float4 l4 = *reinterpret_cast<const float4*>(&bq[b][ly]);
-          const float4 r4 = *reinterpret_cast<const float4*>(&bq[b][rx]);
-          const float lv[4] = {operand<BF16>(l4.x), operand<BF16>(l4.y),
-                               operand<BF16>(l4.z), operand<BF16>(l4.w)};
-          const float rv[4] = {operand<BF16>(r4.x), operand<BF16>(r4.y),
-                               operand<BF16>(r4.z), operand<BF16>(r4.w)};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              acc[i][c] = fmaf(lv[i], rv[c], acc[i][c]);
-        }
+        const float* bq = &buf[(q & 1) * ch][0];
+        upd_sums<BF16>(bq, UPD_LD, bq, UPD_LD, min(ch, B - (s % chunks) * ch),
+                       tl.row0 - tl.r0, tl.TR + tl.col0 - tl.c0, acc);
       }
       __syncthreads();   // the buffer is free for chunk q + 2
     }
-    // L2 + Adam, and W, m, v back
-    float alpha, es2;
-    adam_scalars(u.st, u.lr[tl.n], &alpha, &es2);
-    const float l2 = t.pen * u.wpen[tl.n];
-    const bool vw = t.C % 4 == 0 && aligned16(t.W) && aligned16(t.m)
-                    && aligned16(t.v);
-    MT* mp = static_cast<MT*>(t.m);
-    MT* vp = static_cast<MT*>(t.v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (tl.row0 + i >= t.R || tl.nc == 0) continue;
-      const int64_t o = ((int64_t)tl.n * t.R + tl.row0 + i) * t.C + tl.col0;
-      float wn[4], mn[4], vn[4];
-      const float* wf = &cur.w[i].x;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        mn[c] = cur.m.get(i, c);
-        vn[c] = cur.v.get(i, c);
-        wn[c] = adam_step(wf[c], acc[i][c] + l2 * wf[c], mn[c], vn[c],
-                          alpha, es2);
-      }
-      if (vw && tl.nc == 4) {
-        *reinterpret_cast<float4*>(t.W + o) =
-            make_float4(wn[0], wn[1], wn[2], wn[3]);
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (c < tl.nc) t.W[o + c] = wn[c];
-      }
-      cur.m.store(mp + o, i, mn, tl.nc, vw);
-      cur.v.store(vp + o, i, vn, tl.nc, vw);
-    }
-    if (!DEEP) cur = nxt;
+    upd_adam<MT>(t, tl, cur, acc, adam.alpha(u.lr[tl.n]), adam.es2,
+                 t.pen * u.wpen[tl.n]);
     it_cur = it_next;
     it_next = it_after;
   }
-  // bias items: 256 columns of one instance's bias, a column a thread
-  for (int it = u.n_weight + blockIdx.x; it < u.n_items; it += gridDim.x) {
-    const int4 w = u.items[it];
-    const UpdTensor& t = T[w.x];
-    const int n = w.y, col = w.w + tid;
-    if (col >= t.C) continue;
-    const float* g = t.Rm + (int64_t)n * B * t.C + col;
-    float s = 0.f;
-    for (int b = 0; b < B; ++b) s += g[(int64_t)b * t.C];
-    float alpha, es2;
-    adam_scalars(u.st, u.lr[n], &alpha, &es2);
-    const int64_t o = (int64_t)n * t.C + col;
-    t.W[o] = adam_apply(t.W[o], s, static_cast<MT*>(t.m) + o,
-                        static_cast<MT*>(t.v) + o, alpha, es2);
-  }
+  upd_biases<MT>(u, T, adam);
+}
+
+// The in-place path on WTHREADS threads (INPLACE: a plan of depth 0),
+// else the ring path on UPD_BLOCK.
+template <typename MT, bool BF16, bool INPLACE>
+__global__ void __launch_bounds__(INPLACE ? WTHREADS : UPD_BLOCK,
+                                  INPLACE ? 2 : 1)
+update_group_kernel(const UpdArgs u) {
+  __shared__ UpdTensor T[UPD_SLOTS];
+  for (int i = threadIdx.x; i < (int)(sizeof(T) / 4); i += blockDim.x)
+    reinterpret_cast<int*>(T)[i] = reinterpret_cast<const int*>(u.T)[i];
+  __syncthreads();
+  const AdamScalars adam(u.st);
+  if constexpr (INPLACE)
+    update_in_place<MT, BF16>(u, T, adam);
+  else
+    update_ring<MT, BF16>(u, T, adam);
 }
 
 // ------------------------------------------------------- host helpers
@@ -1214,37 +1701,46 @@ static cudaError_t launch_gemm_tile(const GemmArgs& g, const EpiArgs& e,
 }
 
 // The grouped update: as many persistent blocks as fit the SMs (or one an
-// item), the occupancy asked once per device and instantiation.
-template <typename MT, bool BF16, bool DEEP>
+// item) at the launch's shared memory, the limit raised and the occupancy
+// asked once per device, instantiation and size.
+template <typename MT, bool BF16, bool INPLACE>
 static cudaError_t launch_update_group(const UpdArgs& u,
                                        cudaStream_t stream) {
-  // DEEP's two chunk buffers in dynamic shared memory, the limit raised
-  // once per device and instantiation with the occupancy asked at it
-  constexpr int max_smem = DEEP ? 2 * UPD_DEEP_ROWS * UPD_LD * 4 : 0;
-  const int smem = DEEP ? 2 * upd_deep_rows(u.B) * UPD_LD * 4 : 0;
-  static int occ[MAX_DEVICES] = {};
+  if (!INPLACE && (u.depth < 2 || u.depth > UPD_DEPTH_MAX || u.B > WBK
+                   || u.l_floats < 4 || u.l_floats % 4 || u.r_floats < 4
+                   || u.r_floats % 4 || u.r_bufs < 1 || u.r_bufs > 2
+                   || u.stage_bytes < 16 || u.stage_bytes % 16))
+    return cudaErrorInvalidValue;
+  const int threads = INPLACE ? WTHREADS : UPD_BLOCK;
+  const int smem = INPLACE ? 2 * upd_deep_rows(u.B) * UPD_LD * 4
+                           : upd_smem_bytes(u.depth, u.l_floats, u.r_floats,
+                                            u.r_bufs, u.stage_bytes);
+  static int raised[MAX_DEVICES] = {}, asked[MAX_DEVICES] = {},
+             occ[MAX_DEVICES] = {};
   int device = 0;
   if (cudaGetDevice(&device) != cudaSuccess || device < 0
       || device >= MAX_DEVICES)
     return cudaErrorInvalidDevice;
-  if (!occ[device]) {
-    if (DEEP) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          update_group_kernel<MT, BF16, DEEP>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
-      if (err != cudaSuccess) return err;
-    }
+  if (smem > raised[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        update_group_kernel<MT, BF16, INPLACE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    raised[device] = smem;
+  }
+  if (asked[device] != smem) {
     int blocks = 0;
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, update_group_kernel<MT, BF16, DEEP>, WTHREADS, max_smem);
+        &blocks, update_group_kernel<MT, BF16, INPLACE>, threads, smem);
     if (err != cudaSuccess) return err;
     occ[device] = blocks > 0 ? blocks : 1;
+    asked[device] = smem;
   }
   const long long cap = (long long)occ[device] * device_sms();
   const long long blocks = u.n_items < cap ? u.n_items : cap;
   if (blocks <= 0) return cudaErrorInvalidValue;
-  update_group_kernel<MT, BF16, DEEP>
-      <<<(unsigned)blocks, WTHREADS, smem, stream>>>(u);
+  update_group_kernel<MT, BF16, INPLACE>
+      <<<(unsigned)blocks, threads, smem, stream>>>(u);
   return cudaGetLastError();
 }
 
@@ -1389,8 +1885,9 @@ struct Launcher {
   template <typename MT>
   cudaError_t update_group(int type, const UpdArgs& u, int bf16 = 0) {
     cudaError_t err;
+    const bool in_place = u.depth == 0;
     if constexpr (TRAIN_BF16_OPERANDS) {
-      if (u.B > WBK)
+      if (in_place)
         err = bf16 ? launch_update_group<MT, true, true>(u, s)
                    : launch_update_group<MT, false, true>(u, s);
       else
@@ -1398,8 +1895,8 @@ struct Launcher {
                    : launch_update_group<MT, false, false>(u, s);
     } else {
       err = bf16 ? cudaErrorInvalidValue
-            : u.B > WBK ? launch_update_group<MT, false, true>(u, s)
-                        : launch_update_group<MT, false, false>(u, s);
+            : in_place ? launch_update_group<MT, false, true>(u, s)
+                       : launch_update_group<MT, false, false>(u, s);
     }
     if (err != cudaSuccess) return err;
     return mark(type);

@@ -43,11 +43,14 @@
 // 16 B a parameter with bf16 moments (1.49 GB a step, 0.44 ms at 3.35
 // TB/s), against about 40 FLOP per weight element; bytes bound it, as for
 // depth 2 (ops/train_deep_kernels.deep_step_bound computes it; each
-// launch's own bound: deep_launch_bounds).  Measured (PERF.md, PR 12):
-// the update runs at about 57 % of its bound and the 1000-wide products
-// at 41-53 % of theirs, as torch.bmm does; their copies alone, with no
-// FMAs, reach about 60 %, and neither the tensor-map engine nor deeper
-// rings, wider panels or L2 prefetches moved them.  Random
+// launch's own bound: deep_launch_bounds).  At B = 20 the grouped update
+// streams W, m and v through a shared-memory ring by bulk copies, a copy
+// warp keeping the next items' in flight and writing the last ones back
+// under the sums (train_common.cuh), where a register tile loaded one
+// item ahead left the reads in bursts (57 % of its bound, PERF.md).  The 1000-wide products run at
+// 41-53 % of theirs, as torch.bmm does; their copies alone, with no FMAs,
+// reach about 60 %, and neither the tensor-map engine nor deeper rings,
+// wider panels or L2 prefetches moved them.  Random
 // numbers come from Philox4x32-10 with the deep purposes (philox.cuh); the
 // plain PyTorch twin (ops/train_deep_kernels.train_deep_kernel_reference)
 // draws the same bits.
@@ -85,6 +88,8 @@ struct DeepArgs {
   int panel[MAX_PRODUCTS]; // each product's panel width, in launch order
   int tile_tx[NSLOT];      // each weight slot's update tile threads across
   int n_items, n_weight_items;   // the update's work list
+  int upd_ring[NSLOT];     // each weight slot's W, m, v through the ring
+  int upd_depth, upd_lfloats, upd_rfloats, upd_rbufs, upd_stage;  // UpdArgs
   float elem_p, mask_value, decay_steps, decay_rate;
   float adam_eps2;         // Adam's eps squared
   const int* seeds;        // (N,) instance seeds, >= 0
@@ -234,14 +239,14 @@ struct DeepRunner {
     const int* d = a.dims;
     auto weight = [&](int slot, int R, int C, int l, int r, int l2, int r2,
                       float pen) {
-      T[slot] = UpdTensor{R, C, a.tile_tx[slot], pen, a.ws[l], a.ws[r],
-                          l2 < 0 ? nullptr : a.ws[l2],
+      T[slot] = UpdTensor{R, C, a.tile_tx[slot], a.upd_ring[slot], pen,
+                          a.ws[l], a.ws[r], l2 < 0 ? nullptr : a.ws[l2],
                           r2 < 0 ? nullptr : a.ws[r2], a.param[slot],
                           a.m[slot], a.v[slot]};
     };
     auto bias = [&](int slot, int C, int g) {
-      T[slot] = UpdTensor{0, C, 0, 0.f, nullptr, a.ws[g], nullptr, nullptr,
-                          a.param[slot], a.m[slot], a.v[slot]};
+      T[slot] = UpdTensor{0, C, 0, 0, 0.f, nullptr, a.ws[g], nullptr,
+                          nullptr, a.param[slot], a.m[slot], a.v[slot]};
     };
     // a tied weight also takes decode layer L-1-i's product, transposed
     for (int i = 0; i < D; ++i) {
@@ -362,7 +367,9 @@ struct DeepRunner {
     // every weight and bias update, in one launch over the work list
     const UpdArgs u{static_cast<const UpdTensor*>(a.upd_desc),
                     reinterpret_cast<const int4*>(a.items), a.n_items,
-                    a.n_weight_items, a.batch, a.lr, a.wpen, st};
+                    a.n_weight_items, a.batch, a.upd_depth, a.upd_lfloats,
+                    a.upd_rfloats, a.upd_rbufs, a.upd_stage, a.lr, a.wpen,
+                    st};
     return L.update_group<MT>(P_WADAM, u);
   }
 };
@@ -415,6 +422,11 @@ int mmae_deep_train_run(const DeepArgs* a, int first_step, int num_steps,
   r.L.per_launch = launch_ms;
   UpdTensor desc[NSLOT] = {};
   r.update_tensors(desc);
+  if (!upd_ring_fits(desc, NSLOT, a->batch, a->upd_depth,
+                     a->upd_lfloats, a->upd_rfloats, a->upd_rbufs,
+                     a->upd_stage,
+                     a->bf16_moments ? 2 : 4))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemcpyAsync(a->upd_desc, desc, sizeof(desc),
                                     cudaMemcpyHostToDevice, r.L.s);
   if (err == cudaSuccess) err = r.L.create_events();

@@ -48,8 +48,13 @@
 // do 2.2e8 FLOP per instance (1.35e10 a step, 0.20 ms at 67 TFLOP/s f32).
 // The products have M = B = 20 rows, 40 FLOP per weight element read:
 // above the f32 ridge of ~20 FLOP/B only if the CUDA cores run near peak.
-// ops/train_kernels.step_bound() computes the bound from the shapes, and
-// launch_bounds() each launch's own.
+// The grouped update reads and writes every W, m and v element for 2 B =
+// 40 FLOP: bytes bound it, so at B = 20 it streams them through a
+// shared-memory ring by bulk copies, a copy warp keeping the next items'
+// W, m and v in flight and writing the last ones back while the update
+// threads sum (train_common.cuh), where 64 x 64 register tiles loaded
+// one item ahead read them in bursts (56-57 % of its bound, PERF.md).  ops/train_kernels.step_bound() computes the bound from the
+// shapes, and launch_bounds() each launch's own.
 //
 // Semantics are the Pallas kernel's, not XLA's (ROADMAP Queue 3):
 // - element corruption is Bernoulli at the marginal rate
@@ -85,6 +90,8 @@ struct TrainArgs {
   int panel[MAX_PRODUCTS]; // each product's panel width, in launch order
   int tile_tx[NSLOT];      // each weight slot's update tile threads across
   int n_items, n_weight_items;   // the update's work list
+  int upd_ring[NSLOT];     // each weight slot's W, m, v through the ring
+  int upd_depth, upd_lfloats, upd_rfloats, upd_rbufs, upd_stage;  // UpdArgs
   float elem_p, mask_value, decay_steps, decay_rate;
   const int* seeds;        // (N,) instance seeds, >= 0
   const int* fold;         // (N,)
@@ -206,14 +213,14 @@ struct Runner {
     const int z2 = a.variational ? Z2 : MU;
     auto weight = [&](int slot, int R, int C, int l, int r, int l2, int r2,
                       float pen) {
-      T[slot] = UpdTensor{R, C, a.tile_tx[slot], pen, a.ws[l], a.ws[r],
-                          l2 < 0 ? nullptr : a.ws[l2],
+      T[slot] = UpdTensor{R, C, a.tile_tx[slot], a.upd_ring[slot], pen,
+                          a.ws[l], a.ws[r], l2 < 0 ? nullptr : a.ws[l2],
                           r2 < 0 ? nullptr : a.ws[r2], a.param[slot],
                           a.m[slot], a.v[slot]};
     };
     auto bias = [&](int slot, int C, int g) {
-      T[slot] = UpdTensor{0, C, 0, 0.f, nullptr, a.ws[g], nullptr, nullptr,
-                          a.param[slot], a.m[slot], a.v[slot]};
+      T[slot] = UpdTensor{0, C, 0, 0, 0.f, nullptr, a.ws[g], nullptr,
+                          nullptr, a.param[slot], a.m[slot], a.v[slot]};
     };
     // a tied weight also takes its decode product, transposed
     if (a.tied) {
@@ -311,7 +318,9 @@ struct Runner {
     // every weight and bias update, in one launch over the work list
     const UpdArgs u{static_cast<const UpdTensor*>(a.upd_desc),
                     reinterpret_cast<const int4*>(a.items), a.n_items,
-                    a.n_weight_items, a.batch, a.lr, a.wpen, st};
+                    a.n_weight_items, a.batch, a.upd_depth, a.upd_lfloats,
+                    a.upd_rfloats, a.upd_rbufs, a.upd_stage, a.lr, a.wpen,
+                    st};
     return L.update_group<MT>(P_WADAM, u);
   }
 };
@@ -347,6 +356,11 @@ int mmae_train_run(const TrainArgs* a, int first_step, int num_steps,
   r.L.per_launch = launch_ms;
   UpdTensor desc[UPD_SLOTS] = {};
   r.update_tensors(desc);
+  if (!upd_ring_fits(desc, UPD_SLOTS, a->batch, a->upd_depth,
+                     a->upd_lfloats, a->upd_rfloats, a->upd_rbufs,
+                     a->upd_stage,
+                     a->bf16_moments ? 2 : 4))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemcpyAsync(a->upd_desc, desc, sizeof(desc),
                                     cudaMemcpyHostToDevice, r.L.s);
   if (err == cudaSuccess) err = r.L.create_events();

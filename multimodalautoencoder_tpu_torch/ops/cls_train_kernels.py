@@ -38,7 +38,7 @@ lives in device memory, so :func:`supported_two_phase` differs from it
 only there.  What bounds a step: :func:`cls_step_bound`; each launch:
 :func:`cls_launch_bounds`.  The host plans each run once: every product's
 panel and thread tile (:func:`cls_product_plan`) and the grouped update's
-work list (:func:`cls_update_work_list`).
+work list and ring (``train_deep_kernels.update_plan``).
 """
 
 from __future__ import annotations
@@ -110,7 +110,11 @@ class ClsArgs(ctypes.Structure):
         + [("panel", ctypes.c_int * MAX_PRODUCTS),
            ("tile_cols", ctypes.c_int * MAX_PRODUCTS),
            ("tile_tx", ctypes.c_int * len(SLOTS)),
-           ("n_items", ctypes.c_int), ("n_weight_items", ctypes.c_int)]
+           ("n_items", ctypes.c_int), ("n_weight_items", ctypes.c_int),
+           ("upd_ring", ctypes.c_int * len(SLOTS))]
+        + [(n, ctypes.c_int) for n in ("upd_depth", "upd_lfloats",
+                                       "upd_rfloats", "upd_rbufs",
+                                       "upd_stage")]
         + [(n, ctypes.c_float) for n in ("elem_p", "mask_value",
                                          "adam_eps")]
         + [(n, ctypes.c_void_p) for n in (
@@ -473,16 +477,18 @@ def cls_update_work_list(feats: int, h1: int, dims: Sequence[int],
 @functools.lru_cache(maxsize=32)
 def _run_plan(feats: int, h1: int, dims: Tuple[int, ...],
               gates: Tuple[bool, ...], variational: bool, n_inst: int,
-              batch: int, sms: int):
+              batch: int, sms: int, moment_bytes: int = 2,
+              misaligned: Tuple[int, ...] = ()):
     """A run's plan, made once a shape: each product's panel width and
     thread columns, the update's work list (a CPU tensor), its weight
-    items and tile widths."""
+    items, tile widths and ring (``train_deep_kernels.update_plan``)."""
     plan = cls_product_plan(feats, h1, dims, gates, variational, n_inst,
                             batch, sms)
-    items, n_weight, tile_tx = cls_update_work_list(feats, h1, dims,
-                                                    variational, n_inst)
+    weights, biases, _ = cls_update_tensors(feats, h1, dims, variational)
+    items, n_weight, tile_tx, ring = train_deep_kernels.update_plan(
+        weights, biases, n_inst, batch, moment_bytes, misaligned)
     return (tuple(p["panel"] for p in plan), tuple(p["cols"] for p in plan),
-            torch.from_numpy(items), n_weight, tuple(tile_tx.items()))
+            torch.from_numpy(items), n_weight, tuple(tile_tx.items()), ring)
 
 
 # ----------------------------------------------------------------- state
@@ -837,9 +843,13 @@ def train_cls_kernel(run: ClsRun, first_step: int, num_steps: int,
         ws = [torch.empty((N, B, width.get(name, H2)), dtype=torch.float32,
                           device=dev) for name in BUFFERS]
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        panels, cols, items, n_weight, tile_tx = _run_plan(
+        mbytes = 2 if run.bf16_moments else 4
+        weights, _, _ = cls_update_tensors(F, H1, run.dims, run.variational)
+        panels, cols, items, n_weight, tile_tx, ring = _run_plan(
             F, H1, tuple(run.dims), tuple(run.gates), bool(run.variational), N,
-            B, sms)
+            B, sms, mbytes, train_deep_kernels.misaligned_slots(
+                [(s, run.params[s], run.m[s], run.v[s])
+                 for s, _, _ in weights]))
         items_dev = items.to(dev)
         desc = torch.empty(train_deep_kernels.NSLOT
                            * train_deep_kernels.DESC_BYTES, dtype=torch.uint8,
@@ -870,8 +880,7 @@ def train_cls_kernel(run: ClsRun, first_step: int, num_steps: int,
         for i, (pw, tc) in enumerate(zip(panels, cols)):
             args.panel[i] = pw
             args.tile_cols[i] = tc
-        for slot, tx in tile_tx:
-            args.tile_tx[slot] = tx
+        train_deep_kernels.set_update_args(args, tile_tx, ring)
         for i in range(len(SLOTS)):
             args.param[i] = ptr(run.params[i])
             args.m[i] = ptr(run.m[i])
@@ -892,7 +901,9 @@ def train_cls_kernel(run: ClsRun, first_step: int, num_steps: int,
         err = lib.mmae_cls_train_run(ctypes.byref(args), int(first_step),
                                      int(num_steps), ctypes.byref(launches),
                                      arg(prof), arg(each), stream)
-        sp.count(launches=launches.value)
+        sp.count(launches=launches.value,
+                 upd_ring_items=ring.ring_items * num_steps,
+                 upd_fallback_items=ring.fallback_items * num_steps)
     KERNELS.count(launches.value)
     KERNELS.check(err, "mmae_cls_train_run")
     if profile is not None:

@@ -31,7 +31,7 @@ order (:595-596, :1192-1213): ``encW(L), decW(L, untied only), encB(L),
 decB(L), wv, bv``.  What bounds a step: :func:`deep_step_bound`; each
 launch: :func:`deep_launch_bounds`.  The host plans each run once: every
 product's panel width (:func:`product_plan`) and the grouped update's
-work list (:func:`update_work_list`).
+work list and ring (:func:`update_plan`).
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ import ctypes
 import dataclasses
 import functools
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -78,15 +78,24 @@ MAX_PRODUCTS = 4 * MAX_DEPTH
 # holds
 PANEL_WIDTHS = (64, 32, 16)
 BATCH_ROWS = 24
-# update_group_kernel: threads a block, rows of a thread's elements, bias
-# columns an item, bytes of one tensor's descriptor (``UpdTensor``, at
-# most)
+# update_group_kernel: update threads a block, rows of a thread's
+# elements, bias columns an item, bytes of one tensor's descriptor
+# (``UpdTensor``, at most)
 UPDATE_THREADS = 256
 UPDATE_ROWS = 4
 BIAS_COLS = 256
 DESC_BYTES = 128
 H100_SMS = 132
-
+# its ring path (train_common.cuh): the batch it takes at most (WBK; a
+# larger batch takes the in-place path), its stages at most
+# (UPD_DEPTH_MAX) and the widest tile, wider tensors split into strips
+UPDATE_RING_MAX_BATCH = 32
+UPDATE_MAX_DEPTH = 6
+UPDATE_STRIP_COLS = 512
+# shared memory of an H100 block at most, and the update's static tables
+# (UPD_SLOTS descriptors and the ring's barriers) with room to spare
+BLOCK_SHARED_BYTES = 232448
+UPDATE_STATIC_BYTES = 6144
 
 class DeepArgs(ctypes.Structure):
     """``struct DeepArgs`` of csrc/train_deep_kernel.cu, field for field."""
@@ -98,7 +107,11 @@ class DeepArgs(ctypes.Structure):
         + [("dims", ctypes.c_int * (MAX_DEPTH + 1)),
            ("panel", ctypes.c_int * MAX_PRODUCTS),
            ("tile_tx", ctypes.c_int * NSLOT),
-           ("n_items", ctypes.c_int), ("n_weight_items", ctypes.c_int)]
+           ("n_items", ctypes.c_int), ("n_weight_items", ctypes.c_int),
+           ("upd_ring", ctypes.c_int * NSLOT)]
+        + [(n, ctypes.c_int) for n in ("upd_depth", "upd_lfloats",
+                                       "upd_rfloats", "upd_rbufs",
+                                       "upd_stage")]
         + [(n, ctypes.c_float) for n in (
             "elem_p", "mask_value", "decay_steps", "decay_rate",
             "adam_eps2")]
@@ -201,20 +214,31 @@ def product_plan(sizes: Sequence[int], tied: bool, variational: bool,
     return out
 
 
-def update_tile_threads(cols: int) -> int:
+def update_tile_threads(cols: int, ring: bool = False) -> int:
     """update_group_kernel's threads across a weight tile of ``cols``
-    columns: 16 unless the columns end in a partial 64, up to 128
-    columns, where one tile spans them (at least 8 threads)."""
+    columns.  In-place path: 16 unless the columns end in a partial 64,
+    up to 128 columns, where one tile spans them.  Ring path: one tile
+    spans the columns up to UPDATE_STRIP_COLS; a wider tensor splits into
+    strips of equal width rounded up to 8 columns (1000: 504).  At least
+    8 threads."""
+    if ring:
+        strips = -(-cols // UPDATE_STRIP_COLS)
+        width = -(-cols // strips)
+        if strips > 1:
+            width = -(-width // 8) * 8
+        return max(8, -(-width // 4))
     if cols > 128 or cols % 64 == 0:
         return 16
     return max(8, -(-cols // 4))
 
 
-def update_tile(tx: int) -> Tuple[int, int]:
+def update_tile(tx: int, ring: bool = False) -> Tuple[int, int]:
     """(rows, columns) of an update tile with ``tx`` threads across: each
-    thread owns UPDATE_ROWS x 4 elements, the thread rows (256 / tx) are
-    rounded down to even (64 x 64 at tx = 16, 40 x 100 at tx = 25)."""
-    return UPDATE_ROWS * ((UPDATE_THREADS // tx) & ~1), 4 * tx
+    thread owns UPDATE_ROWS x 4 elements over 256 / tx thread rows,
+    rounded down to even on the in-place path (64 x 64 at tx = 16, 40 x
+    100 at tx = 25; ring path: 8 x 504 at tx = 126, 12 x 300 at 75)."""
+    ty = UPDATE_THREADS // tx
+    return UPDATE_ROWS * (ty if ring else ty & ~1), 4 * tx
 
 
 def update_tensors(sizes: Sequence[int], tied: bool, variational: bool
@@ -236,22 +260,26 @@ def update_tensors(sizes: Sequence[int], tied: bool, variational: bool
 
 
 def update_work_list(sizes: Sequence[int], tied: bool, variational: bool,
-                     n_inst: int) -> Tuple[np.ndarray, int, Dict[int, int]]:
+                     n_inst: int, ring: bool = False
+                     ) -> Tuple[np.ndarray, int, Dict[int, int]]:
     """update_group_kernel's work list of a deep step:
     :func:`work_list` over :func:`update_tensors`."""
-    return work_list(*update_tensors(sizes, tied, variational), n_inst)
+    return work_list(*update_tensors(sizes, tied, variational), n_inst, ring)
 
 
 def work_list(weights: Sequence[Tuple[int, int, int]],
-              biases: Sequence[Tuple[int, int]], n_inst: int
+              biases: Sequence[Tuple[int, int]], n_inst: int,
+              ring: bool = False
               ) -> Tuple[np.ndarray, int, Dict[int, int]]:
     """update_group_kernel's work list over ``weights`` (slot, rows, cols)
     and ``biases`` (slot, cols): (items, weight items, tile threads across
     by slot).  Items are (slot, instance, row 0, column 0) int32 rows:
-    every weight tile of every instance, the largest tensors first
-    (instance by instance, tiles row by row), then every bias's
-    :data:`BIAS_COLS`-column chunks, the widest first."""
-    tile_tx = {slot: update_tile_threads(C) for slot, _, C in weights}
+    every weight tile of every instance, the largest tensors first, then
+    every bias's :data:`BIAS_COLS`-column chunks, the widest first.  An
+    instance's tiles run row by row on the in-place path; on the ring
+    path (``ring``) strip by strip, down each strip, so a block's
+    contiguous share walks down a strip."""
+    tile_tx = {slot: update_tile_threads(C, ring) for slot, _, C in weights}
 
     def block(slot, r0, c0):
         """Every instance's (slot, n, r0, c0) over the given tile
@@ -262,9 +290,9 @@ def work_list(weights: Sequence[Tuple[int, int, int]],
 
     rows = []
     for slot, R, C in sorted(weights, key=lambda w: -w[1] * w[2]):
-        tr, tc = update_tile(tile_tx[slot])
+        tr, tc = update_tile(tile_tx[slot], ring)
         r0, c0 = np.meshgrid(np.arange(0, R, tr), np.arange(0, C, tc),
-                             indexing="ij")
+                             indexing="xy" if ring else "ij")
         rows.append(block(slot, r0.ravel(), c0.ravel()))
     n_weight = sum(len(r) for r in rows)
     for slot, C in sorted(biases, key=lambda b: -b[1]):
@@ -274,16 +302,130 @@ def work_list(weights: Sequence[Tuple[int, int, int]],
     return items, n_weight, tile_tx
 
 
+class UpdateRing(NamedTuple):
+    """update_group_kernel's ring for one run (:func:`update_ring`)."""
+
+    ring: Tuple[int, ...]   # weight slots whose W, m, v take bulk copies
+    ring_items: int         # weight items of those slots a step
+    fallback_items: int     # weight items that read W, m, v in place
+    depth: int              # stages of the ring (0: the in-place path)
+    l_floats: int           # a stage's layer inputs: pairs x B x tile rows
+    r_floats: int           # a strip's gradients: pairs x B x tile columns
+    r_bufs: int             # buffers of a strip's gradients
+    stage_bytes: int        # a stage's W, m, v: the largest ring tile's
+
+
+def ring_fits(rows: int, cols: int, tx: int, moment_bytes: int) -> bool:
+    """Whether the ring's bulk copies take a (rows, cols) weight with
+    ``tx`` threads across (``upd_ring_fits``): columns a multiple of 4 and
+    every copy's offset and bytes on 16: rows of cols x moment bytes on
+    16, or one tile spanning the rows (tile rows even) over an even number
+    of rows, as the bf16 moment rows of 1000, 600 and 200 B of the 500-,
+    300- and 100-column weights need."""
+    if rows <= 0 or cols % 4:
+        return False
+    rows16 = cols * moment_bytes % 16 == 0
+    if 4 * tx < cols:   # strips: a copy a row
+        return rows16 and 4 * tx * moment_bytes % 16 == 0
+    return rows16 or rows % 2 == 0
+
+
+def ring_depth(l_floats: int, r_floats: int, r_bufs: int,
+               stage_bytes: int) -> int:
+    """Stages of W, m, v and layer inputs that one block an SM holds
+    beside ``r_bufs`` strip buffers, at most UPDATE_MAX_DEPTH."""
+    room = BLOCK_SHARED_BYTES - UPDATE_STATIC_BYTES - 4 * r_floats * r_bufs
+    return max(0, min(UPDATE_MAX_DEPTH, room // (stage_bytes
+                                                 + 4 * l_floats)))
+
+
+def update_ring(weights: Sequence[Tuple[int, int, int]], items: np.ndarray,
+                n_weight: int, tile_tx: Dict[int, int], batch: int,
+                moment_bytes: int, misaligned: Sequence[int] = (),
+                paired: Sequence[int] = ()) -> UpdateRing:
+    """update_group_kernel's ring over the ring-path work list ``items``
+    of ``weights`` (slot, rows, cols; the ``paired`` slots sum two product
+    pairs), from what the host sees.  A weight takes bulk copies where
+    :func:`ring_fits` and no pointer is in ``misaligned``; any other reads
+    its W, m and v in place.  Shared memory holds the widest strip's
+    gradients and as many stages of the largest ring tile's W, m, v and
+    the tallest tile's layer inputs as fit (:func:`ring_depth`); the
+    gradients take two buffers, so a strip's are staged while the last
+    strip is summed, where that still leaves three stages.  Depth 0 (the
+    in-place path) where the batch exceeds UPDATE_RING_MAX_BATCH or two
+    stages do not fit."""
+    if batch > UPDATE_RING_MAX_BATCH:
+        return UpdateRing((), 0, n_weight, 0, 0, 0, 0, 0)
+    bad = set(misaligned)
+    ring = tuple(sorted(slot for slot, R, C in weights if slot not in bad
+                        and ring_fits(R, C, tile_tx[slot], moment_bytes)))
+    ring_items = int(np.isin(items[:n_weight, 0], ring).sum())
+    pairs = {slot: 2 if slot in paired else 1 for slot, _, _ in weights}
+    tiles = {slot: update_tile(tile_tx[slot], True) for slot, _, _ in weights}
+    l_floats = max(pairs[s] * batch * tr for s, (tr, _) in tiles.items())
+    r_floats = max(pairs[s] * batch * tc for s, (_, tc) in tiles.items())
+    stage = max([tiles[slot][0] * min(tiles[slot][1], C)
+                 * (4 + 2 * moment_bytes)
+                 for slot, _, C in weights if slot in ring] + [16])
+    r_bufs = 2 if ring_depth(l_floats, r_floats, 2, stage) >= 3 else 1
+    depth = ring_depth(l_floats, r_floats, r_bufs, stage)
+    if depth < 2:
+        return UpdateRing((), 0, n_weight, 0, 0, 0, 0, 0)
+    return UpdateRing(ring, ring_items, n_weight - ring_items, depth,
+                      l_floats, r_floats, r_bufs, stage)
+
+
+def update_plan(weights: Sequence[Tuple[int, int, int]],
+                biases: Sequence[Tuple[int, int]], n_inst: int, batch: int,
+                moment_bytes: int, misaligned: Sequence[int] = (),
+                paired: Sequence[int] = ()):
+    """The update's work list and ring for one run: the ring path's
+    (:func:`work_list` with ``ring``, :func:`update_ring`) where it takes
+    the run, else the in-place path's with a ring of depth 0."""
+    items, n_weight, tile_tx = work_list(weights, biases, n_inst, True)
+    ring = update_ring(weights, items, n_weight, tile_tx, batch,
+                       moment_bytes, misaligned, paired)
+    if not ring.depth:
+        items, n_weight, tile_tx = work_list(weights, biases, n_inst)
+        ring = ring._replace(fallback_items=n_weight)
+    return items, n_weight, tile_tx, ring
+
+
+def misaligned_slots(tensors) -> Tuple[int, ...]:
+    """The slots of ``tensors`` ((slot, W, m, v) tensors) whose W, m or v
+    does not start on 16 bytes: where the ring's bulk copies cannot read
+    them."""
+    return tuple(slot for slot, w, m, v in tensors
+                 if w.data_ptr() % 16 or m.data_ptr() % 16
+                 or v.data_ptr() % 16)
+
+
+def set_update_args(args, tile_tx, ring: UpdateRing) -> None:
+    """The update's plan into a run's ctypes arguments (``DeepArgs``,
+    ``TrainArgs`` or ``ClsArgs``)."""
+    for slot, tx in tile_tx:
+        args.tile_tx[slot] = tx
+    for slot in ring.ring:
+        args.upd_ring[slot] = 1
+    args.upd_depth, args.upd_lfloats = ring.depth, ring.l_floats
+    args.upd_rfloats, args.upd_rbufs = ring.r_floats, ring.r_bufs
+    args.upd_stage = ring.stage_bytes
+
+
 @functools.lru_cache(maxsize=32)
 def _run_plan(sizes: Tuple[int, ...], tied: bool, variational: bool,
-              n_inst: int, batch: int, sms: int):
+              n_inst: int, batch: int, sms: int, moment_bytes: int = 2,
+              misaligned: Tuple[int, ...] = ()):
     """A run's plan, made once a shape: the products' panel widths, the
-    update's work list (a CPU tensor), its weight items and tile widths."""
+    update's work list (a CPU tensor), its weight items, tile widths and
+    ring (:func:`update_plan`)."""
     plan = product_plan(sizes, tied, variational, n_inst, batch, sms)
-    items, n_weight, tile_tx = update_work_list(sizes, tied, variational,
-                                                n_inst)
+    items, n_weight, tile_tx, ring = update_plan(
+        *update_tensors(sizes, tied, variational), n_inst, batch,
+        moment_bytes, misaligned,
+        [ENC_W + i for i in range(len(sizes) - 1)] if tied else ())
     return (tuple(p["panel"] for p in plan), torch.from_numpy(items),
-            n_weight, tuple(tile_tx.items()))
+            n_weight, tuple(tile_tx.items()), ring)
 
 
 # ------------------------------------------------------------- bounds
@@ -705,9 +847,13 @@ def train_deep_kernel(run: DeepGridRun, first_step: int, num_steps: int,
         lib = KERNELS.load()
         ws = _workspace(run, dev)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        panels, items, n_weight, tile_tx = _run_plan(
+        mbytes = 2 if run.bf16_moments else 4
+        weights, _ = update_tensors(run.sizes, run.tied, run.variational)
+        by_slot = dict(zip(run.c_slots(), zip(run.params, run.m, run.v)))
+        panels, items, n_weight, tile_tx, ring = _run_plan(
             tuple(run.sizes), bool(run.tied), bool(run.variational),
-            run.n_inst, run.batch, sms)
+            run.n_inst, run.batch, sms, mbytes, misaligned_slots(
+                [(s,) + by_slot[s] for s, _, _ in weights]))
         items_dev = items.to(dev)
         desc = torch.empty(NSLOT * DESC_BYTES, dtype=torch.uint8, device=dev)
 
@@ -733,8 +879,7 @@ def train_deep_kernel(run: DeepGridRun, first_step: int, num_steps: int,
             args.dims[i] = w
         for i, pw in enumerate(panels):
             args.panel[i] = pw
-        for slot, tx in tile_tx:
-            args.tile_tx[slot] = tx
+        set_update_args(args, tile_tx, ring)
         for i, slot in enumerate(run.c_slots()):
             args.param[slot] = ptr(run.params[i])
             args.m[slot] = ptr(run.m[i])
@@ -754,7 +899,9 @@ def train_deep_kernel(run: DeepGridRun, first_step: int, num_steps: int,
         err = lib.mmae_deep_train_run(ctypes.byref(args), int(first_step),
                                       int(num_steps), ctypes.byref(launches),
                                       arg(prof), arg(each), stream)
-        sp.count(launches=launches.value)
+        sp.count(launches=launches.value,
+                 upd_ring_items=ring.ring_items * num_steps,
+                 upd_fallback_items=ring.fallback_items * num_steps)
     KERNELS.count(launches.value)
     KERNELS.check(err, "mmae_deep_train_run")
     if profile is not None:

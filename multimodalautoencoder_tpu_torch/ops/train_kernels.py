@@ -39,7 +39,7 @@ import dataclasses
 import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -95,7 +95,11 @@ class TrainArgs(ctypes.Structure):
             "tied", "variational", "bf16_moments", "decay")]
         + [("panel", ctypes.c_int * MAX_PRODUCTS),
            ("tile_tx", ctypes.c_int * len(SLOTS)),
-           ("n_items", ctypes.c_int), ("n_weight_items", ctypes.c_int)]
+           ("n_items", ctypes.c_int), ("n_weight_items", ctypes.c_int),
+           ("upd_ring", ctypes.c_int * len(SLOTS))]
+        + [(n, ctypes.c_int) for n in ("upd_depth", "upd_lfloats",
+                                       "upd_rfloats", "upd_rbufs",
+                                       "upd_stage")]
         + [(n, ctypes.c_float) for n in (
             "elem_p", "mask_value", "decay_steps", "decay_rate")]
         + [(n, ctypes.c_void_p) for n in (
@@ -187,22 +191,25 @@ def update_tensors(dims, tied: bool, variational: bool):
 
 @functools.lru_cache(maxsize=32)
 def run_plan(dims, tied: bool, variational: bool, n_inst: int, batch: int,
-             sms: int):
+             sms: int, moment_bytes: int = 2,
+             misaligned: Tuple[int, ...] = ()):
     """A run's plan, made once a shape: each product's panel width
     (:func:`product_plan`, ``MAX_PRODUCTS`` ints), the update's work list
     over kernel 2's slots (``train_deep_kernels.work_list``, a CPU
-    tensor), its weight items and each weight slot's tile threads
-    across."""
+    tensor), its weight items, each weight slot's tile threads across and
+    the update's ring (``train_deep_kernels.update_plan``, with
+    ``moment_bytes`` a moment and the ``misaligned`` slots in place)."""
     from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as pdk
 
     panels = [0] * MAX_PRODUCTS
     for i, p in enumerate(product_plan(dims, tied, variational, n_inst,
                                        batch, sms)):
         panels[i] = p["panel"]
-    items, n_weight, tile_tx = pdk.work_list(
-        *update_tensors(dims, tied, variational), n_inst)
+    items, n_weight, tile_tx, ring = pdk.update_plan(
+        *update_tensors(dims, tied, variational), n_inst, batch,
+        moment_bytes, misaligned, (0, 2) if tied else ())
     return (tuple(panels), torch.from_numpy(items), n_weight,
-            tuple(tile_tx.items()))
+            tuple(tile_tx.items()), ring)
 
 
 # --------------------------------------------------------------- family
@@ -727,8 +734,12 @@ def train_grid_kernel(run: GridRun, first_step: int, num_steps: int,
         F, H1, H2 = run.dims
         tied, vae = bool(run.tied), bool(run.variational)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        panels, items, n_weight, tile_tx = run_plan((F, H1, H2), tied, vae, N,
-                                                    B, sms)
+        mbytes = 2 if run.bf16_moments else 4
+        weights, _ = update_tensors((F, H1, H2), tied, vae)
+        panels, items, n_weight, tile_tx, ring = run_plan(
+            (F, H1, H2), tied, vae, N, B, sms, mbytes, pdk.misaligned_slots(
+                [(s, run.params[s], run.m[s], run.v[s])
+                 for s, _, _ in weights]))
         items_dev = items.to(dev)
         desc = torch.empty(UPD_SLOTS * pdk.DESC_BYTES, dtype=torch.uint8,
                            device=dev)
@@ -756,8 +767,7 @@ def train_grid_kernel(run: GridRun, first_step: int, num_steps: int,
             upd_desc=desc.data_ptr())
         for i, pw in enumerate(panels):
             args.panel[i] = pw
-        for slot, tx in tile_tx:
-            args.tile_tx[slot] = tx
+        pdk.set_update_args(args, tile_tx, ring)
         for i in range(len(SLOTS)):
             args.param[i] = ptr(run.params[i])
             args.m[i] = ptr(run.m[i])
@@ -777,7 +787,9 @@ def train_grid_kernel(run: GridRun, first_step: int, num_steps: int,
         err = lib.mmae_train_run(ctypes.byref(args), int(first_step),
                                  int(num_steps), ctypes.byref(launches),
                                  arg(prof), arg(each), stream)
-        sp.count(launches=launches.value)
+        sp.count(launches=launches.value,
+                 upd_ring_items=ring.ring_items * num_steps,
+                 upd_fallback_items=ring.fallback_items * num_steps)
     KERNELS.count(launches.value)
     KERNELS.check(err, "mmae_train_run")
     if profile is not None:

@@ -25,7 +25,7 @@ COMMON = os.path.join(os.path.dirname(pck.SOURCE), "train_common.cuh")
 # the classification sweep's default grid (sweep/wrappers.py:657-659):
 # encoders on 1000 features, heads
 ENCODERS = [(1000, 100), (200, 100), (500, 100)]
-HEADS = [(), (50, 20), (25, 10), (100, 50), (100,)]
+HEADS = [(), (50, 20), (25, 10), (100, 50), (100,), (20,)]
 FAMILIES = ["tied", "untied", "vae"]
 BATCHES = [20, 37, 100, 128]
 
@@ -51,7 +51,12 @@ def test_update_work_list_covers_every_element_once(head, family):
     instance is in the work list exactly once; weight tiles first, the
     largest tensors first, then the bias items, the widest first.  Phase 2
     trains the encoder and the head, never the decoder, so a tied and an
-    untied bucket update the same tensors."""
+    untied bucket update the same tensors.  At the batch of 100 the run
+    plan takes this list and the in-place path; at a batch of 20 the ring
+    path's list, whose weight items split between the bulk copies
+    (``ring_fits``, the slot aligned: not the head's 50- or 3-column
+    weights) and W, m, v read in place, with either moment type and a
+    misaligned slot."""
     cfg = _cfg(head=head, family=family)
     n_inst = 2
     F, (H1, _) = cfg.num_feats, cfg.layer_sizes
@@ -88,6 +93,31 @@ def test_update_work_list_covers_every_element_once(head, family):
     width = [widths[slot] for slot in items[n_weight:, 0]]
     assert width == sorted(width, reverse=True)
     assert items[:, 0].max() < len(pck.SLOTS)
+    gates = pck.cls_gates(cfg)
+    for mbytes in (2, 4):
+        for bad in ((), (0,)):
+            for batch in (20, 100):
+                plan = pck._run_plan(F, H1, tuple(dims), tuple(gates),
+                                     cfg.variational, n_inst, batch, 132,
+                                     mbytes, bad)
+                ring = plan[5]
+                assert (ring.depth >= 2) == (batch <= 32)
+                if batch > 32:   # the in-place path: the list above
+                    assert (plan[2].numpy() == items).all()
+                    assert plan[3] == n_weight
+                    assert ring == pdk.UpdateRing(
+                        (), 0, n_weight, 0, 0, 0, 0, 0)
+                    continue
+                ritems, rn, rtx = pdk.work_list(
+                    weights, biases, n_inst, True)
+                assert (plan[2].numpy() == ritems).all() and plan[3] == rn
+                assert dict(plan[4]) == rtx
+                on = {s for s, R, C in weights if s not in bad
+                      and pdk.ring_fits(R, C, rtx[s], mbytes)}
+                assert set(ring.ring) == on
+                assert ring.ring_items == int(np.isin(ritems[:rn, 0],
+                                                      list(on)).sum())
+                assert ring.ring_items + ring.fallback_items == rn
 
 
 def test_work_list_of_the_validation_bucket():
@@ -293,7 +323,9 @@ def test_cls_args_mirror_the_c_struct():
         py_fields.append((name, kinds[base], count))
     assert py_fields == c_fields
     for field in ("panel", "tile_cols", "tile_tx", "n_items",
-                  "n_weight_items", "items", "upd_desc"):
+                  "n_weight_items", "items", "upd_desc", "upd_ring",
+                  "upd_depth", "upd_lfloats", "upd_rfloats", "upd_rbufs",
+                  "upd_stage"):
         assert field in {f[0] for f in c_fields}
 
 

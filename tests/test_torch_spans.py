@@ -207,8 +207,46 @@ def test_cuda_enqueue_counts_the_loops_launches(kernel, tmp_path):
     log, events = traced(lambda: fn(run, 0, 5), tmp_path)
     torch.cuda.synchronize()
     assert [r["name"] for r in log] == ["mmae.plan", "mmae.enqueue"]
-    assert log[1]["counts"] == {"launches": 5 * per_step}
+    assert log[1]["counts"]["launches"] == 5 * per_step
     assert [e[0] for e in events] == ["mmae.plan", "mmae.enqueue"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [2, 3, 4])
+def test_cuda_enqueue_counts_the_update_ring_items(kernel, tmp_path):
+    """``mmae.enqueue`` carries the grouped update's weight items by path,
+    steps x the run plan's: ``upd_ring_items`` through the W, m, v ring
+    and ``upd_fallback_items`` read in place (F = 30 and the 6- or
+    2-column tensors take the second path, 16- and 8-column ones the
+    first), and nothing else but ``launches``."""
+    from multimodalautoencoder_tpu_torch.ops import cls_train_kernels as ck
+    from multimodalautoencoder_tpu_torch.ops import train_deep_kernels as dk
+    from multimodalautoencoder_tpu_torch.ops import train_kernels as tk
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    run, fn, per_step = cuda_run(kernel)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if kernel == 2:
+        ring = tk.run_plan(tuple(run.dims), bool(run.tied),
+                           bool(run.variational), run.n_inst, run.batch,
+                           sms, 2 if run.bf16_moments else 4)[4]
+    elif kernel == 3:
+        ring = dk._run_plan(tuple(run.sizes), bool(run.tied),
+                            bool(run.variational), run.n_inst, run.batch,
+                            sms, 2 if run.bf16_moments else 4)[4]
+    else:
+        F, H1 = (int(s) for s in run.params[0].shape[1:])
+        ring = ck._run_plan(F, H1, tuple(run.dims), tuple(run.gates),
+                            bool(run.variational), run.n_inst, run.batch,
+                            sms, 2 if run.bf16_moments else 4)[5]
+    assert ring.ring_items > 0 and ring.fallback_items > 0
+    log, _ = traced(lambda: fn(run, 0, 5), tmp_path)
+    torch.cuda.synchronize()
+    assert log[1]["name"] == "mmae.enqueue"
+    assert log[1]["counts"] == {
+        "launches": 5 * per_step, "upd_ring_items": 5 * ring.ring_items,
+        "upd_fallback_items": 5 * ring.fallback_items}
 
 
 @pytest.mark.cuda

@@ -24,7 +24,7 @@ FAMILIES = [(True, False), (False, False), (False, True)]   # tied, vae
 # the ACII widths (F = 1000 -> H1 -> 100), the F = 30 gate widths and
 # widths that are not multiples of 4 (the 4-byte copy paths)
 DIMS = [(1000, 1000, 100), (1000, 500, 100), (1000, 300, 100), (30, 16, 6),
-        (330, 257, 6)]
+        (330, 257, 6), (30, 16, 8), (48, 20, 12)]
 SOURCE = os.path.join(os.path.dirname(pdk.SOURCE), "train_kernel.cu")
 
 
@@ -119,29 +119,36 @@ def test_update_pairs_and_l2_factors():
         (b[0], dims[b[1]]) for b in biases]
 
 
+@pytest.mark.parametrize("batch", [20, 100])
 @pytest.mark.parametrize("n_inst", [1, 3, 60])
 @pytest.mark.parametrize("tied, vae", FAMILIES)
 @pytest.mark.parametrize("dims", DIMS)
-def test_work_list_covers_every_element_once(dims, tied, vae, n_inst):
+def test_work_list_covers_every_element_once(dims, tied, vae, n_inst, batch):
     """Every (weight, instance, element) and every bias column of every
     instance is in the work list exactly once, weight tiles first (the
     largest tensors first), then bias items (the widest first); the plan's
-    panels are the product plan's."""
-    panels, items, n_weight, tile_tx = ptk.run_plan(dims, tied, vae, n_inst,
-                                                    20, 132)
-    plan = ptk.product_plan(dims, tied, vae, n_inst, 20, 132)
+    panels are the product plan's.  At a batch of 20 the plan takes the
+    update's ring path (its tiles strip by strip) and its weight items
+    split between the bulk copies (``ring_fits``, the slot aligned) and W,
+    m, v read in place, with either moment type and a misaligned slot; at
+    100 the in-place path takes every item."""
+    panels, items, n_weight, tile_tx, ring = ptk.run_plan(
+        dims, tied, vae, n_inst, batch, 132)
+    plan = ptk.product_plan(dims, tied, vae, n_inst, batch, 132)
     assert panels == tuple([p["panel"] for p in plan]
                            + [0] * (ptk.MAX_PRODUCTS - len(plan)))
     items = items.numpy()
     weights, biases = ptk.update_tensors(dims, tied, vae)
     tile_tx = dict(tile_tx)
+    on_ring = batch <= pdk.UPDATE_RING_MAX_BATCH
+    assert (ring.depth >= 2) == on_ring
     assert set(tile_tx) == {s for s, _, _ in weights}
     assert items.dtype == np.int32 and items.shape[1] == 4
     shapes = {s: (R, C) for s, R, C in weights}
     cover = {s: np.zeros((n_inst, R, C), np.int64) for s, R, C in weights}
     bcover = {s: np.zeros((n_inst, C), np.int64) for s, C in biases}
     for slot, n, r0, c0 in items[:n_weight]:
-        tr, tc = pdk.update_tile(tile_tx[slot])
+        tr, tc = pdk.update_tile(tile_tx[slot], on_ring)
         R, C = shapes[slot]
         assert r0 % tr == 0 and c0 % tc == 0 and r0 < R and c0 < C
         cover[slot][n, r0:r0 + tr, c0:c0 + tc] += 1
@@ -154,16 +161,40 @@ def test_work_list_covers_every_element_once(dims, tied, vae, n_inst):
     assert size == sorted(size, reverse=True)
     width = [dict(biases)[slot] for slot in items[n_weight:, 0]]
     assert width == sorted(width, reverse=True)
+    assert ring == ptk.run_plan(dims, tied, vae, n_inst, batch, 132, 2,
+                                ())[4]
+    for mbytes in (2, 4):
+        for bad in ((), (weights[0][0],)):
+            ring = ptk.run_plan(dims, tied, vae, n_inst, batch, 132, mbytes,
+                                bad)[4]
+            on = {s for s, R, C in weights if on_ring and s not in bad
+                  and pdk.ring_fits(R, C, tile_tx[s], mbytes)}
+            assert set(ring.ring) == on
+            assert ring.ring_items == int(np.isin(items[:n_weight, 0],
+                                                  list(on)).sum())
+            assert ring.ring_items + ring.fallback_items == n_weight
 
 
 def test_update_tiles_of_the_tied_bucket():
-    """The tied 1000 -> 100 bucket's 1000 x 1000 W1 takes 64 x 64 tiles
-    and its 1000 x 100 W2 40 x 100 tiles (250 of 256 threads busy)."""
-    _, items, n_weight, tile_tx = ptk.run_plan((1000, 1000, 100), True,
-                                               False, 60, 20, 132)
+    """The tied 1000 -> 100 bucket at a batch of 20 takes the ring path:
+    its 1000 x 1000 W1 two strips of 8 x 504 tiles, its 1000 x 100 W2
+    whole rows in 40 x 100 tiles (250 of 256 threads busy), both by bulk
+    copies; the strip's gradients for two pairs (80,640 B) leave room for
+    three stages of 32,256 B of W, m, v and 6,400 B of layer inputs, and
+    one gradient buffer.  At the batch of 100 W1 takes 64 x 64 tiles in
+    place."""
+    _, items, n_weight, tile_tx, ring = ptk.run_plan((1000, 1000, 100),
+                                                     True, False, 60, 20, 132)
+    assert dict(tile_tx) == {0: 126, 2: 25}
+    assert n_weight == 60 * (2 * 125 + 25)
+    assert ring == pdk.UpdateRing((0, 2), n_weight, 0, 3, 2 * 20 * 40,
+                                  2 * 20 * 504, 1, 8 * 504 * 8)
+    assert len(items) - n_weight == 60 * (4 + 1 + 4 + 4)
+    _, items, n_weight, tile_tx, ring = ptk.run_plan((1000, 1000, 100),
+                                                     True, False, 60, 100, 132)
     assert dict(tile_tx) == {0: 16, 2: 25}
     assert n_weight == 60 * (16 * 16 + 25)
-    assert len(items) - n_weight == 60 * (4 + 1 + 4 + 4)
+    assert ring == pdk.UpdateRing((), 0, n_weight, 0, 0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("tied, vae", FAMILIES)
@@ -260,7 +291,8 @@ def test_train_args_mirror_the_c_struct():
         py_fields.append((name, kinds[base], count))
     assert py_fields == c_fields
     for field in ("panel", "tile_tx", "n_items", "n_weight_items",
-                  "items", "upd_desc"):
+                  "items", "upd_desc", "upd_ring", "upd_depth",
+                  "upd_lfloats", "upd_rfloats", "upd_rbufs", "upd_stage"):
         assert field in {f[0] for f in c_fields}
     text = open(SOURCE).read()
     assert f"MAX_PRODUCTS = {ptk.MAX_PRODUCTS};" in text
